@@ -1,0 +1,149 @@
+"""Build and bind the port's CUDA kernels.
+
+``csrc/*.cu`` compile with one ``nvcc`` call into a shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in ``_build/``
+beside this file (git-ignored), named by a hash of the sources and of
+``nvcc --version``, so an edited source or another toolkit builds anew and an
+unchanged tree reuses its build. The build runs the first time a CUDA entry
+point is called, never on import. There is no fallback: a missing ``nvcc`` or a
+failed compile raises with the compiler's output.
+
+``--fmad=false`` keeps ``a * b + c`` as two rounded operations, the way the
+plain torch versions compute them, so kernels and plain versions agree bit
+for bit (see ``csrc/tv_common.cuh``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "find_nvcc", "build", "library", "require_cuda_f32", "check", "NVCC_FLAGS",
+]
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint
+
+# argtypes of each extern "C" launcher; every one returns a cudaError_t as int
+_SIGNATURES = {
+    "lmc_tv_prox_chambolle": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _P,
+    ),
+    "lmc_myula_block": (
+        _P, _P, _P, _P, _P, _P,  # x, atbs, mean, m2, qh, qn
+        _P, _P, _P,  # grad, tmp, duals
+        _I, _I,  # ny, nx
+        _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
+        _I, _I, _F, _I, _P,  # n_steps, niter_tv, tv_step, fgp, fgp_coef
+        _I, _I, _I,  # tv_warm, with_noise, with_stats
+        _P, _I, _I,  # qcoef, n_q, thin
+        _P,  # coef
+        _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc`` from ``PATH`` or ``$CUDA_HOME/bin`` (default
+    ``/usr/local/cuda``); raises ``RuntimeError`` when there is none."""
+    cuda_bin = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+    search = os.pathsep.join([os.environ.get("PATH", ""), str(cuda_bin)])
+    nvcc = shutil.which("nvcc", path=search)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found on PATH or in $CUDA_HOME/bin: the CUDA kernels of "
+            "lmc_atomi_torch are built from csrc/ at first use and need the "
+            "CUDA toolkit"
+        )
+    return nvcc
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (once per source hash and toolkit) and return the
+    path of the shared library."""
+    nvcc = find_nvcc()
+    version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True
+    ).stdout
+    h = hashlib.sha256(version.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib = BUILD_DIR / f"liblmc_atomi_torch_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"tmp{os.getpid()}_{lib.name}"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def require_cuda_f32(shape, **tensors) -> None:
+    """Raise unless every tensor is a contiguous float32 CUDA tensor of
+    ``shape`` (``None`` skips the shape check) on one device."""
+    devices = set()
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(
+                f"{name} lies on {t.device}: the CUDA kernel takes CUDA "
+                "tensors (CPU tensors go to the plain version)"
+            )
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a launcher's nonzero return (a cudaError_t, or -1 for
+    arguments the launcher refuses)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} failed to launch: error {rc}")

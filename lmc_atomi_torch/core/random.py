@@ -1,0 +1,65 @@
+"""Counter-based noise (counterpart of ``lmc_atomi_tpu/core/random.py``).
+
+Every normal in the port is a pure function of ``(seed, chain, step,
+pixel)``: Philox4x32-10 (Salmon et al. 2011) keyed by ``(seed, chain)`` on the
+counter ``(pixel index, global step, 0, 0)``, then Box-Muller on the top 24
+bits of the first two output words, as the fused TPU kernel's
+``_box_muller2`` does. This mirrors the JAX package's ``fold_in(chain)`` /
+``fold_in(step)`` key discipline, and it makes a chain independent of the
+block size, lets a resumed chain continue bit for bit, and lets the CUDA
+block kernel (``csrc/tv_common.cuh::lmc_normal``, the same function) be held
+against its plain version with noise on. The stream differs from threefry.
+
+uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``; the 32x32-bit
+products are split into 16-bit halves so that no partial product overflows.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["philox4x32_10", "normal_field"]
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, a):
+    """``(hi, lo)`` 32-bit words of ``m * a`` for uint32 ``m`` and ``a``."""
+    p_lo = (a & 0xFFFF) * m  # < 2^48
+    p_hi = (a >> 16) * m  # < 2^48
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)  # < 2^49
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 of a 4-word ``counter`` under a 2-word ``key``.
+
+    Words are int64 tensors (or Python ints, which broadcast) holding values
+    in ``[0, 2^32)``; returns the four output words the same way.
+    """
+    c0, c1, c2, c3 = counter
+    k0, k1 = key[0] & _MASK, key[1] & _MASK
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _MASK
+            k1 = (k1 + _W1) & _MASK
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def normal_field(seed: int, chain: int, step: int, shape, dtype, device):
+    """Standard normals of ``shape`` for one (seed, chain, step); element
+    ``k`` of the row-major flattening uses counter ``(k, step, 0, 0)``."""
+    n = math.prod(shape)
+    pixel = torch.arange(n, dtype=torch.int64, device=device)
+    w0, w1, _, _ = philox4x32_10((pixel, int(step) & _MASK, 0, 0),
+                                 (int(seed), int(chain)))
+    u1 = (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+    u2 = (w1 >> 8).to(dtype) * (1.0 / (1 << 24))
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return (r * torch.cos((2.0 * math.pi) * u2)).reshape(shape)

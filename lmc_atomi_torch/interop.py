@@ -1,0 +1,77 @@
+"""Carry state between the JAX package and the port as numpy arrays.
+
+The JAX package's objects are read out with ``np.asarray`` on the JAX side;
+these functions build the port's objects from those arrays, so a problem set
+up (or a chain started) in ``lmc_atomi_tpu`` can be run (or continued) in
+``lmc_atomi_torch``. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from lmc_atomi_torch.core.state import SamplerState
+from lmc_atomi_torch.core.stats import RunningMoments
+from lmc_atomi_torch.kernels.myula_fused import FusedChainResult
+from lmc_atomi_torch.ops.functionals import L2Data
+from lmc_atomi_torch.ops.linops import CirculantBlur2D
+
+__all__ = [
+    "blur_from_numpy",
+    "l2data_from_numpy",
+    "fused_state_from_numpy",
+    "to_numpy",
+]
+
+
+def _t(a, device) -> Optional[torch.Tensor]:
+    return None if a is None else torch.as_tensor(np.array(a), device=device)
+
+
+def blur_from_numpy(eigs_re, eigs_im, h=None, hh=None, offset=(0, 0),
+                    device=None) -> CirculantBlur2D:
+    """A ``CirculantBlur2D`` from the JAX operator's ``eigs_re``/``eigs_im``
+    float pair (one complex spectrum here), ``h``, ``hh`` and ``offset``."""
+    eigs = torch.complex(_t(eigs_re, device), _t(eigs_im, device))
+    return CirculantBlur2D(eigs=eigs, h=_t(h, device), hh=_t(hh, device),
+                           offset=tuple(int(o) for o in offset))
+
+
+def l2data_from_numpy(b, sigma: float, blur: CirculantBlur2D) -> L2Data:
+    """``L2Data.create`` over ``blur`` for the observation ``b``."""
+    return L2Data.create(op=blur, b=_t(b, blur.eigs.device), sigma=float(sigma))
+
+
+def fused_state_from_numpy(x, mean, m2, count, qh=None, qn=None,
+                           device=None) -> FusedChainResult:
+    """The state of a JAX ``FusedChainResult``: pass the result's
+    ``final_state.position``, ``moments.mean/m2/count`` and
+    ``quantile_state``. Continue the chain with
+    ``run_myula_tv_fused(..., x0=res.final_state.position,
+    quantile_state=res.quantile_state, step_offset=<steps done>)`` and merge
+    the moments with ``RunningMoments.merge``."""
+    qstate = None if qh is None else (_t(qh, device), _t(qn, device))
+    return FusedChainResult(
+        final_state=SamplerState.init(_t(x, device)),
+        moments=RunningMoments(count=int(count), mean=_t(mean, device),
+                               m2=_t(m2, device)),
+        quantile_state=qstate,
+    )
+
+
+def to_numpy(obj: Any) -> Any:
+    """Tensors to numpy arrays, through tuples, lists, dicts and dataclass or
+    NamedTuple results (as a dict of their fields)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_asdict"):
+        return {k: to_numpy(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_numpy(v) for v in obj)
+    if hasattr(obj, "__dataclass_fields__"):
+        return {k: to_numpy(getattr(obj, k)) for k in obj.__dataclass_fields__}
+    return obj

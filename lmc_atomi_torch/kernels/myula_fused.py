@@ -1,0 +1,521 @@
+"""Fused MYULA TV-deblurring (counterpart of
+``lmc_atomi_tpu/kernels/myula_fused.py``): kernel 2, its plain torch version,
+and the host-side block loop.
+
+One block call runs ``n_steps`` MYULA steps
+
+    x <- (1 - tau/gamma) x - tau grad f(x) + (tau/gamma) prox_{tv_gamma TV}(x)
+         + noise_scale sqrt(2 tau) xi
+
+with the data gradient ``sigma A^T A x - sigma A^T b`` as separable wrap
+convolutions (``A^T A`` is circulant with the autocorrelation ``hh`` of a
+small PSF, factored on the host into ``hh = sum_r wy_r wx_r^T``), a
+Chambolle or FGP TV prox, Philox noise at the global step
+(``core/random.py``), burn-in-masked Welford moments and per-pixel P^2
+quantile markers.
+
+``myula_tv_block_update`` dispatches by device: ``csrc/myula_block.cu`` for
+CUDA tensors, ``myula_tv_block_update_ref`` (the same function in torch ops,
+term for term) for CPU tensors. Only the plain ``L2Data`` data term
+(``mode="tv"``) is ported; MC-TV/ME-TV come later.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lmc_atomi_torch import _build
+from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.core.state import SamplerState, StepInfo
+from lmc_atomi_torch.core.stats import RunningMoments
+from lmc_atomi_torch.kernels.base import Kernel
+from lmc_atomi_torch.ops.tv import fgp_momentum
+from lmc_atomi_torch.ops.tv_cuda import _stencils
+from lmc_atomi_torch.run.runner import base_key
+
+__all__ = [
+    "separable_gram_taps",
+    "myula_tv_block_update",
+    "myula_tv_block_update_cuda",
+    "myula_tv_block_update_ref",
+    "myula_imaging_sep_fused",
+    "run_myula_tv_fused",
+    "FusedChainResult",
+]
+
+Taps = Tuple[Tuple[Tuple[float, ...], Tuple[float, ...]], ...]
+
+_MAX_RANK = 4  # csrc/myula_block.cu: LMC_MAXR, LMC_MAXK, LMC_MAXQ
+_MAX_TAPS = 32
+_MAX_QUANTILES = 4
+_FGP_STEP = 0.125  # the dual gradient's 1/L
+
+
+def separable_gram_taps(hh, tol: float = 1e-6) -> Taps:
+    """Separable factorization ``hh = sum_r wy_r wx_r^T`` via SVD (host side),
+    as nested tuples of Python floats. Uniform and Gaussian PSF
+    autocorrelations are exactly rank 1."""
+    if isinstance(hh, torch.Tensor):
+        hh = hh.detach().cpu().numpy()
+    u, s, vt = np.linalg.svd(np.asarray(hh, np.float64))
+    keep = s > tol * s[0]
+    taps = []
+    for i in np.nonzero(keep)[0]:
+        scale = np.sqrt(s[i])
+        taps.append(
+            (tuple((scale * u[:, i]).tolist()), tuple((scale * vt[i, :]).tolist()))
+        )
+    return tuple(taps)
+
+
+def _p2_coefs(p: float) -> Tuple[float, float, float]:
+    """``(dn_i - 1) / 4`` of the interior P^2 markers for quantile ``p``:
+    their desired position after ``cnt`` observations is
+    ``1 + coef * (cnt - 1)``."""
+    return tuple((d - 1.0) / 4.0 for d in (1.0 + 2.0 * p, 1.0 + 4.0 * p, 3.0 + 2.0 * p))
+
+
+def _sep_gram(x, taps: Taps, oy: int, ox: int):
+    """``A^T A x`` as separable wrap convolutions:
+    ``y[i,j] = sum_ab hh[a,b] x[(i-a+oy)%ny, (j-b+ox)%nx]``."""
+    ny, nx = x.shape
+
+    def conv1d(v, w, off, n, axis):
+        out = None
+        for i, wi in enumerate(w):
+            if wi == 0.0:
+                continue
+            s = (i - off) % n
+            term = v if s == 0 else torch.roll(v, s, axis)
+            term = term * wi
+            out = term if out is None else out + term
+        return out
+
+    out = None
+    for wy, wx in taps:
+        r = conv1d(conv1d(x, wx, ox, nx, 1), wy, oy, ny, 0)
+        out = r if out is None else out + r
+    return out
+
+
+def _tv_prox(x, tv_gamma, niter, step, stencils, p0=None):
+    """Chambolle dual TV prox (one reciprocal per trip); returns the prox and
+    the final dual."""
+    fwd_y, fwd_x, div = stencils
+    xg = x / tv_gamma
+    py, px = (torch.zeros_like(x), torch.zeros_like(x)) if p0 is None else p0
+    for _ in range(niter):
+        u = div(py, px) - xg
+        gy = fwd_y(u)
+        gx = fwd_x(u)
+        mag = torch.sqrt(gy * gy + gx * gx)
+        inv = 1.0 / (1.0 + step * mag)
+        py, px = (py + step * gy) * inv, (px + step * gx) * inv
+    return x - tv_gamma * div(py, px), (py, px)
+
+
+def _tv_prox_fgp(x, tv_gamma, niter, stencils, p0=None):
+    """Projected-dual TV prox with FISTA momentum (FGP, Beck & Teboulle
+    2009) at step 1/8; returns the prox and the final dual."""
+    fwd_y, fwd_x, div = stencils
+    xg = x / tv_gamma
+
+    def ascend(ry, rx):
+        u = div(ry, rx) - xg
+        py = ry + _FGP_STEP * fwd_y(u)
+        px = rx + _FGP_STEP * fwd_x(u)
+        scale = torch.rsqrt(py * py + px * px).clamp(max=1.0)
+        return py * scale, px * scale
+
+    py, px = (torch.zeros_like(x), torch.zeros_like(x)) if p0 is None else p0
+    ry, rx = py, px
+    for c in fgp_momentum(niter):
+        qy, qx = ascend(ry, rx)
+        ry = qy + c * (qy - py)
+        rx = qx + c * (qx - px)
+        py, px = qy, qx
+    return x - tv_gamma * div(py, px), (py, px)
+
+
+def _sort5(v):
+    """Sort 5 fields elementwise (9 compare-exchange network)."""
+    v = list(v)
+    for i, j in ((0, 1), (3, 4), (2, 4), (2, 3), (0, 3), (0, 2), (1, 4),
+                 (1, 3), (1, 2)):
+        v[i], v[j] = torch.minimum(v[i], v[j]), torch.maximum(v[i], v[j])
+    return v
+
+
+def _p2_update(x, qs, ns, c_prev: int, coef):
+    """One recorded P^2 observation (Jain & Chlamtac 1985), elementwise:
+    ``qs`` the 5 marker-height fields, ``ns`` the 3 interior positions,
+    ``c_prev`` observations absorbed before this one. Bootstrap
+    (``c_prev < 5``) stores into slot ``c_prev`` and sorts on the 5th."""
+    if c_prev < 5:
+        q = list(qs)
+        q[c_prev] = x
+        return (_sort5(q) if c_prev == 4 else q), list(ns)
+    dtype = x.dtype
+    q = list(qs)
+    q[0] = torch.minimum(q[0], x)
+    q[4] = torch.maximum(q[4], x)
+    k = (x >= q[1]).to(dtype) + (x >= q[2]).to(dtype) + (x >= q[3]).to(dtype)
+    # scalars in the working dtype, so the desired positions round as the
+    # kernel's do
+    cnt = torch.tensor(float(c_prev + 1), dtype=dtype, device=x.device)
+    co = torch.tensor(coef, dtype=dtype, device=x.device)
+    n = [1.0, ns[0] + (1.0 > k).to(dtype), ns[1] + (2.0 > k).to(dtype),
+         ns[2] + (3.0 > k).to(dtype), cnt]
+    for i in (1, 2, 3):
+        d = (1.0 + co[i - 1] * (cnt - 1.0)) - n[i]
+        move_up = (d >= 1.0) & (n[i + 1] - n[i] > 1.0)
+        move_dn = (d <= -1.0) & (n[i - 1] - n[i] < -1.0)
+        s = move_up.to(dtype) - (move_dn & ~move_up).to(dtype)
+        do_move = s != 0.0
+        nm, ni, np_ = n[i - 1], n[i], n[i + 1]
+        qm, qi, qp = q[i - 1], q[i], q[i + 1]
+        d_t = torch.where(np_ - nm != 0.0, np_ - nm, 1.0)
+        d_u = torch.where(np_ - ni != 0.0, np_ - ni, 1.0)
+        d_l = torch.where(ni - nm != 0.0, ni - nm, 1.0)
+        para = qi + s / d_t * (
+            (ni - nm + s) * (qp - qi) / d_u + (np_ - ni - s) * (qi - qm) / d_l
+        )
+        ok = (qm < para) & (para < qp)
+        lin = qi + s * torch.where(s > 0.0, (qp - qi) / d_u, (qi - qm) / d_l)
+        q[i] = torch.where(do_move, torch.where(ok, para, lin), qi)
+        n[i] = torch.where(do_move, ni + s, ni)
+    return q, n[1:4]
+
+
+def _check_block_args(taps, quantiles, quantile_thin, tv_solver):
+    if tv_solver not in ("chambolle", "fgp"):
+        raise ValueError(f"unknown tv_solver {tv_solver!r}")
+    if not 1 <= len(taps) <= _MAX_RANK:
+        raise ValueError(f"separable rank {len(taps)} outside 1..{_MAX_RANK}")
+    if max(len(taps[0][0]), len(taps[0][1])) > _MAX_TAPS:
+        raise ValueError(f"more than {_MAX_TAPS} taps per axis")
+    if len(quantiles) > _MAX_QUANTILES:
+        raise ValueError(f"at most {_MAX_QUANTILES} quantiles")
+    if quantile_thin < 1:
+        raise ValueError("quantile_thin must be >= 1")
+
+
+def _update_coefs(scal_f):
+    """``(1 - tau/gamma, tau, tau/gamma, noise_scale sqrt(2 tau), sigma,
+    tv_gamma)`` as Python floats."""
+    tau, gamma, tv_gamma, noise_scale, sigma = scal_f
+    return (1.0 - tau / gamma, tau, tau / gamma,
+            noise_scale * math.sqrt(2.0 * tau), sigma, tv_gamma)
+
+
+def myula_tv_block_update_ref(
+    x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    taps: Taps, oy: int, ox: int, n_steps: int = 1, niter_tv: int = 10,
+    tv_step: float = 0.25, with_noise: bool = True, with_stats: bool = True,
+    tv_warm: bool = False, quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1, tv_solver: str = "chambolle",
+):
+    """Plain torch version of kernel 2 (see ``myula_tv_block_update``)."""
+    _check_block_args(taps, quantiles, quantile_thin, tv_solver)
+    c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma = _update_coefs(scal_f)
+    step0, burn, cnt0 = (int(v) for v in scal_i)
+    seed, chain = base_key(seed)
+    stencils = _stencils(x)
+    n_q = len(quantiles)
+    coefs = [_p2_coefs(p) for p in quantiles]
+    qh_f = [qh[i] for i in range(5 * n_q)] if n_q else []
+    qn_f = [qn[i] for i in range(3 * n_q)] if n_q else []
+    dual = None  # the warm dual starts from zeros at each call
+    for i in range(n_steps):
+        g = step0 + i
+        grad = sigma * _sep_gram(x, taps, oy, ox) - atbs
+        p0 = dual if tv_warm else None
+        if tv_solver == "fgp":
+            prox, dual = _tv_prox_fgp(x, tv_gamma, niter_tv, stencils, p0)
+        else:
+            prox, dual = _tv_prox(x, tv_gamma, niter_tv, tv_step, stencils, p0)
+        x_new = c_keep * x - c_grad * grad + c_prox * prox
+        if with_noise:
+            x_new = x_new + noise_amp * normal_field(
+                seed, chain, g, x.shape, x.dtype, x.device)
+        w = g >= burn
+        if with_stats:
+            n_new = cnt0 + max(g + 1 - max(burn, step0), 0)
+            wf = float(w)
+            denom = float(max(n_new, 1))
+            delta = x_new - mean
+            mean = mean + wf * delta / denom
+            m2 = m2 + wf * delta * (x_new - mean)
+        if n_q and w and (g + 1) % quantile_thin == 0:
+            c_prev = max(g // quantile_thin - burn // quantile_thin, 0)
+            for j in range(n_q):
+                qs, ns = _p2_update(x_new, qh_f[5 * j:5 * j + 5],
+                                    qn_f[3 * j:3 * j + 3], c_prev, coefs[j])
+                qh_f[5 * j:5 * j + 5] = qs
+                qn_f[3 * j:3 * j + 3] = ns
+        x = x_new
+    if n_q:
+        qh, qn = torch.stack(qh_f), torch.stack(qn_f)
+    return x, mean, m2, qh, qn
+
+
+def myula_tv_block_update_cuda(
+    x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    taps: Taps, oy: int, ox: int, n_steps: int = 1, niter_tv: int = 10,
+    tv_step: float = 0.25, with_noise: bool = True, with_stats: bool = True,
+    tv_warm: bool = False, quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1, tv_solver: str = "chambolle",
+):
+    """Kernel 2 (``csrc/myula_block.cu``) on contiguous float32 CUDA tensors.
+    Works on copies of ``x, mean, m2, qh, qn`` and returns them; raises on a
+    CPU tensor or on shapes and options the kernel does not take."""
+    _check_block_args(taps, quantiles, quantile_thin, tv_solver)
+    if x.ndim != 2 or min(x.shape) < 2:
+        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
+    ny, nx = x.shape
+    n_q = len(quantiles)
+    fields = {"x": x, "atbs": atbs}
+    if with_stats:
+        fields.update(mean=mean, m2=m2)
+    _build.require_cuda_f32((ny, nx), **fields)
+    if n_q:
+        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
+        if qh.device != x.device or qn.device != x.device:
+            raise ValueError("marker state must lie on x's device")
+    step0, burn, cnt0 = (int(v) for v in scal_i)
+    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
+        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
+                         "outside the kernel's uint32 step counter")
+    seed, chain = base_key(seed)
+
+    x = x.clone()
+    if with_stats:
+        mean, m2 = mean.clone(), m2.clone()
+    if n_q:
+        qh, qn = qh.clone(), qn.clone()
+    rank, ky, kx = len(taps), len(taps[0][0]), len(taps[0][1])
+    tap_arr = np.array([v for wy, wx in taps for v in (*wy, *wx)], np.float32)
+    coef = np.array(_update_coefs(scal_f), np.float32)
+    fgp = tv_solver == "fgp"
+    # padded so the array is never empty; Chambolle ignores it
+    fgp_coef = np.array(fgp_momentum(niter_tv) + (0.0,), np.float32)
+    qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
+    grad = torch.empty_like(x)
+    tmp = torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
+    duals = torch.empty((8, ny, nx), dtype=x.dtype, device=x.device)
+
+    def ptr(t, used):
+        return t.data_ptr() if used else None
+
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lmc_myula_block(
+            x.data_ptr(), atbs.data_ptr(), ptr(mean, with_stats),
+            ptr(m2, with_stats), ptr(qh, n_q), ptr(qn, n_q),
+            grad.data_ptr(), tmp.data_ptr(), duals.data_ptr(), ny, nx,
+            tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
+            int(n_steps), int(niter_tv), float(tv_step), int(fgp),
+            fgp_coef.ctypes.data, int(tv_warm), int(bool(with_noise)),
+            int(bool(with_stats)), qcoef.ctypes.data, n_q, int(quantile_thin),
+            coef.ctypes.data, seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0,
+            burn, cnt0, stream,
+        )
+    _build.check(rc, "lmc_myula_block")
+    myula_tv_block_update_cuda.launches += 1
+    return x, mean, m2, qh, qn
+
+
+myula_tv_block_update_cuda.launches = 0  # calls that launched the kernel
+
+
+def myula_tv_block_update(x, *args, **kwargs):
+    """``n_steps`` fused MYULA steps (+ Welford / P^2), kernel 2.
+
+    ``atbs = sigma * A^T b``; ``seed`` is a seed or ``(seed, chain)``;
+    ``scal_f = (tau, gamma, tv_gamma, noise_scale, sigma)``;
+    ``scal_i = (step0, burn_in, count0)``: the global step of the first step,
+    the burn-in in steps, and the Welford count entering the call.
+    ``quantiles`` is a tuple of probabilities; their P^2 state rides in
+    ``qh`` (5 heights per quantile) and ``qn`` (3 interior positions), each
+    ``(k * len(quantiles), ny, nx)``. Observations are recorded at steps
+    ``g >= burn_in`` with ``(g + 1) % quantile_thin == 0``. With ``tv_warm``
+    the TV dual carries across this call's steps. Returns
+    ``(x', mean', m2', qh', qn')``. CUDA tensors run the hand kernel, CPU
+    tensors its plain version.
+    """
+    if x.is_cuda:
+        return myula_tv_block_update_cuda(x, *args, **kwargs)
+    return myula_tv_block_update_ref(x, *args, **kwargs)
+
+
+def _fused_mode(l2) -> str:
+    """Only the plain L2Data data term is ported (``mode="tv"``)."""
+    if hasattr(l2, "lamda"):
+        raise NotImplementedError(
+            "the fused MC-TV/ME-TV data terms (L2NcvxTV) are not ported yet; "
+            "only mode='tv' (L2Data) is supported"
+        )
+    return "tv"
+
+
+def _fused_params(l2):
+    """Taps, offsets and ``sigma A^T b`` from an ``L2Data`` over a
+    ``CirculantBlur2D`` with a cached small-PSF autocorrelation."""
+    _fused_mode(l2)
+    op = l2.op
+    hh = getattr(op, "hh", None)
+    if hh is None:
+        raise ValueError(
+            "fused MYULA needs a CirculantBlur2D with a cached small-PSF "
+            "autocorrelation (kernels up to 13x13)"
+        )
+    taps = separable_gram_taps(hh)
+    oy, ox = hh.shape[0] // 2, hh.shape[1] // 2
+    atbs = l2.sigma * op.rmatvec(l2.b)
+    return taps, (oy, ox), atbs
+
+
+def _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale):
+    return (float(tau), float(gamma), float(tv_sigma * gamma),
+            float(noise_scale), float(l2.sigma))
+
+
+def myula_imaging_sep_fused(l2: Any, tv_sigma: float, tau, gamma,
+                            niter_tv: int = 10,
+                            noise_scale: float = 1.0) -> Kernel:
+    """Kernel-protocol wrapper: ONE fused step per call, a drop-in for
+    ``myula_imaging(l2, TVNorm(tv_sigma, niter_tv), tau, gamma)`` that draws
+    the same noise (the step key's ``(seed, chain, step)``)."""
+    taps, (oy, ox), atbs = _fused_params(l2)
+    scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale)
+
+    def init(x0):
+        return SamplerState.init(x0)
+
+    def step(state, key):
+        seed, chain, g = key
+        x_new, _, _, _, _ = myula_tv_block_update(
+            state.position, atbs, None, None, (seed, chain), scal_f, (g, 0, 0),
+            taps=taps, oy=oy, ox=ox, n_steps=1, niter_tv=niter_tv,
+            with_noise=noise_scale != 0.0, with_stats=False,
+        )
+        return state.next(x_new), StepInfo()
+
+    return Kernel(init, step)
+
+
+class FusedChainResult(NamedTuple):
+    """Moments + final state of a fused chain; ``quantiles`` maps each
+    requested probability to its P^2 map, ``quantile_state`` is the raw
+    marker state ``(qh, qn)`` for continuation."""
+
+    final_state: SamplerState
+    moments: RunningMoments
+    samples: Any = None
+    metrics: Any = None
+    quantiles: Any = None
+    quantile_state: Any = None
+
+
+def run_myula_tv_fused(
+    l2: Any,
+    tv_sigma: float,
+    tau,
+    gamma,
+    x0,
+    key,
+    n_steps: int,
+    *,
+    niter_tv: int = 10,
+    burn_in: int = 0,
+    block: Optional[int] = None,
+    noise_scale: float = 1.0,
+    tv_warm: bool = False,
+    quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1,
+    quantile_state=None,
+    step_offset: int = 0,
+    tv_solver: str = "chambolle",
+) -> FusedChainResult:
+    """Block-fused MYULA chain: a host loop over blocks of ``block`` fused
+    steps (kernel 2 per block on CUDA). Returns the posterior mean/variance
+    (Welford; ``burn_in`` in steps) and, with ``quantiles``, per-pixel P^2
+    maps (e.g. ``(0.025, 0.975)`` for 95% credible intervals).
+
+    ``key`` is a seed or ``(seed, chain)``. ``quantile_state`` resumes from a
+    prior result's marker state, with ``step_offset`` the global step this run
+    starts at, so burn-in masking, the P^2 observation count and the noise
+    continue across segmented runs. ``tv_warm`` carries the TV dual across a
+    block's steps (zeros at each block); ``tv_solver="fgp"`` selects the
+    projected-dual FGP prox (pass ``niter_tv=8``).
+    """
+    taps, (oy, ox), atbs = _fused_params(l2)
+    x0 = torch.as_tensor(x0)
+    if block is None:
+        block = min(n_steps, 256)
+    while n_steps % block:
+        block -= 1
+    if quantiles and quantile_thin > 1:
+        # block boundaries (and the run's start step) align to the quantile
+        # group, as the JAX package's static in-kernel record positions need
+        group = (quantile_thin * 2 if (noise_scale != 0.0 and quantile_thin % 2)
+                 else quantile_thin)
+        if n_steps % group:
+            raise ValueError(
+                f"n_steps={n_steps} must be a multiple of the quantile "
+                f"group {group} (quantile_thin={quantile_thin})"
+            )
+        b = max(block - block % group, group)
+        while n_steps % b:
+            b -= group
+        block = b
+        if step_offset % quantile_thin:
+            raise ValueError(
+                f"step_offset={step_offset} must align to "
+                f"quantile_thin={quantile_thin}"
+            )
+    n_blocks = n_steps // block
+    scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale)
+    quantiles = tuple(float(p) for p in quantiles)
+    n_q = len(quantiles)
+    step_offset = int(step_offset)
+
+    x, mean, m2 = x0, torch.zeros_like(x0), torch.zeros_like(x0)
+    qh = qn = None
+    if n_q:
+        if quantile_state is not None:
+            qh, qn = quantile_state
+        else:
+            qh = torch.zeros((5 * n_q,) + tuple(x0.shape), dtype=x0.dtype,
+                             device=x0.device)
+            # interior marker positions start at (2, 3, 4); the extremes are
+            # implicit (n0 == 1, n4 == count)
+            qn = torch.arange(2.0, 5.0, dtype=x0.dtype, device=x0.device)[
+                :, None, None].repeat(n_q, x0.shape[0], x0.shape[1])
+    for b in range(n_blocks):
+        step0 = step_offset + b * block
+        # the Welford count restarts at this run's first recorded step
+        # (partial results merge with RunningMoments.merge); the P^2 count
+        # is global
+        cnt0 = max(step0 - max(burn_in, step_offset), 0)
+        x, mean, m2, qh, qn = myula_tv_block_update(
+            x, atbs, mean, m2, key, scal_f, (step0, burn_in, cnt0), qh, qn,
+            taps=taps, oy=oy, ox=ox, n_steps=block, niter_tv=niter_tv,
+            with_noise=noise_scale != 0.0, with_stats=True, tv_warm=tv_warm,
+            quantiles=quantiles, quantile_thin=quantile_thin,
+            tv_solver=tv_solver,
+        )
+    count = (max(step_offset + n_steps - burn_in, 0)
+             - max(step_offset - burn_in, 0))
+    return FusedChainResult(
+        final_state=SamplerState.init(x),
+        moments=RunningMoments(count=count, mean=mean, m2=m2),
+        # marker 2 is the running quantile estimate (valid once count >= 5)
+        quantiles={p: qh[5 * j + 2] for j, p in enumerate(quantiles)} if n_q else None,
+        quantile_state=(qh, qn) if n_q else None,
+    )
