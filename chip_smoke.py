@@ -6,26 +6,43 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
-2. build: both CUDA kernels from ``lmc_atomi_torch/csrc`` (at first use);
+2. build: the CUDA kernels from ``lmc_atomi_torch/csrc`` (one nvcc per source);
 3. kernel 1 (``prox_tv_iso_cuda``) against its plain torch version at 512^2;
 4. kernel 2 (``myula_tv_block_update_cuda``) against its plain version at
    512^2, 40 steps in blocks of 20, noise on (the same Philox stream on both
    sides), for cold-10 Chambolle, FGP-8, warm-5 and cold-10 with 95% CI
-   markers; then both timed per solver with CUDA events;
-5. the main path, the 512^2 MYULA TV-deblur posterior of ``bench.py``
+   markers, and for the MC-TV and ME-TV modes of the deconvolution models;
+   then both timed per solver and mode with CUDA events;
+5. kernel 3 (``ulpda_block_update_cuda``) the same way for the
+   deconvolution models (l21/tv, l1/mctv, l21/metv in both ``gfirst``
+   orders, and FGP with the warm envelope dual), then timed per mode;
+6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
    maps, then the unfused ``run_chain(myula_imaging)`` with kernel 1 inside.
    Each is warmed up with another seed and timed; the posterior-mean PSNR
-   must reach 40 dB and agree with the unfused path within 0.1 dB.
+   must reach 40 dB and agree with the unfused path within 0.1 dB;
+7. the deconvolution path: ``prox_lmc_deconv`` at 512^2 for ULPDA and MYULA
+   (1000 steps, 9 models, fused kernels) and the MAP branch (1000 adaptive
+   PDHG iterations), the two sampling grids again unfused (the same Philox
+   stream chain for chain), and ``run_ulpda_fused`` for TV, MC-TV and ME-TV
+   (k5) timed at 20000 steps. The k5 PSNRs must reach the JAX package's
+   (RESULTS.md) less 1 dB, and fused and unfused must agree within 0.1 dB;
+8. profile: torch.profiler windows of the deconvolution cells (a fused ULPDA
+   block, the one-step fused grid with its metrics, the MAP iteration).
 
-It then prints one JSON line describing each kernel (launch counts from the
-main path only) and, last, ``{"ok": true, "device": {...}}``.
+Each path runs with the launch counts set to 0 just before it and read just
+after; each of its kernels must have launched. The script then prints one
+JSON line describing each kernel (launches on the two paths, errors, times,
+the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -38,14 +55,29 @@ BLOCK = 500
 SIGMA_NOISE = 0.75
 TV_WEIGHT = 0.3
 CHECK_STEPS, CHECK_BLOCK = 40, 20
-PLAIN_STEPS = 2000
-# kernel 2 vs its plain version after 40 steps, for every field: the gate of
-# tests/test_myula_fused.py:89-92, atol = 3e-5 * max(1, max |field|). On the
-# H100 the two agree bit for bit (max_abs_err 0): both take the same float
-# operations in the same order, and the library is built with --fmad=false.
+# a block kernel is timed over this many steps (calls of BLOCK steps), its
+# plain version over one call
+TIMED_STEPS = 2000
+# kernels 2 and 3 vs their plain versions after 40 steps, for every field: the
+# gate of tests/test_myula_fused.py:89-92, atol = 3e-5 * max(1, max |field|).
+# On the H100 they agree bit for bit (max_abs_err 0): both sides take the same
+# float operations in the same order, and the library is built with
+# --fmad=false.
 REL_TOL = 3e-5
 PSNR_FLOOR = 40.0
 PSNR_GAP = 0.1
+# the deconvolution workload (lmc_atomi_torch/experiments/deconv.py)
+DECONV_STEPS = 1000
+# k5 PSNR (TV, MC-TV, ME-TV) of the JAX package on the same protocol
+# (RESULTS.md:82-84); the port's observation noise differs, so the gate is
+# these less DECONV_MARGIN dB
+DECONV_REF = {"ULPDA": (38.41, 39.09, 38.94), "MAP": (41.89, 41.91, 46.07),
+              "MYULA": (34.23, 30.74, 33.39)}
+DECONV_MARGIN = 1.0
+# H100 SXM data sheet peaks at 700 W: f32 outside the tensor cores and HBM
+# bandwidth
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 SOLVERS = {
     "fgp8": dict(niter_tv=8, tv_solver="fgp"),
@@ -78,6 +110,69 @@ def cuda_ms(fn, reps: int = 1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+# --- the least time the card could take -------------------------------------
+# Floating-point operations per pixel, counted from csrc/ (a sqrt, rsqrt,
+# division, log or cos counts as one operation). The Philox rounds of the
+# noise are integer operations; they are counted at the f32 rate, since the
+# data sheet gives no int32 rate outside the tensor cores.
+F_TRIP = {"chambolle": 19,  # u = div p - x/g (5), grad u (2), |.| (4), 1 + s|.| (2), p (6)
+          "fgp": 24}  # u (5), grad (2), r + s grad (4), |.|^-1/2 (4), min (1), scale (2), momentum (6)
+F_PROX_FINISH = 5  # x - g div p
+F_NOISE = 108  # Philox4x32-10: 10 x (2 mulhi, 2 mul, 4 xor, 2 key adds); Box-Muller: 8
+F_WELFORD = 8
+F_MCTV_CLAMP = 11  # grad (2), |.| (4), guard (1), 1/|.| (1), min (1), scale (2)
+
+
+def f_gram(taps) -> int:
+    """A^T A x as the separable passes: a multiply per nonzero tap, the sums."""
+    n = 0
+    for wy, wx in taps:
+        ky = sum(1 for w in wy if w != 0.0)
+        kx = sum(1 for w in wx if w != 0.0)
+        n += 2 * ky - 1 + 2 * kx - 1
+    return n + len(taps) - 1
+
+
+def bound_ms(flops: float, nbytes: float):
+    """``(ms, "operations" | "bytes")``: the larger of flops over the f32 peak
+    and bytes over the memory peak."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_kernel1(npix: int, niter: int):
+    """One prox: niter trips and the finish; x read once, the prox written once."""
+    return bound_ms(npix * (niter * F_TRIP["chambolle"] + F_PROX_FINISH), 8 * npix)
+
+
+def bound_kernel2(npix, n_steps, taps, niter_tv, tv_solver="chambolle",
+                  mode="tv", niter_inner=0, n_q=0, with_noise=True):
+    """One block call of n_steps MYULA steps; x, atbs, mean, m2 (and the
+    8 n_q marker planes) read once, x, mean, m2 (and the markers) written
+    once."""
+    per = f_gram(taps) + 2 + niter_tv * F_TRIP[tv_solver] + F_PROX_FINISH + 5
+    per += F_WELFORD + (F_NOISE if with_noise else 0) + 60 * n_q
+    if mode == "mctv":
+        per += F_MCTV_CLAMP + 5  # the clamp, then lamda div(.) added
+    elif mode == "metv":
+        per += niter_inner * F_TRIP[tv_solver] + F_PROX_FINISH + 3
+    return bound_ms(npix * n_steps * per, 4 * npix * (4 + 3 + 16 * n_q))
+
+
+def bound_kernel3(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
+                  niter_inner=0, tv_solver="chambolle", gfirst=False,
+                  with_noise=True):
+    """One block call of n_steps ULPDA steps; x, py, px, atb, mean, m2 (and
+    xbar with gfirst) read once, x, py, px, xbar, mean, m2 written once."""
+    per = 8 + niter_solve * (f_gram(taps) + 7) + 4 + F_WELFORD
+    per += (F_NOISE if with_noise else 0) + (15 if dual == "l21" else 10)
+    if mode == "mctv":
+        per += F_MCTV_CLAMP + 5
+    elif mode == "metv":
+        per += niter_inner * F_TRIP[tv_solver] + F_PROX_FINISH + 3
+    return bound_ms(npix * n_steps * per, 4 * npix * (6 + gfirst + 6))
 
 
 def phase_device():
@@ -137,11 +232,52 @@ def phase_kernel1(dev, report):
     tol = 1e-4 * max(1.0, float(x.abs().max()))
     ms, _ = cuda_ms(lambda: prox_tv_iso_cuda(x, gamma, niter=10), 200)
     plain_ms, _ = cuda_ms(lambda: prox_tv_iso_ref(x, gamma, niter=10), 50)
+    b_ms, b_by = bound_kernel1(N * N, 10)
     log(f"kernel1 prox_tv_iso_cuda {N}^2 niter=10: max_abs_err={err:.3e} "
-        f"(tol {tol:.3e}) {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call")
+        f"(tol {tol:.3e}) {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, "
+        f"bound {b_ms:.5f} ms ({b_by})")
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"kernel 1 disagrees with its plain version: {err} > {tol}")
-    report["prox_tv_iso_cuda"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    report["prox_tv_iso_cuda"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def make_deconv_models(dev):
+    """The deconvolution workload's image, observation and nine models, as
+    ``prox_lmc_deconv`` builds them on the card (seed 0)."""
+    import torch
+
+    from lmc_atomi_torch.experiments.deconv import deconv_models
+    from lmc_atomi_torch.ops.linops import CirculantBlur2D, uniform_kernel
+    from lmc_atomi_torch.utils.images import load_image
+
+    img = torch.from_numpy(load_image("phantom", N)).to(dev)
+    blurs = {k: CirculantBlur2D.from_kernel((N, N), uniform_kernel(k, torch.float32, dev))
+             for k in (5, 6, 7)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    y = blurs[5].matvec(img) + SIGMA_NOISE * torch.randn(
+        (N, N), generator=gen, dtype=torch.float32, device=dev)
+    return img, y, deconv_models(y, blurs, SIGMA_NOISE, TV_WEIGHT, 15.0, 15.0,
+                                 50, 10)
+
+
+def compare(label, got, want, names):
+    """Max abs error of each field against ``REL_TOL * max(1, max |want|)``;
+    raises on a miss. Returns the worst error and a log fragment."""
+    import torch
+
+    torch.cuda.synchronize()
+    worst, parts = 0.0, []
+    for field, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        err = float((g - w).abs().max())
+        tol = REL_TOL * max(1.0, float(w.abs().max()))
+        parts.append(f"{field}={err:.3e}/{tol:.1e}")
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{label} {field}: {err} > {tol}")
+        worst = max(worst, err)
+    return worst, " ".join(parts)
 
 
 def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
@@ -149,11 +285,16 @@ def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
     kernel or its plain version) so both run on the card."""
     import torch
 
-    from lmc_atomi_torch.kernels.myula_fused import _fused_params, _pack_scal_f
+    from lmc_atomi_torch.kernels.myula_fused import (
+        _fused_mode,
+        _fused_params,
+        _pack_scal_f,
+    )
 
     taps, (oy, ox), atbs = _fused_params(l2)
+    mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
     gamma = SIGMA_NOISE**2
-    scal_f = _pack_scal_f(l2, 0.2 * gamma, gamma, TV_WEIGHT, 1.0)
+    scal_f = _pack_scal_f(l2, 0.2 * gamma, gamma, TV_WEIGHT, 1.0, lamda, gamma_mc)
     cfg = dict(cfg)
     burn = cfg.pop("burn_in", 0)
     qs = cfg.get("quantiles", ())
@@ -166,55 +307,143 @@ def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
         step0 = b * block
         x, mean, m2, qh, qn = update(
             x, atbs, mean, m2, (seed, 0), scal_f, (step0, burn, max(step0 - burn, 0)),
-            qh, qn, taps=taps, oy=oy, ox=ox, n_steps=block, **cfg)
+            qh, qn, taps=taps, oy=oy, ox=ox, n_steps=block, mode=mode,
+            niter_inner=niter_inner, **cfg)
     return x, mean, m2, qh, qn
 
 
-def phase_kernel2(dev, l2, y, report):
+# kernel 2 in the nonconvex modes of the deconvolution models
+MODE_SOLVERS = {"cold10": dict(niter_tv=10),
+                "fgp8_warm": dict(niter_tv=8, tv_solver="fgp", tv_warm=True)}
+
+
+def phase_kernel2(dev, l2, y, models, report):
     import torch
 
     from lmc_atomi_torch.kernels.myula_fused import (
+        _fused_params,
         myula_tv_block_update_cuda,
         myula_tv_block_update_ref,
     )
 
+    runs = [(name, l2, cfg) for name, cfg in SOLVERS.items()]
+    runs += [(f"{mode}_{name}", models[i][1], cfg) for i, mode in ((1, "mctv"), (2, "metv"))
+             for name, cfg in MODE_SOLVERS.items()]
     worst = 0.0
-    for name, cfg in SOLVERS.items():
+    for name, data, cfg in runs:
         cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
-        got = _run_blocks(myula_tv_block_update_cuda, l2, y, CHECK_STEPS,
-                            CHECK_BLOCK, cfg, seed=7)
-        want = _run_blocks(myula_tv_block_update_ref, l2, y, CHECK_STEPS,
-                             CHECK_BLOCK, cfg, seed=7)
-        torch.cuda.synchronize()
-        parts = []
-        for field, g, w in zip(("x", "mean", "m2", "qh", "qn"), got, want):
-            if w is None:
-                continue
-            err = float((g - w).abs().max())
-            tol = REL_TOL * max(1.0, float(w.abs().max()))
-            parts.append(f"{field}={err:.3e}/{tol:.1e}")
-            if not math.isfinite(err) or err > tol:
-                raise AssertionError(f"kernel 2 ({name}) {field}: {err} > {tol}")
-            worst = max(worst, err)
-        log(f"kernel2 {name} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err "
-            + " ".join(parts))
-    # device time per 500-step call, kernel and plain version, per solver
+        got = _run_blocks(myula_tv_block_update_cuda, data, y, CHECK_STEPS,
+                          CHECK_BLOCK, cfg, seed=7)
+        want = _run_blocks(myula_tv_block_update_ref, data, y, CHECK_STEPS,
+                           CHECK_BLOCK, cfg, seed=7)
+        err, parts = compare(f"kernel 2 ({name})", got, want,
+                             ("x", "mean", "m2", "qh", "qn"))
+        worst = max(worst, err)
+        log(f"kernel2 {name} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
+    # device time per 500-step call, kernel and plain version, per solver/mode
     times = {}
-    for name, cfg in SOLVERS.items():
+    reps = TIMED_STEPS // BLOCK
+    for name, data, cfg in runs:
+        if name.endswith("fgp8_warm"):
+            continue
         cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
-        reps = PLAIN_STEPS // BLOCK
         k_ms, _ = cuda_ms(lambda: _run_blocks(
-            myula_tv_block_update_cuda, l2, y, BLOCK, BLOCK, cfg, seed=8), reps)
+            myula_tv_block_update_cuda, data, y, BLOCK, BLOCK, cfg, seed=8), reps)
         p_ms, _ = cuda_ms(lambda: _run_blocks(
-            myula_tv_block_update_ref, l2, y, BLOCK, BLOCK, cfg, seed=8), reps)
+            myula_tv_block_update_ref, data, y, BLOCK, BLOCK, cfg, seed=8), 1)
         times[name] = (k_ms, p_ms)
-        log(f"kernel2 {name} timing ({PLAIN_STEPS} steps): kernel "
-            f"{BLOCK / k_ms * 1e3:.1f} iters/s, plain {BLOCK / p_ms * 1e3:.1f} iters/s")
+        log(f"kernel2 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
+            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s, plain {p_ms:.3f} ms / "
+            f"{BLOCK / p_ms * 1e3:.1f} iters/s")
     k_ms, p_ms = times["cold10"]
-    report["myula_tv_block_update_cuda"] = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms)
+    taps = _fused_params(l2)[0]
+    b_ms, b_by = bound_kernel2(N * N, BLOCK, taps, 10)
+    for name in ("mctv_cold10", "metv_cold10"):
+        m_ms, m_by = bound_kernel2(N * N, BLOCK, taps, 10, mode=name[:4], niter_inner=10)
+        log(f"kernel2 {name} bound {m_ms:.4f} ms ({m_by}) against {times[name][0]:.3f} ms")
+    report["myula_tv_block_update_cuda"] = dict(
+        max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+
+
+def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed):
+    """run_ulpda_fused's block loop with the block update passed in."""
+    import torch
+
+    from lmc_atomi_torch.kernels.ulpda_fused import _pack_ulpda_scal, _ulpda_setup
+    from lmc_atomi_torch.ops.linops import Gradient2D
+
+    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
+     lam) = _ulpda_setup(proxf, proxg, Gradient2D())
+    tau0 = 0.95 * SIGMA_NOISE**2
+    scal_f = _pack_ulpda_scal(proxf, proxg, tau0, 1.0, 1.0, 1.0, lamda, gamma_mc)
+    cfg = dict(cfg)
+    niter_inner = cfg.pop("niter_inner", niter_inner)  # as run_ulpda_fused's
+    zeros = torch.zeros_like(x0)
+    x, py, px, xbar, mean, m2 = x0, zeros, zeros, x0, zeros, zeros
+    for b in range(n_steps // block):
+        step0 = b * block
+        x, py, px, xbar, mean, m2 = update(
+            x, py, px, xbar, atb, mean, m2, (seed, 0), scal_f, (step0, 5, max(step0 - 5, 0)),
+            taps=taps, oy=oy, ox=ox, lam=lam, n_steps=block, dual=dual, mode=mode,
+            niter_inner=niter_inner, **cfg)
+    return x, py, px, xbar, mean, m2
+
+
+# kernel 3 on the k5 models of the deconvolution workload: (model index,
+# gfirst, options); the dual follows the model (l21, l1, l21)
+KERNEL3_RUNS = [(i, gfirst, {}) for i in (0, 1, 2) for gfirst in (False, True)]
+KERNEL3_RUNS.append((2, False, dict(tv_solver="fgp", niter_inner=8, env_warm=True)))
+
+
+def phase_kernel3(dev, y, models, report):
+    import torch
+
+    from lmc_atomi_torch.kernels.myula_fused import separable_gram_taps
+    from lmc_atomi_torch.kernels.ulpda_fused import (
+        ulpda_block_update_cuda,
+        ulpda_block_update_ref,
+    )
+
+    worst = 0.0
+    for i, gfirst, opts in KERNEL3_RUNS:
+        name, proxf, proxg, _ = models[i]
+        cfg = dict(gfirst=gfirst, niter_solve=3, **opts)
+        label = f"{name} gfirst={gfirst} {opts or ''}".strip()
+        got = _run_ulpda_blocks(ulpda_block_update_cuda, proxf, proxg, y,
+                                CHECK_STEPS, CHECK_BLOCK, cfg, seed=7)
+        want = _run_ulpda_blocks(ulpda_block_update_ref, proxf, proxg, y,
+                                 CHECK_STEPS, CHECK_BLOCK, cfg, seed=7)
+        err, parts = compare(f"kernel 3 ({label})", got, want,
+                             ("x", "py", "px", "xbar", "mean", "m2"))
+        worst = max(worst, err)
+        log(f"kernel3 {label} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
+    times = {}
+    reps = TIMED_STEPS // BLOCK
+    for i in (0, 1, 2):
+        name, proxf, proxg, _ = models[i]
+        cfg = dict(gfirst=False, niter_solve=3)
+        k_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
+            ulpda_block_update_cuda, proxf, proxg, y, BLOCK, BLOCK, cfg, 8), reps)
+        p_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
+            ulpda_block_update_ref, proxf, proxg, y, BLOCK, BLOCK, cfg, 8), 1)
+        taps = separable_gram_taps(proxf.op.hh)
+        mode = name.split("-")[1].lower()
+        b_ms, b_by = bound_kernel3(N * N, BLOCK, taps, 3, mode=mode,
+                                   dual="l1" if mode == "mctv" else "l21",
+                                   niter_inner=10)
+        times[mode] = (k_ms, p_ms, b_ms, b_by)
+        log(f"kernel3 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
+            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s, plain {p_ms:.3f} ms / "
+            f"{BLOCK / p_ms * 1e3:.1f} iters/s, bound {b_ms:.4f} ms ({b_by})")
+    k_ms, p_ms, b_ms, b_by = times["tv"]
+    report["ulpda_block_update_cuda"] = dict(
+        max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
 
 
 def phase_main_path(dev, img, y, l2):
+    """The MYULA TV-deblur main path, 20000 steps per run."""
     import torch
 
     from lmc_atomi_torch.eval.metrics import psnr
@@ -271,6 +500,147 @@ def phase_main_path(dev, img, y, l2):
                 f"{unfused:.4f}, gap {PSNR_GAP})")
 
 
+def phase_deconv(dev, img, models):
+    """The deconvolution path through its entry point, fused and unfused, and
+    the timed fused ULPDA chains; raises on a missed gate."""
+    import torch
+
+    from lmc_atomi_torch.eval.metrics import psnr
+    from lmc_atomi_torch.experiments.deconv import prox_lmc_deconv
+    from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused
+    from lmc_atomi_torch.ops.linops import Gradient2D
+
+    def run(tag, **kw):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            results, series, summary = prox_lmc_deconv(
+                size=N, n_steps=DECONV_STEPS, niter_map=DECONV_STEPS, seed=0,
+                device=str(dev), **kw)
+        wall = time.perf_counter() - t0
+        if json.loads(out.getvalue().strip().splitlines()[-1]) != summary:
+            raise AssertionError(f"deconv {tag}: summary line differs from the result")
+        if len(results) != 9 or len(series) != 9:
+            raise AssertionError(f"deconv {tag}: {len(results)} results")
+        for label, est in results.items():
+            met = series[label]
+            if est.shape != (N, N) or not bool(torch.isfinite(torch.from_numpy(est)).all()):
+                raise AssertionError(f"deconv {tag} {label}: bad estimate")
+            if met["psnr"].shape != (DECONV_STEPS,) or not all(
+                    bool(torch.isfinite(torch.from_numpy(v)).all()) for v in met.values()):
+                raise AssertionError(f"deconv {tag} {label}: bad metric series")
+        p = [summary["report"][label]["psnr"] for label in results]
+        rates = list(summary["iters_per_sec"].values())
+        log(f"deconv {tag}: {wall:.1f} s, iters/s {min(rates):.1f}..{max(rates):.1f}, "
+            f"psnr_blurred={summary['psnr_blurred']:.4f} psnr M1..M9 = "
+            + " ".join(f"{v:.4f}" for v in p))
+        return p
+
+    psnrs = {"ULPDA": run("ULPDA fused", alg="ULPDA"),
+             "MYULA": run("MYULA fused", alg="MYULA"),
+             "MAP": run("MAP", compute_map=True)}
+    unfused = {alg: run(f"{alg} unfused", alg=alg, fused=False)
+               for alg in ("ULPDA", "MYULA")}
+    for branch, ref in DECONV_REF.items():
+        for j, (got, want) in enumerate(zip(psnrs[branch][:3], ref)):
+            if not got >= want - DECONV_MARGIN:
+                raise AssertionError(
+                    f"deconv {branch} M{j + 1}: psnr {got:.4f} < {want} - {DECONV_MARGIN}")
+    for alg, unf in unfused.items():
+        gaps = [abs(a - b) for a, b in zip(psnrs[alg], unf)]
+        log(f"deconv {alg} fused - unfused: max |dpsnr| = {max(gaps):.4f} dB")
+        if max(gaps) > PSNR_GAP:
+            raise AssertionError(f"deconv {alg}: fused and unfused differ by {gaps}")
+
+    # fused ULPDA chains of the k5 models, timed after a warm-up with another seed
+    tau0 = 0.95 * SIGMA_NOISE**2
+    x0 = torch.zeros((N, N), device=dev)
+    for name, proxf, proxg, _ in models[:3]:
+        def chain(seed):
+            return run_ulpda_fused(proxf, proxg, Gradient2D(), tau0, 1.0, x0, seed,
+                                   STEPS, block=BLOCK)
+        chain(1)
+        t0 = time.perf_counter()
+        ms, out = cuda_ms(lambda: chain(2))
+        mean = out.moments.mean
+        if not bool(torch.isfinite(mean).all()):
+            raise AssertionError(f"run_ulpda_fused {name}: non-finite posterior mean")
+        log(f"ulpda fused {name}: {STEPS / ms * 1e3:.1f} iters/s "
+            f"(device {ms:.1f} ms, host {time.perf_counter() - t0:.3f} s) "
+            f"psnr_mean={float(psnr(img, mean)):.4f} "
+            f"max_alloc={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB")
+
+
+def profile_window(label, fn):
+    """torch.profiler over one call of ``fn`` (after a warm-up call): the
+    wall time, the share of it the card was busy (the sum of kernel times
+    over the wall time; the profiler slows the host, so host-bound windows
+    read low) and the kernels that took most of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.name.replace("(anonymous namespace)::", "")
+            name = re.sub(r"[<(].*", "", name).split("::")[-1].strip()[:32]
+            t, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (t + evt.time_range.elapsed_us(), n + 1)
+    if not kernels:
+        raise AssertionError(f"profile {label}: the profiler saw no device time")
+    busy = sum(t for t, _ in kernels.values()) / (wall * 1e6)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy {busy:.4f}, "
+        "top kernels (share of device time, us each x count): "
+        + "; ".join(f"{k} {t / sum(v[0] for v in kernels.values()):.3f} "
+                    f"{t / n:.2f}us x{n}" for k, (t, n) in top))
+
+
+def phase_profile(dev, img, models):
+    """Where the time goes in the deconvolution cells: a fused ULPDA block,
+    the one-step fused grid with its metrics, and the MAP iteration."""
+    import torch
+
+    from lmc_atomi_torch.eval.metrics import psnr
+    from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused, ulpda_sep_fused
+    from lmc_atomi_torch.ops.linops import Gradient2D
+    from lmc_atomi_torch.run.optimize import adaptive_pdhg
+    from lmc_atomi_torch.run.runner import run_chain
+
+    tau0 = 0.95 * SIGMA_NOISE**2
+    x0 = torch.zeros((N, N), device=dev)
+    grad_op = Gradient2D()
+    for name, proxf, proxg, _ in (models[0], models[2]):
+        profile_window(f"run_ulpda_fused {name} 500 steps", lambda: run_ulpda_fused(
+            proxf, proxg, grad_op, tau0, 1.0, x0, 3, BLOCK, block=BLOCK))
+    name, proxf, proxg, _ = models[2]
+    metrics = {"cost": lambda x: proxf(x) + proxg(grad_op.matvec(x)),
+               "err": lambda x: torch.linalg.norm(torch.ravel(x - img)),
+               "psnr": lambda x: psnr(img, x)}
+    kern = ulpda_sep_fused(proxf, proxg, grad_op, tau0, 1.0)
+    profile_window(f"deconv ULPDA grid step {name} x100 (with metrics)", lambda: run_chain(
+        kern, x0, 3, 100, collect="stats", metrics=metrics))
+    profile_window(f"deconv MAP {name} x100 (with metrics)", lambda: adaptive_pdhg(
+        proxf, proxg, grad_op, x0, tau0, 1.0, 100, metrics=metrics))
+
+
+KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
+    "prox_tv_iso_cuda": ("lmc_atomi_torch/csrc/tv_prox.cu",
+                         "lmc_atomi_tpu/ops/tv_pallas.py:91"),
+    "myula_tv_block_update_cuda": ("lmc_atomi_torch/csrc/myula_block.cu",
+                                   "lmc_atomi_tpu/kernels/myula_fused.py:714"),
+    "ulpda_block_update_cuda": ("lmc_atomi_torch/csrc/ulpda_block.cu",
+                                "lmc_atomi_tpu/kernels/ulpda_fused.py:327"),
+}
+
+
 def main() -> int:
     import torch
 
@@ -281,7 +651,26 @@ def main() -> int:
         log(f"FAIL: no lmc_atomi_torch/csrc beside {Path(__file__).name}")
         return 1
     from lmc_atomi_torch.kernels.myula_fused import myula_tv_block_update_cuda
+    from lmc_atomi_torch.kernels.ulpda_fused import ulpda_block_update_cuda
     from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda
+
+    wrappers = {"prox_tv_iso_cuda": prox_tv_iso_cuda,
+                "myula_tv_block_update_cuda": myula_tv_block_update_cuda,
+                "ulpda_block_update_cuda": ulpda_block_update_cuda}
+
+    def drive(path, kernels, fn, *args):
+        """Run one path with every count at 0 before it; its kernels must
+        have launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        fn(*args)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        log(f"launches on the {path} path: {counts}")
+        for k in kernels:
+            if counts[k] < 1:
+                raise AssertionError(f"{k} was not launched on the {path} path")
+        return counts
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -291,29 +680,18 @@ def main() -> int:
     report = {}
     phase_kernel1(dev, report)
     img, y, l2 = make_problem(dev)
-    phase_kernel2(dev, l2, y, report)
+    d_img, _, models = make_deconv_models(dev)
+    phase_kernel2(dev, l2, y, models, report)
+    phase_kernel3(dev, y, models, report)
 
-    wrappers = {"prox_tv_iso_cuda": prox_tv_iso_cuda,
-                "myula_tv_block_update_cuda": myula_tv_block_update_cuda}
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    phase_main_path(dev, img, y, l2)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    log(f"launches on the main path: {launches}")
-    for k, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"{k} was not launched on the main path")
-
-    meta = {
-        "prox_tv_iso_cuda": ("lmc_atomi_torch/csrc/tv_prox.cu",
-                             "lmc_atomi_tpu/ops/tv_pallas.py:91"),
-        "myula_tv_block_update_cuda": ("lmc_atomi_torch/csrc/myula_block.cu",
-                                       "lmc_atomi_tpu/kernels/myula_fused.py:714"),
-    }
+    main_path = drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
+                      phase_main_path, dev, img, y, l2)
+    deconv_path = drive("deconvolution", tuple(wrappers), phase_deconv, dev, d_img,
+                        models)
+    phase_profile(dev, d_img, models)
     kernels = [
-        dict(name=k, route="cuda", source=meta[k][0], replaces=meta[k][1],
-             launches=launches[k], **report[k])
+        dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
+             launches=main_path[k] + deconv_path[k], **report[k])
         for k in wrappers
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

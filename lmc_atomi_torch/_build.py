@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/*.cu`` compile with one ``nvcc`` call into a shared library with a
-plain C interface, loaded with ``ctypes``. The library lands in ``_build/``
+``csrc/*.cu`` compile with one ``nvcc`` process per source, all started
+together, and link into a shared library with a plain C interface, loaded
+with ``ctypes``. The library lands in ``_build/``
 beside this file (git-ignored), named by a hash of the sources and of
 ``nvcc --version``, so an edited source or another toolkit builds anew and an
 unchanged tree reuses its build. The build runs the first time a CUDA entry
@@ -33,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -49,13 +50,26 @@ _SIGNATURES = {
     ),
     "lmc_myula_block": (
         _P, _P, _P, _P, _P, _P,  # x, atbs, mean, m2, qh, qn
-        _P, _P, _P,  # grad, tmp, duals
+        _P, _P, _P, _P,  # grad, tmp, duals, aux
         _I, _I,  # ny, nx
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _F, _I, _P,  # n_steps, niter_tv, tv_step, fgp, fgp_coef
-        _I, _I, _I,  # tv_warm, with_noise, with_stats
+        _I, _I, _I,  # tv_warm, mode, niter_inner
+        _I, _I,  # with_noise, with_stats
         _P, _I, _I,  # qcoef, n_q, thin
         _P,  # coef
+        _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+    "lmc_ulpda_block": (
+        _P, _P, _P, _P, _P, _P, _P,  # x, py, px, xbar, atb, mean, m2
+        _P, _P, _P, _P, _P, _P, _P,  # v, rhs, u, d, gu, tmp, aux
+        _I, _I,  # ny, nx
+        _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
+        _I, _I, _P,  # n_steps, niter_solve, cheb
+        _I, _I, _I, _I,  # gfirst, l21, mode, niter_inner
+        _F, _I, _P, _I,  # tv_step, fgp, fgp_coef, env_warm
+        _I, _I, _P,  # with_noise, with_stats, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
         _P,  # stream
     ),
@@ -97,15 +111,35 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"tmp{os.getpid()}_{lib.name}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"tmp{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}_{lib.name}"
+    jobs = []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}_{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for cmd, _, job in jobs:
+            _, err = job.communicate()
+            if job.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({job.returncode}): {' '.join(cmd)}\n{err}")
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise
+    finally:
+        for _, obj, job in jobs:
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

@@ -1,5 +1,6 @@
 // Kernel 2: n_steps fused MYULA steps on the TV-deblurring posterior, with
-// streaming Welford moments and P^2 quantile markers.
+// streaming Welford moments and P^2 quantile markers, for the plain L2 data
+// term (mode tv) and the nonconvex MC-TV and ME-TV data terms.
 //
 // Replaces lmc_atomi_tpu/kernels/myula_fused.py::myula_tv_block_update
 // (_block_kernel), which runs a whole block of steps inside one TPU core with
@@ -8,126 +9,34 @@
 // L2) and one host call issues, for each step g = step0 + i:
 //   (a) two separable wrap-convolution passes, grad = sigma A^T A x - sigma A^T b
 //       with A^T A = sum_r wy_r wx_r^T (row pass, then column pass);
+//   (a') mctv: one launch of the clamped gradient min(1/gamma, 1/|Gx|) Gx;
+//       metv: niter_inner dual trips of the envelope prox at gamma_mc;
 //   (b) niter_tv dual trips, Chambolle or FGP, ping-ponged between buffers
 //       (with tv_warm the dual carries across the steps of one call and starts
 //       from zeros at each call, as on the TPU);
-//   (c) one elementwise launch: x - gamma div p, the MYULA update, the Philox
-//       normal at (seed, chain, pixel, g), burn-in-masked Welford, and P^2.
+//   (c) one elementwise launch: the mode's correction of the gradient (it
+//       reads the divergence of (a')), x - gamma div p, the MYULA update, the
+//       Philox normal at (seed, chain, pixel, g), burn-in-masked Welford, P^2.
 // Each launch is bound by device-memory bytes and, at 512^2, by launch
 // latency: a cold-10 step is 13 launches of a few us. Persistent launches,
 // shared-memory row bands and CUDA graphs are later work.
-#include "tv_common.cuh"
+#include "block_common.cuh"
 
-#define LMC_MAXR 4
-#define LMC_MAXK 32
 #define LMC_MAXQ 4
 
 namespace {
 
-struct Taps {
-  int rank, ky, kx, oy, ox;
-  float wy[LMC_MAXR][LMC_MAXK];
-  float wx[LMC_MAXR][LMC_MAXK];
-};
+// Data-term modes of the block (myula_fused.py::_fused_mode).
+enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
 
 struct UpdateParams {
   float c_keep, c_grad, c_prox, noise_amp, tv_gamma;
+  float lamda, gamma_mc, c_env;  // nonconvex modes: lamda, gamma, lamda/gamma
   float w, inv_denom;
-  int with_noise, with_stats, n_q, c_prev;
+  int mode, with_noise, with_stats, n_q, c_prev;
   uint32_t seed, chain, step;
   float qcoef[LMC_MAXQ][3];
 };
-
-__device__ __forceinline__ int wrap(int a, int n) {
-  a %= n;
-  return a < 0 ? a + n : a;
-}
-
-// tmp[r, i, j] = sum_b wx_r[b] x[i, (j - b + ox) mod nx]
-__global__ void blk_rowconv(const float* __restrict__ x, float* __restrict__ tmp,
-                            int ny, int nx, Taps t) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  const float* row = x + (size_t)i * nx;
-  for (int r = 0; r < t.rank; ++r) {
-    float acc = 0.0f;
-    bool first = true;
-    for (int b = 0; b < t.kx; ++b) {
-      const float w = t.wx[r][b];
-      if (w == 0.0f) continue;
-      const float term = row[wrap(j - b + t.ox, nx)] * w;
-      acc = first ? term : acc + term;
-      first = false;
-    }
-    tmp[(size_t)r * ny * nx + (size_t)i * nx + j] = acc;
-  }
-}
-
-// grad[i, j] = sigma * sum_r sum_a wy_r[a] tmp[r, (i - a + oy) mod ny, j] - atbs[i, j]
-__global__ void blk_colconv(const float* __restrict__ tmp,
-                            const float* __restrict__ atbs,
-                            float* __restrict__ grad, int ny, int nx, Taps t,
-                            float sigma) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  float out = 0.0f;
-  for (int r = 0; r < t.rank; ++r) {
-    const float* plane = tmp + (size_t)r * ny * nx;
-    float acc = 0.0f;
-    bool first = true;
-    for (int a = 0; a < t.ky; ++a) {
-      const float w = t.wy[r][a];
-      if (w == 0.0f) continue;
-      const float term = plane[(size_t)wrap(i - a + t.oy, ny) * nx + j] * w;
-      acc = first ? term : acc + term;
-      first = false;
-    }
-    out = (r == 0) ? acc : out + acc;
-  }
-  const int k = i * nx + j;
-  grad[k] = sigma * out - atbs[k];
-}
-
-__global__ void blk_chambolle_trip(const float* __restrict__ x,
-                                   const float* __restrict__ py,
-                                   const float* __restrict__ px,
-                                   float* __restrict__ qy,
-                                   float* __restrict__ qx, int ny, int nx,
-                                   float inv_gamma, float step) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  lmc_chambolle_point<true>(x, py, px, qy, qx, inv_gamma, step, i, j, ny, nx);
-}
-
-// One FGP trip (myula_fused.py::_tv_prox_fgp): q = proj(r + s grad u(r)),
-// r' = q + c (q - p); r and p may alias (the first trip), q and r' may not.
-__global__ void blk_fgp_trip(const float* __restrict__ x, const float* ry,
-                             const float* rx, const float* py, const float* px,
-                             float* __restrict__ qy, float* __restrict__ qx,
-                             float* __restrict__ sy, float* __restrict__ sx,
-                             int ny, int nx, float inv_gamma, float step,
-                             float c) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  float gy, gx;
-  lmc_grad_u(x, ry, rx, inv_gamma, i, j, ny, nx, &gy, &gx);
-  const int k = i * nx + j;
-  const float ty = (ry ? ry[k] : 0.0f) + step * gy;
-  const float tx = (rx ? rx[k] : 0.0f) + step * gx;
-  const float scale = fminf(1.0f, rsqrtf(ty * ty + tx * tx));
-  const float ay = ty * scale;
-  const float ax = tx * scale;
-  const float py0 = py ? py[k] : 0.0f;
-  const float px0 = px ? px[k] : 0.0f;
-  qy[k] = ay;
-  qx[k] = ax;
-  sy[k] = ay + c * (ay - py0);
-  sx[k] = ax + c * (ax - px0);
-}
 
 // Elementwise sort of 5 values (myula_fused.py::_sort5's network).
 __device__ __forceinline__ void sort5(float v[5]) {
@@ -185,10 +94,14 @@ __device__ __forceinline__ void p2_update(float x, float q[5], float n3[3],
   n3[2] = n[3];
 }
 
-// (c): prox, MYULA update, noise, Welford and P^2, in place on x/mean/m2/qh/qn.
+// (c): the nonconvex correction of the data gradient, prox, MYULA update,
+// noise, Welford and P^2, in place on x/mean/m2/qh/qn. (ay, ax) is the MC-TV
+// clamped gradient of x (mode mctv) or the ME-TV envelope dual (mode metv).
 __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad,
                            const float* __restrict__ py,
                            const float* __restrict__ px,
+                           const float* __restrict__ ay,
+                           const float* __restrict__ ax,
                            float* __restrict__ mean, float* __restrict__ m2,
                            float* __restrict__ qh, float* __restrict__ qn,
                            int ny, int nx, UpdateParams u) {
@@ -198,8 +111,17 @@ __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad
   const int k = i * nx + j;
   const size_t npix = (size_t)ny * nx;
   const float xv = x[k];
+  float g = grad[k];
+  if (u.mode == MODE_MCTV) {
+    // grad f -= lamda G^T(clamp G x), G^T = -div
+    g = g + u.lamda * lmc_div(ay, ax, i, j, ny, nx);
+  } else if (u.mode == MODE_METV) {
+    // grad f -= lamda (x - prox_{gamma TV} x) / gamma
+    const float env = xv - u.gamma_mc * lmc_div(ay, ax, i, j, ny, nx);
+    g = g - u.c_env * (xv - env);
+  }
   const float prox = xv - u.tv_gamma * lmc_div(py, px, i, j, ny, nx);
-  float xn = u.c_keep * xv - u.c_grad * grad[k] + u.c_prox * prox;
+  float xn = u.c_keep * xv - u.c_grad * g + u.c_prox * prox;
   if (u.with_noise) {
     xn = xn + u.noise_amp * lmc_normal(u.seed, u.chain, (uint32_t)k, u.step);
   }
@@ -230,40 +152,38 @@ __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad
 
 // One call runs n_steps MYULA steps in place on x, mean, m2, qh, qn (float32,
 // row-major, contiguous, on the current device).
-//   grad: (ny, nx) scratch; tmp: (rank, ny, nx) scratch; duals: (8, ny, nx).
+//   grad: (ny, nx) scratch; tmp: (rank, ny, nx) scratch; duals: (8, ny, nx)
+//   for the TV prox; aux: (8, ny, nx) for the ME-TV envelope prox, or
+//   (2, ny, nx) for the MC-TV clamped gradient (null in mode tv).
 //   taps: host, rank * (ky + kx) floats, for each rank wy then wx.
-//   coef: host, 6 floats [1 - tau/gamma, tau, tau/gamma,
-//         noise_scale * sqrt(2 tau), sigma, tv_gamma].
-//   fgp_coef: host, niter_tv floats (FGP momentum; ignored for Chambolle).
+//   coef: host, 10 floats [1 - tau/gamma, tau, tau/gamma,
+//         noise_scale * sqrt(2 tau), sigma, tv_gamma, lamda, gamma_mc,
+//         1/gamma_mc, lamda/gamma_mc] (the last four unused in mode tv).
+//   fgp_coef: host, max(niter_tv, niter_inner) floats (FGP momentum;
+//         ignored for Chambolle).
 //   qcoef: host, n_q * 3 floats (dn - 1) / 4 for the interior markers.
+// The envelope prox runs niter_inner trips of the same solver as the TV
+// prox; with tv_warm both duals carry across the steps of this call and
+// start from zeros at each call, as on the TPU.
 // Returns the cudaError_t of the launches (0 on success), or -1 on arguments
 // outside the supported range.
 extern "C" int lmc_myula_block(
     float* x, const float* atbs, float* mean, float* m2, float* qh, float* qn,
-    float* grad, float* tmp, float* duals, int ny, int nx, const float* taps,
-    int rank, int ky, int kx, int oy, int ox, int n_steps, int niter_tv,
-    float tv_step, int fgp, const float* fgp_coef, int tv_warm, int with_noise,
-    int with_stats, const float* qcoef, int n_q, int thin, const float* coef,
+    float* grad, float* tmp, float* duals, float* aux, int ny, int nx,
+    const float* taps, int rank, int ky, int kx, int oy, int ox, int n_steps,
+    int niter_tv, float tv_step, int fgp, const float* fgp_coef, int tv_warm,
+    int mode, int niter_inner, int with_noise, int with_stats,
+    const float* qcoef, int n_q, int thin, const float* coef,
     unsigned int seed, unsigned int chain, long long step0, long long burn,
     long long cnt0, void* stream) {
-  if (rank < 1 || rank > LMC_MAXR || ky > LMC_MAXK || kx > LMC_MAXK ||
-      n_q < 0 || n_q > LMC_MAXQ || thin < 1 || ny < 2 || nx < 2)
+  Taps t;
+  if (!lmc_taps(&t, taps, rank, ky, kx, oy, ox) || n_q < 0 || n_q > LMC_MAXQ ||
+      thin < 1 || ny < 2 || nx < 2 || mode < MODE_TV || mode > MODE_METV ||
+      (mode != MODE_TV && aux == nullptr))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
   const size_t npix = (size_t)ny * nx;
-
-  Taps t;
-  t.rank = rank;
-  t.ky = ky;
-  t.kx = kx;
-  t.oy = oy;
-  t.ox = ox;
-  for (int r = 0; r < rank; ++r) {
-    const float* base = taps + (size_t)r * (ky + kx);
-    for (int a = 0; a < ky; ++a) t.wy[r][a] = base[a];
-    for (int b = 0; b < kx; ++b) t.wx[r][b] = base[ky + b];
-  }
 
   UpdateParams u;
   u.c_keep = coef[0];
@@ -271,6 +191,10 @@ extern "C" int lmc_myula_block(
   u.c_prox = coef[2];
   u.noise_amp = coef[3];
   u.tv_gamma = coef[5];
+  u.lamda = coef[6];
+  u.gamma_mc = coef[7];
+  u.c_env = coef[9];
+  u.mode = mode;
   u.with_noise = with_noise;
   u.with_stats = with_stats;
   u.seed = seed;
@@ -278,52 +202,37 @@ extern "C" int lmc_myula_block(
   for (int jq = 0; jq < n_q; ++jq)
     for (int m = 0; m < 3; ++m) u.qcoef[jq][m] = qcoef[3 * jq + m];
   const float sigma = coef[4];
+  // x / gamma as x * (1 / gamma), the reciprocal of the float gamma, as torch
+  // divides a CUDA tensor by a Python scalar
   const float inv_tv_gamma = 1.0f / coef[5];
+  const float inv_gamma_mc = 1.0f / coef[7];
+  const float clamp_mc = coef[8];
 
-  // dual buffers: P[0], P[1] hold the iterate p, R[0], R[1] the FGP point r
-  float* P[2][2] = {{duals, duals + npix}, {duals + 2 * npix, duals + 3 * npix}};
-  float* R[2][2] = {{duals + 4 * npix, duals + 5 * npix},
-                    {duals + 6 * npix, duals + 7 * npix}};
-  int cur = -1;  // index into P of the carried dual; -1 is the zero field
+  const DualBufs tvb = lmc_dual_bufs(duals, npix);
+  const DualBufs envb = lmc_dual_bufs(aux, npix);
+  int cur = -1;      // index into tvb.P of the carried TV dual; -1 is zero
+  int cur_env = -1;  // the same for the envelope dual
 
   for (int it = 0; it < n_steps; ++it) {
     const long long g = step0 + it;
     blk_rowconv<<<grid, block, 0, s>>>(x, tmp, ny, nx, t);
     blk_colconv<<<grid, block, 0, s>>>(tmp, atbs, grad, ny, nx, t, sigma);
 
-    int pin = tv_warm ? cur : -1;
-    const float* py = pin >= 0 ? P[pin][0] : nullptr;
-    const float* px = pin >= 0 ? P[pin][1] : nullptr;
-    if (fgp) {
-      const float* ry = py;
-      const float* rx = px;
-      int rin = -1;
-      for (int tr = 0; tr < niter_tv; ++tr) {
-        const int pout = pin == 0 ? 1 : 0;
-        const int rout = rin == 0 ? 1 : 0;
-        blk_fgp_trip<<<grid, block, 0, s>>>(x, ry, rx, py, px, P[pout][0],
-                                            P[pout][1], R[rout][0], R[rout][1],
-                                            ny, nx, inv_tv_gamma, 0.125f,
-                                            fgp_coef[tr]);
-        pin = pout;
-        rin = rout;
-        py = P[pin][0];
-        px = P[pin][1];
-        ry = R[rin][0];
-        rx = R[rin][1];
-      }
-    } else {
-      for (int tr = 0; tr < niter_tv; ++tr) {
-        const int pout = pin == 0 ? 1 : 0;
-        blk_chambolle_trip<<<grid, block, 0, s>>>(x, py, px, P[pout][0],
-                                                  P[pout][1], ny, nx,
-                                                  inv_tv_gamma, tv_step);
-        pin = pout;
-        py = P[pin][0];
-        px = P[pin][1];
-      }
+    const float* ay = nullptr;
+    const float* ax = nullptr;
+    if (mode == MODE_MCTV) {
+      blk_mctv_clamp<<<grid, block, 0, s>>>(x, aux, aux + npix, ny, nx,
+                                            clamp_mc);
+      ay = aux;
+      ax = aux + npix;
+    } else if (mode == MODE_METV) {
+      cur_env = lmc_tv_trips(x, envb, tv_warm ? cur_env : -1, niter_inner,
+                             fgp, tv_step, fgp_coef, inv_gamma_mc, ny, nx, s);
+      ay = lmc_dual_y(envb, cur_env);
+      ax = lmc_dual_x(envb, cur_env);
     }
-    cur = pin;
+    cur = lmc_tv_trips(x, tvb, tv_warm ? cur : -1, niter_tv, fgp, tv_step,
+                       fgp_coef, inv_tv_gamma, ny, nx, s);
 
     // weighted Welford count: cnt0 + steps of this call at or past burn-in
     const bool w = g >= burn;
@@ -337,8 +246,9 @@ extern "C" int lmc_myula_block(
     long long c_prev = g / thin - burn / thin;
     u.c_prev = (int)(c_prev > 0 ? c_prev : 0);
     u.n_q = record ? n_q : 0;
-    blk_update<<<grid, block, 0, s>>>(x, grad, py, px, mean, m2, qh, qn, ny, nx,
-                                      u);
+    blk_update<<<grid, block, 0, s>>>(x, grad, lmc_dual_y(tvb, cur),
+                                      lmc_dual_x(tvb, cur), ay, ax, mean, m2,
+                                      qh, qn, ny, nx, u);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -1,0 +1,226 @@
+"""Workload 4: Bayesian image deconvolution (counterpart of
+``lmc_atomi_tpu/experiments/deconv.py``; reference prox_lmc_deconv.py).
+
+One blurred, noisy observation (5x5 uniform blur + N(0, sigma^2) noise) is
+deblurred under 9 models, 3 assumed blurs (5/6/7 uniform) x 3 priors
+(isotropic TV, MC-TV, ME-TV), by posterior sampling (ULPDA or MYULA, streaming
+posterior mean) or by the MAP estimate of residual-balancing adaptive PDHG.
+Per-iteration cost / error / SNR / PSNR / MSE series are recorded. On a CUDA
+device the samplers run the fused kernels (``ulpda_sep_fused``,
+``myula_imaging_sep_fused``); ``fused=False``, or a CPU run, takes the
+unfused samplers (``ulpda``, ``myula_imaging``), which draw the same noise.
+
+    python -m lmc_atomi_torch.experiments.deconv --size 512 --alg ULPDA
+    python -m lmc_atomi_torch.experiments.deconv --size 64 --device cpu
+
+It runs on the card unless ``--device cpu`` is given. Not ported yet:
+``make_plots``, ``show``, ``wavelet_row`` and ``score_row``; passing one
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+
+from lmc_atomi_torch.eval.metrics import mse as mse_fn
+from lmc_atomi_torch.eval.metrics import psnr as psnr_fn
+from lmc_atomi_torch.eval.metrics import snr as snr_fn
+from lmc_atomi_torch.kernels.imaging import myula_imaging, ulpda
+from lmc_atomi_torch.kernels.myula_fused import (
+    myula_imaging_sep_fused,
+    sep_fused_supported,
+)
+from lmc_atomi_torch.kernels.ulpda_fused import (
+    ulpda_fused_supported,
+    ulpda_sep_fused,
+)
+from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm, L2Data, TVNorm
+from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, uniform_kernel
+from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
+from lmc_atomi_torch.run.optimize import adaptive_pdhg
+from lmc_atomi_torch.run.runner import run_chain
+from lmc_atomi_torch.utils.images import load_image
+
+__all__ = ["prox_lmc_deconv", "deconv_models", "main"]
+
+
+def _model_name(idx: int) -> str:
+    return f"M{idx + 1}"
+
+
+def deconv_models(y, blurs, sigma: float, tau: float, gamma_mc: float,
+                  gamma_me: float, niter_l2: int, niter_tv: int):
+    """The 9 models ``(name, proxf, proxg, a_op)``: for each assumed blur
+    ``blurs[k]`` (k = 5, 6, 7) the convex TV (``L2Data`` + ``L21Norm``),
+    MC-TV (``L2NcvxTV`` with ``Gradient2D`` + ``L1Norm``) and ME-TV
+    (``L2NcvxTV`` + ``L21Norm``) models over the observation ``y``."""
+    grad_op = Gradient2D()
+    models = []
+    for k in (5, 6, 7):
+        common = dict(op=blurs[k], b=y, sigma=1.0 / sigma**2, lamda=tau,
+                      isotropic=True, niter_inner=niter_tv, niter_solve=niter_l2)
+        models.append((f"k{k}-TV", L2Data.create(op=blurs[k], b=y,
+                                                 sigma=1.0 / sigma**2,
+                                                 niter_solve=niter_l2),
+                       L21Norm(sigma=tau), grad_op))
+        models.append((f"k{k}-MCTV", L2NcvxTV(op2=grad_op, gamma=gamma_mc, **common),
+                       L1Norm(sigma=tau), grad_op))
+        models.append((f"k{k}-METV", L2NcvxTV(op2=None, gamma=gamma_me, **common),
+                       L21Norm(sigma=tau), grad_op))
+    return models
+
+
+def prox_lmc_deconv(
+    gamma_mc: float = 15.0,
+    gamma_me: float = 15.0,
+    sigma: float = 0.75,
+    tau: float = 0.3,
+    n_steps: int = 1000,
+    niter_l2: int = 50,
+    niter_tv: int = 10,
+    niter_map: int = 1000,
+    image: str = "phantom",
+    size: int = 512,
+    alg: str = "ULPDA",
+    compute_map: bool = False,
+    seed: int = 0,
+    collect_metrics: bool = True,
+    fused: bool = True,
+    device: str = "cuda",
+    make_plots: bool = False,
+    show: bool = False,
+    wavelet_row: bool = False,
+    score_row: bool = False,
+):
+    """Deblur one observation under 9 models; returns ``(results, series,
+    summary)`` as the JAX package's version does."""
+    asked = [name for name, on in (("make_plots", make_plots), ("show", show),
+                                   ("wavelet_row", wavelet_row),
+                                   ("score_row", score_row)) if on]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)} not ported yet (see ROADMAP.md)")
+    if alg not in ("ULPDA", "MYULA"):
+        raise ValueError(f"unknown alg {alg!r}")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the deconvolution workload runs on the card; "
+            "pass device='cpu' (--device cpu) to run it on the CPU")
+    on_cuda = dev.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+
+    dtype = torch.float32
+    img = torch.from_numpy(load_image(image, size)).to(dev, dtype)
+    blurs = {k: CirculantBlur2D.from_kernel((size, size),
+                                            uniform_kernel(k, dtype, dev))
+             for k in (5, 6, 7)}
+    # one observation from the 5x5 blur (reference prox_lmc_deconv.py:59)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = blurs[5].matvec(img) + sigma * torch.randn(
+        (size, size), generator=gen, dtype=dtype, device=dev)
+
+    lips = 1.0 / sigma**2
+    tau0 = 0.95 / lips
+    mu0 = 1.0
+    gamma_myula = 1.0 / lips
+    tau_myula = 0.2 * gamma_myula
+    tv = TVNorm(sigma=tau, niter=niter_tv)
+    models = deconv_models(y, blurs, sigma, tau, gamma_mc, gamma_me, niter_l2,
+                           niter_tv)
+    x0 = torch.zeros((size, size), dtype=dtype, device=dev)
+
+    def make_metrics(proxf, proxg, pd: bool, a_op=None):
+        if not collect_metrics:
+            return None
+        if pd:
+            def cost(x):
+                return proxf(x) + proxg(a_op.matvec(x))
+        else:
+            def cost(x):
+                return proxf(x) + proxg(x)
+        return {
+            "cost": cost,
+            "err": lambda x: torch.linalg.norm(torch.ravel(x - img)),
+            "snr": lambda x: snr_fn(img, x),
+            "psnr": lambda x: psnr_fn(img, x),
+            "mse": lambda x: mse_fn(img, x),
+        }
+
+    results, series, timings = {}, {}, {}
+    for idx, (name, proxf, proxg, a_op) in enumerate(models):
+        label = f"{_model_name(idx)} ({name})"
+        sync()
+        t0 = time.perf_counter()
+        if compute_map:
+            out = adaptive_pdhg(proxf, proxg, a_op, x0, tau0, mu0, niter_map,
+                                metrics=make_metrics(proxf, proxg, True, a_op))
+            est, met = out.x, out.metrics
+        else:
+            if alg == "ULPDA":
+                if fused and ulpda_fused_supported(proxf, proxg, a_op, x0):
+                    kern = ulpda_sep_fused(proxf, proxg, a_op, tau=tau0, mu=mu0,
+                                           theta=1.0, gfirst=False)
+                else:
+                    kern = ulpda(proxf, proxg, a_op, tau=tau0, mu=mu0, theta=1.0,
+                                 gfirst=False)
+                metrics = make_metrics(proxf, proxg, True, a_op)
+            else:  # MYULA with the TV prox regularizer
+                if fused and sep_fused_supported(proxf.op, x0):
+                    kern = myula_imaging_sep_fused(proxf, tv.sigma, tau_myula,
+                                                   gamma_myula, niter_tv=tv.niter)
+                else:
+                    kern = myula_imaging(proxf, tv, tau=tau_myula,
+                                         gamma=gamma_myula)
+                metrics = make_metrics(proxf, tv, False)
+            res = run_chain(kern, x0, (seed, idx), n_steps, collect="stats",
+                            metrics=metrics)
+            est, met = res.moments.mean, res.metrics
+        sync()
+        timings[label] = time.perf_counter() - t0
+        results[label] = est.detach().cpu().numpy()
+        if met is not None:
+            series[label] = {k: v.detach().cpu().numpy() for k, v in met.items()}
+
+    branch = "MAP" if compute_map else alg
+    report = {}
+    for label, est in results.items():
+        est_t = torch.from_numpy(est).to(dev)
+        report[label] = {
+            "snr": float(snr_fn(img, est_t)),
+            "psnr": float(psnr_fn(img, est_t)),
+            "mse": float(mse_fn(img, est_t)),
+        }
+        print(
+            f"SNR of {branch} image with {label}: {report[label]['snr']:.3f}  "
+            f"PSNR: {report[label]['psnr']:.3f}  MSE: {report[label]['mse']:.5f}",
+            file=sys.stderr,
+        )
+    n_iters = niter_map if compute_map else n_steps
+    summary = {
+        "workload": "deconv",
+        "branch": branch,
+        "size": size,
+        "steps": n_iters,
+        "psnr_blurred": float(psnr_fn(img, y)),
+        "report": report,
+        "iters_per_sec": {m: round(n_iters / t, 2) for m, t in timings.items()},
+    }
+    print(json.dumps(summary))
+    return results, series, summary
+
+
+def main():
+    from lmc_atomi_torch.utils.cli import auto_cli
+
+    auto_cli(prox_lmc_deconv)
+
+
+if __name__ == "__main__":
+    main()

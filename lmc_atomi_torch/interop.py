@@ -14,14 +14,19 @@ import torch
 
 from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments
+from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import FusedChainResult
 from lmc_atomi_torch.ops.functionals import L2Data
-from lmc_atomi_torch.ops.linops import CirculantBlur2D
+from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D
+from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
 
 __all__ = [
     "blur_from_numpy",
+    "gradient_from_numpy",
     "l2data_from_numpy",
+    "l2ncvx_from_numpy",
     "fused_state_from_numpy",
+    "ulpda_state_from_numpy",
     "to_numpy",
 ]
 
@@ -39,9 +44,26 @@ def blur_from_numpy(eigs_re, eigs_im, h=None, hh=None, offset=(0, 0),
                            offset=tuple(int(o) for o in offset))
 
 
+def gradient_from_numpy(sampling: float = 1.0) -> Gradient2D:
+    """The JAX ``Gradient2D``'s counterpart (pass its ``sampling``)."""
+    return Gradient2D(sampling=float(sampling))
+
+
 def l2data_from_numpy(b, sigma: float, blur: CirculantBlur2D) -> L2Data:
     """``L2Data.create`` over ``blur`` for the observation ``b``."""
     return L2Data.create(op=blur, b=_t(b, blur.eigs.device), sigma=float(sigma))
+
+
+def l2ncvx_from_numpy(b, blur: CirculantBlur2D, op2: Optional[Gradient2D] = None,
+                      q=None, **fields) -> L2NcvxTV:
+    """An ``L2NcvxTV`` over ``blur`` for the observation ``b``: pass the JAX
+    functional's ``op2`` as its counterpart (``gradient_from_numpy``, or
+    None for ME-TV), its ``q`` as an array, and its scalar fields
+    (``sigma``, ``alpha``, ``lamda``, ``gamma``, ``isotropic``, ``qgrad``,
+    ``niter_inner``, ``niter_solve``) as keywords."""
+    device = blur.eigs.device
+    return L2NcvxTV(op=blur, b=_t(b, device), op2=op2, q=_t(q, device),
+                    **fields)
 
 
 def fused_state_from_numpy(x, mean, m2, count, qh=None, qn=None,
@@ -58,6 +80,24 @@ def fused_state_from_numpy(x, mean, m2, count, qh=None, qn=None,
         moments=RunningMoments(count=int(count), mean=_t(mean, device),
                                m2=_t(m2, device)),
         quantile_state=qstate,
+    )
+
+
+def ulpda_state_from_numpy(x, y, xbar, mean, m2, count,
+                           device=None) -> FusedChainResult:
+    """The state of a JAX ``run_ulpda_fused`` result: pass its
+    ``final_state.position``, ``final_state.extras.y`` (the stacked
+    Gradient2D dual), ``final_state.extras.xbar`` and
+    ``moments.mean/m2/count``. Continue the chain with
+    ``run_ulpda_fused(..., x0=res.final_state.position,
+    y0=res.final_state.extras.y, xbar0=res.final_state.extras.xbar,
+    step_offset=<steps done>)`` and merge the moments with
+    ``RunningMoments.merge``."""
+    return FusedChainResult(
+        final_state=SamplerState.init(
+            _t(x, device), extras=ULPDAExtras(y=_t(y, device), xbar=_t(xbar, device))),
+        moments=RunningMoments(count=int(count), mean=_t(mean, device),
+                               m2=_t(m2, device)),
     )
 
 

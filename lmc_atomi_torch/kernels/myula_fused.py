@@ -12,12 +12,14 @@ convolutions (``A^T A`` is circulant with the autocorrelation ``hh`` of a
 small PSF, factored on the host into ``hh = sum_r wy_r wx_r^T``), a
 Chambolle or FGP TV prox, Philox noise at the global step
 (``core/random.py``), burn-in-masked Welford moments and per-pixel P^2
-quantile markers.
+quantile markers. ``mode`` selects the data term: ``"tv"`` (``L2Data``), or
+the isotropic ``L2NcvxTV`` concave corrections ``"mctv"`` (the clamped
+gradient ``min(1/gamma, 1/|Gx|) Gx``) and ``"metv"`` (the Moreau envelope of
+TV, a second TV prox at ``gamma`` of ``niter_inner`` trips).
 
 ``myula_tv_block_update`` dispatches by device: ``csrc/myula_block.cu`` for
 CUDA tensors, ``myula_tv_block_update_ref`` (the same function in torch ops,
-term for term) for CPU tensors. Only the plain ``L2Data`` data term
-(``mode="tv"``) is ported; MC-TV/ME-TV come later.
+term for term) for CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,12 +34,14 @@ from lmc_atomi_torch.core.random import normal_field
 from lmc_atomi_torch.core.state import SamplerState, StepInfo
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.base import Kernel
+from lmc_atomi_torch.ops.linops import Gradient2D
 from lmc_atomi_torch.ops.tv import fgp_momentum
 from lmc_atomi_torch.ops.tv_cuda import _stencils
 from lmc_atomi_torch.run.runner import base_key
 
 __all__ = [
     "separable_gram_taps",
+    "sep_fused_supported",
     "myula_tv_block_update",
     "myula_tv_block_update_cuda",
     "myula_tv_block_update_ref",
@@ -48,10 +52,11 @@ __all__ = [
 
 Taps = Tuple[Tuple[Tuple[float, ...], Tuple[float, ...]], ...]
 
-_MAX_RANK = 4  # csrc/myula_block.cu: LMC_MAXR, LMC_MAXK, LMC_MAXQ
+_MAX_RANK = 4  # csrc/block_common.cuh: LMC_MAXR, LMC_MAXK; myula_block.cu: LMC_MAXQ
 _MAX_TAPS = 32
 _MAX_QUANTILES = 4
 _FGP_STEP = 0.125  # the dual gradient's 1/L
+MODES = ("tv", "mctv", "metv")  # the kernels' data-term modes, in their order
 
 
 def separable_gram_taps(hh, tol: float = 1e-6) -> Taps:
@@ -69,6 +74,18 @@ def separable_gram_taps(hh, tol: float = 1e-6) -> Taps:
             (tuple((scale * u[:, i]).tolist()), tuple((scale * vt[i, :]).tolist()))
         )
     return tuple(taps)
+
+
+def sep_fused_supported(op, x, max_rank: int = _MAX_RANK) -> bool:
+    """Whether the fused separable kernels apply to images like ``x``: ``x``
+    a 2-D float32 tensor on a CUDA device, ``op`` a circulant operator with a
+    cached small-PSF autocorrelation of separable rank at most ``max_rank``."""
+    hh = getattr(op, "hh", None)
+    if hh is None or not isinstance(x, torch.Tensor) or not x.is_cuda:
+        return False
+    if x.ndim != 2 or x.dtype != torch.float32 or max(hh.shape) > _MAX_TAPS:
+        return False
+    return len(separable_gram_taps(hh)) <= max_rank
 
 
 def _p2_coefs(p: float) -> Tuple[float, float, float]:
@@ -140,6 +157,31 @@ def _tv_prox_fgp(x, tv_gamma, niter, stencils, p0=None):
     return x - tv_gamma * div(py, px), (py, px)
 
 
+def _tv_prox_any(x, tv_gamma, niter, tv_solver, tv_step, stencils, p0=None):
+    """The TV prox of the block kernels: Chambolle at ``tv_step`` or FGP."""
+    if tv_solver == "fgp":
+        return _tv_prox_fgp(x, tv_gamma, niter, stencils, p0)
+    return _tv_prox(x, tv_gamma, niter, tv_step, stencils, p0)
+
+
+def _mctv_clamp(f, gamma_mc, stencils):
+    """MC-TV's clamped gradient ``min(1/gamma, 1/|G f|) G f`` (isotropic,
+    ``ncvx_tv.py::_grad_moreau``), as the pair (y, x)."""
+    fwd_y, fwd_x, _ = stencils
+    gy = fwd_y(f)
+    gx = fwd_x(f)
+    mag = torch.sqrt(gy * gy + gx * gx)
+    mag = torch.where(mag != 0.0, mag, 1e-9)
+    clamp = torch.clamp(1.0 / mag, max=1.0 / gamma_mc)
+    return clamp * gy, clamp * gx
+
+
+def _fgp_coef(niter: int) -> np.ndarray:
+    """FGP momentum for up to ``niter`` trips as the kernels' float32 array,
+    padded so it is never empty (Chambolle ignores it)."""
+    return np.array(fgp_momentum(niter) + (0.0,), np.float32)
+
+
 def _sort5(v):
     """Sort 5 fields elementwise (9 compare-exchange network)."""
     v = list(v)
@@ -190,9 +232,11 @@ def _p2_update(x, qs, ns, c_prev: int, coef):
     return q, n[1:4]
 
 
-def _check_block_args(taps, quantiles, quantile_thin, tv_solver):
+def _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode="tv"):
     if tv_solver not in ("chambolle", "fgp"):
         raise ValueError(f"unknown tv_solver {tv_solver!r}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     if not 1 <= len(taps) <= _MAX_RANK:
         raise ValueError(f"separable rank {len(taps)} outside 1..{_MAX_RANK}")
     if max(len(taps[0][0]), len(taps[0][1])) > _MAX_TAPS:
@@ -205,10 +249,13 @@ def _check_block_args(taps, quantiles, quantile_thin, tv_solver):
 
 def _update_coefs(scal_f):
     """``(1 - tau/gamma, tau, tau/gamma, noise_scale sqrt(2 tau), sigma,
-    tv_gamma)`` as Python floats."""
-    tau, gamma, tv_gamma, noise_scale, sigma = scal_f
+    tv_gamma, lamda, gamma_mc, 1/gamma_mc, lamda/gamma_mc)`` as Python
+    floats; ``scal_f`` without ``(lamda, gamma_mc)`` is the plain mode's."""
+    tau, gamma, tv_gamma, noise_scale, sigma = scal_f[:5]
+    lamda, gamma_mc = scal_f[5:7] if len(scal_f) > 5 else (0.0, 1.0)
     return (1.0 - tau / gamma, tau, tau / gamma,
-            noise_scale * math.sqrt(2.0 * tau), sigma, tv_gamma)
+            noise_scale * math.sqrt(2.0 * tau), sigma, tv_gamma,
+            lamda, gamma_mc, 1.0 / gamma_mc, lamda / gamma_mc)
 
 
 def myula_tv_block_update_ref(
@@ -216,11 +263,13 @@ def myula_tv_block_update_ref(
     taps: Taps, oy: int, ox: int, n_steps: int = 1, niter_tv: int = 10,
     tv_step: float = 0.25, with_noise: bool = True, with_stats: bool = True,
     tv_warm: bool = False, quantiles: Tuple[float, ...] = (),
-    quantile_thin: int = 1, tv_solver: str = "chambolle",
+    quantile_thin: int = 1, tv_solver: str = "chambolle", mode: str = "tv",
+    niter_inner: int = 10,
 ):
     """Plain torch version of kernel 2 (see ``myula_tv_block_update``)."""
-    _check_block_args(taps, quantiles, quantile_thin, tv_solver)
-    c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma = _update_coefs(scal_f)
+    _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode)
+    (c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma, lamda, gamma_mc, _,
+     c_env) = _update_coefs(scal_f)
     step0, burn, cnt0 = (int(v) for v in scal_i)
     seed, chain = base_key(seed)
     stencils = _stencils(x)
@@ -228,15 +277,19 @@ def myula_tv_block_update_ref(
     coefs = [_p2_coefs(p) for p in quantiles]
     qh_f = [qh[i] for i in range(5 * n_q)] if n_q else []
     qn_f = [qn[i] for i in range(3 * n_q)] if n_q else []
-    dual = None  # the warm dual starts from zeros at each call
+    _, _, div = stencils
+    dual = env = None  # the warm duals start from zeros at each call
     for i in range(n_steps):
         g = step0 + i
         grad = sigma * _sep_gram(x, taps, oy, ox) - atbs
-        p0 = dual if tv_warm else None
-        if tv_solver == "fgp":
-            prox, dual = _tv_prox_fgp(x, tv_gamma, niter_tv, stencils, p0)
-        else:
-            prox, dual = _tv_prox(x, tv_gamma, niter_tv, tv_step, stencils, p0)
+        if mode == "mctv":
+            grad = grad + lamda * div(*_mctv_clamp(x, gamma_mc, stencils))
+        elif mode == "metv":
+            p_env, env = _tv_prox_any(x, gamma_mc, niter_inner, tv_solver,
+                                      tv_step, stencils, env if tv_warm else None)
+            grad = grad - c_env * (x - p_env)
+        prox, dual = _tv_prox_any(x, tv_gamma, niter_tv, tv_solver, tv_step,
+                                  stencils, dual if tv_warm else None)
         x_new = c_keep * x - c_grad * grad + c_prox * prox
         if with_noise:
             x_new = x_new + noise_amp * normal_field(
@@ -267,12 +320,13 @@ def myula_tv_block_update_cuda(
     taps: Taps, oy: int, ox: int, n_steps: int = 1, niter_tv: int = 10,
     tv_step: float = 0.25, with_noise: bool = True, with_stats: bool = True,
     tv_warm: bool = False, quantiles: Tuple[float, ...] = (),
-    quantile_thin: int = 1, tv_solver: str = "chambolle",
+    quantile_thin: int = 1, tv_solver: str = "chambolle", mode: str = "tv",
+    niter_inner: int = 10,
 ):
     """Kernel 2 (``csrc/myula_block.cu``) on contiguous float32 CUDA tensors.
     Works on copies of ``x, mean, m2, qh, qn`` and returns them; raises on a
     CPU tensor or on shapes and options the kernel does not take."""
-    _check_block_args(taps, quantiles, quantile_thin, tv_solver)
+    _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode)
     if x.ndim != 2 or min(x.shape) < 2:
         raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
     ny, nx = x.shape
@@ -301,12 +355,14 @@ def myula_tv_block_update_cuda(
     tap_arr = np.array([v for wy, wx in taps for v in (*wy, *wx)], np.float32)
     coef = np.array(_update_coefs(scal_f), np.float32)
     fgp = tv_solver == "fgp"
-    # padded so the array is never empty; Chambolle ignores it
-    fgp_coef = np.array(fgp_momentum(niter_tv) + (0.0,), np.float32)
+    fgp_coef = _fgp_coef(max(niter_tv, niter_inner if mode == "metv" else 0))
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
     grad = torch.empty_like(x)
     tmp = torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
     duals = torch.empty((8, ny, nx), dtype=x.dtype, device=x.device)
+    # the envelope duals (metv) or the clamped gradient (mctv)
+    aux = None if mode == "tv" else torch.empty(
+        (8 if mode == "metv" else 2, ny, nx), dtype=x.dtype, device=x.device)
 
     def ptr(t, used):
         return t.data_ptr() if used else None
@@ -317,10 +373,12 @@ def myula_tv_block_update_cuda(
         rc = lib.lmc_myula_block(
             x.data_ptr(), atbs.data_ptr(), ptr(mean, with_stats),
             ptr(m2, with_stats), ptr(qh, n_q), ptr(qn, n_q),
-            grad.data_ptr(), tmp.data_ptr(), duals.data_ptr(), ny, nx,
+            grad.data_ptr(), tmp.data_ptr(), duals.data_ptr(),
+            ptr(aux, aux is not None), ny, nx,
             tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
             int(n_steps), int(niter_tv), float(tv_step), int(fgp),
-            fgp_coef.ctypes.data, int(tv_warm), int(bool(with_noise)),
+            fgp_coef.ctypes.data, int(tv_warm), MODES.index(mode),
+            int(niter_inner), int(bool(with_noise)),
             int(bool(with_stats)), qcoef.ctypes.data, n_q, int(quantile_thin),
             coef.ctypes.data, seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0,
             burn, cnt0, stream,
@@ -344,7 +402,9 @@ def myula_tv_block_update(x, *args, **kwargs):
     ``qh`` (5 heights per quantile) and ``qn`` (3 interior positions), each
     ``(k * len(quantiles), ny, nx)``. Observations are recorded at steps
     ``g >= burn_in`` with ``(g + 1) % quantile_thin == 0``. With ``tv_warm``
-    the TV dual carries across this call's steps. Returns
+    the TV dual (and in mode ``"metv"`` the envelope dual) carries across
+    this call's steps. The nonconvex modes take ``scal_f`` with
+    ``(lamda, gamma_mc)`` appended and ``niter_inner`` envelope trips. Returns
     ``(x', mean', m2', qh', qn')``. CUDA tensors run the hand kernel, CPU
     tensors its plain version.
     """
@@ -353,19 +413,31 @@ def myula_tv_block_update(x, *args, **kwargs):
     return myula_tv_block_update_ref(x, *args, **kwargs)
 
 
-def _fused_mode(l2) -> str:
-    """Only the plain L2Data data term is ported (``mode="tv"``)."""
-    if hasattr(l2, "lamda"):
-        raise NotImplementedError(
-            "the fused MC-TV/ME-TV data terms (L2NcvxTV) are not ported yet; "
-            "only mode='tv' (L2Data) is supported"
-        )
-    return "tv"
+def _fused_mode(l2) -> Tuple[str, float, float, int]:
+    """Classify the data term: ``L2Data`` -> ``"tv"``; isotropic ``L2NcvxTV``
+    -> ``"mctv"`` (``op2`` the forward-difference ``Gradient2D``) or
+    ``"metv"`` (``op2 is None``). Returns ``(mode, lamda, gamma_mc,
+    niter_inner)``; raises ``ValueError`` on a nonconvex term the kernels do
+    not take."""
+    if not hasattr(l2, "lamda"):
+        return "tv", 0.0, 1.0, 0
+    if not l2.isotropic:
+        raise ValueError("fused nonconvex MYULA supports isotropic TV only")
+    if l2.q is not None:
+        raise ValueError("fused nonconvex MYULA does not support a q term")
+    if l2.op2 is None:
+        mode = "metv"
+    elif isinstance(l2.op2, Gradient2D) and float(l2.op2.sampling) == 1.0:
+        mode = "mctv"
+    else:
+        raise ValueError("fused MC-TV needs op2 = Gradient2D(sampling=1)")
+    return mode, float(l2.lamda), float(l2.gamma), int(l2.niter_inner)
 
 
 def _fused_params(l2):
-    """Taps, offsets and ``sigma A^T b`` from an ``L2Data`` over a
-    ``CirculantBlur2D`` with a cached small-PSF autocorrelation."""
+    """Taps, offsets and ``sigma A^T b`` from an ``L2Data`` or isotropic
+    ``L2NcvxTV`` over a ``CirculantBlur2D`` with a cached small-PSF
+    autocorrelation."""
     _fused_mode(l2)
     op = l2.op
     hh = getattr(op, "hh", None)
@@ -380,9 +452,10 @@ def _fused_params(l2):
     return taps, (oy, ox), atbs
 
 
-def _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale):
+def _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda=0.0,
+                 gamma_mc=1.0):
     return (float(tau), float(gamma), float(tv_sigma * gamma),
-            float(noise_scale), float(l2.sigma))
+            float(noise_scale), float(l2.sigma), float(lamda), float(gamma_mc))
 
 
 def myula_imaging_sep_fused(l2: Any, tv_sigma: float, tau, gamma,
@@ -390,9 +463,12 @@ def myula_imaging_sep_fused(l2: Any, tv_sigma: float, tau, gamma,
                             noise_scale: float = 1.0) -> Kernel:
     """Kernel-protocol wrapper: ONE fused step per call, a drop-in for
     ``myula_imaging(l2, TVNorm(tv_sigma, niter_tv), tau, gamma)`` that draws
-    the same noise (the step key's ``(seed, chain, step)``)."""
+    the same noise (the step key's ``(seed, chain, step)``). ``l2`` is an
+    ``L2Data`` or an isotropic ``L2NcvxTV``."""
     taps, (oy, ox), atbs = _fused_params(l2)
-    scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale)
+    mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
+    scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda,
+                          gamma_mc)
 
     def init(x0):
         return SamplerState.init(x0)
@@ -402,7 +478,8 @@ def myula_imaging_sep_fused(l2: Any, tv_sigma: float, tau, gamma,
         x_new, _, _, _, _ = myula_tv_block_update(
             state.position, atbs, None, None, (seed, chain), scal_f, (g, 0, 0),
             taps=taps, oy=oy, ox=ox, n_steps=1, niter_tv=niter_tv,
-            with_noise=noise_scale != 0.0, with_stats=False,
+            with_noise=noise_scale != 0.0, with_stats=False, mode=mode,
+            niter_inner=niter_inner,
         )
         return state.next(x_new), StepInfo()
 
@@ -451,10 +528,13 @@ def run_myula_tv_fused(
     prior result's marker state, with ``step_offset`` the global step this run
     starts at, so burn-in masking, the P^2 observation count and the noise
     continue across segmented runs. ``tv_warm`` carries the TV dual across a
-    block's steps (zeros at each block); ``tv_solver="fgp"`` selects the
-    projected-dual FGP prox (pass ``niter_tv=8``).
+    block's steps (zeros at each block), and for an ME-TV data term the
+    envelope dual too; ``tv_solver="fgp"`` selects the projected-dual FGP
+    prox for both (pass ``niter_tv=8``). ``l2`` is an ``L2Data`` or an
+    isotropic ``L2NcvxTV``.
     """
     taps, (oy, ox), atbs = _fused_params(l2)
+    mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
     x0 = torch.as_tensor(x0)
     if block is None:
         block = min(n_steps, 256)
@@ -480,7 +560,8 @@ def run_myula_tv_fused(
                 f"quantile_thin={quantile_thin}"
             )
     n_blocks = n_steps // block
-    scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale)
+    scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda,
+                          gamma_mc)
     quantiles = tuple(float(p) for p in quantiles)
     n_q = len(quantiles)
     step_offset = int(step_offset)
@@ -508,7 +589,7 @@ def run_myula_tv_fused(
             taps=taps, oy=oy, ox=ox, n_steps=block, niter_tv=niter_tv,
             with_noise=noise_scale != 0.0, with_stats=True, tv_warm=tv_warm,
             quantiles=quantiles, quantile_thin=quantile_thin,
-            tv_solver=tv_solver,
+            tv_solver=tv_solver, mode=mode, niter_inner=niter_inner,
         )
     count = (max(step_offset + n_steps - burn_in, 0)
              - max(step_offset - burn_in, 0))

@@ -1,0 +1,421 @@
+"""Fused ULPDA, the Langevin primal-dual sampler (counterpart of
+``lmc_atomi_tpu/kernels/ulpda_fused.py``): kernel 3, its plain torch
+version, and the host-side block loop.
+
+One block call runs ``n_steps`` steps of ``kernels/imaging.py::ulpda`` for
+the deconvolution posterior: a forward-difference ``Gradient2D`` dual
+(``L21Norm``, ``"l21"``, or ``L1Norm``, ``"l1"``), a data term ``L2Data``
+(``mode="tv"``) or an isotropic ``L2NcvxTV`` (``"mctv"``/``"metv"``, the
+concave part linearized as in ``ops/ncvx_tv.py::prox``) over a circulant blur
+with a small PSF, and in place of the exact spectral solve of
+``(I + tau sigma A^T A) u = v + tau sigma A^T b`` a fixed-trip Chebyshev
+semi-iteration warm started at the current x, with ``A^T A`` as separable
+wrap convolutions (the taps of ``myula_fused.py``). Noise is the Philox
+normal at ``(seed, chain, step)`` (``core/random.py::normal_field``), so the
+fused and unfused samplers draw one stream. Both ``gfirst`` orders, Welford
+moments with burn-in.
+
+``ulpda_block_update`` dispatches by device: ``csrc/ulpda_block.cu`` for CUDA
+tensors, ``ulpda_block_update_ref`` (the same function in torch ops, term for
+term) for CPU tensors. The wavelet dual (``"wl1"``) and the lane-packed
+multi-chain runner are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lmc_atomi_torch import _build
+from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.core.state import SamplerState, StepInfo
+from lmc_atomi_torch.core.stats import RunningMoments
+from lmc_atomi_torch.kernels.base import Kernel
+from lmc_atomi_torch.kernels.imaging import ULPDAExtras
+from lmc_atomi_torch.kernels.myula_fused import (
+    MODES,
+    FusedChainResult,
+    Taps,
+    _check_block_args,
+    _fgp_coef,
+    _fused_mode,
+    _fused_params,
+    _mctv_clamp,
+    _sep_gram,
+    _tv_prox_any,
+    sep_fused_supported,
+)
+from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm
+from lmc_atomi_torch.ops.linops import Gradient2D
+from lmc_atomi_torch.ops.tv_cuda import _stencils
+from lmc_atomi_torch.run.runner import base_key
+
+__all__ = [
+    "ulpda_fused_supported",
+    "ulpda_block_update",
+    "ulpda_block_update_cuda",
+    "ulpda_block_update_ref",
+    "ulpda_sep_fused",
+    "run_ulpda_fused",
+]
+
+DUALS = ("l1", "l21")  # the kernel's dual flag: 1 for l21
+
+
+def ulpda_fused_supported(proxf, proxg, a_op, x) -> bool:
+    """Whether the fused ULPDA kernel applies: a ``Gradient2D(sampling=1)``
+    dual with ``L21Norm``/``L1Norm``, a data term the MYULA block takes
+    (``myula_fused._fused_mode``) over an operator that
+    ``sep_fused_supported`` accepts for images like ``x`` (on a CUDA
+    device)."""
+    if not isinstance(a_op, Gradient2D) or float(a_op.sampling) != 1.0:
+        return False
+    if not isinstance(proxg, (L21Norm, L1Norm)):
+        return False
+    if not sep_fused_supported(getattr(proxf, "op", None), x):
+        return False
+    try:
+        _fused_mode(proxf)
+    except ValueError:
+        return False
+    return True
+
+
+def _chebyshev_coefs(ts: float, lam: float, niter: int) -> List[Tuple[float, float]]:
+    """Per-sweep ``(c_d, c_r)`` of the Chebyshev semi-iteration on the
+    spectrum bound ``[1, 1 + ts lam]``, in Python floats: sweep 0 takes
+    ``d = r c_r`` (``c_r = 1/theta``), sweep k > 0
+    ``d = c_d d + c_r r`` (``c_d = rho_k rho_{k-1}``,
+    ``c_r = 2 rho_k / delta``). Kernel and plain version take the same
+    floats, so they round alike."""
+    a, b = 1.0, 1.0 + ts * lam
+    theta = 0.5 * (b + a)
+    delta = 0.5 * (b - a)
+    sigma = theta / delta
+    out = [(0.0, 1.0 / theta)] if niter > 0 else []
+    rho_prev = 1.0 / sigma
+    for _ in range(1, niter):
+        rho = 1.0 / (2.0 * sigma - rho_prev)
+        out.append((rho * rho_prev, 2.0 * rho / delta))
+        rho_prev = rho
+    return out
+
+
+def _chebyshev_gram_solve(rhs, u0, ts, lam, taps, oy, ox, niter: int):
+    """Fixed-trip Chebyshev semi-iteration for ``(I + ts A^T A) u = rhs``,
+    warm started at ``u0``, spectrum bound ``[1, 1 + ts lam]`` (error after
+    K sweeps at most ``2 / cosh(K acosh(sigma))`` of the start's)."""
+    u, d = u0, None
+    for k, (c_d, c_r) in enumerate(_chebyshev_coefs(ts, lam, niter)):
+        r = rhs - (u + ts * _sep_gram(u, taps, oy, ox))
+        d = r * c_r if k == 0 else c_d * d + c_r * r
+        u = u + d
+    return u
+
+
+def _block_coefs(scal_f):
+    """``(tau, mu, theta, noise_scale sqrt(2 tau), tau sigma, g_sigma,
+    tau lamda, gamma_mc, 1/gamma_mc, tau lamda / gamma_mc)`` as Python floats
+    from ``scal_f = (tau, mu, theta, noise_scale, sigma, g_sigma[, lamda,
+    gamma_mc])``."""
+    tau, mu, theta, noise_scale, sigma, g_sigma = (float(v) for v in scal_f[:6])
+    lamda, gamma_mc = ((float(scal_f[6]), float(scal_f[7])) if len(scal_f) > 6
+                       else (0.0, 1.0))
+    return (tau, mu, theta, noise_scale * math.sqrt(2.0 * tau), tau * sigma,
+            g_sigma, tau * lamda, gamma_mc, 1.0 / gamma_mc,
+            tau * lamda / gamma_mc)
+
+
+def _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve):
+    _check_block_args(taps, (), 1, tv_solver, mode)
+    if dual not in DUALS:
+        raise ValueError(
+            f"dual {dual!r}: the port's fused ULPDA takes the Gradient2D duals "
+            f"{DUALS}; the wavelet dual 'wl1' is not ported yet")
+    if niter_solve < 0:
+        raise ValueError("niter_solve must be >= 0")
+
+
+def ulpda_block_update_ref(
+    x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *,
+    taps: Taps, oy: int, ox: int, lam: float = 1.0, n_steps: int = 1,
+    niter_solve: int = 3, tv_step: float = 0.25, gfirst: bool = False,
+    dual: str = "l21", mode: str = "tv", niter_inner: int = 10,
+    with_noise: bool = True, tv_solver: str = "chambolle",
+    with_stats: bool = True, env_warm: bool = False,
+):
+    """Plain torch version of kernel 3 (see ``ulpda_block_update``)."""
+    _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
+    (tau, mu, theta, noise_amp, ts, g_sigma, c_mc, gamma_mc, _,
+     c_me) = _block_coefs(scal_f)
+    step0, burn, cnt0 = (int(v) for v in scal_i)
+    seed, chain = base_key(seed)
+    stencils = _stencils(x)
+    fwd_y, fwd_x, div = stencils
+
+    def dual_update(py, px, xbar):
+        py = py + mu * fwd_y(xbar)
+        px = px + mu * fwd_x(xbar)
+        if dual == "l21":
+            nrm = torch.sqrt(py * py + px * px)
+            # g_sigma / n, written as torch computes it: (1 / n) * g_sigma
+            scale = torch.clamp(
+                torch.reciprocal(torch.clamp(nrm, min=1e-30)) * g_sigma, max=1.0)
+            return py * scale, px * scale
+        return (torch.clamp(py, -g_sigma, g_sigma),
+                torch.clamp(px, -g_sigma, g_sigma))
+
+    env = None  # the warm envelope dual starts from zeros at each call
+    for i in range(n_steps):
+        g = step0 + i
+        if gfirst:
+            py, px = dual_update(py, px, xbar)
+        aty = -div(py, px)
+        v = x - tau * aty
+        if mode == "mctv":
+            v = v - c_mc * div(*_mctv_clamp(v, gamma_mc, stencils))
+        elif mode == "metv":
+            p, env = _tv_prox_any(v, gamma_mc, niter_inner, tv_solver, tv_step,
+                                  stencils, env if env_warm else None)
+            v = v + c_me * (v - p)
+        rhs = v + ts * atb
+        x_new = _chebyshev_gram_solve(rhs, x, ts, lam, taps, oy, ox, niter_solve)
+        if with_noise:
+            x_new = x_new + noise_amp * normal_field(
+                seed, chain, g, x.shape, x.dtype, x.device)
+        xbar = x_new + theta * (x_new - x)
+        if not gfirst:
+            py, px = dual_update(py, px, xbar)
+        if with_stats:
+            n_new = cnt0 + max(g + 1 - max(burn, step0), 0)
+            wf = float(g >= burn)
+            delta = x_new - mean
+            mean = mean + wf * delta / float(max(n_new, 1))
+            m2 = m2 + wf * delta * (x_new - mean)
+        x = x_new
+    return x, py, px, xbar, mean, m2
+
+
+def ulpda_block_update_cuda(
+    x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *,
+    taps: Taps, oy: int, ox: int, lam: float = 1.0, n_steps: int = 1,
+    niter_solve: int = 3, tv_step: float = 0.25, gfirst: bool = False,
+    dual: str = "l21", mode: str = "tv", niter_inner: int = 10,
+    with_noise: bool = True, tv_solver: str = "chambolle",
+    with_stats: bool = True, env_warm: bool = False,
+):
+    """Kernel 3 (``csrc/ulpda_block.cu``) on contiguous float32 CUDA tensors.
+    Works on copies of ``x, py, px, xbar, mean, m2`` and returns them
+    (``xbar`` may be None for ``gfirst=False``, which never reads it); raises
+    on a CPU tensor or on shapes and options the kernel does not take."""
+    _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
+    if x.ndim != 2 or min(x.shape) < 2:
+        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
+    ny, nx = x.shape
+    fields = {"x": x, "py": py, "px": px, "atb": atb}
+    if gfirst:
+        fields["xbar"] = xbar
+    if with_stats:
+        fields.update(mean=mean, m2=m2)
+    _build.require_cuda_f32((ny, nx), **fields)
+    step0, burn, cnt0 = (int(v) for v in scal_i)
+    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
+        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
+                         "outside the kernel's uint32 step counter")
+    seed, chain = base_key(seed)
+
+    x, py, px = x.clone(), py.clone(), px.clone()
+    xbar = xbar.clone() if gfirst else torch.empty_like(x)
+    if with_stats:
+        mean, m2 = mean.clone(), m2.clone()
+    rank, ky, kx = len(taps), len(taps[0][0]), len(taps[0][1])
+    tap_arr = np.array([v for wy, wx in taps for v in (*wy, *wx)], np.float32)
+    coefs = _block_coefs(scal_f)
+    coef = np.array(coefs, np.float32)
+    # padded so the array is never empty
+    cheb = np.array(_chebyshev_coefs(coefs[4], lam, niter_solve) or [(0.0, 0.0)],
+                    np.float32)
+    fgp_coef = _fgp_coef(niter_inner if mode == "metv" else 0)
+    scratch = torch.empty((5, ny, nx), dtype=x.dtype, device=x.device)
+    tmp = torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
+    # the envelope duals (metv) or the clamped gradient (mctv)
+    aux = None if mode == "tv" else torch.empty(
+        (8 if mode == "metv" else 2, ny, nx), dtype=x.dtype, device=x.device)
+
+    def ptr(t, used):
+        return t.data_ptr() if used else None
+
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lmc_ulpda_block(
+            x.data_ptr(), py.data_ptr(), px.data_ptr(), xbar.data_ptr(),
+            atb.data_ptr(), ptr(mean, with_stats), ptr(m2, with_stats),
+            *(scratch[i].data_ptr() for i in range(5)), tmp.data_ptr(),
+            ptr(aux, aux is not None), ny, nx,
+            tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
+            int(n_steps), int(niter_solve), cheb.ctypes.data,
+            int(bool(gfirst)), DUALS.index(dual), MODES.index(mode),
+            int(niter_inner), float(tv_step), int(tv_solver == "fgp"),
+            fgp_coef.ctypes.data, int(bool(env_warm)),
+            int(bool(with_noise)), int(bool(with_stats)), coef.ctypes.data,
+            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+        )
+    _build.check(rc, "lmc_ulpda_block")
+    ulpda_block_update_cuda.launches += 1
+    return x, py, px, xbar, mean, m2
+
+
+ulpda_block_update_cuda.launches = 0  # calls that launched the kernel
+
+
+def ulpda_block_update(x, *args, **kwargs):
+    """``n_steps`` fused ULPDA steps (+ Welford), kernel 3.
+
+    ``(py, px)`` is the Gradient2D dual, ``xbar`` the extrapolated iterate
+    (read only with ``gfirst``), ``atb = A^T b`` (unscaled); ``seed`` is a
+    seed or ``(seed, chain)``; ``scal_f = (tau, mu, theta, noise_scale,
+    sigma, g_sigma[, lamda, gamma_mc])`` with ``sigma`` the data term's and
+    ``g_sigma`` the dual norm's radius; ``scal_i = (step0, burn_in,
+    count0)``. ``lam`` bounds ``lambda_max(A^T A)`` (``sum |hh|``);
+    ``niter_solve`` Chebyshev sweeps; ``dual`` ``"l21"``/``"l1"``; ``mode``
+    ``"tv"``/``"mctv"``/``"metv"`` with ``niter_inner`` envelope trips of
+    ``tv_solver``, whose dual carries across this call's steps with
+    ``env_warm``. Returns ``(x', py', px', xbar', mean', m2')``; ``xbar'`` is
+    the genuine ``x' + theta (x' - x)`` in both orders. CUDA tensors run the
+    hand kernel, CPU tensors its plain version.
+    """
+    if x.is_cuda:
+        return ulpda_block_update_cuda(x, *args, **kwargs)
+    return ulpda_block_update_ref(x, *args, **kwargs)
+
+
+def _ulpda_setup(proxf, proxg, a_op):
+    """Taps, offsets, ``A^T b``, the mode and its scalars, the dual and the
+    spectrum bound ``lam = sum |hh| >= lambda_max(A^T A)`` (exact for a
+    nonnegative PSF)."""
+    if not isinstance(a_op, Gradient2D) or float(a_op.sampling) != 1.0:
+        raise ValueError(
+            "the port's fused ULPDA takes a Gradient2D(sampling=1) dual; the "
+            "wavelet dual is not ported yet")
+    taps, (oy, ox), atbs = _fused_params(proxf)
+    mode, lamda, gamma_mc, niter_inner = _fused_mode(proxf)
+    atb = atbs / proxf.sigma
+    dual = "l21" if isinstance(proxg, L21Norm) else "l1"
+    lam = float(torch.abs(proxf.op.hh).sum())
+    return taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual, lam
+
+
+def _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
+                     gamma_mc):
+    return (float(tau), float(mu), float(theta), float(noise_scale),
+            float(proxf.sigma), float(proxg.sigma), float(lamda),
+            float(gamma_mc))
+
+
+def ulpda_sep_fused(proxf: Any, proxg: Any, a_op: Any, tau, mu,
+                    theta: float = 1.0, gfirst: bool = False,
+                    niter_solve: int = 3, noise_scale: float = 1.0) -> Kernel:
+    """Kernel-protocol wrapper: ONE fused ULPDA step per call, a drop-in for
+    ``ulpda(proxf, proxg, a_op, tau, mu, theta, gfirst=...)`` that draws the
+    same noise (the step key's ``(seed, chain, step)``)."""
+    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
+     lam) = _ulpda_setup(proxf, proxg, a_op)
+    scal_f = _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
+                              gamma_mc)
+
+    def init(x0, y0=None):
+        y = torch.zeros((2,) + tuple(x0.shape), dtype=x0.dtype,
+                        device=x0.device) if y0 is None else y0
+        return SamplerState.init(x0, extras=ULPDAExtras(y=y, xbar=x0))
+
+    def step(state, key):
+        seed, chain, g = key
+        y = state.extras.y
+        x_n, py_n, px_n, xb_n, _, _ = ulpda_block_update(
+            state.position, y[0], y[1], state.extras.xbar if gfirst else None,
+            atb, None, None, (seed, chain), scal_f, (g, 0, 0),
+            taps=taps, oy=oy, ox=ox, lam=lam, n_steps=1,
+            niter_solve=niter_solve, gfirst=gfirst, dual=dual, mode=mode,
+            niter_inner=niter_inner, with_noise=noise_scale != 0.0,
+            with_stats=False,
+        )
+        extras = ULPDAExtras(y=torch.stack([py_n, px_n]), xbar=xb_n)
+        return state.next(x_n, extras=extras), StepInfo()
+
+    return Kernel(init, step)
+
+
+def run_ulpda_fused(
+    proxf: Any,
+    proxg: Any,
+    a_op: Any,
+    tau,
+    mu,
+    x0,
+    key,
+    n_steps: int,
+    *,
+    theta: float = 1.0,
+    gfirst: bool = False,
+    niter_solve: int = 3,
+    burn_in: int = 0,
+    block: Optional[int] = None,
+    noise_scale: float = 1.0,
+    env_warm: bool = False,
+    niter_inner: Optional[int] = None,
+    tv_solver: str = "chambolle",
+    y0=None,
+    xbar0=None,
+    step_offset: int = 0,
+) -> FusedChainResult:
+    """Block-fused ULPDA chain: a host loop over blocks of ``block`` fused
+    steps (kernel 3 per block on CUDA), with Welford posterior moments
+    (``burn_in`` in steps).
+
+    ``key`` is a seed or ``(seed, chain)``. ``env_warm`` (ME-TV data terms)
+    carries the envelope dual across a block's steps (zeros at each block);
+    ``niter_inner`` overrides the data term's envelope trip count. ``y0``,
+    ``xbar0`` and ``step_offset`` continue a chain: the dual and xbar of a
+    previous result's ``final_state.extras`` and the global step this run
+    starts at, so that burn-in masking and the noise continue; merge the
+    moments with ``RunningMoments.merge``. ``final_state.extras.xbar`` is the
+    genuine extrapolated iterate in both orders; continue a ``gfirst=False``
+    state with ``gfirst=False``.
+    """
+    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner_l2, dual,
+     lam) = _ulpda_setup(proxf, proxg, a_op)
+    if niter_inner is None:
+        niter_inner = niter_inner_l2
+    x0 = torch.as_tensor(x0)
+    if block is None:
+        block = min(n_steps, 128)
+    while n_steps % block:
+        block -= 1
+    scal_f = _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
+                              gamma_mc)
+    step_offset = int(step_offset)
+    zeros = torch.zeros_like(x0)
+    x, mean, m2 = x0, zeros, zeros
+    py, px = (zeros, zeros) if y0 is None else (y0[0], y0[1])
+    xbar = x0 if xbar0 is None else xbar0
+    for b in range(n_steps // block):
+        step0 = step_offset + b * block
+        cnt0 = max(step0 - max(burn_in, step_offset), 0)
+        x, py, px, xbar, mean, m2 = ulpda_block_update(
+            x, py, px, xbar, atb, mean, m2, key, scal_f,
+            (step0, burn_in, cnt0), taps=taps, oy=oy, ox=ox, lam=lam,
+            n_steps=block, niter_solve=niter_solve, gfirst=gfirst, dual=dual,
+            mode=mode, niter_inner=niter_inner,
+            with_noise=noise_scale != 0.0, with_stats=True,
+            env_warm=env_warm and mode == "metv", tv_solver=tv_solver,
+        )
+    count = (max(step_offset + n_steps - burn_in, 0)
+             - max(step_offset - burn_in, 0))
+    return FusedChainResult(
+        final_state=SamplerState.init(
+            x, extras=ULPDAExtras(y=torch.stack([py, px]), xbar=xbar)),
+        moments=RunningMoments(count=count, mean=mean, m2=m2),
+    )

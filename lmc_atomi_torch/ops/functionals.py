@@ -1,7 +1,7 @@
-"""Functionals of the main path (counterpart of
-``lmc_atomi_tpu/ops/functionals.py``): the data term ``L2Data`` and the
-isotropic TV prior ``TVNorm``, with the ``__call__``/``grad``/``prox``
-protocol of pyproximal."""
+"""Functionals (counterpart of ``lmc_atomi_tpu/ops/functionals.py``): the
+data term ``L2Data``, the isotropic TV prior ``TVNorm`` and the primal-dual
+regularizers ``L1Norm``/``L21Norm``, with the
+``__call__``/``grad``/``prox``/``proxdual`` protocol of pyproximal."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,8 +10,9 @@ from typing import Any, Optional
 import torch
 
 from lmc_atomi_torch.ops import tv as tv_ops
+from lmc_atomi_torch.ops.prox import prox_laplace
 
-__all__ = ["L2Data", "TVNorm"]
+__all__ = ["L2Data", "L1Norm", "L21Norm", "TVNorm"]
 
 
 @dataclass
@@ -21,20 +22,24 @@ class L2Data:
 
     Build with :meth:`create` over a circulant operator to cache the
     half-plane spectrum ``conj(E) rfft2(b)``, so that ``grad`` costs one
-    ``rfft2`` and one ``irfft2``.
+    ``rfft2`` and one ``irfft2``. ``niter_solve`` is kept for the JAX
+    package's signature; the circulant solve here is exact and ignores it.
     """
 
     op: Any
     b: torch.Tensor
     sigma: float = 1.0
+    niter_solve: int = 50
     b_spec: Optional[torch.Tensor] = None
 
     @classmethod
-    def create(cls, op, b, sigma: float = 1.0) -> "L2Data":
+    def create(cls, op, b, sigma: float = 1.0,
+               niter_solve: int = 50) -> "L2Data":
         b_spec = None
         if hasattr(op, "_half") and not b.is_complex():
             b_spec = op._half().conj() * torch.fft.rfft2(b)
-        return cls(op=op, b=b, sigma=sigma, b_spec=b_spec)
+        return cls(op=op, b=b, sigma=sigma, niter_solve=niter_solve,
+                   b_spec=b_spec)
 
     def __call__(self, x):
         return 0.5 * self.sigma * torch.sum(torch.square(self.op.matvec(x) - self.b))
@@ -49,7 +54,47 @@ class L2Data:
 
     def prox(self, x, tau):
         y = x + tau * self.sigma * self.op.rmatvec(self.b)
-        return self.op.gram_solve(tau * self.sigma, y)
+        return self.op.gram_solve(tau * self.sigma, y, niter=self.niter_solve)
+
+
+@dataclass
+class L1Norm:
+    """``g(z) = sigma ||z||_1``: the anisotropic TV regularizer when composed
+    with a gradient operator."""
+
+    sigma: float = 1.0
+
+    def __call__(self, z):
+        return self.sigma * torch.sum(torch.abs(z))
+
+    def prox(self, z, tau):
+        return prox_laplace(z, tau * self.sigma)
+
+    def proxdual(self, z, mu):
+        """Projection onto the l-inf ball of radius sigma (independent of mu)."""
+        return torch.clamp(z, -self.sigma, self.sigma)
+
+
+@dataclass
+class L21Norm:
+    """``g(z) = sigma sum_i ||z_i||_2`` over the leading axis: the isotropic
+    TV regularizer of the primal-dual samplers, ``z`` of shape
+    ``(ndim, ...)``."""
+
+    sigma: float = 1.0
+
+    def __call__(self, z):
+        return self.sigma * torch.sum(torch.sqrt(torch.sum(z * z, dim=0)))
+
+    def prox(self, z, tau):
+        nrm = torch.sqrt(torch.sum(z * z, dim=0, keepdim=True))
+        return z * torch.clamp(
+            1.0 - tau * self.sigma / torch.clamp(nrm, min=1e-30), min=0.0)
+
+    def proxdual(self, z, mu):
+        """Per-group projection onto the l2 ball of radius sigma."""
+        nrm = torch.sqrt(torch.sum(z * z, dim=0, keepdim=True))
+        return z * torch.clamp(self.sigma / torch.clamp(nrm, min=1e-30), max=1.0)
 
 
 @dataclass

@@ -1,6 +1,6 @@
-"""Linear operators of the main path (counterpart of
-``lmc_atomi_tpu/ops/linops.py``): the blur kernels and the FFT-diagonal
-``CirculantBlur2D``.
+"""Linear operators (counterpart of ``lmc_atomi_tpu/ops/linops.py``): the
+blur kernels, the FFT-diagonal ``CirculantBlur2D`` and the forward-difference
+``Gradient2D`` of the primal-dual samplers.
 
 Spectra are complex tensors. The JAX package stores them as real/imag float
 pairs only because its TPU runtime rejected complex arrays at the transfer
@@ -14,7 +14,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["CirculantBlur2D", "uniform_kernel", "gaussian_kernel"]
+from lmc_atomi_torch.ops.tv import _fwd_diff, _fwd_diff_adjoint_neg
+
+__all__ = ["CirculantBlur2D", "Gradient2D", "uniform_kernel", "gaussian_kernel"]
 
 
 def uniform_kernel(size: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -106,3 +108,23 @@ class CirculantBlur2D:
 
     def max_gram_eig(self, probe=None, iters: int = 0):
         return torch.max(self.eigs.real ** 2 + self.eigs.imag ** 2)
+
+
+@dataclass(frozen=True)
+class Gradient2D:
+    """Forward-difference gradient with a zeroed last row/column (pylops
+    ``Gradient(kind='forward', edge=False)``). Output is stacked
+    ``(2, ny, nx)``, d/dy first; the adjoint is the exact negative
+    divergence."""
+
+    sampling: float = 1.0
+
+    def matvec(self, x):
+        return torch.stack([_fwd_diff(x, 0), _fwd_diff(x, 1)]) / self.sampling
+
+    def rmatvec(self, p):
+        return -(_fwd_diff_adjoint_neg(p[0], 0)
+                 + _fwd_diff_adjoint_neg(p[1], 1)) / self.sampling
+
+    def max_gram_eig(self, probe=None, iters: int = 0):
+        return torch.tensor(8.0 / self.sampling**2)

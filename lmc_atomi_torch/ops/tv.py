@@ -16,9 +16,12 @@ __all__ = [
     "grad2d",
     "div2d",
     "tv_iso",
+    "tv_aniso",
+    "tv1d",
     "prox_tv_iso",
     "prox_tv_iso_proj",
     "fgp_momentum",
+    "prox_tv1d",
 ]
 
 
@@ -55,6 +58,17 @@ def tv_iso(x):
     """Isotropic TV value: sum of per-pixel gradient-vector norms."""
     g = grad2d(x)
     return torch.sum(torch.sqrt(torch.sum(g * g, dim=0)))
+
+
+def tv_aniso(x):
+    """Anisotropic TV value: l1 norm of all forward differences."""
+    return torch.sum(torch.abs(grad2d(x)))
+
+
+def tv1d(x):
+    """1-D TV of a flattened signal (the ME-TV anisotropic mode's prior,
+    reference algs.py:169-170)."""
+    return torch.sum(torch.abs(x[1:] - x[:-1]))
 
 
 def prox_tv_iso(x, gamma, niter: int = 10, step: float = 0.25):
@@ -101,3 +115,20 @@ def prox_tv_iso_proj(x, gamma, niter: int = 10, step: float = 0.125,
         for _ in range(niter):
             p = ascend(p)
     return x - gamma * div2d(p)
+
+
+def _grad1d(x):
+    return _fwd_diff(x, 0)
+
+
+def _div1d(p):
+    return _fwd_diff_adjoint_neg(p, 0)
+
+
+def prox_tv1d(x, gamma, niter: int = 10, step: float = 0.25):
+    """Prox of 1-D TV on a flat vector (dual projection, fixed trips)."""
+    p = torch.zeros_like(x)
+    for _ in range(niter):
+        g = _grad1d(_div1d(p) - x / gamma)
+        p = (p + step * g) / (1.0 + step * torch.abs(g))
+    return x - gamma * _div1d(p)

@@ -1,1 +1,1 @@
-"""Test images."""
+"""Test images and the command-line wrapper."""

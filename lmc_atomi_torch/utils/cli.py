@@ -1,0 +1,55 @@
+"""Auto-CLI (counterpart of ``lmc_atomi_tpu/utils/cli.py``, copied: that
+package imports JAX): every keyword argument of the main function becomes
+``--name value`` / ``--name=value``, typed from its default. Booleans accept
+true/false/1/0; None-defaulted args are parsed as python literals.
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import inspect
+from typing import Any, Callable
+
+
+def _parse_none(v: str) -> Any:
+    if v.lower() in ("none", "null"):
+        return None
+    try:
+        return ast.literal_eval(v)
+    except (SyntaxError, ValueError):
+        return v
+
+
+def _bool(v: str) -> bool:
+    if v.lower() in ("1", "true", "yes", "y"):
+        return True
+    if v.lower() in ("0", "false", "no", "n"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {v}")
+
+
+def auto_cli(fn: Callable, argv=None) -> Any:
+    """Build an argparse CLI from ``fn``'s signature and invoke it."""
+    sig = inspect.signature(fn)
+    doc_lines = (fn.__doc__ or "").strip().splitlines()
+    parser = argparse.ArgumentParser(
+        prog=fn.__name__, description=doc_lines[0] if doc_lines else None
+    )
+    for name, p in sig.parameters.items():
+        if p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            continue
+        flag = "--" + name
+        if p.default is inspect.Parameter.empty:
+            parser.add_argument(flag, required=True, type=_parse_none)
+        elif isinstance(p.default, bool):
+            parser.add_argument(flag, type=_bool, default=p.default)
+        elif isinstance(p.default, int):
+            parser.add_argument(flag, type=int, default=p.default)
+        elif isinstance(p.default, float):
+            parser.add_argument(flag, type=float, default=p.default)
+        elif isinstance(p.default, str):
+            parser.add_argument(flag, type=str, default=p.default)
+        else:
+            parser.add_argument(flag, type=_parse_none, default=p.default)
+    args = vars(parser.parse_args(argv))
+    return fn(**args)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["phantom"]
+__all__ = ["phantom", "load_image"]
 
 
 def phantom(n: int = 512, dtype=np.float32) -> np.ndarray:
@@ -42,3 +42,19 @@ def phantom(n: int = 512, dtype=np.float32) -> np.ndarray:
     img = np.where(mask, 140.0 + tex, img)
 
     return img.astype(dtype)
+
+
+# the JAX package's other named images; they need utils/png.py, not ported yet
+_NOT_PORTED = ("einstein", "hopper", "mri", "terrain")
+
+
+def load_image(name: str, n: int = 512, dtype=np.float32) -> np.ndarray:
+    """Named test image. Only ``'phantom'`` is ported: the photographs and
+    ``'terrain'`` wait for the port of ``utils/png.py``."""
+    if name == "phantom":
+        return phantom(n, dtype)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"test image {name!r} is not ported yet (needs utils/png.py); "
+            "use 'phantom'")
+    raise ValueError(f"unknown test image {name!r}")

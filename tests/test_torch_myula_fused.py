@@ -190,11 +190,14 @@ def test_fused_options_validated(problem):
         t_fused.run_myula_tv_fused(tl2, 0.3, TAU, GAMMA, x0, 0, 2,
                                    tv_solver="admm")
 
-    class NcvxLike:
-        lamda = 0.3
-
-    with pytest.raises(NotImplementedError, match="mode='tv'"):
-        t_fused.run_myula_tv_fused(NcvxLike(), 0.3, TAU, GAMMA, x0, 0, 2)
+    # the nonconvex data terms the kernel does not take
+    b = np.asarray(tl2.b)
+    aniso = interop.l2ncvx_from_numpy(b, tl2.op, op2=None, isotropic=False)
+    with pytest.raises(ValueError, match="isotropic"):
+        t_fused.run_myula_tv_fused(aniso, 0.3, TAU, GAMMA, x0, 0, 2)
+    with_q = interop.l2ncvx_from_numpy(b, tl2.op, op2=None, isotropic=True, q=b)
+    with pytest.raises(ValueError, match="q term"):
+        t_fused.run_myula_tv_fused(with_q, 0.3, TAU, GAMMA, x0, 0, 2)
 
 
 def test_block_update_cuda_raises_on_cpu_tensors(problem):
