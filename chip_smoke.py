@@ -15,7 +15,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    then both timed per solver and mode with CUDA events;
 5. kernel 3 (``ulpda_block_update_cuda``) the same way for the
    deconvolution models (l21/tv, l1/mctv, l21/metv in both ``gfirst``
-   orders, and FGP with the warm envelope dual), then timed per mode;
+   orders, FGP with the warm envelope dual, and model M10's 4-level Haar
+   ``wl1`` dual in both orders), then timed per mode;
+5b. kernels 4 and 5 (``wavelet_block_update_cuda``,
+   ``ulpda_wavelet_block_update_cuda``) the same way on the 512^2
+   inpainting posterior: kernel 4 for Haar, D4 and D8 and Haar with 95% CI
+   markers, kernel 5 for each filter in both orders; then timed;
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
@@ -23,18 +28,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
    Each is warmed up with another seed and timed; the posterior-mean PSNR
    must reach 40 dB and agree with the unfused path within 0.1 dB;
 7. the deconvolution path: ``prox_lmc_deconv`` at 512^2 for ULPDA and MYULA
-   (1000 steps, 9 models, fused kernels) and the MAP branch (1000 adaptive
-   PDHG iterations), the two sampling grids again unfused (the same Philox
-   stream chain for chain), and ``run_ulpda_fused`` for TV, MC-TV and ME-TV
-   (k5) timed at 20000 steps. The k5 PSNRs must reach the JAX package's
-   (RESULTS.md) less 1 dB, and fused and unfused must agree within 0.1 dB;
-8. profile: torch.profiler windows of the deconvolution cells (a fused ULPDA
-   block, the one-step fused grid with its metrics, the MAP iteration).
+   (1000 steps, 10 models with the wavelet row M10, fused kernels) and the
+   MAP branch (1000 adaptive PDHG iterations), the two sampling grids again
+   unfused (the same Philox stream chain for chain), and ``run_ulpda_fused``
+   for TV, MC-TV and ME-TV (k5) timed at 20000 steps. The k5 and M10 PSNRs
+   must reach the JAX package's (RESULTS.md) less 1 dB, and fused and
+   unfused must agree within 0.1 dB;
+8. the inpainting path (512^2 phantom, half the pixels missing, noise 0.1,
+   wavelet-l1 weight 5): ``wavelet_inpainting`` with all 5 rows (2000 steps,
+   burn-in 200, Haar), the fused D4 and D8 chains, timed 20000-step Haar
+   chains (MYULA, MYULA with 95% CI maps, ULPDA), and a
+   ``run_resumable_fused(runner="wavelet")`` restarted from its checkpoint
+   against the straight run, with the RESULTS.md PSNR gates less 1 dB and
+   fused within 0.1 dB of unfused;
+9. profile: torch.profiler windows of the deconvolution cells (a fused ULPDA
+   block, the one-step fused grid with its metrics, the MAP iteration) and of
+   the inpainting cells (a fused Haar MYULA block, the unfused MYULA step).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; each of its kernels must have launched. The script then prints one
-JSON line describing each kernel (launches on the two paths, errors, times,
-the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
+JSON line describing each kernel (launches on the three paths, errors,
+times, the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -74,6 +88,17 @@ DECONV_STEPS = 1000
 DECONV_REF = {"ULPDA": (38.41, 39.09, 38.94), "MAP": (41.89, 41.91, 46.07),
               "MYULA": (34.23, 30.74, 33.39)}
 DECONV_MARGIN = 1.0
+# model M10 (k5-WL1), the wavelet row: MAP, ULPDA, MYULA (RESULTS.md:91)
+M10_REF = {"MAP": 37.02, "ULPDA": 35.03, "MYULA": 32.08}
+WL1_LEVELS = 4
+# the inpainting workload (lmc_atomi_torch/experiments/inpainting.py)
+INP_SIGMA, INP_TAU_W, INP_LEVELS = 0.1, 5.0, 3
+INP_STEPS, INP_BURN = 2000, 200
+# the JAX package on the same protocol (RESULTS.md:198-214); the port's mask
+# and noise differ, so the gate is these less DECONV_MARGIN dB
+INP_REF = {"MYULA": 17.61, "MALA": 7.71, "ULPDA-wavelet": 18.02}
+INP_FUSED_REF = {"d4": (17.88, 18.31), "d8": (17.82, 18.16)}  # MYULA, ULPDA
+TAPS = {"haar": 2, "d4": 4, "d8": 8}
 # H100 SXM data sheet peaks at 700 W: f32 outside the tensor cores and HBM
 # bandwidth
 PEAK_F32 = 67e12
@@ -161,18 +186,53 @@ def bound_kernel2(npix, n_steps, taps, niter_tv, tv_solver="chambolle",
     return bound_ms(npix * n_steps * per, 4 * npix * (4 + 3 + 16 * n_q))
 
 
+def f_dwt(taps: int, levels: int) -> float:
+    """One interleaved transform (forward or inverse), per pixel: the
+    axis-0 and axis-1 passes of level l each touch a 4^-l share of the
+    pixels, with 2 taps operations per touched pixel (Haar: 2, an add or
+    subtract and a multiply)."""
+    per_pixel = 2 if taps == 2 else 2 * taps
+    return 2 * per_pixel * sum(4.0 ** -lv for lv in range(levels))
+
+
 def bound_kernel3(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
                   niter_inner=0, tv_solver="chambolle", gfirst=False,
-                  with_noise=True):
+                  with_noise=True, levels=WL1_LEVELS):
     """One block call of n_steps ULPDA steps; x, py, px, atb, mean, m2 (and
-    xbar with gfirst) read once, x, py, px, xbar, mean, m2 written once."""
+    xbar with gfirst) read once, x, py, px, xbar, mean, m2 written once (no
+    px for the wl1 dual)."""
     per = 8 + niter_solve * (f_gram(taps) + 7) + 4 + F_WELFORD
-    per += (F_NOISE if with_noise else 0) + (15 if dual == "l21" else 10)
+    per += F_NOISE if with_noise else 0
+    per += {"l21": 15, "l1": 10}.get(dual, 0)
+    if dual == "wl1":  # W^T y in v, W xbar and the clip in the dual
+        per += 2 * f_dwt(2, levels) + 4
     if mode == "mctv":
         per += F_MCTV_CLAMP + 5
     elif mode == "metv":
         per += niter_inner * F_TRIP[tv_solver] + F_PROX_FINISH + 3
-    return bound_ms(npix * n_steps * per, 4 * npix * (6 + gfirst + 6))
+    fields = 6 + gfirst + 6 - 2 * (dual == "wl1")
+    return bound_ms(npix * n_steps * per, 4 * npix * fields)
+
+
+def bound_kernel4(npix, n_steps, taps, levels, n_q=0, with_noise=True):
+    """One block call of n_steps wavelet MYULA steps; x, y, mask, mean, m2
+    (and the 8 n_q marker planes) read once, x, mean, m2 (and the markers)
+    written once. Per pixel and step: the two transforms, the soft threshold
+    (5), the masked gradient (3), the update (5), noise, Welford, P^2."""
+    per = 2 * f_dwt(taps, levels) + 5 + 3 + 5 + F_WELFORD + 60 * n_q
+    per += (F_NOISE + 2) if with_noise else 0
+    return bound_ms(npix * n_steps * per, 4 * npix * (5 + 3 + 16 * n_q))
+
+
+def bound_kernel5(npix, n_steps, taps, levels, gfirst=False, with_noise=True):
+    """One block call of n_steps wavelet-dual ULPDA steps; x, c, y, mask,
+    mean, m2 (and xbar with gfirst) read once, x, c, xbar, mean, m2 written
+    once. Per pixel and step: the two transforms, the dual's clip (4), the
+    mask prox (4), xbar (3), noise, Welford; the prox's 1/(1 + ts m) and
+    ts m y once per call (5)."""
+    per = 2 * f_dwt(taps, levels) + 4 + 4 + 3 + F_WELFORD
+    per += (F_NOISE + 2) if with_noise else 0
+    return bound_ms(npix * (n_steps * per + 5), 4 * npix * (6 + gfirst + 5))
 
 
 def phase_device():
@@ -243,8 +303,9 @@ def phase_kernel1(dev, report):
 
 
 def make_deconv_models(dev):
-    """The deconvolution workload's image, observation and nine models, as
-    ``prox_lmc_deconv`` builds them on the card (seed 0)."""
+    """The deconvolution workload's image, observation and ten models (the
+    wavelet row M10 last), as ``prox_lmc_deconv`` builds them on the card
+    (seed 0)."""
     import torch
 
     from lmc_atomi_torch.experiments.deconv import deconv_models
@@ -258,7 +319,7 @@ def make_deconv_models(dev):
     y = blurs[5].matvec(img) + SIGMA_NOISE * torch.randn(
         (N, N), generator=gen, dtype=torch.float32, device=dev)
     return img, y, deconv_models(y, blurs, SIGMA_NOISE, TV_WEIGHT, 15.0, 15.0,
-                                 50, 10)
+                                 50, 10, WL1_LEVELS)
 
 
 def compare(label, got, want, names):
@@ -366,33 +427,38 @@ def phase_kernel2(dev, l2, y, models, report):
         library_ms=None)
 
 
-def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed):
-    """run_ulpda_fused's block loop with the block update passed in."""
+def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed,
+                      a_op=None):
+    """run_ulpda_fused's block loop with the block update passed in (the dual
+    of ``a_op``, default Gradient2D)."""
     import torch
 
     from lmc_atomi_torch.kernels.ulpda_fused import _pack_ulpda_scal, _ulpda_setup
     from lmc_atomi_torch.ops.linops import Gradient2D
 
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
-     lam) = _ulpda_setup(proxf, proxg, Gradient2D())
+     lam, levels) = _ulpda_setup(proxf, proxg, Gradient2D() if a_op is None else a_op)
     tau0 = 0.95 * SIGMA_NOISE**2
     scal_f = _pack_ulpda_scal(proxf, proxg, tau0, 1.0, 1.0, 1.0, lamda, gamma_mc)
     cfg = dict(cfg)
     niter_inner = cfg.pop("niter_inner", niter_inner)  # as run_ulpda_fused's
     zeros = torch.zeros_like(x0)
     x, py, px, xbar, mean, m2 = x0, zeros, zeros, x0, zeros, zeros
+    if dual == "wl1":
+        px = None
     for b in range(n_steps // block):
         step0 = b * block
         x, py, px, xbar, mean, m2 = update(
             x, py, px, xbar, atb, mean, m2, (seed, 0), scal_f, (step0, 5, max(step0 - 5, 0)),
             taps=taps, oy=oy, ox=ox, lam=lam, n_steps=block, dual=dual, mode=mode,
-            niter_inner=niter_inner, **cfg)
+            niter_inner=niter_inner, levels=levels, **cfg)
     return x, py, px, xbar, mean, m2
 
 
 # kernel 3 on the k5 models of the deconvolution workload: (model index,
-# gfirst, options); the dual follows the model (l21, l1, l21)
-KERNEL3_RUNS = [(i, gfirst, {}) for i in (0, 1, 2) for gfirst in (False, True)]
+# gfirst, options); the dual follows the model (l21, l1, l21, and wl1 for
+# model M10, index 9)
+KERNEL3_RUNS = [(i, gfirst, {}) for i in (0, 1, 2, 9) for gfirst in (False, True)]
 KERNEL3_RUNS.append((2, False, dict(tv_solver="fgp", niter_inner=8, env_warm=True)))
 
 
@@ -407,31 +473,31 @@ def phase_kernel3(dev, y, models, report):
 
     worst = 0.0
     for i, gfirst, opts in KERNEL3_RUNS:
-        name, proxf, proxg, _ = models[i]
+        name, proxf, proxg, a_op = models[i]
         cfg = dict(gfirst=gfirst, niter_solve=3, **opts)
         label = f"{name} gfirst={gfirst} {opts or ''}".strip()
         got = _run_ulpda_blocks(ulpda_block_update_cuda, proxf, proxg, y,
-                                CHECK_STEPS, CHECK_BLOCK, cfg, seed=7)
+                                CHECK_STEPS, CHECK_BLOCK, cfg, 7, a_op)
         want = _run_ulpda_blocks(ulpda_block_update_ref, proxf, proxg, y,
-                                 CHECK_STEPS, CHECK_BLOCK, cfg, seed=7)
+                                 CHECK_STEPS, CHECK_BLOCK, cfg, 7, a_op)
         err, parts = compare(f"kernel 3 ({label})", got, want,
                              ("x", "py", "px", "xbar", "mean", "m2"))
         worst = max(worst, err)
         log(f"kernel3 {label} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
     times = {}
     reps = TIMED_STEPS // BLOCK
-    for i in (0, 1, 2):
-        name, proxf, proxg, _ = models[i]
+    for i in (0, 1, 2, 9):
+        name, proxf, proxg, a_op = models[i]
         cfg = dict(gfirst=False, niter_solve=3)
         k_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
-            ulpda_block_update_cuda, proxf, proxg, y, BLOCK, BLOCK, cfg, 8), reps)
+            ulpda_block_update_cuda, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op), reps)
         p_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
-            ulpda_block_update_ref, proxf, proxg, y, BLOCK, BLOCK, cfg, 8), 1)
+            ulpda_block_update_ref, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op), 1)
         taps = separable_gram_taps(proxf.op.hh)
         mode = name.split("-")[1].lower()
-        b_ms, b_by = bound_kernel3(N * N, BLOCK, taps, 3, mode=mode,
-                                   dual="l1" if mode == "mctv" else "l21",
-                                   niter_inner=10)
+        dual = {"mctv": "l1", "wl1": "wl1"}.get(mode, "l21")
+        b_ms, b_by = bound_kernel3(N * N, BLOCK, taps, 3, mode="tv" if dual == "wl1" else mode,
+                                   dual=dual, niter_inner=10)
         times[mode] = (k_ms, p_ms, b_ms, b_by)
         log(f"kernel3 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
             f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s, plain {p_ms:.3f} ms / "
@@ -440,6 +506,132 @@ def phase_kernel3(dev, y, models, report):
     report["ulpda_block_update_cuda"] = dict(
         max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
+
+
+def make_inpainting(dev, seed=0):
+    """The inpainting workload's image (in [0, 1]) and data term, as
+    ``wavelet_inpainting`` builds them on the card: the mask, then the
+    noise, from one generator."""
+    import torch
+
+    from lmc_atomi_torch.ops.functionals import L2Data
+    from lmc_atomi_torch.ops.linops import Mask
+    from lmc_atomi_torch.utils.images import load_image
+
+    img = torch.from_numpy(load_image("phantom", N)).to(dev) / 255.0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = (torch.rand((N, N), generator=gen, device=dev) > 0.5).float()
+    y = mask * img + INP_SIGMA * mask * torch.randn(
+        (N, N), generator=gen, dtype=torch.float32, device=dev)
+    return img, L2Data(op=Mask(mask=mask), b=y, sigma=1.0 / INP_SIGMA**2)
+
+
+INP_GAMMA = INP_SIGMA**2  # MYULA: gamma = 1 / L, tau = 0.2 gamma
+INP_ULPDA_TAU = 0.95 * INP_SIGMA**2  # ULPDA: tau = 0.95 / L, mu = 1
+
+
+def _wavelet_blocks(update, l2, n_steps, block, seed, taps, quantiles=(), burn=0):
+    """run_myula_wavelet_fused's block loop with the block update passed in."""
+    import torch
+
+    scal_f = (0.2 * INP_GAMMA, INP_GAMMA, l2.sigma, INP_GAMMA * INP_TAU_W, 1.0)
+    x, mean, m2 = l2.b, torch.zeros_like(l2.b), torch.zeros_like(l2.b)
+    qh = qn = None
+    if quantiles:
+        qh = torch.zeros((5 * len(quantiles), N, N), device=x.device)
+        qn = torch.arange(2.0, 5.0, device=x.device)[:, None, None].repeat(len(quantiles), N, N)
+    for b in range(n_steps // block):
+        step0 = b * block
+        x, mean, m2, qh, qn = update(
+            x, l2.b, l2.op.mask, mean, m2, (seed, 0), scal_f,
+            (step0, burn, max(step0 - burn, 0)), qh, qn, levels=INP_LEVELS,
+            taps=taps, n_steps=block, quantiles=quantiles)
+    return x, mean, m2, qh, qn
+
+
+def _ulpda_wavelet_blocks(update, l2, n_steps, block, seed, taps, gfirst):
+    """run_ulpda_wavelet_fused's block loop with the block update passed in."""
+    import torch
+
+    scal_f = (INP_ULPDA_TAU, 1.0, 1.0, 1.0, l2.sigma, INP_TAU_W)
+    zeros = torch.zeros_like(l2.b)
+    x, c, xbar, mean, m2 = l2.b, zeros, l2.b, zeros, zeros
+    for b in range(n_steps // block):
+        step0 = b * block
+        x, c, xbar, mean, m2, _, _ = update(
+            x, c, xbar, l2.b, l2.op.mask, mean, m2, (seed, 2), scal_f,
+            (step0, 5, max(step0 - 5, 0)), levels=INP_LEVELS, taps=taps,
+            n_steps=block, gfirst=gfirst)
+    return x, c, xbar, mean, m2
+
+
+def phase_kernel45(dev, report):
+    """Kernels 4 and 5 against their plain versions on the inpainting
+    posterior, 40 steps in blocks of 20, noise on; then timed per filter."""
+    from lmc_atomi_torch.kernels.wavelet_fused import (
+        ulpda_wavelet_block_update_cuda,
+        ulpda_wavelet_block_update_ref,
+        wavelet_block_update_cuda,
+        wavelet_block_update_ref,
+    )
+
+    _, l2 = make_inpainting(dev)
+    worst4 = 0.0
+    runs4 = [(name, taps, ()) for name, taps in TAPS.items()]
+    runs4.append(("haar_ci95", 2, (0.025, 0.975)))
+    for name, taps, qs in runs4:
+        got = _wavelet_blocks(wavelet_block_update_cuda, l2, CHECK_STEPS, CHECK_BLOCK, 7,
+                              taps, qs, burn=10 if qs else 0)
+        want = _wavelet_blocks(wavelet_block_update_ref, l2, CHECK_STEPS, CHECK_BLOCK, 7,
+                               taps, qs, burn=10 if qs else 0)
+        err, parts = compare(f"kernel 4 ({name})", got, want, ("x", "mean", "m2", "qh", "qn"))
+        worst4 = max(worst4, err)
+        log(f"kernel4 {name} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
+    worst5 = 0.0
+    for name, taps in TAPS.items():
+        for gfirst in (False, True):
+            got = _ulpda_wavelet_blocks(ulpda_wavelet_block_update_cuda, l2, CHECK_STEPS,
+                                        CHECK_BLOCK, 7, taps, gfirst)
+            want = _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, l2, CHECK_STEPS,
+                                         CHECK_BLOCK, 7, taps, gfirst)
+            err, parts = compare(f"kernel 5 ({name} gfirst={gfirst})", got, want,
+                                 ("x", "c", "xbar", "mean", "m2"))
+            worst5 = max(worst5, err)
+            log(f"kernel5 {name} gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, noise on: "
+                f"max_abs_err {parts}")
+    # device time per call of the runners' default blocks (kernel 4: 500
+    # steps, kernel 5: 250), kernel and plain version
+    b4, b5 = BLOCK, BLOCK // 2
+    times = {}
+    for name, taps in TAPS.items():
+        k4, _ = cuda_ms(lambda: _wavelet_blocks(wavelet_block_update_cuda, l2, b4, b4, 8,
+                                                taps), TIMED_STEPS // b4)
+        k5, _ = cuda_ms(lambda: _ulpda_wavelet_blocks(ulpda_wavelet_block_update_cuda, l2,
+                                                      b5, b5, 8, taps, False),
+                        TIMED_STEPS // b5)
+        p4, _ = cuda_ms(lambda: _wavelet_blocks(wavelet_block_update_ref, l2, b4, b4, 8, taps))
+        p5, _ = cuda_ms(lambda: _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, l2,
+                                                      b5, b5, 8, taps, False))
+        bd4 = bound_kernel4(N * N, b4, taps, INP_LEVELS)
+        bd5 = bound_kernel5(N * N, b5, taps, INP_LEVELS)
+        times[name] = (k4, p4, bd4, k5, p5, bd5)
+        log(f"kernel4 {name} timing ({TIMED_STEPS} steps, plain {b4}): kernel {k4:.3f} ms / "
+            f"{b4 / k4 * 1e3:.1f} iters/s, plain {p4:.3f} ms / {b4 / p4 * 1e3:.1f} iters/s, "
+            f"bound {bd4[0]:.4f} ms ({bd4[1]})")
+        log(f"kernel5 {name} timing ({TIMED_STEPS} steps, plain {b5}): kernel {k5:.3f} ms / "
+            f"{b5 / k5 * 1e3:.1f} iters/s, plain {p5:.3f} ms / {b5 / p5 * 1e3:.1f} iters/s, "
+            f"bound {bd5[0]:.4f} ms ({bd5[1]})")
+    qs = (0.025, 0.975)
+    kq, _ = cuda_ms(lambda: _wavelet_blocks(wavelet_block_update_cuda, l2, b4, b4, 8, 2, qs,
+                                            burn=0), TIMED_STEPS // b4)
+    bdq = bound_kernel4(N * N, b4, 2, INP_LEVELS, n_q=2)
+    log(f"kernel4 haar_ci95 timing ({TIMED_STEPS} steps): kernel {kq:.3f} ms / "
+        f"{b4 / kq * 1e3:.1f} iters/s, bound {bdq[0]:.4f} ms ({bdq[1]})")
+    k4, p4, (bd4, by4), k5, p5, (bd5, by5) = times["haar"]
+    report["wavelet_block_update_cuda"] = dict(
+        max_abs_err=worst4, ms=k4, plain_ms=p4, bound_ms=bd4, bound_by=by4, library_ms=None)
+    report["ulpda_wavelet_block_update_cuda"] = dict(
+        max_abs_err=worst5, ms=k5, plain_ms=p5, bound_ms=bd5, bound_by=by5, library_ms=None)
 
 
 def phase_main_path(dev, img, y, l2):
@@ -516,11 +708,11 @@ def phase_deconv(dev, img, models):
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             results, series, summary = prox_lmc_deconv(
                 size=N, n_steps=DECONV_STEPS, niter_map=DECONV_STEPS, seed=0,
-                device=str(dev), **kw)
+                device=str(dev), wavelet_row=True, wavelet_levels=WL1_LEVELS, **kw)
         wall = time.perf_counter() - t0
         if json.loads(out.getvalue().strip().splitlines()[-1]) != summary:
             raise AssertionError(f"deconv {tag}: summary line differs from the result")
-        if len(results) != 9 or len(series) != 9:
+        if len(results) != 10 or len(series) != 10:
             raise AssertionError(f"deconv {tag}: {len(results)} results")
         for label, est in results.items():
             met = series[label]
@@ -532,7 +724,7 @@ def phase_deconv(dev, img, models):
         p = [summary["report"][label]["psnr"] for label in results]
         rates = list(summary["iters_per_sec"].values())
         log(f"deconv {tag}: {wall:.1f} s, iters/s {min(rates):.1f}..{max(rates):.1f}, "
-            f"psnr_blurred={summary['psnr_blurred']:.4f} psnr M1..M9 = "
+            f"psnr_blurred={summary['psnr_blurred']:.4f} psnr M1..M10 = "
             + " ".join(f"{v:.4f}" for v in p))
         return p
 
@@ -542,7 +734,9 @@ def phase_deconv(dev, img, models):
     unfused = {alg: run(f"{alg} unfused", alg=alg, fused=False)
                for alg in ("ULPDA", "MYULA")}
     for branch, ref in DECONV_REF.items():
-        for j, (got, want) in enumerate(zip(psnrs[branch][:3], ref)):
+        # the k5 models M1-M3 and the wavelet row M10
+        for j, want in ((0, ref[0]), (1, ref[1]), (2, ref[2]), (9, M10_REF[branch])):
+            got = psnrs[branch][j]
             if not got >= want - DECONV_MARGIN:
                 raise AssertionError(
                     f"deconv {branch} M{j + 1}: psnr {got:.4f} < {want} - {DECONV_MARGIN}")
@@ -569,6 +763,114 @@ def phase_deconv(dev, img, models):
             f"(device {ms:.1f} ms, host {time.perf_counter() - t0:.3f} s) "
             f"psnr_mean={float(psnr(img, mean)):.4f} "
             f"max_alloc={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB")
+
+
+def phase_inpainting(dev):
+    """The inpainting path: the workload through its entry point (5 rows),
+    the fused D4/D8 chains, the timed 20000-step Haar chains, and a
+    checkpointed run restarted from its checkpoint; raises on a missed
+    gate."""
+    import tempfile
+
+    import torch
+
+    from lmc_atomi_torch.eval.metrics import psnr
+    from lmc_atomi_torch.experiments.inpainting import wavelet_inpainting
+    from lmc_atomi_torch.kernels.wavelet_fused import (
+        run_myula_wavelet_fused,
+        run_ulpda_wavelet_fused,
+    )
+    from lmc_atomi_torch.run.longrun import run_resumable_fused
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        results, summary = wavelet_inpainting(
+            size=N, n_steps=INP_STEPS, burn_in=INP_BURN, wavelet="haar", fused=True,
+            device=str(dev))
+    wall = time.perf_counter() - t0
+    if json.loads(out.getvalue().strip().splitlines()[-1]) != summary:
+        raise AssertionError("inpainting: summary line differs from the result")
+    rep = {k: v["psnr"] for k, v in summary["report"].items()}
+    acc = summary["mala_acceptance"]
+    for name, est in results.items():
+        if est.shape != (N, N) or not bool(torch.isfinite(torch.from_numpy(est)).all()):
+            raise AssertionError(f"inpainting {name}: bad posterior mean")
+    log(f"inpainting haar {INP_STEPS} steps: {wall:.1f} s, "
+        + " ".join(f"{k}={v:.4f}" for k, v in rep.items())
+        + f" mala_acceptance={acc:.4f} iters/s "
+        + " ".join(f"{k}={v}" for k, v in summary["iters_per_sec"].items()))
+    for name, want in INP_REF.items():
+        if not rep[name] >= want - DECONV_MARGIN:
+            raise AssertionError(f"inpainting {name}: psnr {rep[name]:.4f} < {want} - 1")
+    for fused, unfused in (("MYULA-fused", "MYULA"),
+                           ("ULPDA-wavelet-fused", "ULPDA-wavelet")):
+        if abs(rep[fused] - rep[unfused]) > PSNR_GAP:
+            raise AssertionError(f"inpainting {fused}: {rep[fused]} against {rep[unfused]}")
+    if not 0.0 < acc <= 1.0:
+        raise AssertionError(f"inpainting MALA acceptance {acc}")
+
+    img, l2 = make_inpainting(dev)
+    for name in ("d4", "d8"):
+        kw = dict(levels=INP_LEVELS, taps=TAPS[name], burn_in=INP_BURN)
+        m = run_myula_wavelet_fused(l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, (0, 0),
+                                    INP_STEPS, **kw)
+        u = run_ulpda_wavelet_fused(l2, INP_TAU_W, INP_ULPDA_TAU, 1.0, l2.b, (0, 2),
+                                    INP_STEPS, **kw)
+        pm, pu = float(psnr(img, m.moments.mean)), float(psnr(img, u.moments.mean))
+        log(f"inpainting {name} fused {INP_STEPS} steps: MYULA-fused={pm:.4f} "
+            f"ULPDA-wavelet-fused={pu:.4f}")
+        for got, want, row in ((pm, INP_FUSED_REF[name][0], "MYULA"),
+                               (pu, INP_FUSED_REF[name][1], "ULPDA")):
+            if not got >= want - DECONV_MARGIN:
+                raise AssertionError(f"inpainting {name} {row}-fused: {got:.4f} < {want} - 1")
+
+    chains = {
+        "myula_haar": lambda seed: run_myula_wavelet_fused(
+            l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, seed, STEPS, block=BLOCK,
+            burn_in=INP_BURN),
+        "myula_haar_ci95": lambda seed: run_myula_wavelet_fused(
+            l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, seed, STEPS, block=BLOCK,
+            burn_in=2000, quantiles=(0.025, 0.975)),
+        "ulpda_haar": lambda seed: run_ulpda_wavelet_fused(
+            l2, INP_TAU_W, INP_ULPDA_TAU, 1.0, l2.b, seed, STEPS, block=BLOCK // 2,
+            burn_in=INP_BURN),
+    }
+    for name, chain in chains.items():
+        chain(1)  # warm-up at the same step count, another seed
+        t0 = time.perf_counter()
+        ms, res = cuda_ms(lambda: chain(2))
+        mean = res.moments.mean
+        if not bool(torch.isfinite(mean).all()):
+            raise AssertionError(f"{name}: non-finite posterior mean")
+        extra = ""
+        if res.quantiles:
+            lo, hi = res.quantiles[0.025], res.quantiles[0.975]
+            cover = float(((lo <= mean) & (mean <= hi)).float().mean())
+            extra = f" ci_cover={cover:.5f} ci_mean_width={float((hi - lo).mean()):.4f}"
+            if cover < 0.99:
+                raise AssertionError(f"{name}: CI maps bracket the mean on {cover}")
+        log(f"inpainting {name}: {STEPS / ms * 1e3:.1f} iters/s (device {ms:.1f} ms, "
+            f"host {time.perf_counter() - t0:.3f} s) psnr_mean={float(psnr(img, mean)):.4f}"
+            f"{extra} max_alloc={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB")
+
+    # a checkpointed run of 2 segments, stopped after the first and restarted
+    kw = dict(runner="wavelet", burn_in=INP_BURN, levels=INP_LEVELS,
+              quantiles=(0.025, 0.975))
+    args = (l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, (0, 5))
+    straight = run_resumable_fused(*args, INP_STEPS, INP_STEPS, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "inpainting.ckpt")
+        run_resumable_fused(*args, INP_STEPS // 2, INP_STEPS // 2, ckpt_path=ckpt, **kw)
+        resumed = run_resumable_fused(*args, INP_STEPS, INP_STEPS // 2, ckpt_path=ckpt, **kw)
+    dm = float((resumed["moments"].mean - straight["moments"].mean).abs().max())
+    if not (torch.equal(resumed["position"], straight["position"])
+            and all(torch.equal(resumed["quantiles"][p], straight["quantiles"][p])
+                    for p in (0.025, 0.975))
+            and resumed["moments"].count == straight["moments"].count and dm < 1e-4):
+        raise AssertionError(f"resumed wavelet run differs from the straight run (mean {dm})")
+    log(f"inpainting run_resumable_fused(wavelet) 2 x {INP_STEPS // 2} steps through a "
+        f"checkpoint: position and CI maps equal to the straight run, mean within {dm:.2e}")
 
 
 def profile_window(label, fn):
@@ -631,6 +933,24 @@ def phase_profile(dev, img, models):
         proxf, proxg, grad_op, x0, tau0, 1.0, 100, metrics=metrics))
 
 
+def phase_profile_inpainting(dev):
+    """Where the time goes in the inpainting cells: a fused Haar MYULA block
+    and the unfused MYULA step."""
+    from lmc_atomi_torch.kernels.imaging import myula_imaging
+    from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
+    from lmc_atomi_torch.ops.functionals import OrthogonalL1
+    from lmc_atomi_torch.ops.wavelet import HaarDWT2D
+    from lmc_atomi_torch.run.runner import run_chain
+
+    _, l2 = make_inpainting(dev)
+    profile_window(f"run_myula_wavelet_fused haar {BLOCK} steps", lambda: run_myula_wavelet_fused(
+        l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, 3, BLOCK, block=BLOCK))
+    kern = myula_imaging(l2, OrthogonalL1(op=HaarDWT2D(levels=INP_LEVELS), sigma=INP_TAU_W),
+                         0.2 * INP_GAMMA, INP_GAMMA)
+    profile_window("inpainting MYULA unfused step x50", lambda: run_chain(
+        kern, l2.b, 3, 50, collect="stats"))
+
+
 KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
     "prox_tv_iso_cuda": ("lmc_atomi_torch/csrc/tv_prox.cu",
                          "lmc_atomi_tpu/ops/tv_pallas.py:91"),
@@ -638,6 +958,10 @@ KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
                                    "lmc_atomi_tpu/kernels/myula_fused.py:714"),
     "ulpda_block_update_cuda": ("lmc_atomi_torch/csrc/ulpda_block.cu",
                                 "lmc_atomi_tpu/kernels/ulpda_fused.py:327"),
+    "wavelet_block_update_cuda": ("lmc_atomi_torch/csrc/wavelet_block.cu",
+                                  "lmc_atomi_tpu/kernels/wavelet_fused.py:380"),
+    "ulpda_wavelet_block_update_cuda": ("lmc_atomi_torch/csrc/wavelet_block.cu",
+                                        "lmc_atomi_tpu/kernels/wavelet_fused.py:608"),
 }
 
 
@@ -652,11 +976,17 @@ def main() -> int:
         return 1
     from lmc_atomi_torch.kernels.myula_fused import myula_tv_block_update_cuda
     from lmc_atomi_torch.kernels.ulpda_fused import ulpda_block_update_cuda
+    from lmc_atomi_torch.kernels.wavelet_fused import (
+        ulpda_wavelet_block_update_cuda,
+        wavelet_block_update_cuda,
+    )
     from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda
 
     wrappers = {"prox_tv_iso_cuda": prox_tv_iso_cuda,
                 "myula_tv_block_update_cuda": myula_tv_block_update_cuda,
-                "ulpda_block_update_cuda": ulpda_block_update_cuda}
+                "ulpda_block_update_cuda": ulpda_block_update_cuda,
+                "wavelet_block_update_cuda": wavelet_block_update_cuda,
+                "ulpda_wavelet_block_update_cuda": ulpda_wavelet_block_update_cuda}
 
     def drive(path, kernels, fn, *args):
         """Run one path with every count at 0 before it; its kernels must
@@ -683,15 +1013,22 @@ def main() -> int:
     d_img, _, models = make_deconv_models(dev)
     phase_kernel2(dev, l2, y, models, report)
     phase_kernel3(dev, y, models, report)
+    phase_kernel45(dev, report)
 
-    main_path = drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
-                      phase_main_path, dev, img, y, l2)
-    deconv_path = drive("deconvolution", tuple(wrappers), phase_deconv, dev, d_img,
-                        models)
+    paths = [
+        drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
+              phase_main_path, dev, img, y, l2),
+        drive("deconvolution", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",
+                                "ulpda_block_update_cuda"),
+              phase_deconv, dev, d_img, models),
+        drive("inpainting", ("wavelet_block_update_cuda", "ulpda_wavelet_block_update_cuda"),
+              phase_inpainting, dev),
+    ]
     phase_profile(dev, d_img, models)
+    phase_profile_inpainting(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
-             launches=main_path[k] + deconv_path[k], **report[k])
+             launches=sum(p[k] for p in paths), **report[k])
         for k in wrappers
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,8 @@
 The subpackages mirror the JAX package (``core``, ``ops``, ``kernels``,
 ``run``, ``eval``, ``utils``, ``experiments``) with the same module and
 function names. Plain tensor code is PyTorch; the TPU kernels ported so far
-(the TV prox, the fused MYULA block and the fused ULPDA block) are
+(the TV prox, the fused MYULA and ULPDA blocks, and the fused wavelet
+MYULA and wavelet-dual ULPDA blocks) are
 hand-written CUDA in ``csrc/``, built at first use by ``_build.py``.
 The package imports torch, numpy and scipy, never JAX.
 """

@@ -67,9 +67,28 @@ _SIGNATURES = {
         _I, _I,  # ny, nx
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _P,  # n_steps, niter_solve, cheb
-        _I, _I, _I, _I,  # gfirst, l21, mode, niter_inner
+        _I, _I, _I, _I, _I,  # gfirst, dual, levels, rh, rw
+        _I, _I,  # mode, niter_inner
         _F, _I, _P, _I,  # tv_step, fgp, fgp_coef, env_warm
         _I, _I, _P,  # with_noise, with_stats, coef
+        _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+    "lmc_wavelet_block": (
+        _P, _P, _P, _P, _P, _P, _P, _P,  # x, y, m, mean, m2, qh, qn, bufs
+        _I, _I, _I, _P,  # ny, nx, taps, filt
+        _I, _I, _I, _I,  # levels, rh, rw, n_steps
+        _I, _I,  # with_noise, with_stats
+        _P, _I, _I, _P,  # qcoef, n_q, thin, coef
+        _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+    "lmc_ulpda_wavelet_block": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, c, xbar, y, m, mean, m2, qh, qn
+        _P, _I, _I, _I, _P,  # bufs, ny, nx, taps, filt
+        _I, _I, _I, _I, _I,  # levels, rh, rw, n_steps, gfirst
+        _I, _I,  # with_noise, with_stats
+        _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
         _P,  # stream
     ),

@@ -10,6 +10,12 @@ block size, lets a resumed chain continue bit for bit, and lets the CUDA
 block kernel (``csrc/tv_common.cuh::lmc_normal``, the same function) be held
 against its plain version with noise on. The stream differs from threefry.
 
+MALA's accept draw, ``uniform_scalar``, is one uniform per (seed, chain,
+step) on the counter ``(0, step, 1, 0)``: its third word is 1 where every
+``normal_field`` counter has 0, so the two streams never share a counter (the
+counterpart of ``jax.random.split`` of the step key in
+``lmc_atomi_tpu/kernels/langevin.py::mala``).
+
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``; the 32x32-bit
 products are split into 16-bit halves so that no partial product overflows.
 """
@@ -19,7 +25,7 @@ import math
 
 import torch
 
-__all__ = ["philox4x32_10", "normal_field"]
+__all__ = ["philox4x32_10", "normal_field", "uniform_scalar"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -63,3 +69,13 @@ def normal_field(seed: int, chain: int, step: int, shape, dtype, device):
     u2 = (w1 >> 8).to(dtype) * (1.0 / (1 << 24))
     r = torch.sqrt(-2.0 * torch.log(u1))
     return (r * torch.cos((2.0 * math.pi) * u2)).reshape(shape)
+
+
+def uniform_scalar(seed: int, chain: int, step: int, dtype, device):
+    """One uniform in ``(0, 1)`` for (seed, chain, step), as a 0-d tensor on
+    ``device``: the top 24 bits of the first word of counter
+    ``(0, step, 1, 0)``, centred in its bin like ``normal_field``'s ``u1``."""
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    w0, _, _, _ = philox4x32_10((zero, zero + (int(step) & _MASK), zero + 1, zero),
+                                (int(seed), int(chain)))
+    return (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))

@@ -1,19 +1,219 @@
-// Launch-level building blocks shared by the fused MYULA block (myula_block.cu)
-// and the fused ULPDA block (ulpda_block.cu): the separable wrap-convolution
-// passes of A^T A, the Chambolle and FGP dual trips of the TV prox and the
-// host loop that launches them, and the MC-TV gradient clamp.
+// Building blocks shared by the fused block kernels: MYULA (myula_block.cu),
+// ULPDA (ulpda_block.cu) and the wavelet blocks (wavelet_block.cu).
 //
-// One thread per pixel of a row-major (ny, nx) float32 field, every field in
-// global memory (at 512^2 a block's working set stays in the 50 MB L2). Each
-// kernel is bound by device-memory bytes and, at 512^2, by launch latency.
+// Launch level, one thread per pixel of a row-major (ny, nx) float32 field,
+// every field in global memory (at 512^2 a block's working set stays in the
+// 50 MB L2), each kernel bound by device-memory bytes and, at 512^2, by launch
+// latency: the separable wrap-convolution passes of A^T A, the Chambolle and
+// FGP dual trips of the TV prox and the host loop that launches them, and the
+// MC-TV gradient clamp.
+//
+// Device level: the per-pixel P^2 quantile update, the burn-in-masked Welford
+// update and its per-step bookkeeping, and the interleaved multi-level Haar
+// transform on a region of the image held in one CTA's shared memory.
 #pragma once
 
 #include "tv_common.cuh"
 
 #define LMC_MAXR 4
 #define LMC_MAXK 32
+#define LMC_MAXQ 4
+// A CTA of the tile kernels owns a region of at most LMC_TILE_SIDE^2 pixels,
+// LMC_TILE_PPT of them per thread (wavelet_fused.py: _TILE_SIDE).
+#define LMC_TILE_SIDE 32
+#define LMC_TILE_THREADS 256
+#define LMC_TILE_PPT (LMC_TILE_SIDE * LMC_TILE_SIDE / LMC_TILE_THREADS)
 
 namespace {
+
+// Elementwise sort of 5 values (myula_fused.py::_sort5's network).
+__device__ __forceinline__ void sort5(float v[5]) {
+  const int pairs[9][2] = {{0, 1}, {3, 4}, {2, 4}, {2, 3}, {0, 3},
+                           {0, 2}, {1, 4}, {1, 3}, {1, 2}};
+#pragma unroll
+  for (int e = 0; e < 9; ++e) {
+    const int a = pairs[e][0], b = pairs[e][1];
+    const float lo = fminf(v[a], v[b]);
+    const float hi = fmaxf(v[a], v[b]);
+    v[a] = lo;
+    v[b] = hi;
+  }
+}
+
+// One recorded P^2 observation (myula_fused.py::_p2_update) for one pixel:
+// q holds the 5 marker heights, n the 3 interior positions; c_prev
+// observations were absorbed before this one; coef[m] = (dn[m+1] - 1) / 4.
+// Every array index is a constant after unrolling, so a caller's markers can
+// stay in registers.
+__device__ __forceinline__ void p2_update(float x, float q[5], float n3[3],
+                                          int c_prev, const float coef[3]) {
+  if (c_prev < 5) {
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+      if (m == c_prev) q[m] = x;
+    if (c_prev == 4) sort5(q);
+    return;
+  }
+  q[0] = fminf(q[0], x);
+  q[4] = fmaxf(q[4], x);
+  const float k = (float)(x >= q[1]) + (float)(x >= q[2]) + (float)(x >= q[3]);
+  const float cnt = (float)(c_prev + 1);
+  float n[5] = {1.0f, n3[0] + (float)(1.0f > k), n3[1] + (float)(2.0f > k),
+                n3[2] + (float)(3.0f > k), cnt};
+#pragma unroll
+  for (int m = 1; m <= 3; ++m) {
+    const float nprime = 1.0f + coef[m - 1] * (cnt - 1.0f);
+    const float d = nprime - n[m];
+    const bool up = (d >= 1.0f) && (n[m + 1] - n[m] > 1.0f);
+    const bool dn = (d <= -1.0f) && (n[m - 1] - n[m] < -1.0f);
+    const float s = up ? 1.0f : (dn ? -1.0f : 0.0f);
+    if (s == 0.0f) continue;
+    const float nm = n[m - 1], ni = n[m], np = n[m + 1];
+    const float qm = q[m - 1], qi = q[m], qp = q[m + 1];
+    const float d_t = (np - nm != 0.0f) ? np - nm : 1.0f;
+    const float d_u = (np - ni != 0.0f) ? np - ni : 1.0f;
+    const float d_l = (ni - nm != 0.0f) ? ni - nm : 1.0f;
+    const float para = qi + s / d_t *
+                                ((ni - nm + s) * (qp - qi) / d_u +
+                                 (np - ni - s) * (qi - qm) / d_l);
+    const bool ok = (qm < para) && (para < qp);
+    const float lin = qi + s * ((s > 0.0f) ? (qp - qi) / d_u : (qi - qm) / d_l);
+    q[m] = ok ? para : lin;
+    n[m] = ni + s;
+  }
+  n3[0] = n[1];
+  n3[1] = n[2];
+  n3[2] = n[3];
+}
+
+// The per-step bookkeeping of the block kernels that compute it on the card
+// (the wavelet blocks; kernel 2 and 3 compute the same on the host).
+struct Sched {
+  long long step0, burn, cnt0;  // first global step, burn-in, Welford count in
+  int thin, n_q, with_noise, with_stats;
+  uint32_t seed, chain;
+  float qcoef[LMC_MAXQ][3];
+};
+
+struct StepW {
+  float w, inv_denom;  // Welford weight (0 or 1) and 1 / count
+  int record, c_prev;  // a P^2 observation at this step; observations before
+};
+
+// Global step g: the weighted Welford count cnt0 + steps of this call at or
+// past burn-in, and the global P^2 observation count (see
+// myula_fused.py::myula_tv_block_update_ref). 1 / n is the float reciprocal,
+// as torch divides a CUDA tensor by a Python scalar.
+__device__ __forceinline__ StepW lmc_step_w(const Sched& sc, long long g) {
+  StepW o;
+  o.w = g >= sc.burn ? 1.0f : 0.0f;
+  const long long lo = sc.burn > sc.step0 ? sc.burn : sc.step0;
+  const long long n_new = sc.cnt0 + (g + 1 - lo > 0 ? g + 1 - lo : 0);
+  o.inv_denom = 1.0f / (float)(n_new > 1 ? n_new : 1);
+  o.record = sc.n_q > 0 && g >= sc.burn && (g + 1) % sc.thin == 0;
+  const long long c_prev = g / sc.thin - sc.burn / sc.thin;
+  o.c_prev = (int)(c_prev > 0 ? c_prev : 0);
+  return o;
+}
+
+// Burn-in-masked Welford update of one pixel: delta / n as delta * (1 / n).
+__device__ __forceinline__ void lmc_welford(float xn, float* mu, float* m2,
+                                            const StepW& sw) {
+  const float delta = xn - *mu;
+  const float mu_new = *mu + sw.w * delta * sw.inv_denom;
+  *m2 = *m2 + sw.w * delta * (xn - mu_new);
+  *mu = mu_new;
+}
+
+// Welford and P^2 of pixel k with the statistics in global memory.
+__device__ __forceinline__ void lmc_record_global(
+    float xn, size_t k, size_t npix, float* __restrict__ mean,
+    float* __restrict__ m2, float* __restrict__ qh, float* __restrict__ qn,
+    const Sched& sc, const StepW& sw) {
+  if (sc.with_stats) {
+    float mu = mean[k], mm = m2[k];
+    lmc_welford(xn, &mu, &mm, sw);
+    mean[k] = mu;
+    m2[k] = mm;
+  }
+  if (!sw.record) return;
+  for (int jq = 0; jq < sc.n_q; ++jq) {
+    float q[5], n3[3];
+#pragma unroll
+    for (int m = 0; m < 5; ++m) q[m] = qh[(5 * jq + m) * npix + k];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) n3[m] = qn[(3 * jq + m) * npix + k];
+    p2_update(xn, q, n3, sw.c_prev, sc.qcoef[jq]);
+#pragma unroll
+    for (int m = 0; m < 5; ++m) qh[(5 * jq + m) * npix + k] = q[m];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) qn[(3 * jq + m) * npix + k] = n3[m];
+  }
+}
+
+// --- the interleaved Haar transform on a region in shared memory -----------
+// wavelet_fused.py::haar_interleaved: at level l (stride s = 2^l) a butterfly
+// along each axis pairs slot p (index % 2s == 0) with q = p + s on the lattice
+// where the other index % s == 0. Pairs never leave an aligned 2^levels
+// square, so a region whose sides are multiples of 2^levels and that starts on
+// such a multiple transforms on its own. buf holds the region row-major, rh x
+// rw <= LMC_TILE_SIDE^2; every thread of the CTA takes part.
+
+#define LMC_SQRT1_2 0.70710678118654757f
+
+// One butterfly pass: (a, b) -> ((a + b) / sqrt2, (a - b) / sqrt2), each as a
+// multiply by the float 1/sqrt2 (wavelet_fused.py::_haar_pass); ends with a
+// barrier.
+__device__ __forceinline__ void lmc_haar_pass(float* buf, int rh, int rw,
+                                              int s, int axis) {
+  const int nr = axis == 0 ? rh / (2 * s) : rh / s;
+  const int nc = axis == 0 ? rw / s : rw / (2 * s);
+  for (int t = threadIdx.x; t < nr * nc; t += blockDim.x) {
+    const int r = (t / nc) * (axis == 0 ? 2 * s : s);
+    const int c = (t % nc) * (axis == 0 ? s : 2 * s);
+    const int p = r * rw + c;
+    const int q = axis == 0 ? p + s * rw : p + s;
+    const float a = buf[p], b = buf[q];
+    buf[p] = (a + b) * LMC_SQRT1_2;
+    buf[q] = (a - b) * LMC_SQRT1_2;
+  }
+  __syncthreads();
+}
+
+// Forward transform of levels levels (per level: rows, then columns).
+__device__ __forceinline__ void lmc_haar_fwd(float* buf, int rh, int rw,
+                                             int levels) {
+  for (int lv = 0; lv < levels; ++lv) {
+    lmc_haar_pass(buf, rh, rw, 1 << lv, 0);
+    lmc_haar_pass(buf, rh, rw, 1 << lv, 1);
+  }
+}
+
+// Inverse (transpose) transform: the levels in reverse, columns then rows.
+__device__ __forceinline__ void lmc_haar_inv(float* buf, int rh, int rw,
+                                             int levels) {
+  for (int lv = levels - 1; lv >= 0; --lv) {
+    lmc_haar_pass(buf, rh, rw, 1 << lv, 1);
+    lmc_haar_pass(buf, rh, rw, 1 << lv, 0);
+  }
+}
+
+// Pixel k of region-linear index li of the CTA's region (blockIdx.x over
+// column regions, blockIdx.y over row regions), or -1 past the region.
+__device__ __forceinline__ int lmc_region_pixel(int li, int rh, int rw,
+                                                int nx) {
+  if (li >= rh * rw) return -1;
+  return (blockIdx.y * rh + li / rw) * nx + blockIdx.x * rw + li % rw;
+}
+
+// Host side: whether (rh, rw) is a valid region for levels levels of an
+// (ny, nx) image.
+static inline bool lmc_region_ok(int ny, int nx, int rh, int rw, int levels) {
+  const int t = 1 << levels;
+  return levels >= 0 && rh >= t && rw >= t && rh <= LMC_TILE_SIDE &&
+         rw <= LMC_TILE_SIDE && rh % t == 0 && rw % t == 0 && ny % rh == 0 &&
+         nx % rw == 0;
+}
 
 // A^T A = sum_r wy_r wx_r^T as separable taps, offsets (oy, ox).
 struct Taps {

@@ -22,8 +22,6 @@
 // shared-memory row bands and CUDA graphs are later work.
 #include "block_common.cuh"
 
-#define LMC_MAXQ 4
-
 namespace {
 
 // Data-term modes of the block (myula_fused.py::_fused_mode).
@@ -37,62 +35,6 @@ struct UpdateParams {
   uint32_t seed, chain, step;
   float qcoef[LMC_MAXQ][3];
 };
-
-// Elementwise sort of 5 values (myula_fused.py::_sort5's network).
-__device__ __forceinline__ void sort5(float v[5]) {
-  const int pairs[9][2] = {{0, 1}, {3, 4}, {2, 4}, {2, 3}, {0, 3},
-                           {0, 2}, {1, 4}, {1, 3}, {1, 2}};
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    const int a = pairs[e][0], b = pairs[e][1];
-    const float lo = fminf(v[a], v[b]);
-    const float hi = fmaxf(v[a], v[b]);
-    v[a] = lo;
-    v[b] = hi;
-  }
-}
-
-// One recorded P^2 observation (myula_fused.py::_p2_update) for one pixel:
-// q holds the 5 marker heights, n the 3 interior positions; c_prev
-// observations were absorbed before this one; coef[m] = (dn[m+1] - 1) / 4.
-__device__ __forceinline__ void p2_update(float x, float q[5], float n3[3],
-                                          int c_prev, const float coef[3]) {
-  if (c_prev < 5) {
-    q[c_prev] = x;
-    if (c_prev == 4) sort5(q);
-    return;
-  }
-  q[0] = fminf(q[0], x);
-  q[4] = fmaxf(q[4], x);
-  const float k = (float)(x >= q[1]) + (float)(x >= q[2]) + (float)(x >= q[3]);
-  const float cnt = (float)(c_prev + 1);
-  float n[5] = {1.0f, n3[0] + (float)(1.0f > k), n3[1] + (float)(2.0f > k),
-                n3[2] + (float)(3.0f > k), cnt};
-#pragma unroll
-  for (int m = 1; m <= 3; ++m) {
-    const float nprime = 1.0f + coef[m - 1] * (cnt - 1.0f);
-    const float d = nprime - n[m];
-    const bool up = (d >= 1.0f) && (n[m + 1] - n[m] > 1.0f);
-    const bool dn = (d <= -1.0f) && (n[m - 1] - n[m] < -1.0f);
-    const float s = up ? 1.0f : (dn ? -1.0f : 0.0f);
-    if (s == 0.0f) continue;
-    const float nm = n[m - 1], ni = n[m], np = n[m + 1];
-    const float qm = q[m - 1], qi = q[m], qp = q[m + 1];
-    const float d_t = (np - nm != 0.0f) ? np - nm : 1.0f;
-    const float d_u = (np - ni != 0.0f) ? np - ni : 1.0f;
-    const float d_l = (ni - nm != 0.0f) ? ni - nm : 1.0f;
-    const float para = qi + s / d_t *
-                                ((ni - nm + s) * (qp - qi) / d_u +
-                                 (np - ni - s) * (qi - qm) / d_l);
-    const bool ok = (qm < para) && (para < qp);
-    const float lin = qi + s * ((s > 0.0f) ? (qp - qi) / d_u : (qi - qm) / d_l);
-    q[m] = ok ? para : lin;
-    n[m] = ni + s;
-  }
-  n3[0] = n[1];
-  n3[1] = n[2];
-  n3[2] = n[3];
-}
 
 // (c): the nonconvex correction of the data gradient, prox, MYULA update,
 // noise, Welford and P^2, in place on x/mean/m2/qh/qn. (ay, ax) is the MC-TV

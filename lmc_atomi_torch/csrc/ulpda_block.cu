@@ -7,7 +7,8 @@
 // 512^2 the ~15 fields of a block fit the 50 MB L2) and one host call makes,
 // for each step g = step0 + i, a sequence of one-thread-per-pixel launches:
 //   gfirst: (0) the dual update from the incoming xbar;
-//   (1) v = x - tau A^T y with A^T y = -div y (the Gradient2D dual);
+//   (1) v = x - tau A^T y with A^T y = -div y (the Gradient2D duals) or
+//       A^T y = W^T y (the wl1 dual, W the interleaved Haar transform);
 //   (2) the data term's concave-part linearization of v:
 //       mctv: the clamped gradient min(1/gamma, 1/|Gv|) Gv, then
 //             v - tau lamda div(clamp Gv);
@@ -22,7 +23,13 @@
 //       (seed, chain, pixel, g), xbar = x' + theta (x' - x), Welford;
 //   not gfirst: (5) the dual update y <- proj(y + mu G xbar), a launch of its
 //       own because it reads xbar on the pixel's neighbours.
-// The dual update reads only its own pixel's dual, so it runs in place.
+// The dual update reads only its own pixel's dual, so it runs in place. The
+// wl1 dual (the "wl1" of kernels/ulpda_fused.py, deconvolution model M10) is
+// one coefficient field: (0)/(5) is y <- clip(y + mu W xbar) and (1) reads
+// W^T y, each one launch whose CTAs own whole 2^levels tiles and run the
+// transform in shared memory (block_common.cuh: lmc_haar_fwd/inv, shared
+// with kernels 4 and 5). The gram passes are not tile-local, so the step
+// stays a launch sequence.
 // Every launch is bound by device-memory bytes and, at 512^2, by launch
 // latency: a TV step with 3 sweeps is 12 launches of a few us. Persistent
 // launches, shared-memory row bands and CUDA graphs are later work.
@@ -31,6 +38,7 @@
 namespace {
 
 enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
+enum { DUAL_L1 = 0, DUAL_L21 = 1, DUAL_WL1 = 2 };  // ulpda_fused.py: DUALS
 
 // (1): v = x - tau (-div y); in mode tv also rhs = v + ts atb.
 __global__ void ul_primal_in(const float* __restrict__ x,
@@ -162,10 +170,51 @@ __global__ void ul_dual(const float* __restrict__ xbar, float* __restrict__ py,
   }
 }
 
+// (1) wl1: v = x - tau W^T py; in mode tv also rhs = v + ts atb. One CTA per
+// rh x rw region of whole Haar tiles.
+__global__ void __launch_bounds__(LMC_TILE_THREADS)
+ul_wl1_primal_in(const float* __restrict__ x, const float* __restrict__ py,
+                 const float* __restrict__ atb, float* __restrict__ v,
+                 float* __restrict__ rhs, int nx, int rh, int rw, int levels,
+                 float tau, float ts) {
+  __shared__ float buf[LMC_TILE_SIDE * LMC_TILE_SIDE];
+  for (int li = threadIdx.x; li < rh * rw; li += blockDim.x)
+    buf[li] = py[lmc_region_pixel(li, rh, rw, nx)];
+  __syncthreads();
+  lmc_haar_inv(buf, rh, rw, levels);
+  for (int li = threadIdx.x; li < rh * rw; li += blockDim.x) {
+    const int k = lmc_region_pixel(li, rh, rw, nx);
+    const float vv = x[k] - tau * buf[li];
+    if (rhs) {
+      rhs[k] = vv + ts * atb[k];
+    } else {
+      v[k] = vv;
+    }
+  }
+}
+
+// (0)/(5) wl1: py <- clip(py + mu W xbar, -g_sigma, g_sigma), in place.
+__global__ void __launch_bounds__(LMC_TILE_THREADS)
+ul_wl1_dual(const float* __restrict__ xbar, float* __restrict__ py, int nx,
+            int rh, int rw, int levels, float mu, float g_sigma) {
+  __shared__ float buf[LMC_TILE_SIDE * LMC_TILE_SIDE];
+  for (int li = threadIdx.x; li < rh * rw; li += blockDim.x)
+    buf[li] = xbar[lmc_region_pixel(li, rh, rw, nx)];
+  __syncthreads();
+  lmc_haar_fwd(buf, rh, rw, levels);
+  for (int li = threadIdx.x; li < rh * rw; li += blockDim.x) {
+    const int k = lmc_region_pixel(li, rh, rw, nx);
+    py[k] = fminf(fmaxf(py[k] + mu * buf[li], -g_sigma), g_sigma);
+  }
+}
+
 }  // namespace
 
 // One call runs n_steps ULPDA steps in place on x, py, px, xbar, mean, m2
 // (float32, row-major, contiguous, on the current device).
+//   dual: 0 l1, 1 l21 (the Gradient2D dual (py, px)), 2 wl1 (py the
+//   interleaved Haar coefficient dual of levels levels, px unused; each CTA
+//   of its launches owns an rh x rw region of whole tiles).
 //   atb: A^T b (unscaled). With gfirst = 0 the incoming xbar is never read;
 //   the outgoing one is the genuine x' + theta (x' - x) in both orders.
 //   scratch, each (ny, nx): v, rhs, u, d, gu; tmp: (rank, ny, nx);
@@ -188,14 +237,17 @@ extern "C" int lmc_ulpda_block(
     float* m2, float* v, float* rhs, float* u, float* d, float* gu, float* tmp,
     float* aux, int ny, int nx, const float* taps, int rank, int ky, int kx,
     int oy, int ox, int n_steps, int niter_solve, const float* cheb,
-    int gfirst, int l21, int mode, int niter_inner, float tv_step, int fgp,
+    int gfirst, int dual, int levels, int rh, int rw, int mode,
+    int niter_inner, float tv_step, int fgp,
     const float* fgp_coef, int env_warm, int with_noise, int with_stats,
     const float* coef, unsigned int seed, unsigned int chain, long long step0,
     long long burn, long long cnt0, void* stream) {
   Taps t;
   if (!lmc_taps(&t, taps, rank, ky, kx, oy, ox) || ny < 2 || nx < 2 ||
       niter_solve < 0 || mode < MODE_TV || mode > MODE_METV ||
-      (mode != MODE_TV && aux == nullptr))
+      (mode != MODE_TV && aux == nullptr) || dual < DUAL_L1 ||
+      dual > DUAL_WL1 || (dual != DUAL_WL1 && px == nullptr) ||
+      (dual == DUAL_WL1 && !lmc_region_ok(ny, nx, rh, rw, levels)))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
@@ -217,16 +269,35 @@ extern "C" int lmc_ulpda_block(
 
   const DualBufs envb = lmc_dual_bufs(aux, npix);
   int cur_env = -1;  // index into envb.P of the carried envelope dual
+  const dim3 tgrid(rw > 0 ? nx / rw : 0, rh > 0 ? ny / rh : 0);
+  auto dual_update = [&]() {
+    if (dual == DUAL_WL1) {
+      ul_wl1_dual<<<tgrid, LMC_TILE_THREADS, 0, s>>>(xbar, py, nx, rh, rw,
+                                                      levels, mu, g_sigma);
+    } else {
+      ul_dual<<<grid, block, 0, s>>>(xbar, py, px, ny, nx, mu, g_sigma,
+                                     dual == DUAL_L21);
+    }
+  };
+  // (1), writing rhs in mode tv and v otherwise
+  auto primal_in = [&](float* rhs_out) {
+    if (dual == DUAL_WL1) {
+      ul_wl1_primal_in<<<tgrid, LMC_TILE_THREADS, 0, s>>>(
+          x, py, atb, v, rhs_out, nx, rh, rw, levels, tau, ts);
+    } else {
+      ul_primal_in<<<grid, block, 0, s>>>(x, py, px, atb, v, rhs_out, ny, nx,
+                                          tau, ts);
+    }
+  };
 
   for (int it = 0; it < n_steps; ++it) {
     const long long g = step0 + it;
-    if (gfirst) ul_dual<<<grid, block, 0, s>>>(xbar, py, px, ny, nx, mu, g_sigma, l21);
+    if (gfirst) dual_update();
 
     if (mode == MODE_TV) {
-      ul_primal_in<<<grid, block, 0, s>>>(x, py, px, atb, v, rhs, ny, nx, tau, ts);
+      primal_in(rhs);
     } else {
-      ul_primal_in<<<grid, block, 0, s>>>(x, py, px, atb, v, nullptr, ny, nx,
-                                          tau, ts);
+      primal_in(nullptr);
       if (mode == MODE_MCTV) {
         blk_mctv_clamp<<<grid, block, 0, s>>>(v, aux, aux + npix, ny, nx,
                                               clamp_mc);
@@ -260,7 +331,7 @@ extern "C" int lmc_ulpda_block(
     f.step = (uint32_t)g;
     ul_finish<<<grid, block, 0, s>>>(x, u_cur, xbar, mean, m2, ny, nx, f);
 
-    if (!gfirst) ul_dual<<<grid, block, 0, s>>>(xbar, py, px, ny, nx, mu, g_sigma, l21);
+    if (!gfirst) dual_update();
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -2,13 +2,14 @@
 
 ``snr`` follows the reference's definition (prox_lmc_deconv.py:35-36);
 ``psnr``/``mse`` follow skimage: ``data_range`` defaults to the max minus the
-min of the true image.
+min of the true image. ``acceptance_rate`` and ``effective_sample_mask`` read
+the list of ``StepInfo`` that ``run_chain`` returns.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["snr", "psnr", "mse"]
+__all__ = ["snr", "psnr", "mse", "acceptance_rate", "effective_sample_mask"]
 
 
 def snr(image_true, image_test):
@@ -27,3 +28,15 @@ def psnr(image_true, image_test, data_range=None):
     if data_range is None:
         data_range = torch.max(image_true) - torch.min(image_true)
     return 10.0 * torch.log10((data_range ** 2) / mse(image_true, image_test))
+
+
+def effective_sample_mask(infos):
+    """Boolean tensor of the accepted steps: filtering the stacked samples
+    with it gives the reference MALA's sample set, which drops rejected
+    proposals (lmc.py:128-131)."""
+    return torch.stack([torch.as_tensor(info.accepted) for info in infos])
+
+
+def acceptance_rate(infos):
+    """Fraction of accepted Metropolis-Hastings steps (0-d float32 tensor)."""
+    return torch.mean(effective_sample_mask(infos).to(torch.float32))

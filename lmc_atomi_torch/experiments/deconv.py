@@ -9,13 +9,17 @@ Per-iteration cost / error / SNR / PSNR / MSE series are recorded. On a CUDA
 device the samplers run the fused kernels (``ulpda_sep_fused``,
 ``myula_imaging_sep_fused``); ``fused=False``, or a CPU run, takes the
 unfused samplers (``ulpda``, ``myula_imaging``), which draw the same noise.
+``wavelet_row`` adds model M10 (``k5-WL1``): the k5 data term with a
+wavelet-l1 prior, its dual in the orthogonal Haar coefficient domain (the
+``"wl1"`` dual of the fused ULPDA kernel); MYULA samples it with the exact
+``OrthogonalL1`` prox, unfused.
 
     python -m lmc_atomi_torch.experiments.deconv --size 512 --alg ULPDA
     python -m lmc_atomi_torch.experiments.deconv --size 64 --device cpu
 
 It runs on the card unless ``--device cpu`` is given. Not ported yet:
-``make_plots``, ``show``, ``wavelet_row`` and ``score_row``; passing one
-raises ``NotImplementedError``.
+``make_plots``, ``show`` and ``score_row``; passing one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,11 +41,19 @@ from lmc_atomi_torch.kernels.ulpda_fused import (
     ulpda_fused_supported,
     ulpda_sep_fused,
 )
-from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm, L2Data, TVNorm
+from lmc_atomi_torch.ops.functionals import (
+    L1Norm,
+    L21Norm,
+    L2Data,
+    OrthogonalL1,
+    TVNorm,
+)
 from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, uniform_kernel
 from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
 from lmc_atomi_torch.run.optimize import adaptive_pdhg
+from lmc_atomi_torch.ops.wavelet import HaarDWT2D
 from lmc_atomi_torch.run.runner import run_chain
+from lmc_atomi_torch.utils.cli import require_device
 from lmc_atomi_torch.utils.images import load_image
 
 __all__ = ["prox_lmc_deconv", "deconv_models", "main"]
@@ -52,11 +64,14 @@ def _model_name(idx: int) -> str:
 
 
 def deconv_models(y, blurs, sigma: float, tau: float, gamma_mc: float,
-                  gamma_me: float, niter_l2: int, niter_tv: int):
+                  gamma_me: float, niter_l2: int, niter_tv: int,
+                  wavelet_levels: int = 0):
     """The 9 models ``(name, proxf, proxg, a_op)``: for each assumed blur
     ``blurs[k]`` (k = 5, 6, 7) the convex TV (``L2Data`` + ``L21Norm``),
     MC-TV (``L2NcvxTV`` with ``Gradient2D`` + ``L1Norm``) and ME-TV
-    (``L2NcvxTV`` + ``L21Norm``) models over the observation ``y``."""
+    (``L2NcvxTV`` + ``L21Norm``) models over the observation ``y``; with
+    ``wavelet_levels > 0`` a 10th, ``k5-WL1`` (``L2Data`` + ``L1Norm`` over
+    ``HaarDWT2D(wavelet_levels)``)."""
     grad_op = Gradient2D()
     models = []
     for k in (5, 6, 7):
@@ -70,6 +85,10 @@ def deconv_models(y, blurs, sigma: float, tau: float, gamma_mc: float,
                        L1Norm(sigma=tau), grad_op))
         models.append((f"k{k}-METV", L2NcvxTV(op2=None, gamma=gamma_me, **common),
                        L21Norm(sigma=tau), grad_op))
+    if wavelet_levels > 0:
+        models.append(("k5-WL1", L2Data.create(op=blurs[5], b=y, sigma=1.0 / sigma**2,
+                                               niter_solve=niter_l2),
+                       L1Norm(sigma=tau), HaarDWT2D(levels=wavelet_levels)))
     return models
 
 
@@ -93,23 +112,20 @@ def prox_lmc_deconv(
     make_plots: bool = False,
     show: bool = False,
     wavelet_row: bool = False,
+    wavelet_levels: int = 4,
     score_row: bool = False,
 ):
-    """Deblur one observation under 9 models; returns ``(results, series,
-    summary)`` as the JAX package's version does."""
+    """Deblur one observation under 9 models (10 with ``wavelet_row``);
+    returns ``(results, series, summary)`` as the JAX package's version
+    does."""
     asked = [name for name, on in (("make_plots", make_plots), ("show", show),
-                                   ("wavelet_row", wavelet_row),
                                    ("score_row", score_row)) if on]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)} not ported yet (see ROADMAP.md)")
     if alg not in ("ULPDA", "MYULA"):
         raise ValueError(f"unknown alg {alg!r}")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the deconvolution workload runs on the card; "
-            "pass device='cpu' (--device cpu) to run it on the CPU")
+    dev = require_device(device, "deconvolution")
     on_cuda = dev.type == "cuda"
 
     def sync():
@@ -133,7 +149,7 @@ def prox_lmc_deconv(
     tau_myula = 0.2 * gamma_myula
     tv = TVNorm(sigma=tau, niter=niter_tv)
     models = deconv_models(y, blurs, sigma, tau, gamma_mc, gamma_me, niter_l2,
-                           niter_tv)
+                           niter_tv, wavelet_levels if wavelet_row else 0)
     x0 = torch.zeros((size, size), dtype=dtype, device=dev)
 
     def make_metrics(proxf, proxg, pd: bool, a_op=None):
@@ -171,14 +187,20 @@ def prox_lmc_deconv(
                     kern = ulpda(proxf, proxg, a_op, tau=tau0, mu=mu0, theta=1.0,
                                  gfirst=False)
                 metrics = make_metrics(proxf, proxg, True, a_op)
-            else:  # MYULA with the TV prox regularizer
-                if fused and sep_fused_supported(proxf.op, x0):
+            else:  # MYULA: the TV prox regularizer (the wavelet row's below)
+                reg = tv
+                if not isinstance(a_op, Gradient2D):
+                    # the wavelet row: the exact orthogonal-DWT l1 prox
+                    reg = OrthogonalL1(op=a_op, sigma=tau)
+                    kern = myula_imaging(proxf, reg, tau=tau_myula,
+                                         gamma=gamma_myula)
+                elif fused and sep_fused_supported(proxf.op, x0):
                     kern = myula_imaging_sep_fused(proxf, tv.sigma, tau_myula,
                                                    gamma_myula, niter_tv=tv.niter)
                 else:
                     kern = myula_imaging(proxf, tv, tau=tau_myula,
                                          gamma=gamma_myula)
-                metrics = make_metrics(proxf, tv, False)
+                metrics = make_metrics(proxf, reg, False)
             res = run_chain(kern, x0, (seed, idx), n_steps, collect="stats",
                             metrics=metrics)
             est, met = res.moments.mean, res.metrics

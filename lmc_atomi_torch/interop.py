@@ -16,15 +16,18 @@ from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import FusedChainResult
-from lmc_atomi_torch.ops.functionals import L2Data
-from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D
+from lmc_atomi_torch.ops.functionals import L2Data, OrthogonalL1
+from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, Mask
 from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
+from lmc_atomi_torch.ops.wavelet import DaubechiesDWT2D, HaarDWT2D
 
 __all__ = [
     "blur_from_numpy",
     "gradient_from_numpy",
     "l2data_from_numpy",
     "l2ncvx_from_numpy",
+    "mask_l2_from_numpy",
+    "orthogonal_l1_from_numpy",
     "fused_state_from_numpy",
     "ulpda_state_from_numpy",
     "to_numpy",
@@ -66,6 +69,23 @@ def l2ncvx_from_numpy(b, blur: CirculantBlur2D, op2: Optional[Gradient2D] = None
                     **fields)
 
 
+def mask_l2_from_numpy(mask, b, sigma: float, device=None) -> L2Data:
+    """The inpainting data term ``L2Data(op=Mask(mask), b, sigma)``: pass
+    the JAX functional's ``op.mask``, ``b`` and ``sigma``."""
+    return L2Data(op=Mask(mask=_t(mask, device)), b=_t(b, device),
+                  sigma=float(sigma))
+
+
+def orthogonal_l1_from_numpy(sigma: float, levels: int,
+                             taps: int = 2) -> OrthogonalL1:
+    """The JAX ``OrthogonalL1``'s counterpart: pass its ``sigma`` and its
+    operator's ``levels`` and ``taps`` (2 for ``HaarDWT2D``, 4 or 8 for
+    ``DaubechiesDWT2D``)."""
+    op = (HaarDWT2D(levels=int(levels)) if taps == 2
+          else DaubechiesDWT2D(taps=int(taps), levels=int(levels)))
+    return OrthogonalL1(op=op, sigma=float(sigma))
+
+
 def fused_state_from_numpy(x, mean, m2, count, qh=None, qn=None,
                            device=None) -> FusedChainResult:
     """The state of a JAX ``FusedChainResult``: pass the result's
@@ -85,14 +105,14 @@ def fused_state_from_numpy(x, mean, m2, count, qh=None, qn=None,
 
 def ulpda_state_from_numpy(x, y, xbar, mean, m2, count,
                            device=None) -> FusedChainResult:
-    """The state of a JAX ``run_ulpda_fused`` result: pass its
-    ``final_state.position``, ``final_state.extras.y`` (the stacked
-    Gradient2D dual), ``final_state.extras.xbar`` and
-    ``moments.mean/m2/count``. Continue the chain with
-    ``run_ulpda_fused(..., x0=res.final_state.position,
-    y0=res.final_state.extras.y, xbar0=res.final_state.extras.xbar,
-    step_offset=<steps done>)`` and merge the moments with
-    ``RunningMoments.merge``."""
+    """The state of a JAX ``run_ulpda_fused`` or ``run_ulpda_wavelet_fused``
+    result: pass its ``final_state.position``, ``final_state.extras.y`` (the
+    stacked Gradient2D dual, or the wavelet chain's ``(ny, nx)`` dual in the
+    interleaved layout), ``final_state.extras.xbar`` and
+    ``moments.mean/m2/count``. Continue the chain with the port's runner of
+    the same name, ``x0=res.final_state.position, y0=res.final_state.extras.y,
+    xbar0=res.final_state.extras.xbar, step_offset=<steps done>``, and merge
+    the moments with ``RunningMoments.merge``."""
     return FusedChainResult(
         final_state=SamplerState.init(
             _t(x, device), extras=ULPDAExtras(y=_t(y, device), xbar=_t(xbar, device))),
@@ -115,3 +135,4 @@ def to_numpy(obj: Any) -> Any:
     if hasattr(obj, "__dataclass_fields__"):
         return {k: to_numpy(getattr(obj, k)) for k in obj.__dataclass_fields__}
     return obj
+

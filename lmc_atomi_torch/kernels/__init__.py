@@ -1,1 +1,2 @@
-"""Sampler kernels: MYULA over functionals and the fused block (CUDA kernel 2)."""
+"""Sampler kernels: MYULA, ULPDA, ULA and MALA over functionals, and the
+fused block kernels 2-5 with their plain versions and runners."""

@@ -258,6 +258,45 @@ def _update_coefs(scal_f):
             lamda, gamma_mc, 1.0 / gamma_mc, lamda / gamma_mc)
 
 
+class _BlockStats:
+    """Burn-in-masked Welford moments and P^2 markers of the plain block
+    versions (kernels 2-5), step for step as the kernels update them:
+    ``scal_i = (step0, burn_in, count0)``; call with each step's ``x'`` and
+    global step ``g``; ``result()`` is ``(mean, m2, qh, qn)``."""
+
+    def __init__(self, scal_i, mean, m2, qh, qn, quantiles, quantile_thin,
+                 with_stats):
+        self.step0, self.burn, self.cnt0 = (int(v) for v in scal_i)
+        self.mean, self.m2 = mean, m2
+        self.n_q = len(quantiles)
+        self.coefs = [_p2_coefs(p) for p in quantiles]
+        self.qh = [qh[i] for i in range(5 * self.n_q)] if self.n_q else []
+        self.qn = [qn[i] for i in range(3 * self.n_q)] if self.n_q else []
+        self.thin, self.with_stats = quantile_thin, with_stats
+        self.qh_in, self.qn_in = qh, qn
+
+    def __call__(self, x_new, g):
+        w = g >= self.burn
+        if self.with_stats:
+            n_new = self.cnt0 + max(g + 1 - max(self.burn, self.step0), 0)
+            wf = float(w)
+            delta = x_new - self.mean
+            self.mean = self.mean + wf * delta / float(max(n_new, 1))
+            self.m2 = self.m2 + wf * delta * (x_new - self.mean)
+        if self.n_q and w and (g + 1) % self.thin == 0:
+            c_prev = max(g // self.thin - self.burn // self.thin, 0)
+            for j in range(self.n_q):
+                qs, ns = _p2_update(x_new, self.qh[5 * j:5 * j + 5],
+                                    self.qn[3 * j:3 * j + 3], c_prev, self.coefs[j])
+                self.qh[5 * j:5 * j + 5] = qs
+                self.qn[3 * j:3 * j + 3] = ns
+
+    def result(self):
+        if not self.n_q:
+            return self.mean, self.m2, self.qh_in, self.qn_in
+        return self.mean, self.m2, torch.stack(self.qh), torch.stack(self.qn)
+
+
 def myula_tv_block_update_ref(
     x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
     taps: Taps, oy: int, ox: int, n_steps: int = 1, niter_tv: int = 10,
@@ -270,17 +309,14 @@ def myula_tv_block_update_ref(
     _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode)
     (c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma, lamda, gamma_mc, _,
      c_env) = _update_coefs(scal_f)
-    step0, burn, cnt0 = (int(v) for v in scal_i)
     seed, chain = base_key(seed)
     stencils = _stencils(x)
-    n_q = len(quantiles)
-    coefs = [_p2_coefs(p) for p in quantiles]
-    qh_f = [qh[i] for i in range(5 * n_q)] if n_q else []
-    qn_f = [qn[i] for i in range(3 * n_q)] if n_q else []
+    rec = _BlockStats(scal_i, mean, m2, qh, qn, quantiles, quantile_thin,
+                      with_stats)
     _, _, div = stencils
     dual = env = None  # the warm duals start from zeros at each call
     for i in range(n_steps):
-        g = step0 + i
+        g = rec.step0 + i
         grad = sigma * _sep_gram(x, taps, oy, ox) - atbs
         if mode == "mctv":
             grad = grad + lamda * div(*_mctv_clamp(x, gamma_mc, stencils))
@@ -294,25 +330,9 @@ def myula_tv_block_update_ref(
         if with_noise:
             x_new = x_new + noise_amp * normal_field(
                 seed, chain, g, x.shape, x.dtype, x.device)
-        w = g >= burn
-        if with_stats:
-            n_new = cnt0 + max(g + 1 - max(burn, step0), 0)
-            wf = float(w)
-            denom = float(max(n_new, 1))
-            delta = x_new - mean
-            mean = mean + wf * delta / denom
-            m2 = m2 + wf * delta * (x_new - mean)
-        if n_q and w and (g + 1) % quantile_thin == 0:
-            c_prev = max(g // quantile_thin - burn // quantile_thin, 0)
-            for j in range(n_q):
-                qs, ns = _p2_update(x_new, qh_f[5 * j:5 * j + 5],
-                                    qn_f[3 * j:3 * j + 3], c_prev, coefs[j])
-                qh_f[5 * j:5 * j + 5] = qs
-                qn_f[3 * j:3 * j + 3] = ns
+        rec(x_new, g)
         x = x_new
-    if n_q:
-        qh, qn = torch.stack(qh_f), torch.stack(qn_f)
-    return x, mean, m2, qh, qn
+    return (x, *rec.result())
 
 
 def myula_tv_block_update_cuda(
@@ -499,6 +519,57 @@ class FusedChainResult(NamedTuple):
     quantile_state: Any = None
 
 
+def _align_block(n_steps, block, quantiles, quantile_thin, noise_scale,
+                 step_offset):
+    """The block size of the fused runners: the largest divisor of
+    ``n_steps`` up to ``block``; with thinned quantiles, block boundaries
+    (and the run's start step) align to the quantile group, as the JAX
+    package's static in-kernel record positions need."""
+    while n_steps % block:
+        block -= 1
+    if quantiles and quantile_thin > 1:
+        group = (quantile_thin * 2 if (noise_scale != 0.0 and quantile_thin % 2)
+                 else quantile_thin)
+        if n_steps % group:
+            raise ValueError(
+                f"n_steps={n_steps} must be a multiple of the quantile "
+                f"group {group} (quantile_thin={quantile_thin})")
+        b = max(block - block % group, group)
+        while n_steps % b:
+            b -= group
+        block = b
+        if step_offset % quantile_thin:
+            raise ValueError(f"step_offset={step_offset} must align to "
+                             f"quantile_thin={quantile_thin}")
+    return block
+
+
+def _marker_state(x0, n_q, quantile_state):
+    """``(qh, qn)``: ``quantile_state`` to resume, fresh P^2 markers for
+    ``n_q`` quantiles, or ``(None, None)``."""
+    if not n_q:
+        return None, None
+    if quantile_state is not None:
+        return quantile_state
+    qh = torch.zeros((5 * n_q,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
+    # interior marker positions start at (2, 3, 4); the extremes are implicit
+    qn = torch.arange(2.0, 5.0, dtype=x0.dtype, device=x0.device)[
+        :, None, None].repeat(n_q, x0.shape[0], x0.shape[1])
+    return qh, qn
+
+
+def _chain_result(x, mean, m2, count, quantiles, qh, qn, extras=None):
+    """The ``FusedChainResult`` of a block-fused runner."""
+    n_q = len(quantiles)
+    return FusedChainResult(
+        final_state=SamplerState.init(x, extras=extras),
+        moments=RunningMoments(count=count, mean=mean, m2=m2),
+        # marker 2 is the running quantile estimate (valid once count >= 5)
+        quantiles={p: qh[5 * j + 2] for j, p in enumerate(quantiles)} if n_q else None,
+        quantile_state=(qh, qn) if n_q else None,
+    )
+
+
 def run_myula_tv_fused(
     l2: Any,
     tv_sigma: float,
@@ -536,49 +607,15 @@ def run_myula_tv_fused(
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
     x0 = torch.as_tensor(x0)
-    if block is None:
-        block = min(n_steps, 256)
-    while n_steps % block:
-        block -= 1
-    if quantiles and quantile_thin > 1:
-        # block boundaries (and the run's start step) align to the quantile
-        # group, as the JAX package's static in-kernel record positions need
-        group = (quantile_thin * 2 if (noise_scale != 0.0 and quantile_thin % 2)
-                 else quantile_thin)
-        if n_steps % group:
-            raise ValueError(
-                f"n_steps={n_steps} must be a multiple of the quantile "
-                f"group {group} (quantile_thin={quantile_thin})"
-            )
-        b = max(block - block % group, group)
-        while n_steps % b:
-            b -= group
-        block = b
-        if step_offset % quantile_thin:
-            raise ValueError(
-                f"step_offset={step_offset} must align to "
-                f"quantile_thin={quantile_thin}"
-            )
-    n_blocks = n_steps // block
+    quantiles = tuple(float(p) for p in quantiles)
+    step_offset = int(step_offset)
+    block = _align_block(n_steps, min(n_steps, 256) if block is None else block,
+                         quantiles, quantile_thin, noise_scale, step_offset)
     scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda,
                           gamma_mc)
-    quantiles = tuple(float(p) for p in quantiles)
-    n_q = len(quantiles)
-    step_offset = int(step_offset)
-
     x, mean, m2 = x0, torch.zeros_like(x0), torch.zeros_like(x0)
-    qh = qn = None
-    if n_q:
-        if quantile_state is not None:
-            qh, qn = quantile_state
-        else:
-            qh = torch.zeros((5 * n_q,) + tuple(x0.shape), dtype=x0.dtype,
-                             device=x0.device)
-            # interior marker positions start at (2, 3, 4); the extremes are
-            # implicit (n0 == 1, n4 == count)
-            qn = torch.arange(2.0, 5.0, dtype=x0.dtype, device=x0.device)[
-                :, None, None].repeat(n_q, x0.shape[0], x0.shape[1])
-    for b in range(n_blocks):
+    qh, qn = _marker_state(x0, len(quantiles), quantile_state)
+    for b in range(n_steps // block):
         step0 = step_offset + b * block
         # the Welford count restarts at this run's first recorded step
         # (partial results merge with RunningMoments.merge); the P^2 count
@@ -593,10 +630,4 @@ def run_myula_tv_fused(
         )
     count = (max(step_offset + n_steps - burn_in, 0)
              - max(step_offset - burn_in, 0))
-    return FusedChainResult(
-        final_state=SamplerState.init(x),
-        moments=RunningMoments(count=count, mean=mean, m2=m2),
-        # marker 2 is the running quantile estimate (valid once count >= 5)
-        quantiles={p: qh[5 * j + 2] for j, p in enumerate(quantiles)} if n_q else None,
-        quantile_state=(qh, qn) if n_q else None,
-    )
+    return _chain_result(x, mean, m2, count, quantiles, qh, qn)

@@ -4,7 +4,10 @@ version, and the host-side block loop.
 
 One block call runs ``n_steps`` steps of ``kernels/imaging.py::ulpda`` for
 the deconvolution posterior: a forward-difference ``Gradient2D`` dual
-(``L21Norm``, ``"l21"``, or ``L1Norm``, ``"l1"``), a data term ``L2Data``
+(``L21Norm``, ``"l21"``, or ``L1Norm``, ``"l1"``) or an orthogonal Haar
+wavelet dual (``HaarDWT2D`` with ``L1Norm``, ``"wl1"``: one coefficient
+field in the interleaved layout of ``wavelet_fused.py``, clipped to the l-inf
+ball, ``A^T y = haar_interleaved_inv(y)``), a data term ``L2Data``
 (``mode="tv"``) or an isotropic ``L2NcvxTV`` (``"mctv"``/``"metv"``, the
 concave part linearized as in ``ops/ncvx_tv.py::prox``) over a circulant blur
 with a small PSF, and in place of the exact spectral solve of
@@ -17,8 +20,8 @@ moments with burn-in.
 
 ``ulpda_block_update`` dispatches by device: ``csrc/ulpda_block.cu`` for CUDA
 tensors, ``ulpda_block_update_ref`` (the same function in torch ops, term for
-term) for CPU tensors. The wavelet dual (``"wl1"``) and the lane-packed
-multi-chain runner are not ported yet.
+term) for CPU tensors. The lane-packed multi-chain runner is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from lmc_atomi_torch.kernels.myula_fused import (
     MODES,
     FusedChainResult,
     Taps,
+    _BlockStats,
     _check_block_args,
     _fgp_coef,
     _fused_mode,
@@ -47,9 +51,17 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _tv_prox_any,
     sep_fused_supported,
 )
+from lmc_atomi_torch.kernels.wavelet_fused import (
+    _iotas,
+    haar_interleaved,
+    haar_interleaved_inv,
+    haar_levels,
+    tile_region,
+)
 from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm
 from lmc_atomi_torch.ops.linops import Gradient2D
 from lmc_atomi_torch.ops.tv_cuda import _stencils
+from lmc_atomi_torch.ops.wavelet import HaarDWT2D
 from lmc_atomi_torch.run.runner import base_key
 
 __all__ = [
@@ -61,18 +73,22 @@ __all__ = [
     "run_ulpda_fused",
 ]
 
-DUALS = ("l1", "l21")  # the kernel's dual flag: 1 for l21
+DUALS = ("l1", "l21", "wl1")  # the kernel's dual index
 
 
 def ulpda_fused_supported(proxf, proxg, a_op, x) -> bool:
     """Whether the fused ULPDA kernel applies: a ``Gradient2D(sampling=1)``
-    dual with ``L21Norm``/``L1Norm``, a data term the MYULA block takes
-    (``myula_fused._fused_mode``) over an operator that
-    ``sep_fused_supported`` accepts for images like ``x`` (on a CUDA
-    device)."""
-    if not isinstance(a_op, Gradient2D) or float(a_op.sampling) != 1.0:
-        return False
-    if not isinstance(proxg, (L21Norm, L1Norm)):
+    dual with ``L21Norm``/``L1Norm`` or a ``HaarDWT2D`` dual with ``L1Norm``,
+    a data term the MYULA block takes (``myula_fused._fused_mode``) over an
+    operator that ``sep_fused_supported`` accepts for images like ``x`` (on a
+    CUDA device)."""
+    if isinstance(a_op, Gradient2D) and float(a_op.sampling) == 1.0:
+        if not isinstance(proxg, (L21Norm, L1Norm)):
+            return False
+    elif isinstance(a_op, HaarDWT2D):
+        if not isinstance(proxg, L1Norm):
+            return False
+    else:
         return False
     if not sep_fused_supported(getattr(proxf, "op", None), x):
         return False
@@ -131,9 +147,7 @@ def _block_coefs(scal_f):
 def _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve):
     _check_block_args(taps, (), 1, tv_solver, mode)
     if dual not in DUALS:
-        raise ValueError(
-            f"dual {dual!r}: the port's fused ULPDA takes the Gradient2D duals "
-            f"{DUALS}; the wavelet dual 'wl1' is not ported yet")
+        raise ValueError(f"dual {dual!r}: the fused ULPDA takes {DUALS}")
     if niter_solve < 0:
         raise ValueError("niter_solve must be >= 0")
 
@@ -144,18 +158,23 @@ def ulpda_block_update_ref(
     niter_solve: int = 3, tv_step: float = 0.25, gfirst: bool = False,
     dual: str = "l21", mode: str = "tv", niter_inner: int = 10,
     with_noise: bool = True, tv_solver: str = "chambolle",
-    with_stats: bool = True, env_warm: bool = False,
+    with_stats: bool = True, env_warm: bool = False, levels: int = 3,
 ):
     """Plain torch version of kernel 3 (see ``ulpda_block_update``)."""
     _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
     (tau, mu, theta, noise_amp, ts, g_sigma, c_mc, gamma_mc, _,
      c_me) = _block_coefs(scal_f)
-    step0, burn, cnt0 = (int(v) for v in scal_i)
     seed, chain = base_key(seed)
     stencils = _stencils(x)
     fwd_y, fwd_x, div = stencils
+    rec = _BlockStats(scal_i, mean, m2, None, None, (), 1, with_stats)
+
+    iotas = _iotas(x.shape, x.device)
 
     def dual_update(py, px, xbar):
+        if dual == "wl1":
+            c = py + mu * haar_interleaved(xbar, levels, iotas=iotas)
+            return torch.clamp(c, -g_sigma, g_sigma), px
         py = py + mu * fwd_y(xbar)
         px = px + mu * fwd_x(xbar)
         if dual == "l21":
@@ -169,10 +188,11 @@ def ulpda_block_update_ref(
 
     env = None  # the warm envelope dual starts from zeros at each call
     for i in range(n_steps):
-        g = step0 + i
+        g = rec.step0 + i
         if gfirst:
             py, px = dual_update(py, px, xbar)
-        aty = -div(py, px)
+        aty = (haar_interleaved_inv(py, levels, iotas=iotas) if dual == "wl1"
+               else -div(py, px))
         v = x - tau * aty
         if mode == "mctv":
             v = v - c_mc * div(*_mctv_clamp(v, gamma_mc, stencils))
@@ -188,13 +208,9 @@ def ulpda_block_update_ref(
         xbar = x_new + theta * (x_new - x)
         if not gfirst:
             py, px = dual_update(py, px, xbar)
-        if with_stats:
-            n_new = cnt0 + max(g + 1 - max(burn, step0), 0)
-            wf = float(g >= burn)
-            delta = x_new - mean
-            mean = mean + wf * delta / float(max(n_new, 1))
-            m2 = m2 + wf * delta * (x_new - mean)
+        rec(x_new, g)
         x = x_new
+    mean, m2, _, _ = rec.result()
     return x, py, px, xbar, mean, m2
 
 
@@ -204,17 +220,21 @@ def ulpda_block_update_cuda(
     niter_solve: int = 3, tv_step: float = 0.25, gfirst: bool = False,
     dual: str = "l21", mode: str = "tv", niter_inner: int = 10,
     with_noise: bool = True, tv_solver: str = "chambolle",
-    with_stats: bool = True, env_warm: bool = False,
+    with_stats: bool = True, env_warm: bool = False, levels: int = 3,
 ):
     """Kernel 3 (``csrc/ulpda_block.cu``) on contiguous float32 CUDA tensors.
     Works on copies of ``x, py, px, xbar, mean, m2`` and returns them
-    (``xbar`` may be None for ``gfirst=False``, which never reads it); raises
-    on a CPU tensor or on shapes and options the kernel does not take."""
+    (``xbar`` may be None for ``gfirst=False``, which never reads it, and
+    ``px`` None for the ``"wl1"`` dual); raises on a CPU tensor or on shapes
+    and options the kernel does not take."""
     _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
     if x.ndim != 2 or min(x.shape) < 2:
         raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
     ny, nx = x.shape
-    fields = {"x": x, "py": py, "px": px, "atb": atb}
+    wl1 = dual == "wl1"
+    fields = {"x": x, "py": py, "atb": atb}
+    if not wl1:
+        fields["px"] = px
     if gfirst:
         fields["xbar"] = xbar
     if with_stats:
@@ -225,8 +245,11 @@ def ulpda_block_update_cuda(
         raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
                          "outside the kernel's uint32 step counter")
     seed, chain = base_key(seed)
+    l_eff = haar_levels((ny, nx), levels) if wl1 else 0
+    rh, rw = tile_region((ny, nx), l_eff) if wl1 else (0, 0)
 
-    x, py, px = x.clone(), py.clone(), px.clone()
+    x, py = x.clone(), py.clone()
+    px = None if wl1 else px.clone()
     xbar = xbar.clone() if gfirst else torch.empty_like(x)
     if with_stats:
         mean, m2 = mean.clone(), m2.clone()
@@ -251,13 +274,13 @@ def ulpda_block_update_cuda(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmc_ulpda_block(
-            x.data_ptr(), py.data_ptr(), px.data_ptr(), xbar.data_ptr(),
+            x.data_ptr(), py.data_ptr(), ptr(px, not wl1), xbar.data_ptr(),
             atb.data_ptr(), ptr(mean, with_stats), ptr(m2, with_stats),
             *(scratch[i].data_ptr() for i in range(5)), tmp.data_ptr(),
             ptr(aux, aux is not None), ny, nx,
             tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
             int(n_steps), int(niter_solve), cheb.ctypes.data,
-            int(bool(gfirst)), DUALS.index(dual), MODES.index(mode),
+            int(bool(gfirst)), DUALS.index(dual), l_eff, rh, rw, MODES.index(mode),
             int(niter_inner), float(tv_step), int(tv_solver == "fgp"),
             fgp_coef.ctypes.data, int(bool(env_warm)),
             int(bool(with_noise)), int(bool(with_stats)), coef.ctypes.data,
@@ -274,13 +297,16 @@ ulpda_block_update_cuda.launches = 0  # calls that launched the kernel
 def ulpda_block_update(x, *args, **kwargs):
     """``n_steps`` fused ULPDA steps (+ Welford), kernel 3.
 
-    ``(py, px)`` is the Gradient2D dual, ``xbar`` the extrapolated iterate
+    ``(py, px)`` is the Gradient2D dual (``"wl1"``: ``py`` the interleaved
+    Haar coefficient dual of ``levels`` levels, ``px`` unused and returned
+    as None), ``xbar`` the extrapolated iterate
     (read only with ``gfirst``), ``atb = A^T b`` (unscaled); ``seed`` is a
     seed or ``(seed, chain)``; ``scal_f = (tau, mu, theta, noise_scale,
     sigma, g_sigma[, lamda, gamma_mc])`` with ``sigma`` the data term's and
     ``g_sigma`` the dual norm's radius; ``scal_i = (step0, burn_in,
     count0)``. ``lam`` bounds ``lambda_max(A^T A)`` (``sum |hh|``);
-    ``niter_solve`` Chebyshev sweeps; ``dual`` ``"l21"``/``"l1"``; ``mode``
+    ``niter_solve`` Chebyshev sweeps; ``dual`` ``"l21"``/``"l1"``/``"wl1"``;
+    ``mode``
     ``"tv"``/``"mctv"``/``"metv"`` with ``niter_inner`` envelope trips of
     ``tv_solver``, whose dual carries across this call's steps with
     ``env_warm``. Returns ``(x', py', px', xbar', mean', m2')``; ``xbar'`` is
@@ -293,19 +319,23 @@ def ulpda_block_update(x, *args, **kwargs):
 
 
 def _ulpda_setup(proxf, proxg, a_op):
-    """Taps, offsets, ``A^T b``, the mode and its scalars, the dual and the
+    """Taps, offsets, ``A^T b``, the mode and its scalars, the dual, the
     spectrum bound ``lam = sum |hh| >= lambda_max(A^T A)`` (exact for a
-    nonnegative PSF)."""
-    if not isinstance(a_op, Gradient2D) or float(a_op.sampling) != 1.0:
+    nonnegative PSF) and the wavelet dual's levels (0 for Gradient2D)."""
+    levels = 0
+    if isinstance(a_op, HaarDWT2D):
+        dual, levels = "wl1", int(a_op.levels)
+    elif isinstance(a_op, Gradient2D) and float(a_op.sampling) == 1.0:
+        dual = "l21" if isinstance(proxg, L21Norm) else "l1"
+    else:
         raise ValueError(
-            "the port's fused ULPDA takes a Gradient2D(sampling=1) dual; the "
-            "wavelet dual is not ported yet")
+            "the fused ULPDA takes a Gradient2D(sampling=1) or HaarDWT2D dual")
     taps, (oy, ox), atbs = _fused_params(proxf)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(proxf)
     atb = atbs / proxf.sigma
-    dual = "l21" if isinstance(proxg, L21Norm) else "l1"
     lam = float(torch.abs(proxf.op.hh).sum())
-    return taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual, lam
+    return (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual, lam,
+            levels)
 
 
 def _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
@@ -322,12 +352,13 @@ def ulpda_sep_fused(proxf: Any, proxg: Any, a_op: Any, tau, mu,
     ``ulpda(proxf, proxg, a_op, tau, mu, theta, gfirst=...)`` that draws the
     same noise (the step key's ``(seed, chain, step)``)."""
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
-     lam) = _ulpda_setup(proxf, proxg, a_op)
+     lam, levels) = _ulpda_setup(proxf, proxg, a_op)
     scal_f = _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
                               gamma_mc)
+    n_dual = 1 if dual == "wl1" else 2
 
     def init(x0, y0=None):
-        y = torch.zeros((2,) + tuple(x0.shape), dtype=x0.dtype,
+        y = torch.zeros((n_dual,) + tuple(x0.shape), dtype=x0.dtype,
                         device=x0.device) if y0 is None else y0
         return SamplerState.init(x0, extras=ULPDAExtras(y=y, xbar=x0))
 
@@ -335,14 +366,16 @@ def ulpda_sep_fused(proxf: Any, proxg: Any, a_op: Any, tau, mu,
         seed, chain, g = key
         y = state.extras.y
         x_n, py_n, px_n, xb_n, _, _ = ulpda_block_update(
-            state.position, y[0], y[1], state.extras.xbar if gfirst else None,
+            state.position, y[0], y[1] if n_dual == 2 else None,
+            state.extras.xbar if gfirst else None,
             atb, None, None, (seed, chain), scal_f, (g, 0, 0),
             taps=taps, oy=oy, ox=ox, lam=lam, n_steps=1,
             niter_solve=niter_solve, gfirst=gfirst, dual=dual, mode=mode,
             niter_inner=niter_inner, with_noise=noise_scale != 0.0,
-            with_stats=False,
+            with_stats=False, levels=levels,
         )
-        extras = ULPDAExtras(y=torch.stack([py_n, px_n]), xbar=xb_n)
+        y_n = py_n[None] if n_dual == 1 else torch.stack([py_n, px_n])
+        extras = ULPDAExtras(y=y_n, xbar=xb_n)
         return state.next(x_n, extras=extras), StepInfo()
 
     return Kernel(init, step)
@@ -375,7 +408,9 @@ def run_ulpda_fused(
     steps (kernel 3 per block on CUDA), with Welford posterior moments
     (``burn_in`` in steps).
 
-    ``key`` is a seed or ``(seed, chain)``. ``env_warm`` (ME-TV data terms)
+    ``key`` is a seed or ``(seed, chain)``. With a ``HaarDWT2D`` dual the
+    dual ``extras.y`` is one interleaved coefficient field, shape
+    ``(1, ny, nx)``. ``env_warm`` (ME-TV data terms)
     carries the envelope dual across a block's steps (zeros at each block);
     ``niter_inner`` overrides the data term's envelope trip count. ``y0``,
     ``xbar0`` and ``step_offset`` continue a chain: the dual and xbar of a
@@ -386,7 +421,7 @@ def run_ulpda_fused(
     state with ``gfirst=False``.
     """
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner_l2, dual,
-     lam) = _ulpda_setup(proxf, proxg, a_op)
+     lam, levels) = _ulpda_setup(proxf, proxg, a_op)
     if niter_inner is None:
         niter_inner = niter_inner_l2
     x0 = torch.as_tensor(x0)
@@ -399,7 +434,11 @@ def run_ulpda_fused(
     step_offset = int(step_offset)
     zeros = torch.zeros_like(x0)
     x, mean, m2 = x0, zeros, zeros
-    py, px = (zeros, zeros) if y0 is None else (y0[0], y0[1])
+    wl1 = dual == "wl1"
+    if y0 is None:
+        py, px = zeros, (None if wl1 else zeros)
+    else:
+        py, px = y0[0], (None if wl1 else y0[1])
     xbar = x0 if xbar0 is None else xbar0
     for b in range(n_steps // block):
         step0 = step_offset + b * block
@@ -411,11 +450,13 @@ def run_ulpda_fused(
             mode=mode, niter_inner=niter_inner,
             with_noise=noise_scale != 0.0, with_stats=True,
             env_warm=env_warm and mode == "metv", tv_solver=tv_solver,
+            levels=levels,
         )
     count = (max(step_offset + n_steps - burn_in, 0)
              - max(step_offset - burn_in, 0))
+    y_fin = py[None] if wl1 else torch.stack([py, px])
     return FusedChainResult(
         final_state=SamplerState.init(
-            x, extras=ULPDAExtras(y=torch.stack([py, px]), xbar=xbar)),
+            x, extras=ULPDAExtras(y=y_fin, xbar=xbar)),
         moments=RunningMoments(count=count, mean=mean, m2=m2),
     )

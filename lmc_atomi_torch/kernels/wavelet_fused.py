@@ -1,0 +1,606 @@
+"""Fused wavelet-l1 MYULA and wavelet-dual ULPDA for the inpainting posterior
+(counterpart of ``lmc_atomi_tpu/kernels/wavelet_fused.py``): kernels 4 and
+5, their plain torch versions, the interleaved transforms, and the host-side
+block loops.
+
+Kernel 4 (``wavelet_block_update``) runs ``n_steps`` MYULA steps of
+``kernels/imaging.py::myula_imaging`` on ``L2Data(Mask)`` with the prior
+``OrthogonalL1``:
+
+    x <- (1 - tau/gamma) x - tau (sig m)(m x - y)
+         + (tau/gamma) W^T soft(W x, epsg gamma lam) + noise_scale sqrt(2 tau) xi
+
+Kernel 5 (``ulpda_wavelet_block_update``) runs ``n_steps`` ULPDA steps with
+the dual ``c`` in the wavelet coefficient domain (its prox the l-inf clip)
+and the closed-form mask prox ``(v + ts m y) / (1 + ts m)``, ``ts = tau sig``:
+
+    x' = (x - tau W^T c + ts m y) / (1 + ts m) + noise_scale sqrt(2 tau) xi
+    xbar = x' + theta (x' - x);  c <- clip(c + mu W xbar, -g_sigma, g_sigma)
+
+(the dual update first with ``gfirst``). ``W`` is the orthogonal multi-level
+DWT in INTERLEAVED layout: level-l coefficients stay on the stride-2^l
+lattice instead of Mallat subband blocks. Interleaved ``W`` is a fixed
+permutation of ``ops/wavelet.py``'s, and the soft threshold and the clip
+commute with it, so the primal chains are those of the unfused samplers.
+Both kernels keep burn-in-masked Welford moments and per-pixel P^2 quantile
+markers; an observation is recorded at steps ``g >= burn_in`` with
+``(g + 1) % quantile_thin == 0``. Noise is the Philox normal at
+``(seed, chain, pixel, step)`` (``core/random.py::normal_field``), so fused
+and unfused chains draw one stream.
+
+Each dispatches by device: ``csrc/wavelet_block.cu`` for CUDA tensors, the
+``_ref`` plain version (the same function in torch ops, term for term) for
+CPU tensors. On the card the Haar transform is tile-local (``levels``
+levels never leave an aligned ``2^levels`` square), so a Haar block is one
+launch; D4/D8 wrap around the whole image and run one launch per level and
+axis (see the CUDA source).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from lmc_atomi_torch import _build
+from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.kernels.imaging import ULPDAExtras
+from lmc_atomi_torch.kernels.myula_fused import (
+    FusedChainResult,
+    _BlockStats,
+    _align_block,
+    _chain_result,
+    _marker_state,
+    _p2_coefs,
+)
+from lmc_atomi_torch.ops.wavelet import daubechies_filters
+from lmc_atomi_torch.run.runner import base_key
+
+__all__ = [
+    "dwt_interleaved",
+    "dwt_interleaved_inv",
+    "haar_interleaved",
+    "haar_interleaved_inv",
+    "run_myula_wavelet_fused",
+    "run_ulpda_wavelet_fused",
+    "ulpda_wavelet_block_update",
+    "ulpda_wavelet_block_update_cuda",
+    "ulpda_wavelet_block_update_ref",
+    "wavelet_block_update",
+    "wavelet_block_update_cuda",
+    "wavelet_block_update_ref",
+]
+
+_SQRT1_2 = 0.7071067811865476
+TAPS = (2, 4, 8)
+_MAX_QUANTILES = 4  # csrc/block_common.cuh: LMC_MAXQ
+_TILE_SIDE = 32  # csrc/block_common.cuh: LMC_TILE_SIDE, the side of a CTA's region
+
+
+def _haar_pass(x, s, axis, iy, ix, roll):
+    """One Haar butterfly at stride ``s`` along ``axis`` on the level's
+    lattice (``other % s == 0``): slots ``p`` (``idx % 2s == 0``) and
+    ``q = p + s`` become ``(x[p] + x[q]) / sqrt2`` and
+    ``(x[p] - x[q]) / sqrt2``. An involution: it serves forward and inverse.
+    The periodic rolls never wrap onto a selected slot (``n % 2s == 0``)."""
+    n = x.shape[axis]
+    idx = iy if axis == 0 else ix
+    other = ix if axis == 0 else iy
+    r = idx & (2 * s - 1)
+    x_fwd = roll(x, n - s, axis)  # reads x[i + s]
+    x_bwd = roll(x, s, axis)  # reads x[i - s]
+    new = torch.where(r == 0, (x + x_fwd) * _SQRT1_2,
+                      torch.where(r == s, (x_bwd - x) * _SQRT1_2, x))
+    return new if s == 1 else torch.where((other & (s - 1)) == 0, new, x)
+
+
+def _iotas(shape, device):
+    ny, nx = shape
+    iy = torch.arange(ny, device=device)[:, None]
+    ix = torch.arange(nx, device=device)[None, :]
+    return iy, ix
+
+
+def haar_levels(shape, levels: int) -> int:
+    """Levels the interleaved Haar applies: it stops at the first level
+    ``l`` whose stride ``2^(l+1)`` does not divide both sides."""
+    n = 0
+    while n < levels and shape[0] % (2 << n) == 0 and shape[1] % (2 << n) == 0:
+        n += 1
+    return n
+
+
+def _db_level_ok(shape, s, taps):
+    # DaubechiesDWT2D's guard: the sub-lattice even and at least taps long
+    return (shape[0] % (2 * s) == 0 and shape[1] % (2 * s) == 0
+            and shape[0] // s >= taps and shape[1] // s >= taps)
+
+
+def dwt_levels(shape, taps: int, levels: int) -> int:
+    """Levels ``dwt_interleaved`` applies (``haar_levels`` for ``taps=2``)."""
+    if taps == 2:
+        return haar_levels(shape, levels)
+    n = 0
+    while n < levels and _db_level_ok(shape, 1 << n, taps):
+        n += 1
+    return n
+
+
+def haar_interleaved(x, levels: int, roll=torch.roll, iotas=None):
+    """Multi-level orthogonal 2-D Haar DWT in interleaved layout
+    (``ops/wavelet.py::HaarDWT2D.matvec`` up to a fixed permutation)."""
+    iy, ix = _iotas(x.shape, x.device) if iotas is None else iotas
+    for lv in range(haar_levels(x.shape, levels)):
+        s = 1 << lv
+        x = _haar_pass(x, s, 0, iy, ix, roll)
+        x = _haar_pass(x, s, 1, iy, ix, roll)
+    return x
+
+
+def haar_interleaved_inv(c, levels: int, roll=torch.roll, iotas=None):
+    """Inverse (the transpose: ``W`` is orthogonal) of ``haar_interleaved``."""
+    iy, ix = _iotas(c.shape, c.device) if iotas is None else iotas
+    for lv in reversed(range(haar_levels(c.shape, levels))):
+        s = 1 << lv
+        c = _haar_pass(c, s, 1, iy, ix, roll)
+        c = _haar_pass(c, s, 0, iy, ix, roll)
+    return c
+
+
+def _db_pass(x, h, g, s, axis, iy, ix, roll, inverse: bool):
+    """One periodic Daubechies analysis (synthesis) step at stride ``s``
+    along ``axis`` in interleaved layout, on the lattice ``other % s == 0``.
+    With ``rd(k) = x[(q + k s) mod n]``:
+      analysis:  even slot ``a = sum_i h[i] rd(i)``, odd ``d = sum_i g[i] rd(i-1)``;
+      synthesis: even ``sum_i h[2i] rd(-2i) + g[2i] rd(1-2i)``,
+                 odd  ``sum_i h[2i+1] rd(-2i-1) + g[2i+1] rd(-2i)``,
+    summed as Python's ``sum`` does. Lattice positions wrap onto lattice
+    positions (``n % 2s == 0``), so the rolls realize the periodic bank."""
+    n = x.shape[axis]
+    idx = iy if axis == 0 else ix
+    other = ix if axis == 0 else iy
+    r = idx & (2 * s - 1)
+    reads = {}
+
+    def rd(k):
+        if k not in reads:
+            sh = (-k * s) % n
+            reads[k] = x if sh == 0 else roll(x, sh, axis)
+        return reads[k]
+
+    half = len(h) // 2
+    if inverse:
+        ev = sum(h[2 * i] * rd(-2 * i) + g[2 * i] * rd(1 - 2 * i) for i in range(half))
+        od = sum(h[2 * i + 1] * rd(-2 * i - 1) + g[2 * i + 1] * rd(-2 * i)
+                 for i in range(half))
+    else:
+        ev = sum(h[i] * rd(i) for i in range(len(h)))
+        od = sum(g[i] * rd(i - 1) for i in range(len(h)))
+    new = torch.where(r == 0, ev, torch.where(r == s, od, x))
+    return new if s == 1 else torch.where((other & (s - 1)) == 0, new, x)
+
+
+def dwt_interleaved(x, taps: int, levels: int, roll=torch.roll, iotas=None):
+    """Multi-level orthogonal 2-D Daubechies DWT in interleaved layout
+    (``taps=2`` is ``haar_interleaved``): the coefficient values of
+    ``DaubechiesDWT2D(taps, levels).matvec`` up to a fixed permutation."""
+    if taps == 2:
+        return haar_interleaved(x, levels, roll, iotas)
+    h, g = daubechies_filters(taps)
+    iy, ix = _iotas(x.shape, x.device) if iotas is None else iotas
+    for lv in range(dwt_levels(x.shape, taps, levels)):
+        s = 1 << lv
+        x = _db_pass(x, h, g, s, 0, iy, ix, roll, inverse=False)
+        x = _db_pass(x, h, g, s, 1, iy, ix, roll, inverse=False)
+    return x
+
+
+def dwt_interleaved_inv(c, taps: int, levels: int, roll=torch.roll, iotas=None):
+    """Inverse (the transpose) of :func:`dwt_interleaved`."""
+    if taps == 2:
+        return haar_interleaved_inv(c, levels, roll, iotas)
+    h, g = daubechies_filters(taps)
+    iy, ix = _iotas(c.shape, c.device) if iotas is None else iotas
+    for lv in reversed(range(dwt_levels(c.shape, taps, levels))):
+        s = 1 << lv
+        c = _db_pass(c, h, g, s, 1, iy, ix, roll, inverse=True)
+        c = _db_pass(c, h, g, s, 0, iy, ix, roll, inverse=True)
+    return c
+
+
+def tile_region(shape, levels: int) -> Tuple[int, int]:
+    """``(rh, rw)``, the region of the image one CTA of the Haar kernels
+    owns: multiples of the tile side ``2^levels`` (the applied levels) that
+    divide the image, at most ``_TILE_SIDE`` each. Raises when a tile is
+    larger than a CTA holds."""
+    t = 1 << levels
+    if t > _TILE_SIDE:
+        raise ValueError(
+            f"{levels} Haar levels make {t}x{t} tiles; a CTA of the CUDA "
+            f"kernel holds at most {_TILE_SIDE}x{_TILE_SIDE}")
+
+    def side(n):
+        q = n // t
+        return t * max(a for a in range(1, _TILE_SIDE // t + 1) if q % a == 0)
+
+    return side(shape[0]), side(shape[1])
+
+
+def _check_args(taps, quantiles, quantile_thin):
+    if taps not in TAPS:
+        raise ValueError(f"taps={taps}: the kernels take {TAPS} (Haar, D4, D8)")
+    if len(quantiles) > _MAX_QUANTILES:
+        raise ValueError(f"at most {_MAX_QUANTILES} quantiles")
+    if quantile_thin < 1:
+        raise ValueError("quantile_thin must be >= 1")
+
+
+def _myula_coefs(scal_f):
+    """``(1 - tau/gamma, tau, tau/gamma, noise_scale sqrt(2 tau), sig, thr)``
+    as Python floats from ``scal_f = (tau, gamma, sig, thr, noise_scale)``."""
+    tau, gamma, sig, thr, noise_scale = (float(v) for v in scal_f)
+    return (1.0 - tau / gamma, tau, tau / gamma,
+            noise_scale * math.sqrt(2.0 * tau), sig, thr)
+
+
+def _ulpda_coefs(scal_f):
+    """``(tau, mu, theta, noise_scale sqrt(2 tau), tau sig, g_sigma)`` from
+    ``scal_f = (tau, mu, theta, noise_scale, sig, g_sigma)``."""
+    tau, mu, theta, noise_scale, sig, g_sigma = (float(v) for v in scal_f)
+    return (tau, mu, theta, noise_scale * math.sqrt(2.0 * tau), tau * sig,
+            g_sigma)
+
+
+def wavelet_block_update_ref(
+    x, y, mask, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    levels: int = 3, taps: int = 2, n_steps: int = 1, with_noise: bool = True,
+    with_stats: bool = True, quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1,
+):
+    """Plain torch version of kernel 4 (see ``wavelet_block_update``)."""
+    _check_args(taps, quantiles, quantile_thin)
+    c_keep, c_grad, c_prox, noise_amp, sig, thr = _myula_coefs(scal_f)
+    seed, chain = base_key(seed)
+    iotas = _iotas(x.shape, x.device)
+    rec = _BlockStats(scal_i, mean, m2, qh, qn, quantiles, quantile_thin,
+                      with_stats)
+    for i in range(n_steps):
+        g = rec.step0 + i
+        grad = sig * mask * (mask * x - y)
+        c = dwt_interleaved(x, taps, levels, iotas=iotas)
+        c = torch.sign(c) * torch.clamp(torch.abs(c) - thr, min=0.0)
+        p = dwt_interleaved_inv(c, taps, levels, iotas=iotas)
+        x_new = c_keep * x - c_grad * grad + c_prox * p
+        if with_noise:
+            x_new = x_new + noise_amp * normal_field(
+                seed, chain, g, x.shape, x.dtype, x.device)
+        rec(x_new, g)
+        x = x_new
+    return (x, *rec.result())
+
+
+def _filters(taps):
+    """``h`` then ``g`` as the kernels' float32 array (8 taps, zero padded)."""
+    h, g = daubechies_filters(taps)
+    out = np.zeros(16, np.float32)
+    out[:taps] = h
+    out[8:8 + taps] = g
+    return out
+
+
+def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
+    """Checks shared by the CUDA wrappers; returns the applied levels, the
+    CTA region of the Haar kernels, the step counters and the P^2 inputs."""
+    if x.ndim != 2 or min(x.shape) < 2:
+        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
+    ny, nx = x.shape
+    n_q = len(quantiles)
+    _build.require_cuda_f32((ny, nx), **fields)
+    if n_q:
+        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
+        if qh.device != x.device or qn.device != x.device:
+            raise ValueError("marker state must lie on x's device")
+    step0, burn, cnt0 = (int(v) for v in scal_i)
+    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
+        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
+                         "outside the kernel's uint32 step counter")
+    l_eff = dwt_levels((ny, nx), taps, levels)
+    rh, rw = tile_region((ny, nx), l_eff) if taps == 2 else (0, 0)
+    qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
+    return l_eff, (rh, rw), (step0, burn, cnt0), qcoef
+
+
+def _ptr(t, used):
+    return t.data_ptr() if used else None
+
+
+def wavelet_block_update_cuda(
+    x, y, mask, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    levels: int = 3, taps: int = 2, n_steps: int = 1, with_noise: bool = True,
+    with_stats: bool = True, quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1,
+):
+    """Kernel 4 (``csrc/wavelet_block.cu``) on contiguous float32 CUDA
+    tensors. Works on copies of ``x, mean, m2, qh, qn`` and returns them;
+    raises on a CPU tensor or on shapes and options the kernel does not
+    take."""
+    _check_args(taps, quantiles, quantile_thin)
+    fields = {"x": x, "y": y, "mask": mask}
+    if with_stats:
+        fields.update(mean=mean, m2=m2)
+    l_eff, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
+        x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
+    ny, nx = x.shape
+    n_q = len(quantiles)
+    seed, chain = base_key(seed)
+    x = x.clone()
+    if with_stats:
+        mean, m2 = mean.clone(), m2.clone()
+    if n_q:
+        qh, qn = qh.clone(), qn.clone()
+    bufs = None if taps == 2 else torch.empty((2, ny, nx), dtype=x.dtype,
+                                              device=x.device)
+    coef = np.array(_myula_coefs(scal_f), np.float32)
+    filt = _filters(taps)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lmc_wavelet_block(
+            x.data_ptr(), y.data_ptr(), mask.data_ptr(), _ptr(mean, with_stats),
+            _ptr(m2, with_stats), _ptr(qh, n_q), _ptr(qn, n_q),
+            _ptr(bufs, bufs is not None), ny, nx, taps, filt.ctypes.data,
+            l_eff, rh, rw, int(n_steps), int(bool(with_noise)),
+            int(bool(with_stats)), qcoef.ctypes.data, n_q, int(quantile_thin),
+            coef.ctypes.data, seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0,
+            burn, cnt0, stream,
+        )
+    _build.check(rc, "lmc_wavelet_block")
+    wavelet_block_update_cuda.launches += 1
+    return x, mean, m2, qh, qn
+
+
+wavelet_block_update_cuda.launches = 0  # calls that launched the kernel
+
+
+def wavelet_block_update(x, *args, **kwargs):
+    """``n_steps`` fused wavelet-l1 MYULA steps (+ Welford / P^2), kernel 4.
+
+    ``y`` the masked observation, ``mask`` the 0/1 mask; ``seed`` is a seed
+    or ``(seed, chain)``; ``scal_f = (tau, gamma, sig, thr, noise_scale)``
+    with ``sig`` the data term's ``1/sigma_noise^2`` and ``thr = epsg gamma
+    lam`` the soft threshold; ``scal_i = (step0, burn_in, count0)``: the
+    global step of the first step, the burn-in in steps, and the Welford
+    count entering the call. ``levels`` DWT levels of the ``taps``-tap
+    filter (2 Haar, 4 D4, 8 D8). ``quantiles`` adds the P^2 markers ``qh``
+    (5 heights per quantile) and ``qn`` (3 interior positions), each
+    ``(k * len(quantiles), ny, nx)``. Returns ``(x', mean', m2', qh', qn')``.
+    CUDA tensors run the hand kernel, CPU tensors its plain version.
+    """
+    if x.is_cuda:
+        return wavelet_block_update_cuda(x, *args, **kwargs)
+    return wavelet_block_update_ref(x, *args, **kwargs)
+
+
+def ulpda_wavelet_block_update_ref(
+    x, c, xbar, y, mask, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    levels: int = 3, taps: int = 2, n_steps: int = 1, gfirst: bool = False,
+    with_noise: bool = True, with_stats: bool = True,
+    quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
+):
+    """Plain torch version of kernel 5 (see ``ulpda_wavelet_block_update``)."""
+    _check_args(taps, quantiles, quantile_thin)
+    tau, mu, theta, noise_amp, ts, g_sigma = _ulpda_coefs(scal_f)
+    seed, chain = base_key(seed)
+    iotas = _iotas(x.shape, x.device)
+    rec = _BlockStats(scal_i, mean, m2, qh, qn, quantiles, quantile_thin,
+                      with_stats)
+    # L2Data(Mask).prox in closed form: (v + ts m y) / (1 + ts m)
+    prox_den = 1.0 / (1.0 + ts * mask)
+    atb = ts * mask * y
+
+    def dual(c, xbar):
+        w = dwt_interleaved(xbar, taps, levels, iotas=iotas)
+        return torch.clamp(c + mu * w, -g_sigma, g_sigma)
+
+    if not gfirst:
+        xbar = x  # never read: each step rebuilds it before the dual update
+    for i in range(n_steps):
+        g = rec.step0 + i
+        if gfirst:
+            c = dual(c, xbar)
+        p = dwt_interleaved_inv(c, taps, levels, iotas=iotas)
+        x_new = (x - tau * p + atb) * prox_den
+        if with_noise:
+            x_new = x_new + noise_amp * normal_field(
+                seed, chain, g, x.shape, x.dtype, x.device)
+        xbar = x_new + theta * (x_new - x)
+        if not gfirst:
+            c = dual(c, xbar)
+        rec(x_new, g)
+        x = x_new
+    return (x, c, xbar, *rec.result())
+
+
+def ulpda_wavelet_block_update_cuda(
+    x, c, xbar, y, mask, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    levels: int = 3, taps: int = 2, n_steps: int = 1, gfirst: bool = False,
+    with_noise: bool = True, with_stats: bool = True,
+    quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
+):
+    """Kernel 5 (``csrc/wavelet_block.cu``) on contiguous float32 CUDA
+    tensors. Works on copies of ``x, c, xbar, mean, m2, qh, qn`` and returns
+    them (``xbar`` may be None for ``gfirst=False``, which never reads it);
+    raises on a CPU tensor or on shapes and options the kernel does not
+    take."""
+    _check_args(taps, quantiles, quantile_thin)
+    fields = {"x": x, "c": c, "y": y, "mask": mask}
+    if gfirst:
+        fields["xbar"] = xbar
+    if with_stats:
+        fields.update(mean=mean, m2=m2)
+    l_eff, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
+        x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
+    ny, nx = x.shape
+    n_q = len(quantiles)
+    seed, chain = base_key(seed)
+    x, c = x.clone(), c.clone()
+    xbar = xbar.clone() if gfirst else torch.empty_like(x)
+    if with_stats:
+        mean, m2 = mean.clone(), m2.clone()
+    if n_q:
+        qh, qn = qh.clone(), qn.clone()
+    bufs = None if taps == 2 else torch.empty((2, ny, nx), dtype=x.dtype,
+                                              device=x.device)
+    coef = np.array(_ulpda_coefs(scal_f), np.float32)
+    filt = _filters(taps)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lmc_ulpda_wavelet_block(
+            x.data_ptr(), c.data_ptr(), xbar.data_ptr(), y.data_ptr(),
+            mask.data_ptr(), _ptr(mean, with_stats), _ptr(m2, with_stats),
+            _ptr(qh, n_q), _ptr(qn, n_q), _ptr(bufs, bufs is not None), ny, nx,
+            taps, filt.ctypes.data, l_eff, rh, rw, int(n_steps),
+            int(bool(gfirst)), int(bool(with_noise)), int(bool(with_stats)),
+            qcoef.ctypes.data, n_q, int(quantile_thin), coef.ctypes.data,
+            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+        )
+    _build.check(rc, "lmc_ulpda_wavelet_block")
+    ulpda_wavelet_block_update_cuda.launches += 1
+    return x, c, xbar, mean, m2, qh, qn
+
+
+ulpda_wavelet_block_update_cuda.launches = 0  # calls that launched the kernel
+
+
+def ulpda_wavelet_block_update(x, *args, **kwargs):
+    """``n_steps`` fused wavelet-dual ULPDA steps (+ Welford / P^2), kernel 5.
+
+    ``c`` the dual in the interleaved coefficient layout, ``xbar`` the
+    extrapolated iterate (read only with ``gfirst``), ``y`` and ``mask`` the
+    observation and its 0/1 mask; ``scal_f = (tau, mu, theta, noise_scale,
+    sig, g_sigma)`` with ``g_sigma`` the dual's l-inf radius (the wavelet-l1
+    weight); ``scal_i``, ``quantiles`` and the markers as in
+    ``wavelet_block_update``. Returns ``(x', c', xbar', mean', m2', qh',
+    qn')``; ``xbar'`` is the genuine ``x' + theta (x' - x)`` in both orders.
+    CUDA tensors run the hand kernel, CPU tensors its plain version.
+    """
+    if x.is_cuda:
+        return ulpda_wavelet_block_update_cuda(x, *args, **kwargs)
+    return ulpda_wavelet_block_update_ref(x, *args, **kwargs)
+
+
+def run_myula_wavelet_fused(
+    l2,
+    lam: float,
+    tau: float,
+    gamma: float,
+    x0,
+    key,
+    n_steps: int,
+    *,
+    levels: int = 3,
+    taps: int = 2,
+    epsg: float = 1.0,
+    block: Optional[int] = None,
+    burn_in: int = 0,
+    noise_scale: float = 1.0,
+    step_offset: int = 0,
+    quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1,
+    quantile_state=None,
+) -> FusedChainResult:
+    """Block-fused wavelet-l1 MYULA chain: a host loop over blocks of
+    ``block`` fused steps (kernel 4 per block on CUDA) with Welford posterior
+    moments and, with ``quantiles``, per-pixel P^2 maps. ``l2`` is an
+    ``L2Data`` over a ``Mask``; the prior is ``lam ||W x||_1`` with the
+    ``levels``-level orthogonal DWT of ``taps`` taps (2 Haar, 4 D4, 8 D8).
+
+    ``key`` is a seed or ``(seed, chain)``. ``step_offset`` is this run's
+    global first step, so burn-in masking, the P^2 count and the noise
+    continue across segmented runs (resume with ``quantile_state``; the
+    Welford count restarts per run, merge with ``RunningMoments.merge``).
+    """
+    x0 = torch.as_tensor(x0)
+    quantiles = tuple(float(p) for p in quantiles)
+    step_offset = int(step_offset)
+    block = _align_block(n_steps, min(n_steps, 500) if block is None else block,
+                         quantiles, quantile_thin, noise_scale, step_offset)
+    scal_f = (float(tau), float(gamma), float(l2.sigma),
+              float(epsg * gamma * lam), float(noise_scale))
+    x, mean, m2 = x0, torch.zeros_like(x0), torch.zeros_like(x0)
+    qh, qn = _marker_state(x0, len(quantiles), quantile_state)
+    for b in range(n_steps // block):
+        step0 = step_offset + b * block
+        cnt0 = max(step0 - max(burn_in, step_offset), 0)
+        x, mean, m2, qh, qn = wavelet_block_update(
+            x, l2.b, l2.op.mask, mean, m2, key, scal_f, (step0, burn_in, cnt0),
+            qh, qn, levels=levels, taps=taps, n_steps=block,
+            with_noise=noise_scale != 0.0, with_stats=True,
+            quantiles=quantiles, quantile_thin=quantile_thin,
+        )
+    count = (max(step_offset + n_steps - burn_in, 0)
+             - max(step_offset - burn_in, 0))
+    return _chain_result(x, mean, m2, count, quantiles, qh, qn)
+
+
+def run_ulpda_wavelet_fused(
+    l2,
+    g_sigma: float,
+    tau,
+    mu,
+    x0,
+    key,
+    n_steps: int,
+    *,
+    theta: float = 1.0,
+    gfirst: bool = False,
+    levels: int = 3,
+    taps: int = 2,
+    block: Optional[int] = None,
+    burn_in: int = 0,
+    noise_scale: float = 1.0,
+    quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1,
+    quantile_state=None,
+    y0=None,
+    xbar0=None,
+    step_offset: int = 0,
+) -> FusedChainResult:
+    """Block-fused wavelet-dual ULPDA chain (kernel 5 per block on CUDA)
+    with Welford moments and optional P^2 ``quantiles``: the primal chain of
+    ``kernels/imaging.py::ulpda(L2Data(Mask), L1Norm(g_sigma), W)``.
+
+    The returned dual ``final_state.extras.y`` is an ``(ny, nx)`` field in
+    the INTERLEAVED layout: continue it only with this runner (``y0``,
+    ``xbar0`` and ``step_offset``, the global step this run starts at), not
+    with the unfused ``ulpda``, whose dual is in the Mallat layout.
+    ``extras.xbar`` is the genuine extrapolated iterate in both orders.
+    """
+    x0 = torch.as_tensor(x0)
+    quantiles = tuple(float(p) for p in quantiles)
+    step_offset = int(step_offset)
+    block = _align_block(n_steps, min(n_steps, 250) if block is None else block,
+                         quantiles, quantile_thin, noise_scale, step_offset)
+    scal_f = (float(tau), float(mu), float(theta), float(noise_scale),
+              float(l2.sigma), float(g_sigma))
+    zeros = torch.zeros_like(x0)
+    x, mean, m2 = x0, zeros, zeros
+    c = zeros if y0 is None else torch.as_tensor(y0)
+    xbar = x0 if xbar0 is None else torch.as_tensor(xbar0)
+    qh, qn = _marker_state(x0, len(quantiles), quantile_state)
+    for b in range(n_steps // block):
+        step0 = step_offset + b * block
+        cnt0 = max(step0 - max(burn_in, step_offset), 0)
+        x, c, xbar, mean, m2, qh, qn = ulpda_wavelet_block_update(
+            x, c, xbar, l2.b, l2.op.mask, mean, m2, key, scal_f,
+            (step0, burn_in, cnt0), qh, qn, levels=levels, taps=taps,
+            n_steps=block, gfirst=gfirst, with_noise=noise_scale != 0.0,
+            with_stats=True, quantiles=quantiles, quantile_thin=quantile_thin,
+        )
+    count = (max(step_offset + n_steps - burn_in, 0)
+             - max(step_offset - burn_in, 0))
+    return _chain_result(x, mean, m2, count, quantiles, qh, qn,
+                         extras=ULPDAExtras(y=c, xbar=xbar))

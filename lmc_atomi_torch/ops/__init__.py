@@ -1,1 +1,2 @@
-"""Linear operators, TV proxes (with CUDA kernel 1) and functionals."""
+"""Linear operators, wavelets, TV proxes (with CUDA kernel 1) and
+functionals."""

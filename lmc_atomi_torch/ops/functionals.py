@@ -1,7 +1,8 @@
 """Functionals (counterpart of ``lmc_atomi_tpu/ops/functionals.py``): the
-data term ``L2Data``, the isotropic TV prior ``TVNorm`` and the primal-dual
-regularizers ``L1Norm``/``L21Norm``, with the
-``__call__``/``grad``/``prox``/``proxdual`` protocol of pyproximal."""
+data term ``L2Data``, the isotropic TV prior ``TVNorm``, the primal-dual
+regularizers ``L1Norm``/``L21Norm`` and the wavelet-l1 prior
+``OrthogonalL1``, with the ``__call__``/``grad``/``prox``/``proxdual``
+protocol of pyproximal."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,7 +13,7 @@ import torch
 from lmc_atomi_torch.ops import tv as tv_ops
 from lmc_atomi_torch.ops.prox import prox_laplace
 
-__all__ = ["L2Data", "L1Norm", "L21Norm", "TVNorm"]
+__all__ = ["L2Data", "L1Norm", "L21Norm", "TVNorm", "OrthogonalL1"]
 
 
 @dataclass
@@ -50,7 +51,10 @@ class L2Data:
             e2 = e.real * e.real + e.imag * e.imag
             spec = e2 * torch.fft.rfft2(x) - self.b_spec
             return self.sigma * torch.fft.irfft2(spec, s=x.shape)
-        return self.sigma * self.op.normal_grad(x, self.b)
+        if hasattr(self.op, "normal_grad"):
+            return self.sigma * self.op.normal_grad(x, self.b)
+        # operators without a spectrum (Mask, Identity, wavelets)
+        return self.sigma * self.op.rmatvec(self.op.matvec(x) - self.b)
 
     def prox(self, x, tau):
         y = x + tau * self.sigma * self.op.rmatvec(self.b)
@@ -109,3 +113,34 @@ class TVNorm:
 
     def prox(self, x, tau):
         return tv_ops.prox_tv_iso(x, tau * self.sigma, self.niter)
+
+
+@dataclass
+class OrthogonalL1:
+    """``g(x) = sigma ||W x||_1`` for an orthogonal analysis operator ``W``
+    (a wavelet of ``ops/wavelet.py``): the prox is exactly
+    ``W^T soft(W x, tau sigma)``. The wavelet-l1 prior of the inpainting
+    workload."""
+
+    op: Any  # orthogonal operator (rmatvec is the inverse)
+    sigma: float = 1.0
+
+    def __call__(self, x):
+        return self.sigma * torch.sum(torch.abs(self.op.matvec(x)))
+
+    def prox(self, x, tau):
+        c = self.op.matvec(x)
+        return self.op.rmatvec(prox_laplace(c, tau * self.sigma))
+
+    def moreau_grad(self, x, lam):
+        """Gradient of the ``lam``-Moreau envelope: ``(x - prox_lam(x)) / lam``."""
+        return (x - self.prox(x, lam)) / lam
+
+    def moreau_value(self, x, lam):
+        """Value of the ``lam``-Moreau envelope, in coefficient space (``W``
+        orthogonal): ``sigma ||p||_1 + ||p - c||^2 / (2 lam)`` with
+        ``c = W x`` and ``p = soft(c, lam sigma)``."""
+        c = self.op.matvec(x)
+        p = prox_laplace(c, lam * self.sigma)
+        return self.sigma * torch.sum(torch.abs(p)) + torch.sum(
+            torch.square(p - c)) / (2.0 * lam)

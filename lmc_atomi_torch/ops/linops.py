@@ -1,6 +1,7 @@
 """Linear operators (counterpart of ``lmc_atomi_tpu/ops/linops.py``): the
-blur kernels, the FFT-diagonal ``CirculantBlur2D`` and the forward-difference
-``Gradient2D`` of the primal-dual samplers.
+blur kernels, the FFT-diagonal ``CirculantBlur2D``, the forward-difference
+``Gradient2D`` of the primal-dual samplers, the inpainting ``Mask``, the
+``Identity`` of the denoising workload, and the adjoint check ``dot_test``.
 
 Spectra are complex tensors. The JAX package stores them as real/imag float
 pairs only because its TPU runtime rejected complex arrays at the transfer
@@ -16,7 +17,10 @@ import torch
 
 from lmc_atomi_torch.ops.tv import _fwd_diff, _fwd_diff_adjoint_neg
 
-__all__ = ["CirculantBlur2D", "Gradient2D", "uniform_kernel", "gaussian_kernel"]
+__all__ = [
+    "CirculantBlur2D", "Gradient2D", "Identity", "Mask", "uniform_kernel",
+    "gaussian_kernel", "dot_test",
+]
 
 
 def uniform_kernel(size: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -128,3 +132,48 @@ class Gradient2D:
 
     def max_gram_eig(self, probe=None, iters: int = 0):
         return torch.tensor(8.0 / self.sampling**2)
+
+
+@dataclass(frozen=True)
+class Identity:
+    """The identity operator (the denoising workload's forward model)."""
+
+    def matvec(self, x):
+        return x
+
+    def rmatvec(self, y):
+        return y
+
+    def gram_solve(self, rho, y, niter: int = 0):
+        return y / (1.0 + rho)
+
+
+@dataclass
+class Mask:
+    """Sampling/inpainting mask: elementwise product with a 0/1 tensor."""
+
+    mask: torch.Tensor
+
+    def matvec(self, x):
+        return self.mask * x
+
+    def rmatvec(self, y):
+        return self.mask * y
+
+    def gram_solve(self, rho, y, niter: int = 0):
+        """``(I + rho M^T M)^{-1} y`` for the binary mask ``M``."""
+        return y / (1.0 + rho * self.mask)
+
+
+def dot_test(op, gen: torch.Generator, x_shape, y_shape=None,
+             dtype=torch.float64):
+    """``<A x, y>`` and ``<x, A^T y>`` for normal ``x``, ``y`` drawn from
+    ``gen`` (on ``gen``'s device); equal up to roundoff for a true adjoint."""
+    device = gen.device
+    x = torch.randn(tuple(x_shape), generator=gen, dtype=dtype, device=device)
+    ax = op.matvec(x)
+    y = torch.randn(tuple(ax.shape if y_shape is None else y_shape),
+                    generator=gen, dtype=dtype, device=device)
+    lhs = torch.sum(ax * y)
+    rhs = torch.sum(x * op.rmatvec(y))
+    return lhs, rhs

@@ -1,0 +1,156 @@
+"""Resumable long runs in checkpointed segments (counterpart of
+``lmc_atomi_tpu/run/longrun.py``).
+
+A run of ``total_steps`` executes as host-level segments; after each one the
+whole bundle (position or sampler state, streaming moments, marker state,
+base key, steps done) is checkpointed, so a preempted run resumes where its
+last checkpoint left it. The noise of step ``g`` is keyed by the global
+step itself (``(seed, chain, g)``, ``core/random.py``), so a segmented run
+draws exactly the noise of a straight one and its position equals the
+straight run's; the moments merge with the Chan et al. combine.
+
+A diverged chain raises ``FloatingPointError`` at the segment boundary,
+before the checkpoint is overwritten, so the last good checkpoint stays.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import torch
+
+from lmc_atomi_torch.core.checkpoint import restore_checkpoint, save_checkpoint
+from lmc_atomi_torch.core.stats import RunningMoments
+from lmc_atomi_torch.kernels.base import Kernel
+from lmc_atomi_torch.kernels.myula_fused import _marker_state, run_myula_tv_fused
+from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
+from lmc_atomi_torch.run.runner import base_key
+
+__all__ = ["run_resumable", "run_resumable_fused"]
+
+RUNNERS = ("tv", "wavelet")
+
+
+def _check_finite(pos, done: int, n: int, ckpt_path: Optional[str]) -> None:
+    if not bool(torch.isfinite(pos).all()):
+        raise FloatingPointError(
+            f"chain diverged (non-finite position) before step {done + n}; "
+            f"last checkpoint at {done} steps"
+            + (f" in {ckpt_path}" if ckpt_path else ""))
+
+
+def _finish_segment(bundle, ckpt_path, progress):
+    if ckpt_path:
+        save_checkpoint(ckpt_path, bundle)
+    if progress is not None:
+        progress(int(bundle["done"]), bundle)
+
+
+def run_resumable(
+    kernel: Kernel,
+    x0,
+    key,
+    total_steps: int,
+    segment_steps: int,
+    ckpt_path: Optional[str] = None,
+    burn_in: int = 0,
+    progress: Optional[Callable[[int, dict], None]] = None,
+):
+    """Run ``total_steps`` kernel steps in checkpointed segments. Moments
+    accumulate over steps ``g >= burn_in``. Returns the bundle
+    ``{state, moments, key, done}``; resumes from ``ckpt_path`` if it
+    exists."""
+    seed, chain = base_key(key)
+    state = kernel.init(x0)
+    bundle = {"state": state, "moments": RunningMoments.init(state.position),
+              "key": (seed, chain), "done": 0}
+    if ckpt_path and os.path.exists(ckpt_path):
+        bundle = restore_checkpoint(ckpt_path, bundle)
+    while bundle["done"] < total_steps:
+        done = bundle["done"]
+        n = min(segment_steps, total_steps - done)
+        st, mom = bundle["state"], bundle["moments"]
+        for _ in range(n):
+            st, _ = kernel.step(st, (seed, chain, st.step))
+            mom = mom.update(st.position, weight=st.step > burn_in)
+        _check_finite(st.position, done, n, ckpt_path)
+        bundle = {"state": st, "moments": mom, "key": (seed, chain),
+                  "done": done + n}
+        _finish_segment(bundle, ckpt_path, progress)
+    return bundle
+
+
+def run_resumable_fused(
+    l2,
+    tv_sigma: float,
+    tau,
+    gamma,
+    x0,
+    key,
+    total_steps: int,
+    segment_steps: int,
+    ckpt_path: Optional[str] = None,
+    burn_in: int = 0,
+    progress: Optional[Callable[[int, dict], None]] = None,
+    runner: str = "tv",
+    chains_mesh=None,
+    **fused_kwargs,
+):
+    """Checkpointed long MYULA runs on the block-fused path: each segment is
+    one fused chain call starting at the global step ``done``.
+
+    ``runner`` ``"tv"`` runs ``run_myula_tv_fused`` (``tv_sigma`` the TV
+    weight), ``"wavelet"`` ``run_myula_wavelet_fused`` on an
+    ``L2Data(Mask)`` inpainting posterior (``tv_sigma`` the wavelet-l1
+    weight; ``levels``/``taps`` pass through ``fused_kwargs``). The P^2
+    ``quantiles`` stream rides in the bundle and the checkpoint; the bundle
+    gains ``"quantiles"`` (the maps) at the end. Returns the bundle
+    ``{position, moments, key, done[, quantile_state, quantiles]}``.
+
+    Not ported yet, each raising ``NotImplementedError``: the row-band
+    runners ``"tiled"`` and ``"ulpda_tiled"`` (ROADMAP A9), a chain farm from
+    an ``x0`` of shape ``(n_chains, ny, nx)`` (A6) and ``chains_mesh`` (A13).
+    """
+    if runner in ("tiled", "ulpda_tiled"):
+        raise NotImplementedError(
+            f"runner {runner!r} (the row-band kernels) is not ported yet "
+            "(ROADMAP A9)")
+    if runner not in RUNNERS:
+        raise ValueError(f"unknown runner {runner!r}")
+    if chains_mesh is not None:
+        raise NotImplementedError(
+            "chains_mesh (chain farms across devices) is not ported yet "
+            "(ROADMAP A13)")
+    x0 = torch.as_tensor(x0)
+    if x0.ndim == 3:
+        raise NotImplementedError(
+            "a chain farm (x0 of shape (n_chains, ny, nx)) is not ported yet "
+            "(ROADMAP A6)")
+    seed, chain = base_key(key)
+    quantiles = tuple(float(p) for p in fused_kwargs.pop("quantiles", ()))
+    bundle = {"position": x0, "moments": RunningMoments.init(x0),
+              "key": (seed, chain), "done": 0}
+    if quantiles:
+        bundle["quantile_state"] = _marker_state(x0, len(quantiles), None)
+    if ckpt_path and os.path.exists(ckpt_path):
+        bundle = restore_checkpoint(ckpt_path, bundle)
+    run = run_myula_wavelet_fused if runner == "wavelet" else run_myula_tv_fused
+    while bundle["done"] < total_steps:
+        done = bundle["done"]
+        n = min(segment_steps, total_steps - done)
+        res = run(l2, tv_sigma, tau, gamma, bundle["position"], (seed, chain),
+                  n, burn_in=burn_in, quantiles=quantiles,
+                  quantile_state=bundle.get("quantile_state"),
+                  step_offset=done, **fused_kwargs)
+        pos = res.final_state.position
+        _check_finite(pos, done, n, ckpt_path)
+        new = {"position": pos, "moments": bundle["moments"].merge(res.moments),
+               "key": (seed, chain), "done": done + n}
+        if quantiles:
+            new["quantile_state"] = res.quantile_state
+        bundle = new
+        _finish_segment(bundle, ckpt_path, progress)
+    if quantiles:
+        qh = bundle["quantile_state"][0]
+        bundle["quantiles"] = {p: qh[5 * j + 2] for j, p in enumerate(quantiles)}
+    return bundle

@@ -2,6 +2,8 @@
 package imports JAX): every keyword argument of the main function becomes
 ``--name value`` / ``--name=value``, typed from its default. Booleans accept
 true/false/1/0; None-defaulted args are parsed as python literals.
+``require_device`` is the workload CLIs' device rule: the card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -9,6 +11,8 @@ import argparse
 import ast
 import inspect
 from typing import Any, Callable
+
+import torch
 
 
 def _parse_none(v: str) -> Any:
@@ -53,3 +57,14 @@ def auto_cli(fn: Callable, argv=None) -> Any:
             parser.add_argument(flag, type=_parse_none, default=p.default)
     args = vars(parser.parse_args(argv))
     return fn(**args)
+
+
+def require_device(device: str, workload: str) -> torch.device:
+    """``torch.device(device)``; raises when it names a CUDA device and
+    there is none (a workload runs on the CPU only when asked to)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device: the {workload} workload runs on the card; pass "
+            "device='cpu' (--device cpu) to run it on the CPU")
+    return dev

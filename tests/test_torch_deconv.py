@@ -222,7 +222,7 @@ def test_deconv_cli_and_device_guard(capsys, monkeypatch):
         t_deconv.prox_lmc_deconv(size=16, n_steps=2)
 
 
-@pytest.mark.parametrize("flag", ["make_plots", "show", "wavelet_row", "score_row"])
+@pytest.mark.parametrize("flag", ["make_plots", "show", "score_row"])
 def test_deconv_parts_not_ported_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         t_deconv.prox_lmc_deconv(size=16, n_steps=2, device="cpu", **{flag: True})

@@ -232,7 +232,7 @@ def test_jax_chain_continues_in_port(problem):
 
 def test_fused_gating_and_guards(problem):
     """On CPU tensors the fused path is not taken; the CUDA wrapper raises
-    on them without counting a launch; the wavelet dual is refused."""
+    on them without counting a launch; an unknown dual is refused."""
     y, _, port_terms, tgrad = problem
     proxf, proxg = port_terms["tv"]
     x = torch.from_numpy(y).float()
@@ -247,10 +247,10 @@ def test_fused_gating_and_guards(problem):
             z, z, z, None, z, z, z, 0, (TAU, MU, 1.0, 1.0, SIGMA, 0.3),
             (0, 0, 0), taps=taps, oy=4, ox=4)
     assert t_ulpda.ulpda_block_update_cuda.launches == before
-    with pytest.raises(ValueError, match="wl1"):
+    with pytest.raises(ValueError, match="dual 'l2'"):
         t_ulpda.ulpda_block_update(z, z, z, None, z, z, z, 0,
                                    (TAU, MU, 1.0, 1.0, SIGMA, 0.3), (0, 0, 0),
-                                   taps=taps, oy=4, ox=4, dual="wl1")
+                                   taps=taps, oy=4, ox=4, dual="l2")
     bad = t_fn.L2Data.create(op=proxf.op, b=proxf.b)
     nonconvex = interop.l2ncvx_from_numpy(y, proxf.op, op2=None, isotropic=False)
     with pytest.raises(ValueError, match="isotropic"):
