@@ -21,11 +21,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``ulpda_wavelet_block_update_cuda``) the same way on the 512^2
    inpainting posterior: kernel 4 for Haar, D4 and D8 and Haar with 95% CI
    markers, kernel 5 for each filter in both orders; then timed;
+5c. kernels 6, 7 and 8 (``myula_tv_tiled_update_cuda``,
+   ``ulpda_tv_tiled_update_cuda``, ``myula_tv_fused_update_cuda``) against
+   their plain versions at 2048^2, 40 steps in blocks of 20, noise on, and
+   kernels 6 and 7 against the whole-image kernels 2 and 3 on the same
+   steps; then timed per 200-step block beside kernels 2 and 3;
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
    maps, then the unfused ``run_chain(myula_imaging)`` with kernel 1 inside.
-   Each is warmed up with another seed and timed; the posterior-mean PSNR
+   Each is warmed up with another seed over fewer steps and timed; the
+   posterior-mean PSNR
    must reach 40 dB and agree with the unfused path within 0.1 dB;
 7. the deconvolution path: ``prox_lmc_deconv`` at 512^2 for ULPDA and MYULA
    (1000 steps, 10 models with the wavelet row M10, fused kernels) and the
@@ -41,13 +47,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``run_resumable_fused(runner="wavelet")`` restarted from its checkpoint
    against the straight run, with the RESULTS.md PSNR gates less 1 dB and
    fused within 0.1 dB of unfused;
-9. profile: torch.profiler windows of the deconvolution cells (a fused ULPDA
-   block, the one-step fused grid with its metrics, the MAP iteration) and of
-   the inpainting cells (a fused Haar MYULA block, the unfused MYULA step).
+9. the large-image path (``scripts/bench_tiled_2048.py``'s problem: the
+   2048^2 phantom, the 512^2 problem's blur, noise and weights): 4000-step
+   tiled chains (``run_myula_tv_tiled`` FGP-8 and MC-TV cold-10,
+   ``run_ulpda_tv_tiled``) against the whole-image chains on the same key,
+   with the JAX package's PSNRs less 1 dB; cold-10 with 95% CI maps; 4096^2
+   FGP-8, 1000 steps; a ``run_resumable_fused(runner="ulpda_tiled")``
+   restarted from its checkpoint; ``run_chain(myula_imaging_fused)`` against
+   the unfused chain;
+10. profile: torch.profiler windows of the deconvolution cells (a fused
+   ULPDA block, the one-step fused grid with its metrics, the MAP
+   iteration), of the inpainting cells (a fused Haar MYULA block, the
+   unfused MYULA step) and of the large-image cell (one 200-step block at
+   2048^2 of each tiled runner and of the whole-image runner beside it).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; each of its kernels must have launched. The script then prints one
-JSON line describing each kernel (launches on the three paths, errors,
+JSON line describing each kernel (launches on the four paths, errors,
 times, the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -72,6 +88,9 @@ CHECK_STEPS, CHECK_BLOCK = 40, 20
 # a block kernel is timed over this many steps (calls of BLOCK steps), its
 # plain version over one call
 TIMED_STEPS = 2000
+# the timed 20k-step chains warm up with another seed over fewer steps: the
+# fused ones past the CI run's burn-in of 2000, the unfused one less
+FUSED_WARM, UNFUSED_WARM = 2500, 500
 # kernels 2 and 3 vs their plain versions after 40 steps, for every field: the
 # gate of tests/test_myula_fused.py:89-92, atol = 3e-5 * max(1, max |field|).
 # On the H100 they agree bit for bit (max_abs_err 0): both sides take the same
@@ -99,10 +118,31 @@ INP_STEPS, INP_BURN = 2000, 200
 INP_REF = {"MYULA": 17.61, "MALA": 7.71, "ULPDA-wavelet": 18.02}
 INP_FUSED_REF = {"d4": (17.88, 18.31), "d8": (17.82, 18.16)}  # MYULA, ULPDA
 TAPS = {"haar": 2, "d4": 4, "d8": 8}
+# the large-image workload (scripts/bench_tiled_2048.py::_problem): 2048^2
+# and 4096^2 phantom, the 512^2 problem's blur, noise and weights; chains of
+# 4000 steps (4096^2: 1000) in blocks of 200, burn-in 1000
+LARGE_N, HUGE_N = 2048, 4096
+LARGE_STEPS, LARGE_BURN, LARGE_BLOCK = 4000, 1000, 200
+HUGE_STEPS, HUGE_BURN = 1000, 250
+# posterior-mean PSNR of the JAX package's tiled chains at 2048^2, 4000
+# steps, burn-in 1000 (fig/r4_measurements/tiled_rows.jsonl: FGP-8 MYULA,
+# streamed ULPDA, MC-TV MYULA with FGP-8, the gate of the MC-TV cold-10
+# chain here); the gate is these less 1 dB
+LARGE_REF = {"fgp8": 44.813, "ulpda": 44.607, "mctv": 28.536}
+LARGE_MARGIN = 1.0
+RESUME_STEPS = 1000  # run_resumable_fused(runner="ulpda_tiled"), 2 segments
+TAIL_STEPS, TAIL_BURN = 1000, 250  # kernel 8's chain against the unfused one
 # H100 SXM data sheet peaks at 700 W: f32 outside the tensor cores and HBM
 # bandwidth
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# profile_window: idle host time around a profiled call, first try and
+# retry; the share of device records a window must keep; and the host-side
+# CUDA calls that each make one device record
+PROFILE_MARGINS_S = (0.5, 2.5)
+PROFILE_KEPT = 0.99
+CUDA_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"})
 
 SOLVERS = {
     "fgp8": dict(niter_tv=8, tv_solver="fgp"),
@@ -135,6 +175,17 @@ def cuda_ms(fn, reps: int = 1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def plain_ms(timed, fn):
+    """Device time of one call of a plain version, or None: the plain
+    versions take seconds per call, so each kernel's is timed for the mode
+    its kernels-line entry reports only."""
+    return cuda_ms(fn)[0] if timed else None
+
+
+def plain_note(p_ms, steps):
+    return "" if p_ms is None else f", plain {p_ms:.3f} ms / {steps / p_ms * 1e3:.1f} iters/s"
 
 
 # --- the least time the card could take -------------------------------------
@@ -233,6 +284,28 @@ def bound_kernel5(npix, n_steps, taps, levels, gfirst=False, with_noise=True):
     per = 2 * f_dwt(taps, levels) + 4 + 4 + 3 + F_WELFORD
     per += (F_NOISE + 2) if with_noise else 0
     return bound_ms(npix * (n_steps * per + 5), 4 * npix * (6 + gfirst + 5))
+
+
+def bound_kernel7(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
+                  niter_inner=0, with_noise=True):
+    """One call of n_steps tiled ULPDA steps: kernel 3's operations with x̄
+    recomputed at the 3 points the dual reads (+6); x, x_prev, py, px, atb,
+    mean, m2 read once and all but atb written once."""
+    per = 8 + niter_solve * (f_gram(taps) + 7) + 4 + F_WELFORD + 6
+    per += F_NOISE if with_noise else 0
+    per += {"l21": 15, "l1": 10}[dual]
+    if mode == "mctv":
+        per += F_MCTV_CLAMP + 5
+    elif mode == "metv":
+        per += niter_inner * F_TRIP["chambolle"] + F_PROX_FINISH + 3
+    return bound_ms(npix * n_steps * per, 4 * npix * 13)
+
+
+def bound_kernel8(npix, niter, with_noise=True):
+    """One step given the gradient: niter Chambolle trips, the prox, the
+    update (5) and the noise; x and the gradient read once, x' written once."""
+    per = niter * F_TRIP["chambolle"] + F_PROX_FINISH + 5 + (F_NOISE if with_noise else 0)
+    return bound_ms(npix * per, 4 * npix * 3)
 
 
 def phase_device():
@@ -343,12 +416,14 @@ def compare(label, got, want, names):
 
 def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
     """run_myula_tv_fused's block loop, with the block update passed in (the
-    kernel or its plain version) so both run on the card."""
+    kernel or its plain version) so both run on the card; also
+    run_myula_tv_tiled's, ``cfg`` then holding ``band`` and ``halo``."""
     import torch
 
     from lmc_atomi_torch.kernels.myula_fused import (
         _fused_mode,
         _fused_params,
+        _marker_state,
         _pack_scal_f,
     )
 
@@ -358,12 +433,8 @@ def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
     scal_f = _pack_scal_f(l2, 0.2 * gamma, gamma, TV_WEIGHT, 1.0, lamda, gamma_mc)
     cfg = dict(cfg)
     burn = cfg.pop("burn_in", 0)
-    qs = cfg.get("quantiles", ())
     x, mean, m2 = x0, torch.zeros_like(x0), torch.zeros_like(x0)
-    qh = qn = None
-    if qs:
-        qh = torch.zeros((5 * len(qs), N, N), device=x0.device)
-        qn = torch.arange(2.0, 5.0, device=x0.device)[:, None, None].repeat(len(qs), N, N)
+    qh, qn = _marker_state(x0, len(cfg.get("quantiles", ())), None)
     for b in range(n_steps // block):
         step0 = b * block
         x, mean, m2, qh, qn = update(
@@ -401,7 +472,8 @@ def phase_kernel2(dev, l2, y, models, report):
                              ("x", "mean", "m2", "qh", "qn"))
         worst = max(worst, err)
         log(f"kernel2 {name} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
-    # device time per 500-step call, kernel and plain version, per solver/mode
+    # device time per 500-step call per solver/mode; the plain version's for
+    # the reported mode only (plain_ms)
     times = {}
     reps = TIMED_STEPS // BLOCK
     for name, data, cfg in runs:
@@ -410,12 +482,11 @@ def phase_kernel2(dev, l2, y, models, report):
         cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
         k_ms, _ = cuda_ms(lambda: _run_blocks(
             myula_tv_block_update_cuda, data, y, BLOCK, BLOCK, cfg, seed=8), reps)
-        p_ms, _ = cuda_ms(lambda: _run_blocks(
-            myula_tv_block_update_ref, data, y, BLOCK, BLOCK, cfg, seed=8), 1)
+        p_ms = plain_ms(name == "cold10", lambda: _run_blocks(
+            myula_tv_block_update_ref, data, y, BLOCK, BLOCK, cfg, seed=8))
         times[name] = (k_ms, p_ms)
         log(f"kernel2 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
-            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s, plain {p_ms:.3f} ms / "
-            f"{BLOCK / p_ms * 1e3:.1f} iters/s")
+            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s{plain_note(p_ms, BLOCK)}")
     k_ms, p_ms = times["cold10"]
     taps = _fused_params(l2)[0]
     b_ms, b_by = bound_kernel2(N * N, BLOCK, taps, 10)
@@ -491,17 +562,17 @@ def phase_kernel3(dev, y, models, report):
         cfg = dict(gfirst=False, niter_solve=3)
         k_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
             ulpda_block_update_cuda, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op), reps)
-        p_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
-            ulpda_block_update_ref, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op), 1)
-        taps = separable_gram_taps(proxf.op.hh)
         mode = name.split("-")[1].lower()
+        p_ms = plain_ms(mode == "tv", lambda: _run_ulpda_blocks(
+            ulpda_block_update_ref, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op))
+        taps = separable_gram_taps(proxf.op.hh)
         dual = {"mctv": "l1", "wl1": "wl1"}.get(mode, "l21")
         b_ms, b_by = bound_kernel3(N * N, BLOCK, taps, 3, mode="tv" if dual == "wl1" else mode,
                                    dual=dual, niter_inner=10)
         times[mode] = (k_ms, p_ms, b_ms, b_by)
         log(f"kernel3 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
-            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s, plain {p_ms:.3f} ms / "
-            f"{BLOCK / p_ms * 1e3:.1f} iters/s, bound {b_ms:.4f} ms ({b_by})")
+            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s{plain_note(p_ms, BLOCK)}, "
+            f"bound {b_ms:.4f} ms ({b_by})")
     k_ms, p_ms, b_ms, b_by = times["tv"]
     report["ulpda_block_update_cuda"] = dict(
         max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
@@ -609,17 +680,18 @@ def phase_kernel45(dev, report):
         k5, _ = cuda_ms(lambda: _ulpda_wavelet_blocks(ulpda_wavelet_block_update_cuda, l2,
                                                       b5, b5, 8, taps, False),
                         TIMED_STEPS // b5)
-        p4, _ = cuda_ms(lambda: _wavelet_blocks(wavelet_block_update_ref, l2, b4, b4, 8, taps))
-        p5, _ = cuda_ms(lambda: _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, l2,
-                                                      b5, b5, 8, taps, False))
+        p4 = plain_ms(name == "haar", lambda: _wavelet_blocks(
+            wavelet_block_update_ref, l2, b4, b4, 8, taps))
+        p5 = plain_ms(name == "haar", lambda: _ulpda_wavelet_blocks(
+            ulpda_wavelet_block_update_ref, l2, b5, b5, 8, taps, False))
         bd4 = bound_kernel4(N * N, b4, taps, INP_LEVELS)
         bd5 = bound_kernel5(N * N, b5, taps, INP_LEVELS)
         times[name] = (k4, p4, bd4, k5, p5, bd5)
         log(f"kernel4 {name} timing ({TIMED_STEPS} steps, plain {b4}): kernel {k4:.3f} ms / "
-            f"{b4 / k4 * 1e3:.1f} iters/s, plain {p4:.3f} ms / {b4 / p4 * 1e3:.1f} iters/s, "
+            f"{b4 / k4 * 1e3:.1f} iters/s{plain_note(p4, b4)}, "
             f"bound {bd4[0]:.4f} ms ({bd4[1]})")
         log(f"kernel5 {name} timing ({TIMED_STEPS} steps, plain {b5}): kernel {k5:.3f} ms / "
-            f"{b5 / k5 * 1e3:.1f} iters/s, plain {p5:.3f} ms / {b5 / p5 * 1e3:.1f} iters/s, "
+            f"{b5 / k5 * 1e3:.1f} iters/s{plain_note(p5, b5)}, "
             f"bound {bd5[0]:.4f} ms ({bd5[1]})")
     qs = (0.025, 0.975)
     kq, _ = cuda_ms(lambda: _wavelet_blocks(wavelet_block_update_cuda, l2, b4, b4, 8, 2, qs,
@@ -632,6 +704,192 @@ def phase_kernel45(dev, report):
         max_abs_err=worst4, ms=k4, plain_ms=p4, bound_ms=bd4, bound_by=by4, library_ms=None)
     report["ulpda_wavelet_block_update_cuda"] = dict(
         max_abs_err=worst5, ms=k5, plain_ms=p5, bound_ms=bd5, bound_by=by5, library_ms=None)
+
+
+def make_large(dev, n, seed=0):
+    """The large-image workload at n^2: the image, the observation and the
+    data terms (TV, and the MC-TV / ME-TV of the deconvolution models M2/M3:
+    lamda 0.3, gamma 15, 10 envelope trips)."""
+    import torch
+
+    from lmc_atomi_torch.ops.functionals import L2Data
+    from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, uniform_kernel
+    from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
+    from lmc_atomi_torch.utils.images import phantom
+
+    img = torch.from_numpy(phantom(n)).to(dev)
+    blur = CirculantBlur2D.from_kernel((n, n), uniform_kernel(5, torch.float32, dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = blur.matvec(img) + SIGMA_NOISE * torch.randn(
+        (n, n), generator=gen, device=dev, dtype=torch.float32)
+    terms = {"tv": L2Data.create(op=blur, b=y, sigma=1.0 / SIGMA_NOISE**2)}
+    for mode, op2 in (("mctv", Gradient2D()), ("metv", None)):
+        terms[mode] = L2NcvxTV(op=blur, b=y, op2=op2, sigma=1.0 / SIGMA_NOISE**2,
+                               lamda=0.3, gamma=15.0, isotropic=True, niter_inner=10)
+    return img, y, terms
+
+
+def _tiling(halo_need, n):
+    """The runners' default band and halo for a halo need at n rows."""
+    from lmc_atomi_torch.kernels.myula_tiled import _round8, pick_band
+
+    halo = _round8(max(halo_need, 8))
+    return dict(band=pick_band(n, halo), halo=halo)
+
+
+def _myula_tiling(l2, cfg, n):
+    from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params
+    from lmc_atomi_torch.kernels.myula_tiled import _halo_need
+
+    oy = _fused_params(l2)[1][0]
+    mode, _, _, niter_inner = _fused_mode(l2)
+    return _tiling(_halo_need(cfg.get("niter_tv", 10), oy, mode, niter_inner), n)
+
+
+def _run_ulpda_tiled_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed):
+    """run_ulpda_tv_tiled's block loop with the block update passed in, from
+    the state _run_ulpda_blocks starts kernel 3 at (x = x_prev = x0, zero
+    dual, burn-in 5). Returns (x, py, px, xbar, mean, m2), as kernel 3."""
+    import torch
+
+    from lmc_atomi_torch.kernels.ulpda_fused import _pack_ulpda_scal, _ulpda_setup
+    from lmc_atomi_torch.kernels.ulpda_tiled import _ulpda_halo_need
+    from lmc_atomi_torch.ops.linops import Gradient2D
+
+    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
+     lam, _) = _ulpda_setup(proxf, proxg, Gradient2D())
+    tau0 = 0.95 * SIGMA_NOISE**2
+    scal_f = _pack_ulpda_scal(proxf, proxg, tau0, 1.0, 1.0, 1.0, lamda, gamma_mc)
+    tiling = _tiling(_ulpda_halo_need(3, oy, mode, niter_inner), x0.shape[0])
+    zeros = torch.zeros_like(x0)
+    x, xp, py, px, mean, m2 = x0, x0, zeros, zeros, zeros, zeros
+    for b in range(n_steps // block):
+        step0 = b * block
+        x, xp, py, px, mean, m2, _, _ = update(
+            x, xp, py, px, atb, mean, m2, (seed, 0), scal_f, (step0, 5, max(step0 - 5, 0)),
+            taps=taps, oy=oy, ox=ox, lam=lam, n_steps=block, niter_solve=3, dual=dual,
+            mode=mode, niter_inner=niter_inner, **tiling, **cfg)
+    return x, py, px, x + 1.0 * (x - xp), mean, m2
+
+
+def phase_kernel678(dev, report):
+    """Kernels 6, 7 and 8 against their plain versions at 2048^2, 40 steps in
+    blocks of 20, noise on, and against the whole-image kernels 2 and 3 on
+    the same steps; then kernels 6 and 7, their plain versions and kernels 2
+    and 3 timed per 200-step block, kernel 8 per step."""
+    import torch
+
+    from lmc_atomi_torch.kernels.myula_cuda import (
+        myula_tv_fused_update_cuda,
+        myula_tv_fused_update_ref,
+    )
+    from lmc_atomi_torch.kernels.myula_fused import _fused_params, myula_tv_block_update_cuda
+    from lmc_atomi_torch.kernels.myula_tiled import (
+        myula_tv_tiled_update_cuda,
+        myula_tv_tiled_update_ref,
+    )
+    from lmc_atomi_torch.kernels.ulpda_fused import ulpda_block_update_cuda
+    from lmc_atomi_torch.kernels.ulpda_tiled import (
+        ulpda_tv_tiled_update_cuda,
+        ulpda_tv_tiled_update_ref,
+    )
+    from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm
+
+    n = LARGE_N
+    _, y, terms = make_large(dev, n)
+    runs6 = [(name, terms["tv"], cfg) for name, cfg in SOLVERS.items() if name != "warm5"]
+    runs6 += [(f"{mode}_cold10", terms[mode], dict(niter_tv=10)) for mode in ("mctv", "metv")]
+    worst6 = 0.0
+    for name, data, cfg in runs6:
+        cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
+        tcfg = dict(cfg, **_myula_tiling(data, cfg, n))
+        got = _run_blocks(myula_tv_tiled_update_cuda, data, y, CHECK_STEPS, CHECK_BLOCK,
+                          tcfg, seed=7)
+        want = _run_blocks(myula_tv_tiled_update_ref, data, y, CHECK_STEPS, CHECK_BLOCK,
+                           tcfg, seed=7)
+        err, parts = compare(f"kernel 6 ({name})", got, want, ("x", "mean", "m2", "qh", "qn"))
+        k2 = _run_blocks(myula_tv_block_update_cuda, data, y, CHECK_STEPS, CHECK_BLOCK,
+                         cfg, seed=7)
+        err2, parts2 = compare(f"kernel 6 against kernel 2 ({name})", got, k2,
+                               ("x", "mean", "m2", "qh", "qn"))
+        worst6 = max(worst6, err)
+        log(f"kernel6 {name} {n}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}; "
+            f"against kernel 2: {parts2}")
+    duals = {"tv": L21Norm(sigma=TV_WEIGHT), "mctv": L1Norm(sigma=TV_WEIGHT),
+             "metv": L21Norm(sigma=TV_WEIGHT)}
+    runs7 = [("tv", False), ("tv", True), ("mctv", False), ("metv", False)]
+    worst7 = 0.0
+    for mode, gfirst in runs7:
+        label = f"{mode} {type(duals[mode]).__name__} gfirst={gfirst}"
+        args = (terms[mode], duals[mode], y, CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst), 7)
+        got = _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_cuda, *args)
+        want = _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_ref, *args)
+        err, parts = compare(f"kernel 7 ({label})", got, want,
+                             ("x", "py", "px", "xbar", "mean", "m2"))
+        k3 = _run_ulpda_blocks(ulpda_block_update_cuda, terms[mode], duals[mode], y,
+                               CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst, niter_solve=3), 7)
+        _, parts3 = compare(f"kernel 7 against kernel 3 ({label})", got, k3,
+                            ("x", "py", "px", "xbar", "mean", "m2"))
+        worst7 = max(worst7, err)
+        log(f"kernel7 {label} {n}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}; "
+            f"against kernel 3: {parts3}")
+    l2 = terms["tv"]
+    gamma = SIGMA_NOISE**2
+    tail = (0.2 * gamma, gamma, TV_WEIGHT * gamma)
+    x, worst8 = y, 0.0
+    for g in range(5):
+        grad = l2.grad(x)
+        got = myula_tv_fused_update_cuda(x, grad, (7, 0, g), *tail)
+        want = myula_tv_fused_update_ref(x, grad, (7, 0, g), *tail)
+        err, parts = compare(f"kernel 8 (step {g})", (got,), (want,), ("x",))
+        worst8 = max(worst8, err)
+        x = got
+    log(f"kernel8 {n}^2 5 single steps, noise on: max_abs_err {worst8:.3e}")
+
+    # device time per 200-step block (kernels and plain versions at the
+    # runners' block), kernels 2 and 3 on the same blocks
+    taps = _fused_params(l2)[0]
+    npix, blk = n * n, LARGE_BLOCK
+    times = {}
+    for name, cfg in (("cold10", dict(niter_tv=10)), ("fgp8", dict(niter_tv=8, tv_solver="fgp"))):
+        tcfg = dict(cfg, **_myula_tiling(l2, cfg, n))
+        k6, _ = cuda_ms(lambda: _run_blocks(myula_tv_tiled_update_cuda, l2, y, blk, blk, tcfg, 8), 2)
+        k2, _ = cuda_ms(lambda: _run_blocks(myula_tv_block_update_cuda, l2, y, blk, blk, cfg, 8), 2)
+        times[name] = (k6, k2)
+        log(f"kernel6 {name} timing {n}^2 per {blk}-step block: kernel 6 {k6:.3f} ms "
+            f"({blk / k6 * 1e3:.1f} iters/s), kernel 2 {k2:.3f} ms ({blk / k2 * 1e3:.1f} iters/s)")
+    p6, _ = cuda_ms(lambda: _run_blocks(myula_tv_tiled_update_ref, l2, y, blk, blk,
+                                        dict(niter_tv=10, **_myula_tiling(l2, {}, n)), 8))
+    b6 = bound_kernel2(npix, blk, taps, 10)
+    log(f"kernel6 cold10 plain {p6:.3f} ms per {blk} steps; bound {b6[0]:.4f} ms ({b6[1]})")
+    report["myula_tv_tiled_update_cuda"] = dict(
+        max_abs_err=worst6, ms=times["cold10"][0], plain_ms=p6, bound_ms=b6[0],
+        bound_by=b6[1], library_ms=None)
+
+    cfg = dict(gfirst=False)
+    k7, _ = cuda_ms(lambda: _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_cuda, l2, duals["tv"],
+                                                    y, blk, blk, cfg, 8), 2)
+    k3, _ = cuda_ms(lambda: _run_ulpda_blocks(ulpda_block_update_cuda, l2, duals["tv"], y, blk,
+                                              blk, dict(niter_solve=3), 8), 2)
+    p7, _ = cuda_ms(lambda: _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_ref, l2, duals["tv"],
+                                                    y, blk, blk, cfg, 8))
+    b7 = bound_kernel7(npix, blk, taps, 3)
+    log(f"kernel7 tv timing {n}^2 per {blk}-step block: kernel 7 {k7:.3f} ms "
+        f"({blk / k7 * 1e3:.1f} iters/s), kernel 3 {k3:.3f} ms ({blk / k3 * 1e3:.1f} iters/s), "
+        f"plain {p7:.3f} ms; bound {b7[0]:.4f} ms ({b7[1]})")
+    report["ulpda_tv_tiled_update_cuda"] = dict(
+        max_abs_err=worst7, ms=k7, plain_ms=p7, bound_ms=b7[0], bound_by=b7[1],
+        library_ms=None)
+
+    grad = l2.grad(y)
+    k8, _ = cuda_ms(lambda: myula_tv_fused_update_cuda(y, grad, (8, 0, 0), *tail), 50)
+    p8, _ = cuda_ms(lambda: myula_tv_fused_update_ref(y, grad, (8, 0, 0), *tail), 5)
+    b8 = bound_kernel8(npix, 10)
+    log(f"kernel8 timing {n}^2 per step: kernel {k8:.4f} ms, plain {p8:.4f} ms; "
+        f"bound {b8[0]:.5f} ms ({b8[1]})")
+    report["myula_tv_fused_update_cuda"] = dict(
+        max_abs_err=worst8, ms=k8, plain_ms=p8, bound_ms=b8[0], bound_by=b8[1],
+        library_ms=None)
 
 
 def phase_main_path(dev, img, y, l2):
@@ -670,20 +928,21 @@ def phase_main_path(dev, img, y, l2):
             f"max_alloc={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB")
         return p
 
-    def timed(run):
-        run(1)  # warm-up at the same step count, another seed
+    def timed(run, warm_steps):
+        run(1, warm_steps)  # warm-up: another seed, fewer steps
         t0 = time.perf_counter()
-        ms, out = cuda_ms(lambda: run(2))
+        ms, out = cuda_ms(lambda: run(2, STEPS))
         return out, ms, time.perf_counter() - t0
 
     psnrs = {}
     for name, cfg in SOLVERS.items():
         cfg = dict(cfg, burn_in=2000) if "quantiles" in cfg else cfg
-        out, ms, wall = timed(lambda seed: run_myula_tv_fused(
-            l2, TV_WEIGHT, tau, gamma, x0, seed, STEPS, block=BLOCK, **cfg))
+        out, ms, wall = timed(lambda seed, n: run_myula_tv_fused(
+            l2, TV_WEIGHT, tau, gamma, x0, seed, n, block=BLOCK, **cfg), FUSED_WARM)
         psnrs[name] = check_and_report(name, out, ms, wall)
     kern = myula_imaging(l2, TVNorm(sigma=TV_WEIGHT, niter=10), tau=tau, gamma=gamma)
-    out, ms, wall = timed(lambda seed: run_chain(kern, x0, seed, STEPS, collect="stats"))
+    out, ms, wall = timed(lambda seed, n: run_chain(kern, x0, seed, n, collect="stats"),
+                          UNFUSED_WARM)
     unfused = check_and_report("unfused_cold10", out, ms, wall)
     for name in ("fgp8", "cold10", "warm5"):
         if psnrs[name] < PSNR_FLOOR or abs(psnrs[name] - unfused) > PSNR_GAP:
@@ -750,10 +1009,10 @@ def phase_deconv(dev, img, models):
     tau0 = 0.95 * SIGMA_NOISE**2
     x0 = torch.zeros((N, N), device=dev)
     for name, proxf, proxg, _ in models[:3]:
-        def chain(seed):
+        def chain(seed, n=STEPS):
             return run_ulpda_fused(proxf, proxg, Gradient2D(), tau0, 1.0, x0, seed,
-                                   STEPS, block=BLOCK)
-        chain(1)
+                                   n, block=BLOCK)
+        chain(1, FUSED_WARM)
         t0 = time.perf_counter()
         ms, out = cuda_ms(lambda: chain(2))
         mean = out.moments.mean
@@ -873,34 +1132,206 @@ def phase_inpainting(dev):
         f"checkpoint: position and CI maps equal to the straight run, mean within {dm:.2e}")
 
 
+def _check_mean(name, out, img):
+    """Posterior-mean PSNR of a chain result; raises on a bad mean."""
+    import torch
+
+    from lmc_atomi_torch.eval.metrics import psnr
+
+    mean = out.moments.mean
+    if mean.shape != img.shape or not bool(torch.isfinite(mean).all()):
+        raise AssertionError(f"{name}: bad posterior mean")
+    return float(psnr(img, mean))
+
+
+def phase_large(dev):
+    """The large-image path: 2048^2 tiled chains (kernels 6, 7) against the
+    whole-image chains (kernels 2, 3) on the same key, with the JAX
+    package's PSNR gates; CI maps; 4096^2; a checkpointed
+    ``run_resumable_fused(runner="ulpda_tiled")``; and the fused tail
+    (kernel 8) against the unfused chain (kernel 1 inside)."""
+    import tempfile
+
+    import torch
+
+    from lmc_atomi_torch.kernels.imaging import myula_imaging
+    from lmc_atomi_torch.kernels.myula_cuda import myula_imaging_fused
+    from lmc_atomi_torch.kernels.myula_fused import run_myula_tv_fused
+    from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
+    from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused
+    from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
+    from lmc_atomi_torch.ops.functionals import L21Norm, TVNorm
+    from lmc_atomi_torch.ops.linops import Gradient2D
+    from lmc_atomi_torch.run.longrun import run_resumable_fused
+    from lmc_atomi_torch.run.runner import run_chain
+
+    gamma = SIGMA_NOISE**2
+    tau, tau_pd = 0.2 * gamma, 0.95 * gamma
+
+    def timed(chain, warm_steps=LARGE_BLOCK):
+        chain(1, warm_steps)  # warm-up: one block, another seed
+        t0 = time.perf_counter()
+        ms, out = cuda_ms(lambda: chain(2))
+        return out, ms, time.perf_counter() - t0
+
+    def pair(label, n, img, steps, tiled, whole, floor=None):
+        """A tiled chain and the whole-image chain on the same key: the max
+        abs error of the position and the mean, the PSNRs, the rates."""
+        t_out, t_ms, t_wall = timed(tiled)
+        w_out, w_ms, _ = timed(whole)
+        pt, pw = _check_mean(f"{label} tiled", t_out, img), _check_mean(f"{label} whole", w_out, img)
+        ex = float((t_out.final_state.position - w_out.final_state.position).abs().max())
+        em = float((t_out.moments.mean - w_out.moments.mean).abs().max())
+        log(f"large {label} {n}^2 {steps} steps: tiled {steps / t_ms * 1e3:.1f} iters/s "
+            f"(device {t_ms:.1f} ms, host {t_wall:.3f} s), whole-image "
+            f"{steps / w_ms * 1e3:.1f} iters/s; psnr_mean tiled={pt:.4f} whole={pw:.4f}; "
+            f"tiled - whole max_abs_err x={ex:.3e} mean={em:.3e} "
+            f"max_alloc={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB")
+        if abs(pt - pw) > PSNR_GAP:
+            raise AssertionError(f"{label}: tiled {pt} against whole-image {pw}")
+        if floor is not None and not pt >= floor - LARGE_MARGIN:
+            raise AssertionError(f"{label}: psnr {pt:.4f} < {floor} - {LARGE_MARGIN}")
+        return t_out
+
+    img, y, terms = make_large(dev, LARGE_N)
+    l2 = terms["tv"]
+    x0 = torch.zeros_like(y)
+    kw = dict(block=LARGE_BLOCK, burn_in=LARGE_BURN)
+    fgp8 = dict(tv_solver="fgp", niter_tv=8)
+    pair("myula fgp8", LARGE_N, img, LARGE_STEPS,
+         lambda s, n=LARGE_STEPS: run_myula_tv_tiled(l2, TV_WEIGHT, tau, gamma, x0, s, n,
+                                                     **kw, **fgp8),
+         lambda s, n=LARGE_STEPS: run_myula_tv_fused(l2, TV_WEIGHT, tau, gamma, x0, s, n,
+                                                     **kw, **fgp8),
+         LARGE_REF["fgp8"])
+    dual = L21Norm(sigma=TV_WEIGHT)
+    pair("ulpda tv", LARGE_N, img, LARGE_STEPS,
+         lambda s, n=LARGE_STEPS: run_ulpda_tv_tiled(l2, dual, Gradient2D(), tau_pd, 1.0, x0,
+                                                     s, n, niter_solve=3, **kw),
+         lambda s, n=LARGE_STEPS: run_ulpda_fused(l2, dual, Gradient2D(), tau_pd, 1.0, x0, s,
+                                                  n, niter_solve=3, **kw),
+         LARGE_REF["ulpda"])
+    mctv = terms["mctv"]
+    pair("myula mctv cold10", LARGE_N, img, LARGE_STEPS,
+         lambda s, n=LARGE_STEPS: run_myula_tv_tiled(mctv, TV_WEIGHT, tau, gamma, x0, s, n,
+                                                     **kw),
+         lambda s, n=LARGE_STEPS: run_myula_tv_fused(mctv, TV_WEIGHT, tau, gamma, x0, s, n,
+                                                     **kw),
+         LARGE_REF["mctv"])
+    qs = (0.025, 0.975)
+    out, ms, wall = timed(lambda s, n=LARGE_STEPS: run_myula_tv_tiled(
+        l2, TV_WEIGHT, tau, gamma, x0, s, n, quantiles=qs, quantile_thin=8, **kw))
+    mean = out.moments.mean
+    lo, hi = out.quantiles[qs[0]], out.quantiles[qs[1]]
+    cover = float(((lo <= mean) & (mean <= hi)).float().mean())
+    log(f"large myula cold10 + 95% CI (thin 8) {LARGE_N}^2: {LARGE_STEPS / ms * 1e3:.1f} "
+        f"iters/s (device {ms:.1f} ms, host {wall:.3f} s) psnr_mean="
+        f"{_check_mean('ci', out, img):.4f} ci_cover={cover:.5f} "
+        f"ci_mean_width={float((hi - lo).mean()):.4f}")
+    if cover < 0.99:
+        raise AssertionError(f"large CI maps bracket the mean on {cover}")
+
+    # a checkpointed primal-dual run of 2 segments against the straight run
+    rkw = dict(runner="ulpda_tiled", burn_in=RESUME_STEPS // 4)
+    args = (l2, TV_WEIGHT, tau_pd, 1.0, x0, (0, 5))
+    straight = run_resumable_fused(*args, RESUME_STEPS, RESUME_STEPS, **rkw)
+    half = RESUME_STEPS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "ulpda_tiled.ckpt")
+        run_resumable_fused(*args, half, half, ckpt_path=ckpt, **rkw)
+        resumed = run_resumable_fused(*args, RESUME_STEPS, half, ckpt_path=ckpt, **rkw)
+    # the position, dual and previous sample bit for bit (the noise is keyed
+    # by the global step); the moments merge with the Chan combine, which
+    # rounds otherwise than one Welford stream
+    same = {"x": torch.equal(resumed["position"], straight["position"])}
+    same.update((k, torch.equal(a, b)) for k, a, b in zip(
+        ("y", "xprev"), resumed["ulpda_extras"], straight["ulpda_extras"]))
+    want = straight["moments"].mean
+    dm = float((resumed["moments"].mean - want).abs().max())
+    tol = REL_TOL * max(1.0, float(want.abs().max()))
+    if not (all(same.values()) and resumed["moments"].count == straight["moments"].count
+            and dm <= tol):
+        raise AssertionError(f"resumed ulpda_tiled run differs from the straight run: "
+                             f"equal {same}, mean {dm} (tol {tol})")
+    log(f"large run_resumable_fused(ulpda_tiled) {LARGE_N}^2 2 x {half} steps through a "
+        f"checkpoint: position, dual and previous sample equal to the straight run, mean "
+        f"within {dm:.2e} (tol {tol:.1e})")
+
+    # kernel 8: one fused step per call against the unfused step (kernel 1)
+    fused = myula_imaging_fused(l2, TV_WEIGHT, tau, gamma)
+    unfused = myula_imaging(l2, TVNorm(sigma=TV_WEIGHT, niter=10), tau, gamma)
+    outs = {}
+    for name, kern in (("fused", fused), ("unfused", unfused)):
+        outs[name] = timed(
+            lambda s, n=TAIL_STEPS, k=kern: run_chain(k, x0, (s, 3), n, collect="stats",
+                                                      burn_in=min(TAIL_BURN, n - 1)),
+            warm_steps=20)
+    pf, pu = (_check_mean(f"tail {k}", outs[k][0], img) for k in ("fused", "unfused"))
+    ex = float((outs["fused"][0].final_state.position
+                - outs["unfused"][0].final_state.position).abs().max())
+    log(f"large myula_imaging_fused cold10 {LARGE_N}^2 {TAIL_STEPS} steps: fused "
+        f"{TAIL_STEPS / outs['fused'][1] * 1e3:.1f} iters/s, unfused "
+        f"{TAIL_STEPS / outs['unfused'][1] * 1e3:.1f} iters/s; psnr_mean fused={pf:.4f} "
+        f"unfused={pu:.4f}; fused - unfused max_abs_err x={ex:.3e}")
+    if abs(pf - pu) > PSNR_GAP:
+        raise AssertionError(f"fused tail {pf} against unfused {pu}")
+
+    # 4096^2: the tiled chain against the whole-image one on the same key
+    img, y, terms = make_large(dev, HUGE_N)
+    l2 = terms["tv"]
+    x0 = torch.zeros_like(y)
+    hkw = dict(block=LARGE_BLOCK, burn_in=HUGE_BURN, **fgp8)
+    pair("myula fgp8", HUGE_N, img, HUGE_STEPS,
+         lambda s, n=HUGE_STEPS: run_myula_tv_tiled(l2, TV_WEIGHT, tau, gamma, x0, s, n, **hkw),
+         lambda s, n=HUGE_STEPS: run_myula_tv_fused(l2, TV_WEIGHT, tau, gamma, x0, s, n, **hkw))
+
+
 def profile_window(label, fn):
     """torch.profiler over one call of ``fn`` (after a warm-up call): the
     wall time, the share of it the card was busy (the sum of kernel times
     over the wall time; the profiler slows the host, so host-bound windows
-    read low) and the kernels that took most of the device time."""
+    read low) and the kernels that took most of the device time.
+
+    The profiler keeps a device record only if its CUPTI timestamp falls
+    inside the capture window, and on an H100 host those timestamps ran
+    early by up to more than 0.5 s (Kineto counted the lost records as
+    "Out-of-range"): a short window then loses its first records or all of
+    them, and a long one a few. So the call runs with idle host time on
+    either side, the first margin of PROFILE_MARGINS_S, and the window must
+    hold device records for at least PROFILE_KEPT of the kernel launches
+    and copies its host side made; if it does not, it is taken again with
+    the next margin, and fails after the last."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for margin in PROFILE_MARGINS_S:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(margin)
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = sum(1 for e in prof.events() if e.name in CUDA_LAUNCH_CALLS)
+        if device and len(device) >= PROFILE_KEPT * calls:
+            break
+        log(f"profile {label}: {len(device)} device records for {calls} launches and "
+            f"copies at a {margin} s margin")
+    else:
+        raise AssertionError(f"profile {label}: the profiler lost device records")
     kernels = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = evt.name.replace("(anonymous namespace)::", "")
-            name = re.sub(r"[<(].*", "", name).split("::")[-1].strip()[:32]
-            t, n = kernels.get(name, (0.0, 0))
-            kernels[name] = (t + evt.time_range.elapsed_us(), n + 1)
-    if not kernels:
-        raise AssertionError(f"profile {label}: the profiler saw no device time")
+    for evt in device:
+        name = evt.name.replace("(anonymous namespace)::", "")
+        name = re.sub(r"[<(].*", "", name).split("::")[-1].strip()[:32]
+        t, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (t + evt.time_range.elapsed_us(), n + 1)
     busy = sum(t for t, _ in kernels.values()) / (wall * 1e6)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
-    log(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy {busy:.4f}, "
-        "top kernels (share of device time, us each x count): "
+    log(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy {busy:.4f}, device "
+        f"records {len(device)} of {calls} launches and copies (margin {margin} s), top kernels (share of device time, us each x count): "
         + "; ".join(f"{k} {t / sum(v[0] for v in kernels.values()):.3f} "
                     f"{t / n:.2f}us x{n}" for k, (t, n) in top))
 
@@ -951,6 +1382,34 @@ def phase_profile_inpainting(dev):
         kern, l2.b, 3, 50, collect="stats"))
 
 
+def phase_profile_large(dev):
+    """Where the time goes in the large-image cell: one 200-step block at
+    2048^2 of each tiled runner (kernels 6 FGP-8 and 7) and of the
+    whole-image runner on the same posterior (kernels 2 and 3)."""
+    import torch
+
+    from lmc_atomi_torch.kernels.myula_fused import run_myula_tv_fused
+    from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
+    from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused
+    from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
+    from lmc_atomi_torch.ops.functionals import L21Norm
+    from lmc_atomi_torch.ops.linops import Gradient2D
+
+    _, y, terms = make_large(dev, LARGE_N)
+    l2, x0, gamma = terms["tv"], torch.zeros_like(y), SIGMA_NOISE**2
+    fgp8 = dict(tv_solver="fgp", niter_tv=8, block=LARGE_BLOCK)
+    for name, run in (("run_myula_tv_tiled", run_myula_tv_tiled),
+                      ("run_myula_tv_fused", run_myula_tv_fused)):
+        profile_window(f"{name} fgp8 {LARGE_N}^2 {LARGE_BLOCK} steps", lambda: run(
+            l2, TV_WEIGHT, 0.2 * gamma, gamma, x0, 3, LARGE_BLOCK, **fgp8))
+    dual = L21Norm(sigma=TV_WEIGHT)
+    for name, run in (("run_ulpda_tv_tiled", run_ulpda_tv_tiled),
+                      ("run_ulpda_fused", run_ulpda_fused)):
+        profile_window(f"{name} tv {LARGE_N}^2 {LARGE_BLOCK} steps", lambda: run(
+            l2, dual, Gradient2D(), 0.95 * gamma, 1.0, x0, 3, LARGE_BLOCK, niter_solve=3,
+            block=LARGE_BLOCK))
+
+
 KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
     "prox_tv_iso_cuda": ("lmc_atomi_torch/csrc/tv_prox.cu",
                          "lmc_atomi_tpu/ops/tv_pallas.py:91"),
@@ -962,6 +1421,12 @@ KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
                                   "lmc_atomi_tpu/kernels/wavelet_fused.py:380"),
     "ulpda_wavelet_block_update_cuda": ("lmc_atomi_torch/csrc/wavelet_block.cu",
                                         "lmc_atomi_tpu/kernels/wavelet_fused.py:608"),
+    "myula_tv_tiled_update_cuda": ("lmc_atomi_torch/csrc/tiled_block.cu",
+                                   "lmc_atomi_tpu/kernels/myula_tiled.py:416"),
+    "ulpda_tv_tiled_update_cuda": ("lmc_atomi_torch/csrc/tiled_block.cu",
+                                   "lmc_atomi_tpu/kernels/ulpda_tiled.py:480"),
+    "myula_tv_fused_update_cuda": ("lmc_atomi_torch/csrc/tiled_block.cu",
+                                   "lmc_atomi_tpu/kernels/myula_pallas.py:91"),
 }
 
 
@@ -974,8 +1439,11 @@ def main() -> int:
     if not (ROOT / "lmc_atomi_torch" / "csrc").is_dir():
         log(f"FAIL: no lmc_atomi_torch/csrc beside {Path(__file__).name}")
         return 1
+    from lmc_atomi_torch.kernels.myula_cuda import myula_tv_fused_update_cuda
     from lmc_atomi_torch.kernels.myula_fused import myula_tv_block_update_cuda
+    from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
     from lmc_atomi_torch.kernels.ulpda_fused import ulpda_block_update_cuda
+    from lmc_atomi_torch.kernels.ulpda_tiled import ulpda_tv_tiled_update_cuda
     from lmc_atomi_torch.kernels.wavelet_fused import (
         ulpda_wavelet_block_update_cuda,
         wavelet_block_update_cuda,
@@ -986,7 +1454,10 @@ def main() -> int:
                 "myula_tv_block_update_cuda": myula_tv_block_update_cuda,
                 "ulpda_block_update_cuda": ulpda_block_update_cuda,
                 "wavelet_block_update_cuda": wavelet_block_update_cuda,
-                "ulpda_wavelet_block_update_cuda": ulpda_wavelet_block_update_cuda}
+                "ulpda_wavelet_block_update_cuda": ulpda_wavelet_block_update_cuda,
+                "myula_tv_tiled_update_cuda": myula_tv_tiled_update_cuda,
+                "ulpda_tv_tiled_update_cuda": ulpda_tv_tiled_update_cuda,
+                "myula_tv_fused_update_cuda": myula_tv_fused_update_cuda}
 
     def drive(path, kernels, fn, *args):
         """Run one path with every count at 0 before it; its kernels must
@@ -994,9 +1465,10 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         fn(*args)
         counts = {k: w.launches for k, w in wrappers.items()}
-        log(f"launches on the {path} path: {counts}")
+        log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}")
         for k in kernels:
             if counts[k] < 1:
                 raise AssertionError(f"{k} was not launched on the {path} path")
@@ -1014,6 +1486,8 @@ def main() -> int:
     phase_kernel2(dev, l2, y, models, report)
     phase_kernel3(dev, y, models, report)
     phase_kernel45(dev, report)
+    phase_kernel678(dev, report)
+    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     paths = [
         drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
@@ -1023,9 +1497,14 @@ def main() -> int:
               phase_deconv, dev, d_img, models),
         drive("inpainting", ("wavelet_block_update_cuda", "ulpda_wavelet_block_update_cuda"),
               phase_inpainting, dev),
+        drive("large image", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",
+                              "ulpda_block_update_cuda", "myula_tv_tiled_update_cuda",
+                              "ulpda_tv_tiled_update_cuda", "myula_tv_fused_update_cuda"),
+              phase_large, dev),
     ]
     phase_profile(dev, d_img, models)
     phase_profile_inpainting(dev)
+    phase_profile_large(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=sum(p[k] for p in paths), **report[k])

@@ -26,7 +26,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "find_nvcc", "build", "library", "require_cuda_f32", "check", "NVCC_FLAGS",
+    "find_nvcc", "build", "library", "require_cuda_f32", "check_steps", "check",
+    "NVCC_FLAGS",
 ]
 
 _PKG = Path(__file__).resolve().parent
@@ -90,6 +91,32 @@ _SIGNATURES = {
         _I, _I,  # with_noise, with_stats
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+    "lmc_myula_tiled": (
+        _P, _P, _P, _P, _P, _P, _P,  # x, parity, atbs, mean, m2, qh, qn
+        _I, _I,  # ny, nx
+        _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
+        _I, _I, _F, _I, _P,  # n_steps, niter_tv, tv_step, fgp, fgp_coef
+        _I, _I, _I,  # mode, niter_inner, with_noise
+        _P, _I, _I, _P,  # qcoef, n_q, thin, coef
+        _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+    "lmc_ulpda_tiled": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, xp, py, px, atb, mean, m2, qh, qn
+        _I, _I,  # ny, nx
+        _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
+        _I, _I, _P,  # n_steps, niter_solve, cheb
+        _I, _I, _I, _I, _I,  # gfirst, dual, mode, niter_inner, with_noise
+        _P, _I, _I, _P,  # qcoef, n_q, thin, coef
+        _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _P,  # stream
+    ),
+    "lmc_myula_tail": (
+        _P, _P, _P, _I, _I,  # x, grad, out, ny, nx
+        _I, _F, _P, _I,  # niter, step, coef, with_noise
+        _U, _U, _U,  # seed, chain, step
         _P,  # stream
     ),
 }
@@ -193,6 +220,17 @@ def require_cuda_f32(shape, **tensors) -> None:
         devices.add(t.device)
     if len(devices) > 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+
+
+def check_steps(scal_i, n_steps: int):
+    """``(step0, burn_in, count0)`` from ``scal_i``; raises when the steps
+    ``[step0, step0 + n_steps)`` or the burn-in leave the kernels' uint32
+    step counter."""
+    step0, burn, cnt0 = (int(v) for v in scal_i)
+    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
+        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
+                         "outside the kernel's uint32 step counter")
+    return step0, burn, cnt0
 
 
 def check(rc: int, name: str) -> None:

@@ -421,4 +421,265 @@ static inline const float* lmc_dual_x(const DualBufs& b, int idx) {
   return idx >= 0 ? b.P[idx][1] : nullptr;
 }
 
+// ULPDA's Gradient2D dual projection of (ty, tx): onto the l2 ball of radius
+// g_sigma (l21; g_sigma / n as (1 / n) * g_sigma, as torch divides a Python
+// scalar by a tensor) or the l-inf box (l1).
+__device__ __forceinline__ void lmc_project_dual(float ty, float tx,
+                                                 float g_sigma, int l21,
+                                                 float* py, float* px) {
+  if (l21) {
+    const float nrm = sqrtf(ty * ty + tx * tx);
+    const float scale = fminf((1.0f / fmaxf(nrm, 1e-30f)) * g_sigma, 1.0f);
+    *py = ty * scale;
+    *px = tx * scale;
+  } else {
+    *py = fminf(fmaxf(ty, -g_sigma), g_sigma);
+    *px = fminf(fmaxf(tx, -g_sigma), g_sigma);
+  }
+}
+
+// --- halo tiles in shared memory (tiled_block.cu) ---------------------------
+// A CTA of the tile kernels owns an interior of ty x tx pixels at image
+// (blockIdx.y ty, blockIdx.x tx) and holds the sy x sx = (ty + 2h) x (tx + 2h)
+// tile around it in shared memory, read with image-periodic wrap: tile pixel
+// (r, c) is image pixel (gr[r], gc[c]). A stencil takes a neighbour past the
+// tile's edge as 0; the error that makes travels one pixel per application
+// (one TV dual trip, one gram radius), so a halo deeper than a step's reach
+// leaves the interior exact. The forward-difference masks sit at image row
+// ny - 1 and column nx - 1 wherever those fall in the tile
+// (myula_tiled.py::_band_masks), so the Neumann TV boundary is exact too:
+// each interior pixel takes the same operations on the same values as in
+// the whole-image kernels 2 and 3, and the results agree bit for bit.
+
+// 16 warps a CTA, two CTAs an SM
+#define LMC_TL_THREADS 512
+#define LMC_MAXTRIP 64  // TV dual trips and Chebyshev sweeps of a tile step
+
+struct TileGeo {
+  int ny, nx, ty, tx, h, sy, sx;
+  int dr, dc;     // a stride of blockDim.x pixels in rows and columns
+  const int* gr;  // image row of each tile row (shared memory)
+  const int* gc;  // image column of each tile column
+};
+
+// A strided loop of the CTA's threads over the tile's pixels li = r sx + c,
+// stepping (r, c) without a division per pixel.
+#define LMC_TILE_LOOP(t, li, r, c)                                         \
+  for (int li = threadIdx.x, r = threadIdx.x / (t).sx,                      \
+           c = threadIdx.x % (t).sx;                                        \
+       li < (t).sy * (t).sx; li += blockDim.x, r += (t).dr, c += (t).dc,   \
+           r += c >= (t).sx ? 1 : 0, c -= c >= (t).sx ? (t).sx : 0)
+
+// The CTA's tile geometry; fills gr and gc at ints (sy + sx ints of shared
+// memory). Every thread calls it; synchronise before reading gr/gc.
+__device__ __forceinline__ TileGeo lmc_tile_geo(int* ints, int ny, int nx,
+                                                int ty, int tx, int h) {
+  TileGeo t;
+  t.ny = ny;
+  t.nx = nx;
+  t.ty = ty;
+  t.tx = tx;
+  t.h = h;
+  t.sy = ty + 2 * h;
+  t.sx = tx + 2 * h;
+  t.dr = blockDim.x / t.sx;
+  t.dc = blockDim.x % t.sx;
+  int* gr = ints;
+  int* gc = ints + t.sy;
+  const int y0 = blockIdx.y * ty - h, x0 = blockIdx.x * tx - h;
+  for (int r = threadIdx.x; r < t.sy; r += blockDim.x) gr[r] = wrap(y0 + r, ny);
+  for (int c = threadIdx.x; c < t.sx; c += blockDim.x) gc[c] = wrap(x0 + c, nx);
+  t.gr = gr;
+  t.gc = gc;
+  return t;
+}
+
+// Image index of tile pixel (r, c).
+__device__ __forceinline__ size_t lmc_tile_k(int r, int c, const TileGeo& t) {
+  return (size_t)t.gr[r] * t.nx + t.gc[c];
+}
+
+// Tile pixel (r, c), lt = r sx + c, of interior pixel li (ty x tx,
+// row-major) and its image index; false past the image (a ragged last tile).
+__device__ __forceinline__ bool lmc_tile_inner(int li, const TileGeo& t,
+                                               int* lt, int* r, int* c,
+                                               size_t* k) {
+  const int ii = li / t.tx, jj = li % t.tx;
+  const int gi = blockIdx.y * t.ty + ii, gj = blockIdx.x * t.tx + jj;
+  if (gi >= t.ny || gj >= t.nx) return false;
+  *r = t.h + ii;
+  *c = t.h + jj;
+  *lt = *r * t.sx + *c;
+  *k = (size_t)gi * t.nx + gj;
+  return true;
+}
+
+__device__ __forceinline__ void lmc_tile_load(float* buf,
+                                              const float* __restrict__ src,
+                                              const TileGeo& t) {
+  LMC_TILE_LOOP(t, li, r, c) buf[li] = src[lmc_tile_k(r, c, t)];
+}
+
+// lmc_div at tile pixel li = (r, c): the divergence with the dual masked at
+// the image's last row/column.
+__device__ __forceinline__ float lmc_tile_div(const float* py, const float* px,
+                                              int li, int r, int c,
+                                              const TileGeo& t) {
+  const float a = t.gr[r] != t.ny - 1 ? py[li] : 0.0f;
+  const float b = (r > 0 && t.gr[r - 1] != t.ny - 1) ? py[li - t.sx] : 0.0f;
+  const float cc = t.gc[c] != t.nx - 1 ? px[li] : 0.0f;
+  const float d = (c > 0 && t.gc[c - 1] != t.nx - 1) ? px[li - 1] : 0.0f;
+  return (a - b) + (cc - d);
+}
+
+// Forward differences of f at tile pixel li, zero at the image's last
+// row/column.
+__device__ __forceinline__ void lmc_tile_fwd(const float* f, int li, int r,
+                                             int c, const TileGeo& t,
+                                             float* gy, float* gx) {
+  *gy = (t.gr[r] != t.ny - 1 && r + 1 < t.sy) ? f[li + t.sx] - f[li] : 0.0f;
+  *gx = (t.gc[c] != t.nx - 1 && c + 1 < t.sx) ? f[li + 1] - f[li] : 0.0f;
+}
+
+__device__ __forceinline__ void lmc_tile_zero(float* a, float* b,
+                                              const TileGeo& t) {
+  LMC_TILE_LOOP(t, li, r, c) {
+    a[li] = 0.0f;
+    b[li] = 0.0f;
+  }
+}
+
+// u = div p - f / gamma over the tile, then a barrier.
+__device__ __forceinline__ void lmc_tile_u(const float* f, const float* py,
+                                           const float* px, float* u,
+                                           float inv_gamma, const TileGeo& t) {
+  LMC_TILE_LOOP(t, li, r, c)
+    u[li] = lmc_tile_div(py, px, li, r, c, t) - f[li] * inv_gamma;
+  __syncthreads();
+}
+
+// niter cold Chambolle trips of the TV prox of f at 1/gamma = inv_gamma on
+// the tile, the dual (py, px) in place (u scratch): per trip u, a barrier,
+// p <- (p + s grad u) / (1 + s |grad u|) (kRecip as lmc_chambolle_point), a
+// barrier.
+template <bool kRecip>
+__device__ void lmc_tile_chambolle(const float* f, float* u, float* py,
+                                   float* px, float inv_gamma, float step,
+                                   int niter, const TileGeo& t) {
+  lmc_tile_zero(py, px, t);
+  __syncthreads();
+  for (int tr = 0; tr < niter; ++tr) {
+    lmc_tile_u(f, py, px, u, inv_gamma, t);
+    LMC_TILE_LOOP(t, li, r, c) {
+      float gy, gx;
+      lmc_tile_fwd(u, li, r, c, t, &gy, &gx);
+      const float mag = sqrtf(gy * gy + gx * gx);
+      if (kRecip) {
+        const float inv = 1.0f / (1.0f + step * mag);
+        py[li] = (py[li] + step * gy) * inv;
+        px[li] = (px[li] + step * gx) * inv;
+      } else {
+        const float den = 1.0f + step * mag;
+        py[li] = (py[li] + step * gy) / den;
+        px[li] = (px[li] + step * gx) / den;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// niter cold FGP trips (blk_fgp_trip) on the tile: the iterate (py, px) and
+// the momentum point (ry, rx) in place, u scratch, momentum coef[tr].
+__device__ void lmc_tile_fgp(const float* f, float* u, float* py, float* px,
+                             float* ry, float* rx, float inv_gamma, int niter,
+                             const float* coef, const TileGeo& t) {
+  lmc_tile_zero(py, px, t);
+  lmc_tile_zero(ry, rx, t);
+  __syncthreads();
+  for (int tr = 0; tr < niter; ++tr) {
+    lmc_tile_u(f, ry, rx, u, inv_gamma, t);
+    const float mom = coef[tr];
+    LMC_TILE_LOOP(t, li, r, c) {
+      float gy, gx;
+      lmc_tile_fwd(u, li, r, c, t, &gy, &gx);
+      const float ty = ry[li] + 0.125f * gy;
+      const float tx = rx[li] + 0.125f * gx;
+      const float scale = fminf(1.0f, rsqrtf(ty * ty + tx * tx));
+      const float ay = ty * scale;
+      const float ax = tx * scale;
+      ry[li] = ay + mom * (ay - py[li]);
+      rx[li] = ax + mom * (ax - px[li]);
+      py[li] = ay;
+      px[li] = ax;
+    }
+    __syncthreads();
+  }
+}
+
+// rowconv then colconv of rank rr (blk_rowconv / blk_colconv's order) over
+// the whole tile: acc over the column taps of u into tmp, a barrier, acc over
+// the row taps of tmp summed over the ranks into gu, a barrier. Taps past the
+// tile's edge count 0.
+__device__ void lmc_tile_gram(const float* u, float* tmp, float* gu,
+                              const Taps& tp, const TileGeo& t) {
+  for (int rr = 0; rr < tp.rank; ++rr) {
+    LMC_TILE_LOOP(t, li, r, c) {
+      float acc = 0.0f;
+      bool first = true;
+      for (int b = 0; b < tp.kx; ++b) {
+        const float w = tp.wx[rr][b];
+        if (w == 0.0f) continue;
+        const int cc = c - b + tp.ox;
+        const float term = (cc >= 0 && cc < t.sx) ? u[r * t.sx + cc] * w : 0.0f;
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      tmp[li] = acc;
+    }
+    __syncthreads();
+    LMC_TILE_LOOP(t, li, r, c) {
+      float acc = 0.0f;
+      bool first = true;
+      for (int a = 0; a < tp.ky; ++a) {
+        const float w = tp.wy[rr][a];
+        if (w == 0.0f) continue;
+        const int rs = r - a + tp.oy;
+        const float term = (rs >= 0 && rs < t.sy) ? tmp[rs * t.sx + c] * w : 0.0f;
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      gu[li] = rr == 0 ? acc : gu[li] + acc;
+    }
+    __syncthreads();
+  }
+}
+
+// Reach of the taps from a pixel: rows (ry) and columns (rx).
+static inline int lmc_taps_reach_y(const Taps& tp) {
+  return tp.oy > tp.ky - 1 - tp.oy ? tp.oy : tp.ky - 1 - tp.oy;
+}
+static inline int lmc_taps_reach_x(const Taps& tp) {
+  return tp.ox > tp.kx - 1 - tp.ox ? tp.ox : tp.kx - 1 - tp.ox;
+}
+
+// Host side: the largest interior side T (a square T x T interior) whose
+// tile of nbuf fields (and the gr/gc indices) fits two CTAs on an SM, else
+// one; 0 if none fits. *smem gets its bytes. An SM has 228 KiB, of which
+// each CTA also takes 1 KiB for the system and its static shared memory.
+static inline int lmc_pick_tile(int h, int nbuf, size_t* smem) {
+  const int sides[] = {64, 56, 48, 40, 32, 24, 16, 8};
+  const size_t limits[] = {112 * 1024, 226 * 1024};
+  for (size_t limit : limits) {
+    for (int side : sides) {
+      const size_t s = (size_t)(side + 2 * h);
+      const size_t bytes = sizeof(float) * nbuf * s * s + sizeof(int) * 2 * s;
+      if (bytes <= limit) {
+        *smem = bytes;
+        return side;
+      }
+    }
+  }
+  return 0;
+}
+
 }  // namespace

@@ -1,0 +1,504 @@
+// Kernels 6, 7 and 8: halo-tile kernels for large images, one CTA per 2-D
+// tile of the image held in shared memory (block_common.cuh, "halo tiles").
+//
+// Kernel 6 replaces lmc_atomi_tpu/kernels/myula_tiled.py::myula_tv_tiled_update
+// (_tiled_kernel), which runs MYULA steps over full-width row bands with a
+// halo of rows, x and sigma A^T b resident in a TPU core's VMEM. Here one
+// launch is one step: each CTA reads its tile of x (interior T x T, halo h in
+// rows AND columns, since a band of full rows does not fit 228 KiB of shared
+// memory past ~1024 columns) and computes, all in shared memory, the
+// separable gram of A^T A, the MC-TV clamp or the ME-TV envelope trips, and
+// the niter_tv Chambolle or FGP trips with a barrier between the phases of a
+// trip; it writes only its interior: the MYULA update, the Philox normal at
+// the global pixel and step, weighted Welford and P^2. x ping-pongs between
+// two global buffers (a tile reads its neighbours' halo of the previous
+// step). Per step the kernel moves x in and out, atbs, mean and m2 in and
+// out (and the markers on recorded steps) through device memory once, plus
+// the halo rereads; at 2048^2 the 16.8 MB fields do not stay in the 50 MB L2
+// across the ten launches of a whole-image kernel-2 step, which is what this
+// design avoids. It is bound by shared-memory traffic and barriers: each TV
+// trip is two passes over the tile, and the halo (h = niter_tv + 1) makes a
+// 48 x 48 interior a 70 x 70 tile, ~2.1x the interior's work.
+//
+// Kernel 7 replaces lmc_atomi_tpu/kernels/ulpda_tiled.py::ulpda_tv_tiled_update
+// (_ulpda_tiled_kernel): two launches a step. The dual pass
+// p <- proj(p + mu grad xbar) is row-local and runs one thread per pixel in
+// place, xbar = x_new + theta (x_new - x_old) recomputed from the x parity
+// pair. The primal pass is a halo tile (h = niter_solve * reach + 1 +
+// the correction's depth): v = x - tau A^T p, the MC-TV / ME-TV correction,
+// rhs = v + tau sigma A^T b and the niter_solve Chebyshev sweeps, then noise,
+// Welford and P^2 on the interior.
+//
+// Kernel 8 replaces lmc_atomi_tpu/kernels/myula_pallas.py::myula_tv_fused_update
+// (_kernel): one MYULA step given the data gradient, kernel 6's tile with the
+// gradient read from device memory in place of the gram and kernel 1's
+// Chambolle arithmetic (two divisions a trip), no statistics.
+//
+// Every interior pixel takes the operations of kernels 2, 3 and 1 in their
+// order, so the tile kernels equal them, and their plain versions, bit for
+// bit (chip_smoke.py checks it).
+#include "block_common.cuh"
+
+namespace {
+
+enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
+
+struct MyulaTile {
+  Taps taps;
+  float c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma;
+  float lamda, gamma_mc, clamp_mc, c_env, inv_tv_gamma, inv_gamma_mc, tv_step;
+  int niter_tv, niter_inner, fgp, mode, side, h;
+  float fgp_coef[LMC_MAXTRIP];
+};
+
+// The TV prox trips of kernel 6 (cold): Chambolle at tv_step or FGP.
+__device__ __forceinline__ void tl_trips(const MyulaTile& p, const float* f,
+                                         float* u, float* py, float* px,
+                                         float* ry, float* rx,
+                                         float inv_gamma, int niter,
+                                         const float* fgp_coef,
+                                         const TileGeo& t) {
+  if (p.fgp) {
+    lmc_tile_fgp(f, u, py, px, ry, rx, inv_gamma, niter, fgp_coef, t);
+  } else {
+    lmc_tile_chambolle<true>(f, u, py, px, inv_gamma, p.tv_step, niter, t);
+  }
+}
+
+// Kernel 6: MYULA step g from src into dst, Welford / P^2 in place.
+__global__ void __launch_bounds__(LMC_TL_THREADS)
+tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
+              const float* __restrict__ atbs, float* __restrict__ mean,
+              float* __restrict__ m2, float* __restrict__ qh,
+              float* __restrict__ qn, int ny, int nx, MyulaTile p, Sched sc,
+              long long g) {
+  extern __shared__ float sm[];
+  __shared__ float fgp_coef[LMC_MAXTRIP];
+  const int n = (p.side + 2 * p.h) * (p.side + 2 * p.h);
+  float* X = sm;
+  float* U = X + n;
+  float* G = U + n;
+  float* PY = G + n;
+  float* PX = PY + n;
+  float* RY = PX + n;  // FGP only
+  float* RX = RY + n;
+  const TileGeo t = lmc_tile_geo((int*)(sm + (p.fgp ? 7 : 5) * n), ny, nx,
+                                 p.side, p.side, p.h);
+  for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x)
+    fgp_coef[i] = p.fgp_coef[i];
+  __syncthreads();
+  lmc_tile_load(X, src, t);
+  __syncthreads();
+  lmc_tile_gram(X, U, G, p.taps, t);
+
+  if (p.mode == MODE_MCTV) {
+    // the clamped gradient min(1/gamma, 1/|G x|) G x (blk_mctv_clamp)
+    LMC_TILE_LOOP(t, li, r, c) {
+      float gy, gx;
+      lmc_tile_fwd(X, li, r, c, t, &gy, &gx);
+      float mag = sqrtf(gy * gy + gx * gx);
+      mag = (mag != 0.0f) ? mag : 1e-9f;
+      const float clamp = fminf(1.0f / mag, p.clamp_mc);
+      PY[li] = clamp * gy;
+      PX[li] = clamp * gx;
+    }
+    __syncthreads();
+  } else if (p.mode == MODE_METV) {
+    tl_trips(p, X, U, PY, PX, RY, RX, p.inv_gamma_mc, p.niter_inner, fgp_coef, t);
+  }
+  // the data gradient and the mode's correction on the interior (blk_colconv,
+  // then blk_update's order)
+  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    float gv = p.sigma * G[lt] - atbs[k];
+    if (p.mode == MODE_MCTV) {
+      gv = gv + p.lamda * lmc_tile_div(PY, PX, lt, r, c, t);
+    } else if (p.mode == MODE_METV) {
+      const float xv = X[lt];
+      const float env = xv - p.gamma_mc * lmc_tile_div(PY, PX, lt, r, c, t);
+      gv = gv - p.c_env * (xv - env);
+    }
+    G[lt] = gv;
+  }
+  __syncthreads();
+  tl_trips(p, X, U, PY, PX, RY, RX, p.inv_tv_gamma, p.niter_tv, fgp_coef, t);
+
+  const StepW sw = lmc_step_w(sc, g);
+  const size_t npix = (size_t)ny * nx;
+  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    const float xv = X[lt];
+    const float prox = xv - p.tv_gamma * lmc_tile_div(PY, PX, lt, r, c, t);
+    float xn = p.c_keep * xv - p.c_grad * G[lt] + p.c_prox * prox;
+    if (sc.with_noise) {
+      xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
+                                         (uint32_t)g);
+    }
+    dst[k] = xn;
+    lmc_record_global(xn, k, npix, mean, m2, qh, qn, sc, sw);
+  }
+}
+
+struct UlpdaTile {
+  Taps taps;
+  float tau, mu, theta, noise_amp, ts, g_sigma;
+  float c_mc, gamma_mc, clamp_mc, c_me, inv_gamma_mc;
+  int niter_solve, mode, niter_inner, l21, side, h;
+  float cheb[LMC_MAXTRIP][2];
+};
+
+// Kernel 7's dual pass: p <- proj(p + mu grad xbar) in place, one thread per
+// pixel, xbar = xn + theta (xn - xo) (ul_finish's form) at (i, j), (i+1, j)
+// and (i, j+1).
+__global__ void tl_ulpda_dual(const float* __restrict__ xn,
+                              const float* __restrict__ xo,
+                              float* __restrict__ py, float* __restrict__ px,
+                              int ny, int nx, float mu, float theta,
+                              float g_sigma, int l21) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int k = i * nx + j;
+  const float xb = xn[k] + theta * (xn[k] - xo[k]);
+  float gy = 0.0f, gx = 0.0f;
+  if (i < ny - 1) gy = (xn[k + nx] + theta * (xn[k + nx] - xo[k + nx])) - xb;
+  if (j < nx - 1) gx = (xn[k + 1] + theta * (xn[k + 1] - xo[k + 1])) - xb;
+  lmc_project_dual(py[k] + mu * gy, px[k] + mu * gx, g_sigma, l21, &py[k],
+                   &px[k]);
+}
+
+// Kernel 7's primal pass: step g from src into dst, Welford / P^2 in place.
+__global__ void __launch_bounds__(LMC_TL_THREADS)
+tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
+                const float* __restrict__ py, const float* __restrict__ px,
+                const float* __restrict__ atb, float* __restrict__ mean,
+                float* __restrict__ m2, float* __restrict__ qh,
+                float* __restrict__ qn, int ny, int nx, UlpdaTile p, Sched sc,
+                long long g) {
+  extern __shared__ float sm[];
+  const int n = (p.side + 2 * p.h) * (p.side + 2 * p.h);
+  float* U = sm;     // x, then the Chebyshev iterate
+  float* V = U + n;  // v, then rhs
+  float* D = V + n;  // the Chebyshev direction (the correction's scratch before)
+  float* T = D + n;  // the row pass of the gram
+  float* GU = T + n;  // A^T A u
+  const TileGeo t = lmc_tile_geo((int*)(sm + 5 * n), ny, nx, p.side, p.side,
+                                 p.h);
+  __syncthreads();
+  // (1) v = x - tau A^T p, A^T p = -div p with the image's masks (ul_primal_in)
+  LMC_TILE_LOOP(t, li, r, c) {
+    const int gi = t.gr[r], gj = t.gc[c];
+    const size_t k = (size_t)gi * nx + gj;
+    const float xv = src[k];
+    U[li] = xv;
+    const float aty = -lmc_div(py, px, gi, gj, ny, nx);
+    const float vv = xv - p.tau * aty;
+    V[li] = p.mode == MODE_TV ? vv + p.ts * atb[k] : vv;
+  }
+  __syncthreads();
+  // (2) the concave part's linearization (ul_mctv_rhs / ul_metv_rhs)
+  if (p.mode == MODE_MCTV) {
+    LMC_TILE_LOOP(t, li, r, c) {
+      float gy, gx;
+      lmc_tile_fwd(V, li, r, c, t, &gy, &gx);
+      float mag = sqrtf(gy * gy + gx * gx);
+      mag = (mag != 0.0f) ? mag : 1e-9f;
+      const float clamp = fminf(1.0f / mag, p.clamp_mc);
+      D[li] = clamp * gy;
+      T[li] = clamp * gx;
+    }
+    __syncthreads();
+    LMC_TILE_LOOP(t, li, r, c) {
+      const float vv = V[li] - p.c_mc * lmc_tile_div(D, T, li, r, c, t);
+      V[li] = vv + p.ts * atb[lmc_tile_k(r, c, t)];
+    }
+    __syncthreads();
+  } else if (p.mode == MODE_METV) {
+    lmc_tile_chambolle<true>(V, GU, D, T, p.inv_gamma_mc, 0.25f,
+                             p.niter_inner, t);
+    LMC_TILE_LOOP(t, li, r, c) {
+      const float vk = V[li];
+      const float pe = vk - p.gamma_mc * lmc_tile_div(D, T, li, r, c, t);
+      const float vv = vk + p.c_me * (vk - pe);
+      V[li] = vv + p.ts * atb[lmc_tile_k(r, c, t)];
+    }
+    __syncthreads();
+  }
+  // (3) Chebyshev sweeps warm started at x (ul_cheb_sweep)
+  for (int sw = 0; sw < p.niter_solve; ++sw) {
+    lmc_tile_gram(U, T, GU, p.taps, t);
+    const float c_d = p.cheb[sw][0], c_r = p.cheb[sw][1];
+    LMC_TILE_LOOP(t, li, r, c) {
+      const float uk = U[li];
+      const float res = V[li] - (uk + p.ts * GU[li]);
+      const float dk = sw == 0 ? res * c_r : c_d * D[li] + c_r * res;
+      D[li] = dk;
+      U[li] = uk + dk;
+    }
+    __syncthreads();
+  }
+  // (4) noise, Welford, P^2 on the interior (ul_finish)
+  const StepW stw = lmc_step_w(sc, g);
+  const size_t npix = (size_t)ny * nx;
+  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    float xn = U[lt];
+    if (sc.with_noise) {
+      xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
+                                         (uint32_t)g);
+    }
+    dst[k] = xn;
+    lmc_record_global(xn, k, npix, mean, m2, qh, qn, sc, stw);
+  }
+}
+
+struct TailTile {
+  float c_keep, c_grad, c_prox, noise_amp, tv_gamma, inv_tv_gamma, step;
+  int niter, with_noise, side, h;
+  uint32_t seed, chain, g;
+};
+
+// Kernel 8: x' = c_keep x - c_grad grad + c_prox prox(x) + noise.
+__global__ void __launch_bounds__(LMC_TL_THREADS)
+tl_myula_tail(const float* __restrict__ x, const float* __restrict__ grad,
+              float* __restrict__ out, int ny, int nx, TailTile p) {
+  extern __shared__ float sm[];
+  const int n = (p.side + 2 * p.h) * (p.side + 2 * p.h);
+  float* X = sm;
+  float* U = X + n;
+  float* PY = U + n;
+  float* PX = PY + n;
+  const TileGeo t = lmc_tile_geo((int*)(sm + 4 * n), ny, nx, p.side, p.side,
+                                 p.h);
+  __syncthreads();
+  lmc_tile_load(X, x, t);
+  __syncthreads();
+  lmc_tile_chambolle<false>(X, U, PY, PX, p.inv_tv_gamma, p.step, p.niter, t);
+  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    const float xv = X[lt];
+    const float prox = xv - p.tv_gamma * lmc_tile_div(PY, PX, lt, r, c, t);
+    float xn = p.c_keep * xv - p.c_grad * grad[k] + p.c_prox * prox;
+    if (p.with_noise) {
+      xn = xn + p.noise_amp * lmc_normal(p.seed, p.chain, (uint32_t)k, p.g);
+    }
+    out[k] = xn;
+  }
+}
+
+// Dynamic shared memory above 48 KB for kernel fn.
+template <typename F>
+int tl_smem(F fn, size_t bytes) {
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+dim3 tl_grid(int ny, int nx, int side) {
+  return dim3((nx + side - 1) / side, (ny + side - 1) / side);
+}
+
+Sched tl_sched(int n_q, int thin, int with_noise, const float* qcoef,
+               unsigned int seed, unsigned int chain, long long step0,
+               long long burn, long long cnt0) {
+  Sched sc;
+  sc.step0 = step0;
+  sc.burn = burn;
+  sc.cnt0 = cnt0;
+  sc.thin = thin;
+  sc.n_q = n_q;
+  sc.with_noise = with_noise;
+  sc.with_stats = 1;
+  sc.seed = seed;
+  sc.chain = chain;
+  for (int jq = 0; jq < n_q; ++jq)
+    for (int m = 0; m < 3; ++m) sc.qcoef[jq][m] = qcoef[3 * jq + m];
+  return sc;
+}
+
+int tl_max(int a, int b) { return a > b ? a : b; }
+
+}  // namespace
+
+// Kernel 6: n_steps (even) MYULA steps on x (float32, row-major, contiguous,
+// on the current device), Welford on mean/m2 and P^2 on qh/qn in place;
+// parity: (ny, nx) scratch for the other step parity. taps, coef (kernel 2's
+// 10 floats), fgp_coef (max(niter_tv, niter_inner) floats), qcoef: host,
+// as for lmc_myula_block. The halo is the least exact one, h = max(niter_tv
+// + 1, the taps' reach, 2 for mctv, niter_inner + 1 for metv); the interior
+// side the largest of 64..8 whose tile fits two CTAs on an SM (else one).
+// Returns the cudaError_t of the launches (0 on success), or -1 on arguments
+// outside the supported range.
+extern "C" int lmc_myula_tiled(
+    float* x, float* parity, const float* atbs, float* mean, float* m2,
+    float* qh, float* qn, int ny, int nx, const float* taps, int rank, int ky,
+    int kx, int oy, int ox, int n_steps, int niter_tv, float tv_step, int fgp,
+    const float* fgp_coef, int mode, int niter_inner, int with_noise,
+    const float* qcoef, int n_q, int thin, const float* coef,
+    unsigned int seed, unsigned int chain, long long step0, long long burn,
+    long long cnt0, void* stream) {
+  MyulaTile p;
+  if (!lmc_taps(&p.taps, taps, rank, ky, kx, oy, ox) || n_q < 0 ||
+      n_q > LMC_MAXQ || thin < 1 || ny < 2 || nx < 2 || n_steps % 2 ||
+      mode < MODE_TV || mode > MODE_METV || niter_tv < 0 ||
+      niter_tv > LMC_MAXTRIP || niter_inner < 0 || niter_inner > LMC_MAXTRIP)
+    return -1;
+  p.c_keep = coef[0];
+  p.c_grad = coef[1];
+  p.c_prox = coef[2];
+  p.noise_amp = coef[3];
+  p.sigma = coef[4];
+  p.tv_gamma = coef[5];
+  p.lamda = coef[6];
+  p.gamma_mc = coef[7];
+  p.clamp_mc = coef[8];
+  p.c_env = coef[9];
+  // x / gamma as x * (1 / gamma), the reciprocal of the float gamma, as torch
+  // divides a CUDA tensor by a Python scalar
+  p.inv_tv_gamma = 1.0f / coef[5];
+  p.inv_gamma_mc = 1.0f / coef[7];
+  p.tv_step = tv_step;
+  p.niter_tv = niter_tv;
+  p.niter_inner = niter_inner;
+  p.fgp = fgp;
+  p.mode = mode;
+  const int n_coef = tl_max(niter_tv, mode == MODE_METV ? niter_inner : 0);
+  for (int i = 0; i < LMC_MAXTRIP; ++i) p.fgp_coef[i] = i < n_coef ? fgp_coef[i] : 0.0f;
+  int h = tl_max(niter_tv + 1, tl_max(lmc_taps_reach_y(p.taps), lmc_taps_reach_x(p.taps)));
+  if (mode == MODE_MCTV) h = tl_max(h, 2);
+  if (mode == MODE_METV) h = tl_max(h, niter_inner + 1);
+  size_t smem = 0;
+  p.side = lmc_pick_tile(h, fgp ? 7 : 5, &smem);
+  p.h = h;
+  if (p.side == 0) return -1;
+  int e = tl_smem(tl_myula_step, smem);
+  if (e) return e;
+  const Sched sc = tl_sched(n_q, thin, with_noise, qcoef, seed, chain, step0, burn, cnt0);
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = tl_grid(ny, nx, p.side);
+  for (int it = 0; it < n_steps; ++it) {
+    const float* src = it % 2 ? parity : x;
+    float* dst = it % 2 ? x : parity;
+    tl_myula_step<<<grid, LMC_TL_THREADS, smem, s>>>(src, dst, atbs, mean, m2, qh,
+                                                     qn, ny, nx, p, sc, step0 + it);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// Kernel 7: n_steps (even) ULPDA steps on x (xp the previous sample, the
+// parity partner), the Gradient2D dual (py, px) (dual 0 l1, 1 l21), Welford on
+// mean/m2 and P^2 on qh/qn, all in place (float32, row-major, contiguous, on
+// the current device). atb: A^T b (unscaled). cheb: host, 2 * niter_solve
+// floats (c_d, c_r) per sweep; coef: host, kernel 3's 10 floats [tau, mu,
+// theta, noise_amp, tau sigma, g_sigma, tau lamda, gamma_mc, 1 / gamma_mc,
+// tau lamda / gamma_mc]; the ME-TV envelope is niter_inner cold Chambolle
+// trips at step 0.25. Each step is the dual pass before (gfirst) or after the
+// primal pass. Returns the cudaError_t of the launches, or -1 on arguments
+// outside the supported range.
+extern "C" int lmc_ulpda_tiled(
+    float* x, float* xp, float* py, float* px, const float* atb, float* mean,
+    float* m2, float* qh, float* qn, int ny, int nx, const float* taps,
+    int rank, int ky, int kx, int oy, int ox, int n_steps, int niter_solve,
+    const float* cheb, int gfirst, int dual, int mode, int niter_inner,
+    int with_noise, const float* qcoef, int n_q, int thin, const float* coef,
+    unsigned int seed, unsigned int chain, long long step0, long long burn,
+    long long cnt0, void* stream) {
+  UlpdaTile p;
+  if (!lmc_taps(&p.taps, taps, rank, ky, kx, oy, ox) || n_q < 0 ||
+      n_q > LMC_MAXQ || thin < 1 || ny < 2 || nx < 2 || n_steps % 2 ||
+      mode < MODE_TV || mode > MODE_METV || dual < 0 || dual > 1 ||
+      niter_solve < 0 || niter_solve > LMC_MAXTRIP || niter_inner < 0)
+    return -1;
+  p.tau = coef[0];
+  p.mu = coef[1];
+  p.theta = coef[2];
+  p.noise_amp = coef[3];
+  p.ts = coef[4];
+  p.g_sigma = coef[5];
+  p.c_mc = coef[6];
+  p.gamma_mc = coef[7];
+  p.clamp_mc = coef[8];
+  p.c_me = coef[9];
+  p.inv_gamma_mc = 1.0f / coef[7];
+  p.niter_solve = niter_solve;
+  p.mode = mode;
+  p.niter_inner = niter_inner;
+  p.l21 = dual == 1;
+  for (int sw = 0; sw < LMC_MAXTRIP; ++sw) {
+    p.cheb[sw][0] = sw < niter_solve ? cheb[2 * sw] : 0.0f;
+    p.cheb[sw][1] = sw < niter_solve ? cheb[2 * sw + 1] : 0.0f;
+  }
+  const int corr = mode == MODE_TV ? 0 : (mode == MODE_MCTV ? 2 : niter_inner + 1);
+  const int h = niter_solve * tl_max(lmc_taps_reach_y(p.taps), lmc_taps_reach_x(p.taps)) +
+                1 + corr;
+  size_t smem = 0;
+  p.side = lmc_pick_tile(h, 5, &smem);
+  p.h = h;
+  if (p.side == 0) return -1;
+  int e = tl_smem(tl_ulpda_primal, smem);
+  if (e) return e;
+  const Sched sc = tl_sched(n_q, thin, with_noise, qcoef, seed, chain, step0, burn, cnt0);
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = tl_grid(ny, nx, p.side);
+  const dim3 dgrid = lmc_grid(ny, nx), dblock = lmc_block();
+  for (int it = 0; it < n_steps; ++it) {
+    float* src = it % 2 ? xp : x;
+    float* dst = it % 2 ? x : xp;
+    if (gfirst)  // xbar of the previous step: (current, the stale partner)
+      tl_ulpda_dual<<<dgrid, dblock, 0, s>>>(src, dst, py, px, ny, nx, p.mu,
+                                             p.theta, p.g_sigma, p.l21);
+    tl_ulpda_primal<<<grid, LMC_TL_THREADS, smem, s>>>(
+        src, dst, py, px, atb, mean, m2, qh, qn, ny, nx, p, sc, step0 + it);
+    if (!gfirst)
+      tl_ulpda_dual<<<dgrid, dblock, 0, s>>>(dst, src, py, px, ny, nx, p.mu,
+                                             p.theta, p.g_sigma, p.l21);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// Kernel 8: out = one MYULA step of x given grad (each (ny, nx) float32 on the
+// current device): niter cold Chambolle trips at step with kernel 1's
+// arithmetic, coef: host [1 - tau/gamma, tau, tau/gamma, noise_scale
+// sqrt(2 tau), tv_gamma], the Philox normal at (seed, chain, pixel, g).
+// Returns the cudaError_t of the launch, or -1 on arguments outside the
+// supported range.
+extern "C" int lmc_myula_tail(const float* x, const float* grad, float* out,
+                              int ny, int nx, int niter, float step,
+                              const float* coef, int with_noise,
+                              unsigned int seed, unsigned int chain,
+                              unsigned int g, void* stream) {
+  if (ny < 2 || nx < 2 || niter < 0 || niter > LMC_MAXTRIP) return -1;
+  TailTile p;
+  p.c_keep = coef[0];
+  p.c_grad = coef[1];
+  p.c_prox = coef[2];
+  p.noise_amp = coef[3];
+  p.tv_gamma = coef[4];
+  p.inv_tv_gamma = 1.0f / coef[4];
+  p.step = step;
+  p.niter = niter;
+  p.with_noise = with_noise;
+  p.seed = seed;
+  p.chain = chain;
+  p.g = g;
+  p.h = niter + 1;
+  size_t smem = 0;
+  p.side = lmc_pick_tile(p.h, 4, &smem);
+  if (p.side == 0) return -1;
+  int e = tl_smem(tl_myula_tail, smem);
+  if (e) return e;
+  tl_myula_tail<<<tl_grid(ny, nx, p.side), LMC_TL_THREADS, smem,
+                  (cudaStream_t)stream>>>(x, grad, out, ny, nx, p);
+  return (int)cudaGetLastError();
+}

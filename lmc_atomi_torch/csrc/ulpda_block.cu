@@ -155,19 +155,8 @@ __global__ void ul_dual(const float* __restrict__ xbar, float* __restrict__ py,
   const int k = i * nx + j;
   const float gy = (i < ny - 1) ? xbar[k + nx] - xbar[k] : 0.0f;
   const float gx = (j < nx - 1) ? xbar[k + 1] - xbar[k] : 0.0f;
-  const float ty = py[k] + mu * gy;
-  const float tx = px[k] + mu * gx;
-  if (l21) {
-    // g_sigma / n as (1 / n) * g_sigma, as torch divides a Python scalar by
-    // a tensor (a reciprocal, then a multiply)
-    const float nrm = sqrtf(ty * ty + tx * tx);
-    const float scale = fminf((1.0f / fmaxf(nrm, 1e-30f)) * g_sigma, 1.0f);
-    py[k] = ty * scale;
-    px[k] = tx * scale;
-  } else {
-    py[k] = fminf(fmaxf(ty, -g_sigma), g_sigma);
-    px[k] = fminf(fmaxf(tx, -g_sigma), g_sigma);
-  }
+  lmc_project_dual(py[k] + mu * gy, px[k] + mu * gx, g_sigma, l21, &py[k],
+                   &px[k]);
 }
 
 // (1) wl1: v = x - tau W^T py; in mode tv also rhs = v + ts atb. One CTA per

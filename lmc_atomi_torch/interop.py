@@ -30,6 +30,7 @@ __all__ = [
     "orthogonal_l1_from_numpy",
     "fused_state_from_numpy",
     "ulpda_state_from_numpy",
+    "ulpda_tiled_state_from_numpy",
     "to_numpy",
 ]
 
@@ -118,6 +119,26 @@ def ulpda_state_from_numpy(x, y, xbar, mean, m2, count,
             _t(x, device), extras=ULPDAExtras(y=_t(y, device), xbar=_t(xbar, device))),
         moments=RunningMoments(count=int(count), mean=_t(mean, device),
                                m2=_t(m2, device)),
+    )
+
+
+def ulpda_tiled_state_from_numpy(x, y, xbar, xprev, mean, m2, count, qh=None,
+                                 qn=None, device=None) -> FusedChainResult:
+    """The state of a JAX ``run_ulpda_tv_tiled`` result: pass its
+    ``final_state.position``, ``final_state.extras.y`` (the stacked dual),
+    ``.xbar`` and ``.xprev`` (the previous sample, the tiled kernel's exact
+    resume point), ``moments.mean/m2/count`` and ``quantile_state``. Continue
+    the chain with ``run_ulpda_tv_tiled(..., x0=res.final_state.position,
+    y0=res.final_state.extras.y, xprev0=res.final_state.extras.xprev,
+    quantile_state=res.quantile_state, step_offset=<steps done>)`` and merge
+    the moments with ``RunningMoments.merge``."""
+    qstate = None if qh is None else (_t(qh, device), _t(qn, device))
+    return FusedChainResult(
+        final_state=SamplerState.init(_t(x, device), extras=ULPDAExtras(
+            y=_t(y, device), xbar=_t(xbar, device), xprev=_t(xprev, device))),
+        moments=RunningMoments(count=int(count), mean=_t(mean, device),
+                               m2=_t(m2, device)),
+        quantile_state=qstate,
     )
 
 

@@ -1,2 +1,43 @@
-"""Sampler kernels: MYULA, ULPDA, ULA and MALA over functionals, and the
-fused block kernels 2-5 with their plain versions and runners."""
+"""Sampler kernels: MYULA, ULPDA, ULA and MALA over functionals, the fused
+block kernels 2-5 and the large-image tile kernels 6-8, with their plain
+versions and runners."""
+from lmc_atomi_torch.kernels.base import Kernel, stepsize_at
+from lmc_atomi_torch.kernels.imaging import myula_imaging, ulpda
+from lmc_atomi_torch.kernels.langevin import mala, ula
+from lmc_atomi_torch.kernels.myula_cuda import myula_imaging_fused
+from lmc_atomi_torch.kernels.myula_fused import (
+    myula_imaging_sep_fused,
+    run_myula_tv_fused,
+    sep_fused_supported,
+)
+from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
+from lmc_atomi_torch.kernels.ulpda_fused import (
+    run_ulpda_fused,
+    ulpda_fused_supported,
+    ulpda_sep_fused,
+)
+from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
+from lmc_atomi_torch.kernels.wavelet_fused import (
+    run_myula_wavelet_fused,
+    run_ulpda_wavelet_fused,
+)
+
+__all__ = [
+    "Kernel",
+    "stepsize_at",
+    "ula",
+    "mala",
+    "ulpda",
+    "myula_imaging",
+    "myula_imaging_fused",
+    "myula_imaging_sep_fused",
+    "run_myula_tv_fused",
+    "run_myula_tv_tiled",
+    "run_myula_wavelet_fused",
+    "run_ulpda_wavelet_fused",
+    "sep_fused_supported",
+    "ulpda_sep_fused",
+    "run_ulpda_fused",
+    "run_ulpda_tv_tiled",
+    "ulpda_fused_supported",
+]

@@ -360,10 +360,7 @@ def myula_tv_block_update_cuda(
         _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
         if qh.device != x.device or qn.device != x.device:
             raise ValueError("marker state must lie on x's device")
-    step0, burn, cnt0 = (int(v) for v in scal_i)
-    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
-        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
-                         "outside the kernel's uint32 step counter")
+    step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
     seed, chain = base_key(seed)
 
     x = x.clone()

@@ -144,6 +144,18 @@ def _block_coefs(scal_f):
             tau * lamda / gamma_mc)
 
 
+def _dual_project(cy, cx, dual: str, g_sigma: float):
+    """The Gradient2D duals' projection: onto the per-pixel l2 ball of radius
+    ``g_sigma`` (``"l21"``) or the l-inf box (``"l1"``)."""
+    if dual == "l21":
+        nrm = torch.sqrt(cy * cy + cx * cx)
+        # g_sigma / n, written as torch computes it: (1 / n) * g_sigma
+        scale = torch.clamp(
+            torch.reciprocal(torch.clamp(nrm, min=1e-30)) * g_sigma, max=1.0)
+        return cy * scale, cx * scale
+    return torch.clamp(cy, -g_sigma, g_sigma), torch.clamp(cx, -g_sigma, g_sigma)
+
+
 def _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve):
     _check_block_args(taps, (), 1, tv_solver, mode)
     if dual not in DUALS:
@@ -175,16 +187,8 @@ def ulpda_block_update_ref(
         if dual == "wl1":
             c = py + mu * haar_interleaved(xbar, levels, iotas=iotas)
             return torch.clamp(c, -g_sigma, g_sigma), px
-        py = py + mu * fwd_y(xbar)
-        px = px + mu * fwd_x(xbar)
-        if dual == "l21":
-            nrm = torch.sqrt(py * py + px * px)
-            # g_sigma / n, written as torch computes it: (1 / n) * g_sigma
-            scale = torch.clamp(
-                torch.reciprocal(torch.clamp(nrm, min=1e-30)) * g_sigma, max=1.0)
-            return py * scale, px * scale
-        return (torch.clamp(py, -g_sigma, g_sigma),
-                torch.clamp(px, -g_sigma, g_sigma))
+        return _dual_project(py + mu * fwd_y(xbar), px + mu * fwd_x(xbar),
+                             dual, g_sigma)
 
     env = None  # the warm envelope dual starts from zeros at each call
     for i in range(n_steps):
@@ -240,10 +244,7 @@ def ulpda_block_update_cuda(
     if with_stats:
         fields.update(mean=mean, m2=m2)
     _build.require_cuda_f32((ny, nx), **fields)
-    step0, burn, cnt0 = (int(v) for v in scal_i)
-    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
-        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
-                         "outside the kernel's uint32 step counter")
+    step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
     seed, chain = base_key(seed)
     l_eff = haar_levels((ny, nx), levels) if wl1 else 0
     rh, rw = tile_region((ny, nx), l_eff) if wl1 else (0, 0)

@@ -1,0 +1,339 @@
+"""Tiled fused ULPDA TV for large images (counterpart of
+``lmc_atomi_tpu/kernels/ulpda_tiled.py``): kernel 7, its plain torch
+version, and the host-side block loop.
+
+The tiling of ``myula_tiled.py`` applied to the primal-dual step of
+``ulpda_fused.py``, in two passes:
+
+- the dual pass ``p <- proj(p + mu grad xbar)`` is row-local: it reads only
+  its own pixel's dual and xbar one row and one column on, so it updates the
+  dual in place. ``xbar = x_new + theta (x_new - x_old)`` is recomputed from
+  the two x parity buffers, never stored: with ``gfirst=False`` the pass
+  runs after the primal on ``(new, old)``; with ``gfirst=True`` before it on
+  ``(current, stale partner)``, the partner being x from one step back,
+  which is what the previous step's extrapolation used. A stored-zero dual
+  at the image's last row (py) and column (px) stays zero;
+- the primal pass is a halo tile: ``v = x + tau div p``, the MC-TV or ME-TV
+  correction (the envelope a cold Chambolle prox at step 0.25), ``rhs = v +
+  tau sigma A^T b`` and ``niter_solve`` Chebyshev sweeps of the gram solve
+  warm started at x, so the halo must absorb ``niter_solve`` gram radii on
+  top of the correction (``_ulpda_halo_need``).
+
+``ulpda_tv_tiled_update_ref`` computes band by band as the TPU kernel does;
+``ulpda_tv_tiled_update_cuda`` runs ``csrc/tiled_block.cu``, two launches a
+step (the dual pass one thread per pixel, the primal pass 2-D tiles in
+shared memory). The noise is the Philox normal at the global pixel and
+step, and each pixel's operations come in kernel 3's order, so a tiled
+chain equals ``run_ulpda_fused`` (``env_warm=False``, Chambolle envelope)
+bit for bit. Not ported: the TPU's ``stream_x`` layout and its VMEM budget.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lmc_atomi_torch import _build
+from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.kernels.imaging import ULPDAExtras
+from lmc_atomi_torch.kernels.myula_fused import (
+    MODES,
+    FusedChainResult,
+    Taps,
+    _BlockStats,
+    _chain_result,
+    _check_block_args,
+    _marker_state,
+    _mctv_clamp,
+    _p2_coefs,
+    _tv_prox,
+)
+from lmc_atomi_torch.kernels.myula_tiled import (
+    _band_masks,
+    _check_thin,
+    _check_tiles,
+    _read_tile,
+    _round8,
+    _tile_rows,
+    _tiled_block,
+    pick_band,
+)
+from lmc_atomi_torch.kernels.ulpda_fused import (
+    DUALS,
+    _block_coefs,
+    _chebyshev_coefs,
+    _chebyshev_gram_solve,
+    _dual_project,
+    _pack_ulpda_scal,
+    _ulpda_setup,
+)
+from lmc_atomi_torch.ops.tv_cuda import _stencils
+from lmc_atomi_torch.run.runner import base_key
+
+__all__ = [
+    "ulpda_tv_tiled_update",
+    "ulpda_tv_tiled_update_cuda",
+    "ulpda_tv_tiled_update_ref",
+    "run_ulpda_tv_tiled",
+]
+
+_ENV_STEP = 0.25  # the tiled envelope prox: cold Chambolle at this step
+
+
+def _ulpda_halo_need(niter_solve: int, oy: int, mode: str,
+                     niter_inner: int) -> int:
+    """One primal pass's seam-contamination depth: the nonconvex correction
+    composes with the divergence (depth 1) before the Chebyshev solve's
+    ``niter_solve`` gram applications (depth ``oy`` each)."""
+    corr = {"tv": 0, "mctv": 2}.get(mode, niter_inner + 1)
+    return niter_solve * oy + 1 + corr
+
+
+def _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
+                       niter_inner, dual, quantiles, quantile_thin):
+    _check_block_args(taps, quantiles, quantile_thin, "chambolle", mode)
+    if dual not in DUALS[:2]:
+        raise ValueError(f"dual {dual!r}: the tiled ULPDA takes {DUALS[:2]}")
+    if niter_solve < 0:
+        raise ValueError("niter_solve must be >= 0")
+    if x.ndim != 2:
+        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
+    _check_tiles(x.shape, n_steps, band, halo,
+                 _ulpda_halo_need(niter_solve, oy, mode, niter_inner),
+                 "niter_solve * oy + 1, plus the nonconvex correction's "
+                 f"depth for mode={mode!r}")
+
+
+def ulpda_tv_tiled_update_ref(
+    x, xp, py, px, atb, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    taps: Taps, oy: int, ox: int, lam: float, n_steps: int,
+    niter_solve: int = 3, band: int, halo: int, gfirst: bool = False,
+    dual: str = "l21", with_noise: bool = True,
+    quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
+    mode: str = "tv", niter_inner: int = 0,
+):
+    """Plain torch version of kernel 7 (see ``ulpda_tv_tiled_update``), band
+    by band in both passes."""
+    _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
+                       niter_inner, dual, quantiles, quantile_thin)
+    (tau, mu, theta, noise_amp, ts, g_sigma, c_mc, gamma_mc, _,
+     c_me) = _block_coefs(scal_f)
+    seed, chain = base_key(seed)
+    ny, nx = x.shape
+    n_bands = ny // band
+    masks = [_band_masks(b, n_bands, band, halo, nx, x.dtype, x.device)
+             for b in range(n_bands)]
+    rec = _BlockStats(scal_i, mean, m2, qh, qn, quantiles, quantile_thin, True)
+
+    def tile(f, b):
+        return _read_tile(f, b, band, halo)
+
+    def dual_pass(py, px, x_new, x_old):
+        ys, xs = [], []
+        for b in range(n_bands):
+            rows, inner = _tile_rows(b, band, halo)
+            xn = tile(x_new, b)
+            xbar = xn + theta * (xn - tile(x_old, b))
+            fwd_y, fwd_x, _ = _stencils(xbar, masks[b])
+            cy, cx = _dual_project(py[rows] + mu * fwd_y(xbar)[inner],
+                                   px[rows] + mu * fwd_x(xbar)[inner],
+                                   dual, g_sigma)
+            ys.append(cy)
+            xs.append(cx)
+        return torch.cat(ys), torch.cat(xs)
+
+    def primal_pass(g, x):
+        noise = (normal_field(seed, chain, g, x.shape, x.dtype, x.device)
+                 if with_noise else None)
+        bands = []
+        for b in range(n_bands):
+            rows, inner = _tile_rows(b, band, halo)
+            xt = tile(x, b)
+            stencils = _stencils(xt, masks[b])
+            div = stencils[2]
+            aty = -div(tile(py, b), tile(px, b))
+            v = xt - tau * aty
+            if mode == "mctv":
+                v = v - c_mc * div(*_mctv_clamp(v, gamma_mc, stencils))
+            elif mode == "metv":
+                p, _ = _tv_prox(v, gamma_mc, niter_inner, _ENV_STEP, stencils)
+                v = v + c_me * (v - p)
+            rhs = v + ts * tile(atb, b)
+            u = _chebyshev_gram_solve(rhs, xt, ts, lam, taps, oy, ox,
+                                      niter_solve)[inner]
+            if noise is not None:
+                u = u + noise_amp * noise[rows]
+            bands.append(u)
+        return torch.cat(bands)
+
+    for i in range(n_steps):
+        g = rec.step0 + i
+        if gfirst:
+            py, px = dual_pass(py, px, x, xp)
+        x_new = primal_pass(g, x)
+        if not gfirst:
+            py, px = dual_pass(py, px, x_new, x)
+        rec(x_new, g)
+        xp, x = x, x_new
+    mean, m2, qh, qn = rec.result()
+    return x, xp, py, px, mean, m2, qh, qn
+
+
+def ulpda_tv_tiled_update_cuda(
+    x, xp, py, px, atb, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+    taps: Taps, oy: int, ox: int, lam: float, n_steps: int,
+    niter_solve: int = 3, band: int, halo: int, gfirst: bool = False,
+    dual: str = "l21", with_noise: bool = True,
+    quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
+    mode: str = "tv", niter_inner: int = 0,
+):
+    """Kernel 7 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors:
+    two launches per step. Works on copies of ``x, xp, py, px, mean, m2,
+    qh, qn`` and returns them; raises on a CPU tensor or on options the
+    kernel does not take."""
+    _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
+                       niter_inner, dual, quantiles, quantile_thin)
+    ny, nx = x.shape
+    n_q = len(quantiles)
+    _build.require_cuda_f32((ny, nx), x=x, xp=xp, py=py, px=px, atb=atb,
+                            mean=mean, m2=m2)
+    if n_q:
+        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
+        if qh.device != x.device or qn.device != x.device:
+            raise ValueError("marker state must lie on x's device")
+    step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
+    seed, chain = base_key(seed)
+
+    x, xp, py, px = x.clone(), xp.clone(), py.clone(), px.clone()
+    mean, m2 = mean.clone(), m2.clone()
+    if n_q:
+        qh, qn = qh.clone(), qn.clone()
+    rank, ky, kx = len(taps), len(taps[0][0]), len(taps[0][1])
+    tap_arr = np.array([v for wy, wx in taps for v in (*wy, *wx)], np.float32)
+    coefs = _block_coefs(scal_f)
+    coef = np.array(coefs, np.float32)
+    cheb = np.array(_chebyshev_coefs(coefs[4], lam, niter_solve) or [(0.0, 0.0)],
+                    np.float32)
+    qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
+
+    def ptr(t, used):
+        return t.data_ptr() if used else None
+
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lmc_ulpda_tiled(
+            x.data_ptr(), xp.data_ptr(), py.data_ptr(), px.data_ptr(),
+            atb.data_ptr(), mean.data_ptr(), m2.data_ptr(), ptr(qh, n_q),
+            ptr(qn, n_q), ny, nx, tap_arr.ctypes.data, rank, ky, kx, int(oy),
+            int(ox), int(n_steps), int(niter_solve), cheb.ctypes.data,
+            int(bool(gfirst)), DUALS.index(dual), MODES.index(mode),
+            int(niter_inner), int(bool(with_noise)), qcoef.ctypes.data, n_q,
+            int(quantile_thin), coef.ctypes.data, seed & 0xFFFFFFFF,
+            chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+        )
+    _build.check(rc, "lmc_ulpda_tiled")
+    ulpda_tv_tiled_update_cuda.launches += 1
+    return x, xp, py, px, mean, m2, qh, qn
+
+
+ulpda_tv_tiled_update_cuda.launches = 0  # calls that launched the kernel
+
+
+def ulpda_tv_tiled_update(x, *args, **kwargs):
+    """``n_steps`` (even) tiled fused ULPDA steps + Welford / P^2, kernel 7.
+
+    ``xp`` is the previous sample (the x parity partner); ``(py, px)`` the
+    Gradient2D dual (``"l21"`` or ``"l1"``), ``atb = A^T b`` (unscaled);
+    ``seed``, ``scal_f`` and ``scal_i`` as ``ulpda_fused.ulpda_block_update``'s;
+    ``lam`` bounds ``lambda_max(A^T A)``; ``niter_solve`` Chebyshev sweeps;
+    ``mode`` ``"tv"``/``"mctv"``/``"metv"`` (a cold Chambolle envelope of
+    ``niter_inner`` trips); ``band``/``halo`` checked as the JAX package
+    checks them. Returns ``(x', xp', py', px', mean', m2', qh', qn')``. CUDA
+    tensors run the hand kernel, CPU tensors its plain version.
+    """
+    if x.is_cuda:
+        return ulpda_tv_tiled_update_cuda(x, *args, **kwargs)
+    return ulpda_tv_tiled_update_ref(x, *args, **kwargs)
+
+
+def run_ulpda_tv_tiled(
+    proxf: Any,
+    proxg: Any,
+    a_op: Any,
+    tau,
+    mu,
+    x0,
+    key,
+    n_steps: int,
+    *,
+    theta: float = 1.0,
+    gfirst: bool = False,
+    niter_solve: int = 3,
+    burn_in: int = 0,
+    block: Optional[int] = None,
+    noise_scale: float = 1.0,
+    band: Optional[int] = None,
+    halo: Optional[int] = None,
+    quantiles: Tuple[float, ...] = (),
+    quantile_thin: int = 1,
+    quantile_state=None,
+    step_offset: int = 0,
+    y0=None,
+    xbar0=None,
+    xprev0=None,
+) -> FusedChainResult:
+    """Tiled fused ULPDA chain for large images: a host loop over blocks of
+    ``block`` (even) steps, kernel 7 per block on CUDA, with Welford moments
+    and optional P^2 ``quantiles``.
+
+    Same chain as ``run_ulpda_fused`` with a ``Gradient2D`` dual
+    (``L21Norm``/``L1Norm``) and ``proxf`` an ``L2Data`` or isotropic
+    ``L2NcvxTV``. ``y0``/``xbar0`` resume a dual and extrapolation state;
+    ``xprev0`` (the returned ``extras.xprev``) takes precedence over
+    ``xbar0`` and resumes bit for bit (inverting xbar costs a rounding that
+    the extrapolation amplifies). ``final_state.extras`` holds ``y``,
+    ``xbar = x + theta (x - xprev)`` and ``xprev``."""
+    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
+     lam, _) = _ulpda_setup(proxf, proxg, a_op)
+    if dual == "wl1":
+        raise ValueError("tiled fused ULPDA supports Gradient2D duals only")
+    x0 = torch.as_tensor(x0)
+    if halo is None:
+        halo = _round8(max(_ulpda_halo_need(niter_solve, oy, mode, niter_inner), 8))
+    if band is None:
+        band = pick_band(x0.shape[0], halo)
+    block = _tiled_block(n_steps, block)
+    quantiles = tuple(float(p) for p in quantiles)
+    _check_thin(quantiles, block, quantile_thin)
+    scal_f = _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
+                              gamma_mc)
+    step_offset = int(step_offset)
+    zeros = torch.zeros_like(x0)
+    py, px = (zeros, zeros) if y0 is None else (y0[0], y0[1])
+    if xprev0 is not None:
+        xp = torch.as_tensor(xprev0)
+    elif xbar0 is None or theta == 0.0:
+        xp = x0
+    else:
+        # invert xbar = (1 + theta) x - theta x_prev for the parity partner
+        xp = ((1.0 + theta) * x0 - torch.as_tensor(xbar0)) / theta
+    x, mean, m2 = x0, zeros, zeros
+    qh, qn = _marker_state(x0, len(quantiles), quantile_state)
+    for b in range(n_steps // block):
+        step0 = step_offset + b * block
+        cnt0 = max(step0 - max(burn_in, step_offset), 0)
+        x, xp, py, px, mean, m2, qh, qn = ulpda_tv_tiled_update(
+            x, xp, py, px, atb, mean, m2, key, scal_f, (step0, burn_in, cnt0),
+            qh, qn, taps=taps, oy=oy, ox=ox, lam=lam, n_steps=block,
+            niter_solve=niter_solve, band=band, halo=halo, gfirst=gfirst,
+            dual=dual, with_noise=noise_scale != 0.0, quantiles=quantiles,
+            quantile_thin=quantile_thin, mode=mode, niter_inner=niter_inner,
+        )
+    count = (max(step_offset + n_steps - burn_in, 0)
+             - max(step_offset - burn_in, 0))
+    extras = ULPDAExtras(y=torch.stack([py, px]), xbar=x + theta * (x - xp),
+                         xprev=xp)
+    return _chain_result(x, mean, m2, count, quantiles, qh, qn, extras)

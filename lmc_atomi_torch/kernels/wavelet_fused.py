@@ -302,10 +302,7 @@ def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
         _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
         if qh.device != x.device or qn.device != x.device:
             raise ValueError("marker state must lie on x's device")
-    step0, burn, cnt0 = (int(v) for v in scal_i)
-    if step0 < 0 or burn < 0 or step0 + n_steps > 0xFFFFFFFF:
-        raise ValueError(f"steps [{step0}, {step0 + n_steps}) or burn-in {burn} "
-                         "outside the kernel's uint32 step counter")
+    step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
     l_eff = dwt_levels((ny, nx), taps, levels)
     rh, rw = tile_region((ny, nx), l_eff) if taps == 2 else (0, 0)
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)

@@ -14,12 +14,17 @@ from lmc_atomi_torch import _build
 __all__ = ["prox_tv_iso_cuda", "prox_tv_iso_ref"]
 
 
-def _stencils(x):
+def _stencils(x, masks=None):
     """Forward differences and divergence of tv_pallas.py (roll + mask
-    multiply, zeroed last row/column) for fields shaped like ``x``."""
+    multiply, zeroed last row/column) for fields shaped like ``x``.
+    ``masks = (my, mx)`` replaces the zeroed last row/column, as for a halo
+    tile (``myula_tiled._band_masks``)."""
     ny, nx = x.shape
-    my = (torch.arange(ny, device=x.device) < ny - 1).to(x.dtype)[:, None]
-    mx = (torch.arange(nx, device=x.device) < nx - 1).to(x.dtype)[None, :]
+    if masks is not None:
+        my, mx = masks
+    else:
+        my = (torch.arange(ny, device=x.device) < ny - 1).to(x.dtype)[:, None]
+        mx = (torch.arange(nx, device=x.device) < nx - 1).to(x.dtype)[None, :]
 
     def fwd_y(a):
         return (torch.roll(a, -1, 0) - a) * my

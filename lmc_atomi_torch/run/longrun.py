@@ -23,12 +23,16 @@ from lmc_atomi_torch.core.checkpoint import restore_checkpoint, save_checkpoint
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.base import Kernel
 from lmc_atomi_torch.kernels.myula_fused import _marker_state, run_myula_tv_fused
+from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
+from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
 from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
+from lmc_atomi_torch.ops.functionals import L21Norm
+from lmc_atomi_torch.ops.linops import Gradient2D
 from lmc_atomi_torch.run.runner import base_key
 
 __all__ = ["run_resumable", "run_resumable_fused"]
 
-RUNNERS = ("tv", "wavelet")
+RUNNERS = ("tv", "wavelet", "tiled", "ulpda_tiled")
 
 
 def _check_finite(pos, done: int, n: int, ckpt_path: Optional[str]) -> None:
@@ -102,19 +106,20 @@ def run_resumable_fused(
     ``runner`` ``"tv"`` runs ``run_myula_tv_fused`` (``tv_sigma`` the TV
     weight), ``"wavelet"`` ``run_myula_wavelet_fused`` on an
     ``L2Data(Mask)`` inpainting posterior (``tv_sigma`` the wavelet-l1
-    weight; ``levels``/``taps`` pass through ``fused_kwargs``). The P^2
+    weight; ``levels``/``taps`` pass through ``fused_kwargs``), ``"tiled"``
+    ``run_myula_tv_tiled`` (the large-image kernel; ``segment_steps`` even)
+    and ``"ulpda_tiled"`` ``run_ulpda_tv_tiled`` with an ``L21Norm`` dual of
+    weight ``tv_sigma`` and dual step ``mu = gamma``: its dual and previous
+    sample ``(y, xprev)`` ride in the bundle (``"ulpda_extras"``) and the
+    checkpoint, so a resumed primal-dual run continues bit for bit. The P^2
     ``quantiles`` stream rides in the bundle and the checkpoint; the bundle
     gains ``"quantiles"`` (the maps) at the end. Returns the bundle
-    ``{position, moments, key, done[, quantile_state, quantiles]}``.
+    ``{position, moments, key, done[, quantile_state, ulpda_extras,
+    quantiles]}``.
 
-    Not ported yet, each raising ``NotImplementedError``: the row-band
-    runners ``"tiled"`` and ``"ulpda_tiled"`` (ROADMAP A9), a chain farm from
+    Not ported yet, each raising ``NotImplementedError``: a chain farm from
     an ``x0`` of shape ``(n_chains, ny, nx)`` (A6) and ``chains_mesh`` (A13).
     """
-    if runner in ("tiled", "ulpda_tiled"):
-        raise NotImplementedError(
-            f"runner {runner!r} (the row-band kernels) is not ported yet "
-            "(ROADMAP A9)")
     if runner not in RUNNERS:
         raise ValueError(f"unknown runner {runner!r}")
     if chains_mesh is not None:
@@ -132,22 +137,38 @@ def run_resumable_fused(
               "key": (seed, chain), "done": 0}
     if quantiles:
         bundle["quantile_state"] = _marker_state(x0, len(quantiles), None)
+    if runner == "ulpda_tiled":
+        # the stacked dual and the previous sample; x_prev = x0 is the cold
+        # start
+        bundle["ulpda_extras"] = (torch.zeros((2,) + tuple(x0.shape),
+                                              dtype=x0.dtype, device=x0.device), x0)
     if ckpt_path and os.path.exists(ckpt_path):
         bundle = restore_checkpoint(ckpt_path, bundle)
-    run = run_myula_wavelet_fused if runner == "wavelet" else run_myula_tv_fused
     while bundle["done"] < total_steps:
         done = bundle["done"]
         n = min(segment_steps, total_steps - done)
-        res = run(l2, tv_sigma, tau, gamma, bundle["position"], (seed, chain),
-                  n, burn_in=burn_in, quantiles=quantiles,
-                  quantile_state=bundle.get("quantile_state"),
-                  step_offset=done, **fused_kwargs)
+        kw = dict(burn_in=burn_in, quantiles=quantiles,
+                  quantile_state=bundle.get("quantile_state"), step_offset=done,
+                  **fused_kwargs)
+        if runner == "ulpda_tiled":
+            y0, xprev0 = bundle["ulpda_extras"]
+            res = run_ulpda_tv_tiled(l2, L21Norm(sigma=tv_sigma), Gradient2D(), tau,
+                                     gamma, bundle["position"], (seed, chain), n,
+                                     y0=y0, xprev0=xprev0, **kw)
+        else:
+            run = {"tv": run_myula_tv_fused, "wavelet": run_myula_wavelet_fused,
+                   "tiled": run_myula_tv_tiled}[runner]
+            res = run(l2, tv_sigma, tau, gamma, bundle["position"], (seed, chain),
+                      n, **kw)
         pos = res.final_state.position
         _check_finite(pos, done, n, ckpt_path)
         new = {"position": pos, "moments": bundle["moments"].merge(res.moments),
                "key": (seed, chain), "done": done + n}
         if quantiles:
             new["quantile_state"] = res.quantile_state
+        if runner == "ulpda_tiled":
+            new["ulpda_extras"] = (res.final_state.extras.y,
+                                   res.final_state.extras.xprev)
         bundle = new
         _finish_segment(bundle, ckpt_path, progress)
     if quantiles:

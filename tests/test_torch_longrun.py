@@ -3,7 +3,8 @@
 segments and restarted from the checkpoint equals the straight run (the
 position bit for bit, since the noise is keyed by the global step; the
 merged moments to roundoff), a diverging chain raises, and the runners and
-modes not ported yet raise ``NotImplementedError``."""
+modes not ported yet raise ``NotImplementedError``. The tiled runners'
+checkpointed runs are held in ``tests/test_torch_tiled.py``."""
 import numpy as np
 import pytest
 import torch
@@ -140,11 +141,14 @@ def test_diverging_chain_raises(tmp_path):
 
 @pytest.mark.parametrize("case", ["tiled", "ulpda_tiled", "farm", "mesh"])
 def test_not_ported_runners_raise(case):
-    """Each mode of the JAX runner the port lacks names its ROADMAP item."""
+    """Each mode of the JAX runner the port lacks names its ROADMAP item: the
+    chain farm and the mesh, also under the tiled runners (ported, A9)."""
     l2, lam, gamma = _tv_problem()
     x0, kw = l2.b, {}
-    if case in ("tiled", "ulpda_tiled"):
-        kw["runner"], item = case, "A9"
+    if case == "tiled":
+        x0, kw["runner"], item = l2.b[None].repeat(2, 1, 1), case, "A6"
+    elif case == "ulpda_tiled":
+        kw["runner"], kw["chains_mesh"], item = case, object(), "A13"
     elif case == "farm":
         x0, item = l2.b[None].repeat(2, 1, 1), "A6"
     else:
