@@ -11,8 +11,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 4. kernel 2 (``myula_tv_block_update_cuda``) against its plain version at
    512^2, 40 steps in blocks of 20, noise on (the same Philox stream on both
    sides), for cold-10 Chambolle, FGP-8, warm-5 and cold-10 with 95% CI
-   markers, and for the MC-TV and ME-TV modes of the deconvolution models;
-   then both timed per solver and mode with CUDA events;
+   markers, and for the MC-TV and ME-TV modes of the deconvolution models,
+   bit for bit, each call on the resident route; then timed per solver and
+   mode with CUDA events, per 500-step call and per one-step call;
 5. kernel 3 (``ulpda_block_update_cuda``) the same way for the
    deconvolution models (l21/tv, l1/mctv, l21/metv in both ``gfirst``
    orders, FGP with the warm envelope dual, and model M10's 4-level Haar
@@ -20,12 +21,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5b. kernels 4 and 5 (``wavelet_block_update_cuda``,
    ``ulpda_wavelet_block_update_cuda``) the same way on the 512^2
    inpainting posterior: kernel 4 for Haar, D4 and D8 and Haar with 95% CI
-   markers, kernel 5 for each filter in both orders; then timed;
+   markers, kernel 5 for each filter in both orders, and both for Haar at 6
+   levels (the per-level launches) bit for bit; then timed;
 5c. kernels 6, 7 and 8 (``myula_tv_tiled_update_cuda``,
    ``ulpda_tv_tiled_update_cuda``, ``myula_tv_fused_update_cuda``) against
    their plain versions at 2048^2, 40 steps in blocks of 20, noise on, and
-   kernels 6 and 7 against the whole-image kernels 2 and 3 on the same
-   steps; then timed per 200-step block beside kernels 2 and 3;
+   kernels 6 and 7 against the whole-image kernels 2 (on its launch
+   sequence) and 3 on the same steps; then timed per 200-step block beside
+   kernels 2 and 3;
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
@@ -55,14 +58,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    FGP-8, 1000 steps; a ``run_resumable_fused(runner="ulpda_tiled")``
    restarted from its checkpoint; ``run_chain(myula_imaging_fused)`` against
    the unfused chain;
-10. profile: torch.profiler windows of the deconvolution cells (a fused
+10. profile: torch.profiler windows of the main path's fused 500-step
+   block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
    iteration), of the inpainting cells (a fused Haar MYULA block, the
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after; each of its kernels must have launched. The script then prints one
+after; each of its kernels must have launched, and on the MYULA-main and
+deconvolution paths every kernel-2 call must have taken the resident route. The script then prints one
 JSON line describing each kernel (launches on the four paths, errors,
 times, the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -90,7 +95,7 @@ CHECK_STEPS, CHECK_BLOCK = 40, 20
 TIMED_STEPS = 2000
 # the timed 20k-step chains warm up with another seed over fewer steps: the
 # fused ones past the CI run's burn-in of 2000, the unfused one less
-FUSED_WARM, UNFUSED_WARM = 2500, 500
+FUSED_WARM, UNFUSED_WARM = 2500, 200
 # kernels 2 and 3 vs their plain versions after 40 steps, for every field: the
 # gate of tests/test_myula_fused.py:89-92, atol = 3e-5 * max(1, max |field|).
 # On the H100 they agree bit for bit (max_abs_err 0): both sides take the same
@@ -224,17 +229,18 @@ def bound_kernel1(npix: int, niter: int):
 
 
 def bound_kernel2(npix, n_steps, taps, niter_tv, tv_solver="chambolle",
-                  mode="tv", niter_inner=0, n_q=0, with_noise=True):
+                  mode="tv", niter_inner=0, n_q=0, with_noise=True, with_stats=True):
     """One block call of n_steps MYULA steps; x, atbs, mean, m2 (and the
     8 n_q marker planes) read once, x, mean, m2 (and the markers) written
-    once."""
+    once; without statistics x and atbs read, x written."""
     per = f_gram(taps) + 2 + niter_tv * F_TRIP[tv_solver] + F_PROX_FINISH + 5
-    per += F_WELFORD + (F_NOISE if with_noise else 0) + 60 * n_q
+    per += (F_WELFORD if with_stats else 0) + (F_NOISE if with_noise else 0) + 60 * n_q
     if mode == "mctv":
         per += F_MCTV_CLAMP + 5  # the clamp, then lamda div(.) added
     elif mode == "metv":
         per += niter_inner * F_TRIP[tv_solver] + F_PROX_FINISH + 3
-    return bound_ms(npix * n_steps * per, 4 * npix * (4 + 3 + 16 * n_q))
+    fields = (4 + 3 + 16 * n_q) if with_stats else 3
+    return bound_ms(npix * n_steps * per, 4 * npix * fields)
 
 
 def f_dwt(taps: int, levels: int) -> float:
@@ -395,9 +401,10 @@ def make_deconv_models(dev):
                                  50, 10, WL1_LEVELS)
 
 
-def compare(label, got, want, names):
-    """Max abs error of each field against ``REL_TOL * max(1, max |want|)``;
-    raises on a miss. Returns the worst error and a log fragment."""
+def compare(label, got, want, names, exact=False):
+    """Max abs error of each field against ``REL_TOL * max(1, max |want|)``,
+    or against 0 with ``exact``; raises on a miss. Returns the worst error and
+    a log fragment."""
     import torch
 
     torch.cuda.synchronize()
@@ -406,7 +413,7 @@ def compare(label, got, want, names):
         if w is None:
             continue
         err = float((g - w).abs().max())
-        tol = REL_TOL * max(1.0, float(w.abs().max()))
+        tol = 0.0 if exact else REL_TOL * max(1.0, float(w.abs().max()))
         parts.append(f"{field}={err:.3e}/{tol:.1e}")
         if not math.isfinite(err) or err > tol:
             raise AssertionError(f"{label} {field}: {err} > {tol}")
@@ -449,53 +456,91 @@ MODE_SOLVERS = {"cold10": dict(niter_tv=10),
                 "fgp8_warm": dict(niter_tv=8, tv_solver="fgp", tv_warm=True)}
 
 
-def phase_kernel2(dev, l2, y, models, report):
-    import torch
+def routes_of(fn, wrapper):
+    """Run ``fn`` with ``wrapper``'s route counts at 0; returns its result
+    and the counts."""
+    wrapper.routes = dict.fromkeys(wrapper.routes, 0)
+    out = fn()
+    return out, dict(wrapper.routes)
 
+
+def bound_kernel2_cfg(data, cfg, n_steps, with_stats=True):
+    """bound_kernel2 for a run of ``_run_blocks`` on ``data`` with ``cfg``."""
+    from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params
+
+    mode, _, _, niter_inner = _fused_mode(data)
+    return bound_kernel2(N * N, n_steps, _fused_params(data)[0], cfg["niter_tv"],
+                         cfg.get("tv_solver", "chambolle"), mode, niter_inner,
+                         len(cfg.get("quantiles", ())), with_stats=with_stats)
+
+
+def phase_kernel2(dev, l2, y, models, report):
+    """Kernel 2 against its plain version (max abs error 0 in every field),
+    each call's route logged (every 512^2 call takes the resident route);
+    then timed in every solver and mode per 500-step call, and per one-step
+    call without statistics (the deconvolution grid's call)."""
     from lmc_atomi_torch.kernels.myula_fused import (
-        _fused_params,
         myula_tv_block_update_cuda,
         myula_tv_block_update_ref,
     )
 
+    k2 = myula_tv_block_update_cuda
     runs = [(name, l2, cfg) for name, cfg in SOLVERS.items()]
     runs += [(f"{mode}_{name}", models[i][1], cfg) for i, mode in ((1, "mctv"), (2, "metv"))
              for name, cfg in MODE_SOLVERS.items()]
     worst = 0.0
     for name, data, cfg in runs:
         cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
-        got = _run_blocks(myula_tv_block_update_cuda, data, y, CHECK_STEPS,
-                          CHECK_BLOCK, cfg, seed=7)
+        got, routes = routes_of(lambda: _run_blocks(k2, data, y, CHECK_STEPS, CHECK_BLOCK,
+                                                    cfg, seed=7), k2)
         want = _run_blocks(myula_tv_block_update_ref, data, y, CHECK_STEPS,
                            CHECK_BLOCK, cfg, seed=7)
         err, parts = compare(f"kernel 2 ({name})", got, want,
-                             ("x", "mean", "m2", "qh", "qn"))
+                             ("x", "mean", "m2", "qh", "qn"), exact=True)
         worst = max(worst, err)
-        log(f"kernel2 {name} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
-    # device time per 500-step call per solver/mode; the plain version's for
-    # the reported mode only (plain_ms)
+        log(f"kernel2 {name} {N}^2 {CHECK_STEPS} steps, noise on: routes {routes} "
+            f"plan {k2.last_plan}; max_abs_err {parts}")
+        if routes["sequence"]:
+            raise AssertionError(f"kernel 2 ({name}) took the launch sequence at {N}^2")
+    # device time per 500-step call in every solver and mode, and per one-step
+    # call; the plain version's for the reported mode only (plain_ms)
     times = {}
     reps = TIMED_STEPS // BLOCK
     for name, data, cfg in runs:
-        if name.endswith("fgp8_warm"):
-            continue
         cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
-        k_ms, _ = cuda_ms(lambda: _run_blocks(
-            myula_tv_block_update_cuda, data, y, BLOCK, BLOCK, cfg, seed=8), reps)
+        k_ms, _ = cuda_ms(lambda: _run_blocks(k2, data, y, BLOCK, BLOCK, cfg, seed=8), reps)
         p_ms = plain_ms(name == "cold10", lambda: _run_blocks(
             myula_tv_block_update_ref, data, y, BLOCK, BLOCK, cfg, seed=8))
-        times[name] = (k_ms, p_ms)
+        b_ms, b_by = bound_kernel2_cfg(data, cfg, BLOCK)
+        times[name] = (k_ms, p_ms, b_ms, b_by)
         log(f"kernel2 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
-            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s{plain_note(p_ms, BLOCK)}")
-    k_ms, p_ms = times["cold10"]
-    taps = _fused_params(l2)[0]
-    b_ms, b_by = bound_kernel2(N * N, BLOCK, taps, 10)
-    for name in ("mctv_cold10", "metv_cold10"):
-        m_ms, m_by = bound_kernel2(N * N, BLOCK, taps, 10, mode=name[:4], niter_inner=10)
-        log(f"kernel2 {name} bound {m_ms:.4f} ms ({m_by}) against {times[name][0]:.3f} ms")
+            f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s{plain_note(p_ms, BLOCK)}, "
+            f"bound {b_ms:.4f} ms ({b_by}), {k_ms / b_ms:.1f}x the bound")
+    for name, data in (("tv", l2), ("mctv", models[1][1]), ("metv", models[2][1])):
+        cfg = dict(niter_tv=10)
+        scal = _block_scalars(data)
+        x0 = y.clone()
+        ms, _ = cuda_ms(lambda: k2(x0, scal[0], None, None, (8, 0), scal[1], (3, 0, 0),
+                                   n_steps=1, with_stats=False, **scal[2], **cfg), 200)
+        b_ms, b_by = bound_kernel2_cfg(data, cfg, 1, with_stats=False)
+        log(f"kernel2 {name}_cold10 one step, no statistics: {ms * 1e3:.2f} us per call, "
+            f"bound {b_ms * 1e3:.3f} us ({b_by}), {ms / b_ms:.1f}x the bound")
+    k_ms, p_ms, b_ms, b_by = times["cold10"]
     report["myula_tv_block_update_cuda"] = dict(
         max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
+
+
+def _block_scalars(l2):
+    """``(atbs, scal_f, keywords)`` of a kernel-2 call on ``l2``, as
+    ``_run_blocks`` makes them."""
+    from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params, _pack_scal_f
+
+    taps, (oy, ox), atbs = _fused_params(l2)
+    mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
+    gamma = SIGMA_NOISE**2
+    scal_f = _pack_scal_f(l2, 0.2 * gamma, gamma, TV_WEIGHT, 1.0, lamda, gamma_mc)
+    return atbs, scal_f, dict(taps=taps, oy=oy, ox=ox, mode=mode, niter_inner=niter_inner)
 
 
 def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed,
@@ -601,7 +646,8 @@ INP_GAMMA = INP_SIGMA**2  # MYULA: gamma = 1 / L, tau = 0.2 gamma
 INP_ULPDA_TAU = 0.95 * INP_SIGMA**2  # ULPDA: tau = 0.95 / L, mu = 1
 
 
-def _wavelet_blocks(update, l2, n_steps, block, seed, taps, quantiles=(), burn=0):
+def _wavelet_blocks(update, l2, n_steps, block, seed, taps, quantiles=(), burn=0,
+                    levels=INP_LEVELS):
     """run_myula_wavelet_fused's block loop with the block update passed in."""
     import torch
 
@@ -615,12 +661,13 @@ def _wavelet_blocks(update, l2, n_steps, block, seed, taps, quantiles=(), burn=0
         step0 = b * block
         x, mean, m2, qh, qn = update(
             x, l2.b, l2.op.mask, mean, m2, (seed, 0), scal_f,
-            (step0, burn, max(step0 - burn, 0)), qh, qn, levels=INP_LEVELS,
+            (step0, burn, max(step0 - burn, 0)), qh, qn, levels=levels,
             taps=taps, n_steps=block, quantiles=quantiles)
     return x, mean, m2, qh, qn
 
 
-def _ulpda_wavelet_blocks(update, l2, n_steps, block, seed, taps, gfirst):
+def _ulpda_wavelet_blocks(update, l2, n_steps, block, seed, taps, gfirst,
+                          levels=INP_LEVELS):
     """run_ulpda_wavelet_fused's block loop with the block update passed in."""
     import torch
 
@@ -631,14 +678,19 @@ def _ulpda_wavelet_blocks(update, l2, n_steps, block, seed, taps, gfirst):
         step0 = b * block
         x, c, xbar, mean, m2, _, _ = update(
             x, c, xbar, l2.b, l2.op.mask, mean, m2, (seed, 2), scal_f,
-            (step0, 5, max(step0 - 5, 0)), levels=INP_LEVELS, taps=taps,
+            (step0, 5, max(step0 - 5, 0)), levels=levels, taps=taps,
             n_steps=block, gfirst=gfirst)
     return x, c, xbar, mean, m2
 
 
+# Haar past the 5 levels of a CTA's 32x32 region: the per-level launches
+DEEP_HAAR_LEVELS = 6
+
+
 def phase_kernel45(dev, report):
     """Kernels 4 and 5 against their plain versions on the inpainting
-    posterior, 40 steps in blocks of 20, noise on; then timed per filter."""
+    posterior, 40 steps in blocks of 20, noise on, and Haar at 6 levels bit
+    for bit; then timed per filter."""
     from lmc_atomi_torch.kernels.wavelet_fused import (
         ulpda_wavelet_block_update_cuda,
         ulpda_wavelet_block_update_ref,
@@ -670,6 +722,24 @@ def phase_kernel45(dev, report):
             worst5 = max(worst5, err)
             log(f"kernel5 {name} gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, noise on: "
                 f"max_abs_err {parts}")
+    lv = DEEP_HAAR_LEVELS
+    got = _wavelet_blocks(wavelet_block_update_cuda, l2, CHECK_STEPS, CHECK_BLOCK, 7, 2,
+                          levels=lv)
+    want = _wavelet_blocks(wavelet_block_update_ref, l2, CHECK_STEPS, CHECK_BLOCK, 7, 2,
+                           levels=lv)
+    err, parts = compare(f"kernel 4 (haar, {lv} levels)", got, want,
+                         ("x", "mean", "m2", "qh", "qn"), exact=True)
+    worst4 = max(worst4, err)
+    log(f"kernel4 haar {lv} levels {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
+    for gfirst in (False, True):
+        args = (l2, CHECK_STEPS, CHECK_BLOCK, 7, 2, gfirst, lv)
+        err, parts = compare(f"kernel 5 (haar, {lv} levels, gfirst={gfirst})",
+                             _ulpda_wavelet_blocks(ulpda_wavelet_block_update_cuda, *args),
+                             _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, *args),
+                             ("x", "c", "xbar", "mean", "m2"), exact=True)
+        worst5 = max(worst5, err)
+        log(f"kernel5 haar {lv} levels gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, noise on: "
+            f"max_abs_err {parts}")
     # device time per call of the runners' default blocks (kernel 4: 500
     # steps, kernel 5: 250), kernel and plain version
     b4, b5 = BLOCK, BLOCK // 2
@@ -808,13 +878,16 @@ def phase_kernel678(dev, report):
         want = _run_blocks(myula_tv_tiled_update_ref, data, y, CHECK_STEPS, CHECK_BLOCK,
                            tcfg, seed=7)
         err, parts = compare(f"kernel 6 ({name})", got, want, ("x", "mean", "m2", "qh", "qn"))
-        k2 = _run_blocks(myula_tv_block_update_cuda, data, y, CHECK_STEPS, CHECK_BLOCK,
-                         cfg, seed=7)
+        k2, routes = routes_of(lambda: _run_blocks(
+            myula_tv_block_update_cuda, data, y, CHECK_STEPS, CHECK_BLOCK, cfg, seed=7),
+            myula_tv_block_update_cuda)
         err2, parts2 = compare(f"kernel 6 against kernel 2 ({name})", got, k2,
                                ("x", "mean", "m2", "qh", "qn"))
         worst6 = max(worst6, err)
         log(f"kernel6 {name} {n}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}; "
-            f"against kernel 2: {parts2}")
+            f"against kernel 2 (routes {routes}): {parts2}")
+        if routes["resident"]:
+            raise AssertionError(f"kernel 2 took the resident route at {n}^2")
     duals = {"tv": L21Norm(sigma=TV_WEIGHT), "mctv": L1Norm(sigma=TV_WEIGHT),
              "metv": L21Norm(sigma=TV_WEIGHT)}
     runs7 = [("tv", False), ("tv", True), ("mctv", False), ("metv", False)]
@@ -1085,18 +1158,18 @@ def phase_inpainting(dev):
                 raise AssertionError(f"inpainting {name} {row}-fused: {got:.4f} < {want} - 1")
 
     chains = {
-        "myula_haar": lambda seed: run_myula_wavelet_fused(
-            l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, seed, STEPS, block=BLOCK,
+        "myula_haar": lambda seed, n=STEPS: run_myula_wavelet_fused(
+            l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, seed, n, block=BLOCK,
             burn_in=INP_BURN),
-        "myula_haar_ci95": lambda seed: run_myula_wavelet_fused(
-            l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, seed, STEPS, block=BLOCK,
+        "myula_haar_ci95": lambda seed, n=STEPS: run_myula_wavelet_fused(
+            l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, seed, n, block=BLOCK,
             burn_in=2000, quantiles=(0.025, 0.975)),
-        "ulpda_haar": lambda seed: run_ulpda_wavelet_fused(
-            l2, INP_TAU_W, INP_ULPDA_TAU, 1.0, l2.b, seed, STEPS, block=BLOCK // 2,
+        "ulpda_haar": lambda seed, n=STEPS: run_ulpda_wavelet_fused(
+            l2, INP_TAU_W, INP_ULPDA_TAU, 1.0, l2.b, seed, n, block=BLOCK // 2,
             burn_in=INP_BURN),
     }
     for name, chain in chains.items():
-        chain(1)  # warm-up at the same step count, another seed
+        chain(1, FUSED_WARM)  # warm-up: another seed, fewer steps
         t0 = time.perf_counter()
         ms, res = cuda_ms(lambda: chain(2))
         mean = res.moments.mean
@@ -1304,6 +1377,7 @@ def profile_window(label, fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     for margin in PROFILE_MARGINS_S:
@@ -1330,18 +1404,21 @@ def profile_window(label, fn):
         kernels[name] = (t + evt.time_range.elapsed_us(), n + 1)
     busy = sum(t for t, _ in kernels.values()) / (wall * 1e6)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
-    log(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy {busy:.4f}, device "
-        f"records {len(device)} of {calls} launches and copies (margin {margin} s), top kernels (share of device time, us each x count): "
+    log(f"profile {label} ({time.perf_counter() - t_start:.1f} s in all): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.4f}, device records {len(device)} of "
+        f"{calls} launches and copies (margin {margin} s), top kernels (share of device time, us each x count): "
         + "; ".join(f"{k} {t / sum(v[0] for v in kernels.values()):.3f} "
                     f"{t / n:.2f}us x{n}" for k, (t, n) in top))
 
 
-def phase_profile(dev, img, models):
-    """Where the time goes in the deconvolution cells: a fused ULPDA block,
+def phase_profile(dev, l2, img, models):
+    """Where the time goes in the main path's 500-step fused block (kernel
+    2's resident route) and in the deconvolution cells: a fused ULPDA block,
     the one-step fused grid with its metrics, and the MAP iteration."""
     import torch
 
     from lmc_atomi_torch.eval.metrics import psnr
+    from lmc_atomi_torch.kernels.myula_fused import run_myula_tv_fused
     from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused, ulpda_sep_fused
     from lmc_atomi_torch.ops.linops import Gradient2D
     from lmc_atomi_torch.run.optimize import adaptive_pdhg
@@ -1349,6 +1426,9 @@ def phase_profile(dev, img, models):
 
     tau0 = 0.95 * SIGMA_NOISE**2
     x0 = torch.zeros((N, N), device=dev)
+    gamma = SIGMA_NOISE**2
+    profile_window(f"run_myula_tv_fused cold10 {BLOCK} steps", lambda: run_myula_tv_fused(
+        l2, TV_WEIGHT, 0.2 * gamma, gamma, x0, 3, BLOCK, block=BLOCK))
     grad_op = Gradient2D()
     for name, proxf, proxg, _ in (models[0], models[2]):
         profile_window(f"run_ulpda_fused {name} 500 steps", lambda: run_ulpda_fused(
@@ -1358,10 +1438,10 @@ def phase_profile(dev, img, models):
                "err": lambda x: torch.linalg.norm(torch.ravel(x - img)),
                "psnr": lambda x: psnr(img, x)}
     kern = ulpda_sep_fused(proxf, proxg, grad_op, tau0, 1.0)
-    profile_window(f"deconv ULPDA grid step {name} x100 (with metrics)", lambda: run_chain(
-        kern, x0, 3, 100, collect="stats", metrics=metrics))
-    profile_window(f"deconv MAP {name} x100 (with metrics)", lambda: adaptive_pdhg(
-        proxf, proxg, grad_op, x0, tau0, 1.0, 100, metrics=metrics))
+    profile_window(f"deconv ULPDA grid step {name} x50 (with metrics)", lambda: run_chain(
+        kern, x0, 3, 50, collect="stats", metrics=metrics))
+    profile_window(f"deconv MAP {name} x50 (with metrics)", lambda: adaptive_pdhg(
+        proxf, proxg, grad_op, x0, tau0, 1.0, 50, metrics=metrics))
 
 
 def phase_profile_inpainting(dev):
@@ -1378,8 +1458,8 @@ def phase_profile_inpainting(dev):
         l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, 3, BLOCK, block=BLOCK))
     kern = myula_imaging(l2, OrthogonalL1(op=HaarDWT2D(levels=INP_LEVELS), sigma=INP_TAU_W),
                          0.2 * INP_GAMMA, INP_GAMMA)
-    profile_window("inpainting MYULA unfused step x50", lambda: run_chain(
-        kern, l2.b, 3, 50, collect="stats"))
+    profile_window("inpainting MYULA unfused step x25", lambda: run_chain(
+        kern, l2.b, 3, 25, collect="stats"))
 
 
 def phase_profile_large(dev):
@@ -1459,19 +1539,26 @@ def main() -> int:
                 "ulpda_tv_tiled_update_cuda": ulpda_tv_tiled_update_cuda,
                 "myula_tv_fused_update_cuda": myula_tv_fused_update_cuda}
 
-    def drive(path, kernels, fn, *args):
+    k2 = myula_tv_block_update_cuda
+
+    def drive(path, kernels, fn, *args, k2_resident=False):
         """Run one path with every count at 0 before it; its kernels must
-        have launched."""
+        have launched, and with ``k2_resident`` every kernel-2 call (all at
+        512^2) must have taken the resident route."""
         for w in wrappers.values():
             w.launches = 0
+        k2.routes = dict.fromkeys(k2.routes, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fn(*args)
         counts = {k: w.launches for k, w in wrappers.items()}
-        log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}")
+        log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}; "
+            f"kernel 2 routes {k2.routes}")
         for k in kernels:
             if counts[k] < 1:
                 raise AssertionError(f"{k} was not launched on the {path} path")
+        if k2_resident and k2.routes["sequence"]:
+            raise AssertionError(f"kernel 2 took the launch sequence on the {path} path")
         return counts
 
     t_start = time.perf_counter()
@@ -1491,10 +1578,10 @@ def main() -> int:
 
     paths = [
         drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
-              phase_main_path, dev, img, y, l2),
+              phase_main_path, dev, img, y, l2, k2_resident=True),
         drive("deconvolution", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",
                                 "ulpda_block_update_cuda"),
-              phase_deconv, dev, d_img, models),
+              phase_deconv, dev, d_img, models, k2_resident=True),
         drive("inpainting", ("wavelet_block_update_cuda", "ulpda_wavelet_block_update_cuda"),
               phase_inpainting, dev),
         drive("large image", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",
@@ -1502,7 +1589,7 @@ def main() -> int:
                               "ulpda_tv_tiled_update_cuda", "myula_tv_fused_update_cuda"),
               phase_large, dev),
     ]
-    phase_profile(dev, d_img, models)
+    phase_profile(dev, l2, d_img, models)
     phase_profile_inpainting(dev)
     phase_profile_large(dev)
     kernels = [

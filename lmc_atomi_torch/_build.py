@@ -50,8 +50,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _P,
     ),
     "lmc_myula_block": (
-        _P, _P, _P, _P, _P, _P,  # x, atbs, mean, m2, qh, qn
-        _P, _P, _P, _P,  # grad, tmp, duals, aux
+        _P, _P, _P, _P, _P, _P, _P,  # x, parity, atbs, mean, m2, qh, qn
+        _P, _P, _P, _P, _P,  # grad, tmp, duals, aux, plan
         _I, _I,  # ny, nx
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _F, _I, _P,  # n_steps, niter_tv, tv_step, fgp, fgp_coef

@@ -125,17 +125,12 @@ __device__ __forceinline__ void lmc_welford(float xn, float* mu, float* m2,
   *mu = mu_new;
 }
 
-// Welford and P^2 of pixel k with the statistics in global memory.
-__device__ __forceinline__ void lmc_record_global(
-    float xn, size_t k, size_t npix, float* __restrict__ mean,
-    float* __restrict__ m2, float* __restrict__ qh, float* __restrict__ qn,
-    const Sched& sc, const StepW& sw) {
-  if (sc.with_stats) {
-    float mu = mean[k], mm = m2[k];
-    lmc_welford(xn, &mu, &mm, sw);
-    mean[k] = mu;
-    m2[k] = mm;
-  }
+// P^2 of pixel k with the markers in global memory, on a recorded step.
+__device__ __forceinline__ void lmc_p2_global(float xn, size_t k, size_t npix,
+                                              float* __restrict__ qh,
+                                              float* __restrict__ qn,
+                                              const Sched& sc,
+                                              const StepW& sw) {
   if (!sw.record) return;
   for (int jq = 0; jq < sc.n_q; ++jq) {
     float q[5], n3[3];
@@ -149,6 +144,20 @@ __device__ __forceinline__ void lmc_record_global(
 #pragma unroll
     for (int m = 0; m < 3; ++m) qn[(3 * jq + m) * npix + k] = n3[m];
   }
+}
+
+// Welford and P^2 of pixel k with the statistics in global memory.
+__device__ __forceinline__ void lmc_record_global(
+    float xn, size_t k, size_t npix, float* __restrict__ mean,
+    float* __restrict__ m2, float* __restrict__ qh, float* __restrict__ qn,
+    const Sched& sc, const StepW& sw) {
+  if (sc.with_stats) {
+    float mu = mean[k], mm = m2[k];
+    lmc_welford(xn, &mu, &mm, sw);
+    mean[k] = mu;
+    m2[k] = mm;
+  }
+  lmc_p2_global(xn, k, npix, qh, qn, sc, sw);
 }
 
 // --- the interleaved Haar transform on a region in shared memory -----------

@@ -4,9 +4,34 @@
 //
 // Replaces lmc_atomi_tpu/kernels/myula_fused.py::myula_tv_block_update
 // (_block_kernel), which runs a whole block of steps inside one TPU core with
-// every field resident in VMEM. Hopper has no 128 MiB scratch, so the fields
-// stay in global memory (at 512^2 the ~20 MiB of a 95%-CI run fits the 50 MB
-// L2) and one host call issues, for each step g = step0 + i:
+// every field resident in VMEM. Hopper has no 128 MiB scratch, but at 512^2 a
+// chain's state fits the shared memory of the card's SMs taken together. So
+// the host call picks one of two routes from the shape, the mode and the card
+// (rs_plan), before any launch:
+//
+// Resident route (rs_myula_block): one cooperative launch runs the whole
+// call, one CTA per 2-D tile of the image, every CTA resident at once (the
+// tile geometry minimises the tile's area over tilings of at most one CTA an
+// SM; kernels/myula_fused.py::resident_plan is the same rule). A CTA keeps its
+// interior's atbs, mean and m2 in shared memory for the call and writes mean
+// and m2 back once at the end. Per step it reads its tile of x, interior
+// T_y x T_x plus a halo h in rows and columns, from one of two parity buffers
+// (with tv_warm also the TV dual, and in mode metv the envelope dual, from
+// their parity buffers), computes kernel 6's tile step in shared memory (the
+// gram, the MC-TV clamp or the ME-TV envelope trips, the Chambolle or FGP
+// trips, from the loaded duals when warm) on only the pixels its interior's
+// result depends on (rs_trips, rs_gram), writes its interior's x (and duals)
+// to the other buffers, runs the update, the Philox normal at the global
+// pixel and step, Welford in shared memory and P^2 in global memory, and
+// waits at one grid barrier. At 512^2 the exchange stays in the 50 MB L2; the
+// step is bound by instruction issue in the TV trips (two passes a trip, the
+// IEEE square root and division of each pixel's update, on a cone from 2.1x
+// the interior down to 1.1x at h = niter_tv + 1), then the gram and the
+// update; the grid barrier is ~1 us of a ~40 us cold-10 step (H100).
+//
+// Launch sequence (tiles that do not fit co-resident, 2048^2 and up): the
+// fields stay in global memory and the host issues, for each step
+// g = step0 + i:
 //   (a) two separable wrap-convolution passes, grad = sigma A^T A x - sigma A^T b
 //       with A^T A = sum_r wy_r wx_r^T (row pass, then column pass);
 //   (a') mctv: one launch of the clamped gradient min(1/gamma, 1/|Gx|) Gx;
@@ -17,9 +42,13 @@
 //   (c) one elementwise launch: the mode's correction of the gradient (it
 //       reads the divergence of (a')), x - gamma div p, the MYULA update, the
 //       Philox normal at (seed, chain, pixel, g), burn-in-masked Welford, P^2.
-// Each launch is bound by device-memory bytes and, at 512^2, by launch
-// latency: a cold-10 step is 13 launches of a few us. Persistent launches,
-// shared-memory row bands and CUDA graphs are later work.
+// Each launch is bound by device-memory bytes and launch latency: a cold-10
+// step is 13 launches. At 2048^2 it is the whole-image yardstick of kernel 6.
+//
+// Both routes take every pixel through the same float operations in the same
+// order, so they equal the plain version bit for bit (chip_smoke.py checks it).
+#include <cooperative_groups.h>
+
 #include "block_common.cuh"
 
 namespace {
@@ -90,13 +119,433 @@ __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad
   }
 }
 
+// --- the resident route ------------------------------------------------------
+
+// 32 warps, one CTA an SM
+#define RS_THREADS 1024
+
+struct ResidentParams {
+  Taps taps;
+  float c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma;
+  float lamda, gamma_mc, clamp_mc, c_env, inv_tv_gamma, inv_gamma_mc, tv_step;
+  int niter_tv, niter_inner, fgp, mode, tv_warm, n_steps, ty, tx, h;
+  int ry;  // the row taps' reach
+  float fgp_coef[LMC_MAXTRIP];
+};
+
+// Fields of a tile (x, u, the gram, the dual, the FGP point) and of the
+// interior (atbs, mean, m2), in floats, and the gr/gc indices.
+__host__ __device__ inline int rs_tile_fields(int fgp) { return fgp ? 7 : 5; }
+
+static inline size_t rs_smem_bytes(int ty, int tx, int h, int fgp) {
+  const size_t sy = ty + 2 * h, sx = tx + 2 * h;
+  return sizeof(float) * (rs_tile_fields(fgp) * sy * sx + 3 * (size_t)ty * tx) +
+         sizeof(int) * (sy + sx);
+}
+
+// A rectangle of the tile: rows [r0, r0 + nh), columns [c0, c0 + nw).
+struct Rect {
+  int r0, c0, nh, nw;
+};
+
+// The interior grown by e on every side, at most to the tile's edge.
+__device__ __forceinline__ Rect rs_grown(const TileGeo& t, int e) {
+  const int g = e < t.h ? e : t.h;
+  return Rect{t.h - g, t.h - g, t.ty + 2 * g, t.tx + 2 * g};
+}
+
+// fn(li, r, c) for each pixel of R, strided over the CTA's threads without a
+// division per pixel.
+template <typename F>
+__device__ __forceinline__ void rs_rect(const Rect& R, int sx, F&& fn) {
+  const int dr = blockDim.x / R.nw, dc = blockDim.x % R.nw;
+  int r = R.r0 + threadIdx.x / R.nw, c = R.c0 + threadIdx.x % R.nw;
+  for (int q = threadIdx.x; q < R.nh * R.nw; q += blockDim.x) {
+    fn(r * sx + c, r, c);
+    r += dr;
+    c += dc;
+    if (c >= R.c0 + R.nw) {
+      c -= R.nw;
+      ++r;
+    }
+  }
+}
+
+// The gram where the interior's data gradient reads it: the row pass (the
+// column taps) on the interior's columns and the rows within the row taps'
+// reach ry of it, then the column pass on the interior (lmc_tile_gram's
+// arithmetic; gu then holds A^T A x on the interior only); a barrier after
+// each pass.
+__device__ void rs_gram(const float* u, float* tmp, float* gu, const Taps& tp,
+                        const TileGeo& t, int ry) {
+  const Rect rows{t.h - ry, t.h, t.ty + 2 * ry, t.tx};
+  const Rect inner = rs_grown(t, 0);
+  for (int rr = 0; rr < tp.rank; ++rr) {
+    rs_rect(rows, t.sx, [&](int li, int r, int c) {
+      float acc = 0.0f;
+      bool first = true;
+      for (int b = 0; b < tp.kx; ++b) {
+        const float w = tp.wx[rr][b];
+        if (w == 0.0f) continue;
+        const int cc = c - b + tp.ox;
+        const float term = (cc >= 0 && cc < t.sx) ? u[r * t.sx + cc] * w : 0.0f;
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      tmp[li] = acc;
+    });
+    __syncthreads();
+    rs_rect(inner, t.sx, [&](int li, int r, int c) {
+      float acc = 0.0f;
+      bool first = true;
+      for (int a = 0; a < tp.ky; ++a) {
+        const float w = tp.wy[rr][a];
+        if (w == 0.0f) continue;
+        const int rs = r - a + tp.oy;
+        const float term = (rs >= 0 && rs < t.sy) ? tmp[rs * t.sx + c] * w : 0.0f;
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      gu[li] = rr == 0 ? acc : gu[li] + acc;
+    });
+    __syncthreads();
+  }
+}
+
+// niter trips of the TV prox of the tile f at 1/gamma = inv_gamma, Chambolle
+// at p.tv_step (lmc_tile_chambolle<true>'s arithmetic) or FGP with momentum
+// coef (lmc_tile_fgp's), from the dual (py, px) = (sy_, sx_) of the previous
+// step in global memory (warm, every pixel exact) or from zeros; the FGP
+// point (ry, rx) starts at the dual. Each trip computes only what the
+// interior's prox reads after the last trip: trip tr computes u and then the
+// dual on the interior grown by e = niter - tr. u reads the dual one pixel up
+// and left, which the trip before computed exactly on the interior grown by
+// e + 1, so u is exact on its rectangle; the dual update reads u one pixel
+// down and right, so the dual is exact there but on its bottom and right
+// edges, which nothing after reads. At the end the dual is exact on the
+// interior and the ring above and left of it, which the divergence on the
+// interior reads. Ends with a barrier.
+__device__ void rs_trips(const ResidentParams& p, const float* f, float* u,
+                         float* py, float* px, float* ry, float* rx,
+                         const float* sy_, const float* sx_, float inv_gamma,
+                         int niter, const float* coef, const TileGeo& t) {
+  LMC_TILE_LOOP(t, li, r, c) {
+    float a = 0.0f, b = 0.0f;
+    if (sy_ != nullptr) {
+      // loads of what other CTAs wrote in this launch go to L2 (__ldcg)
+      const size_t k = lmc_tile_k(r, c, t);
+      a = __ldcg(sy_ + k);
+      b = __ldcg(sx_ + k);
+    }
+    py[li] = a;
+    px[li] = b;
+    if (p.fgp) {
+      ry[li] = a;
+      rx[li] = b;
+    }
+  }
+  __syncthreads();
+  // u reads the dual (Chambolle) or the FGP point
+  const float* qy = p.fgp ? ry : py;
+  const float* qx = p.fgp ? rx : px;
+  for (int tr = 0; tr < niter; ++tr) {
+    const int e = niter - tr;
+    rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
+      u[li] = lmc_tile_div(qy, qx, li, r, c, t) - f[li] * inv_gamma;
+    });
+    __syncthreads();
+    const float mom = coef[tr];
+    rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
+      float gy, gx;
+      lmc_tile_fwd(u, li, r, c, t, &gy, &gx);
+      if (p.fgp) {
+        const float ty = ry[li] + 0.125f * gy;
+        const float tx = rx[li] + 0.125f * gx;
+        const float scale = fminf(1.0f, rsqrtf(ty * ty + tx * tx));
+        const float ay = ty * scale;
+        const float ax = tx * scale;
+        ry[li] = ay + mom * (ay - py[li]);
+        rx[li] = ax + mom * (ax - px[li]);
+        py[li] = ay;
+        px[li] = ax;
+      } else {
+        const float mag = sqrtf(gy * gy + gx * gx);
+        const float inv = 1.0f / (1.0f + p.tv_step * mag);
+        py[li] = (py[li] + p.tv_step * gy) * inv;
+        px[li] = (px[li] + p.tv_step * gx) * inv;
+      }
+    });
+    __syncthreads();
+  }
+}
+
+// The resident route: n_steps MYULA steps, x from xs[0] (step i reads xs[i %
+// 2] and writes xs[1 - i % 2]); with tv_warm the TV dual through dv[0..3] and
+// the ME-TV envelope dual through ev[0..3] the same way ((y, x) planes of
+// parity 0, then 1), from zeros at the first step. The x, dual and marker
+// buffers are read after other CTAs wrote them in this launch, so they are
+// not __restrict__ (no read-only cache).
+__global__ void __launch_bounds__(RS_THREADS, 1)
+rs_myula_block(float* x0, float* x1, const float* __restrict__ atbs,
+               float* __restrict__ mean, float* __restrict__ m2, float* qh,
+               float* qn, float* dv, float* ev, int ny, int nx,
+               ResidentParams p, Sched sc) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float sm[];
+  __shared__ float fgp_coef[LMC_MAXTRIP];
+  const int n = (p.ty + 2 * p.h) * (p.tx + 2 * p.h);
+  const int ni = p.ty * p.tx;
+  float* X = sm;
+  float* U = X + n;
+  float* G = U + n;
+  float* PY = G + n;
+  float* PX = PY + n;
+  float* RY = PX + n;  // FGP only
+  float* RX = RY + n;
+  float* A = sm + rs_tile_fields(p.fgp) * n;  // the interior's atbs
+  float* MU = A + ni;
+  float* M2 = MU + ni;
+  const TileGeo t = lmc_tile_geo((int*)(M2 + ni), ny, nx, p.ty, p.tx, p.h);
+  for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x)
+    fgp_coef[i] = p.fgp_coef[i];
+  for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    A[li] = atbs[k];
+    if (sc.with_stats) {
+      MU[li] = mean[k];
+      M2[li] = m2[k];
+    }
+  }
+  __syncthreads();
+  const size_t npix = (size_t)ny * nx;
+  const bool warm_env = p.tv_warm && p.mode == MODE_METV;
+  cg::grid_group grid = cg::this_grid();
+
+  for (int it = 0; it < p.n_steps; ++it) {
+    const long long g = sc.step0 + it;
+    const int par = it & 1;
+    const float* src = par ? x1 : x0;
+    float* dst = par ? x0 : x1;
+    // loads of what other CTAs wrote in this launch go to L2 (__ldcg)
+    LMC_TILE_LOOP(t, li, r, c) X[li] = __ldcg(src + lmc_tile_k(r, c, t));
+    __syncthreads();
+    rs_gram(X, U, G, p.taps, t, p.ry);
+
+    if (p.mode == MODE_MCTV) {
+      // the clamped gradient min(1/gamma, 1/|G x|) G x (blk_mctv_clamp) where
+      // its divergence on the interior reads it
+      rs_rect(rs_grown(t, 1), t.sx, [&](int li, int r, int c) {
+        float gy, gx;
+        lmc_tile_fwd(X, li, r, c, t, &gy, &gx);
+        float mag = sqrtf(gy * gy + gx * gx);
+        mag = (mag != 0.0f) ? mag : 1e-9f;
+        const float clamp = fminf(1.0f / mag, p.clamp_mc);
+        PY[li] = clamp * gy;
+        PX[li] = clamp * gx;
+      });
+      __syncthreads();
+    } else if (p.mode == MODE_METV) {
+      const float* e = warm_env && it > 0 ? ev + (size_t)(2 * (1 - par)) * npix : nullptr;
+      rs_trips(p, X, U, PY, PX, RY, RX, e, e ? e + npix : nullptr, p.inv_gamma_mc,
+               p.niter_inner, fgp_coef, t);
+    }
+    // the data gradient and the mode's correction on the interior
+    // (blk_colconv, then blk_update's order); a warm envelope dual goes out
+    float* eo = warm_env ? ev + (size_t)(2 * par) * npix : nullptr;
+    for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+      int lt, r, c;
+      size_t k;
+      if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+      float gv = p.sigma * G[lt] - A[li];
+      if (p.mode == MODE_MCTV) {
+        gv = gv + p.lamda * lmc_tile_div(PY, PX, lt, r, c, t);
+      } else if (p.mode == MODE_METV) {
+        const float xv = X[lt];
+        const float env = xv - p.gamma_mc * lmc_tile_div(PY, PX, lt, r, c, t);
+        gv = gv - p.c_env * (xv - env);
+        if (eo != nullptr) {
+          eo[k] = PY[lt];
+          eo[npix + k] = PX[lt];
+        }
+      }
+      G[lt] = gv;
+    }
+    __syncthreads();
+    const float* d = p.tv_warm && it > 0 ? dv + (size_t)(2 * (1 - par)) * npix : nullptr;
+    rs_trips(p, X, U, PY, PX, RY, RX, d, d ? d + npix : nullptr, p.inv_tv_gamma,
+             p.niter_tv, fgp_coef, t);
+
+    float* dout = p.tv_warm ? dv + (size_t)(2 * par) * npix : nullptr;
+    const StepW sw = lmc_step_w(sc, g);
+    for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+      int lt, r, c;
+      size_t k;
+      if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+      const float xv = X[lt];
+      const float prox = xv - p.tv_gamma * lmc_tile_div(PY, PX, lt, r, c, t);
+      float xn = p.c_keep * xv - p.c_grad * G[lt] + p.c_prox * prox;
+      if (sc.with_noise) {
+        xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
+                                           (uint32_t)g);
+      }
+      dst[k] = xn;
+      if (dout != nullptr) {
+        dout[k] = PY[lt];
+        dout[npix + k] = PX[lt];
+      }
+      if (sc.with_stats) lmc_welford(xn, &MU[li], &M2[li], sw);
+      lmc_p2_global(xn, k, npix, qh, qn, sc, sw);
+    }
+    // the tile's buffers are rewritten and the other CTAs' writes read next
+    if (it + 1 < p.n_steps) grid.sync();
+  }
+  if (!sc.with_stats) return;
+  for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    mean[k] = MU[li];
+    m2[k] = M2[li];
+  }
+}
+
+// The resident route's geometry (for at most LMC_MAXTRIP trips of either
+// prox and at least one step): the halo h (kernel 6's), and the interior
+// T_y x T_x (multiples of 8) with the least tile area (T_y + 2h)(T_x + 2h)
+// whose tiles number at most n_sm and whose shared memory (with the static
+// fgp_coef) fits smem_optin; the first such in (T_y, T_x) order. Returns
+// false when none fits.
+static bool rs_geometry(int ny, int nx, const Taps& tp, int niter_tv,
+                        int fgp, int mode, int niter_inner, int n_sm,
+                        size_t smem_optin, int* ty, int* tx, int* h,
+                        size_t* smem) {
+  int hh = niter_tv + 1;
+  hh = hh > lmc_taps_reach_y(tp) ? hh : lmc_taps_reach_y(tp);
+  hh = hh > lmc_taps_reach_x(tp) ? hh : lmc_taps_reach_x(tp);
+  if (mode == MODE_MCTV && hh < 2) hh = 2;
+  if (mode == MODE_METV && hh < niter_inner + 1) hh = niter_inner + 1;
+  long long best = -1;
+  for (int a = 8; a < ny + 8; a += 8) {
+    for (int b = 8; b < nx + 8; b += 8) {
+      const long long count = (long long)((ny + a - 1) / a) * ((nx + b - 1) / b);
+      const size_t bytes = rs_smem_bytes(a, b, hh, fgp);
+      if (count > n_sm || bytes + sizeof(float) * LMC_MAXTRIP > smem_optin) continue;
+      const long long area = (long long)(a + 2 * hh) * (b + 2 * hh);
+      if (best < 0 || area < best) {
+        best = area;
+        *ty = a;
+        *tx = b;
+        *smem = bytes;
+      }
+    }
+  }
+  *h = hh;
+  return best >= 0;
+}
+
+// The route choice and, where the tiles fit co-resident on the card, the
+// resident launch; plan[0] stays 0 for the launch sequence. Returns a
+// cudaError_t.
+static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
+                     float* m2, float* qh, float* qn, float* duals, float* aux,
+                     int* plan, int ny, int nx, const Taps& tp, int n_steps,
+                     int niter_tv, float tv_step, int fgp,
+                     const float* fgp_coef, int tv_warm, int mode,
+                     int niter_inner, int with_noise, int with_stats,
+                     const float* qcoef, int n_q, int thin, const float* coef,
+                     unsigned int seed, unsigned int chain, long long step0,
+                     long long burn, long long cnt0, cudaStream_t s) {
+  if (n_steps < 1 || niter_tv < 0 || niter_tv > LMC_MAXTRIP || niter_inner < 0 ||
+      niter_inner > LMC_MAXTRIP)
+    return 0;
+  int dev = 0, n_sm = 0, optin = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  ResidentParams p;
+  size_t smem = 0;
+  if (!coop || !rs_geometry(ny, nx, tp, niter_tv, fgp, mode, niter_inner, n_sm,
+                            (size_t)optin, &p.ty, &p.tx, &p.h, &smem))
+    return 0;
+  e = cudaFuncSetAttribute(rs_myula_block,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_myula_block,
+                                                      RS_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((nx + p.tx - 1) / p.tx, (ny + p.ty - 1) / p.ty);
+  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y) return 0;
+
+  p.taps = tp;
+  p.ry = lmc_taps_reach_y(tp);
+  p.c_keep = coef[0];
+  p.c_grad = coef[1];
+  p.c_prox = coef[2];
+  p.noise_amp = coef[3];
+  p.sigma = coef[4];
+  p.tv_gamma = coef[5];
+  p.lamda = coef[6];
+  p.gamma_mc = coef[7];
+  p.clamp_mc = coef[8];
+  p.c_env = coef[9];
+  // x / gamma as x * (1 / gamma), as the launch sequence
+  p.inv_tv_gamma = 1.0f / coef[5];
+  p.inv_gamma_mc = 1.0f / coef[7];
+  p.tv_step = tv_step;
+  p.niter_tv = niter_tv;
+  p.niter_inner = niter_inner;
+  p.fgp = fgp;
+  p.mode = mode;
+  p.tv_warm = tv_warm;
+  p.n_steps = n_steps;
+  const int n_coef = niter_tv > (mode == MODE_METV ? niter_inner : 0)
+                         ? niter_tv : (mode == MODE_METV ? niter_inner : 0);
+  for (int i = 0; i < LMC_MAXTRIP; ++i) p.fgp_coef[i] = i < n_coef ? fgp_coef[i] : 0.0f;
+  Sched sc;
+  sc.step0 = step0;
+  sc.burn = burn;
+  sc.cnt0 = cnt0;
+  sc.thin = thin;
+  sc.n_q = n_q;
+  sc.with_noise = with_noise;
+  sc.with_stats = with_stats;
+  sc.seed = seed;
+  sc.chain = chain;
+  for (int jq = 0; jq < LMC_MAXQ; ++jq)
+    for (int m = 0; m < 3; ++m) sc.qcoef[jq][m] = jq < n_q ? qcoef[3 * jq + m] : 0.0f;
+  // the warm duals' parity buffers: (y, x) of parity 0, then 1
+  float* dv = tv_warm ? duals : nullptr;
+  float* ev = tv_warm && mode == MODE_METV ? aux : nullptr;
+  void* args[] = {&x, &parity, (void*)&atbs, &mean, &m2, &qh, &qn, &dv, &ev,
+                  &ny, &nx, &p, &sc};
+  e = cudaLaunchCooperativeKernel((const void*)rs_myula_block, grid,
+                                  dim3(RS_THREADS), args, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  plan[0] = 1;
+  plan[1] = p.ty;
+  plan[2] = p.tx;
+  plan[3] = p.h;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// One call runs n_steps MYULA steps in place on x, mean, m2, qh, qn (float32,
-// row-major, contiguous, on the current device).
-//   grad: (ny, nx) scratch; tmp: (rank, ny, nx) scratch; duals: (8, ny, nx)
-//   for the TV prox; aux: (8, ny, nx) for the ME-TV envelope prox, or
-//   (2, ny, nx) for the MC-TV clamped gradient (null in mode tv).
+// One call runs n_steps MYULA steps on x, mean, m2, qh, qn (float32,
+// row-major, contiguous, on the current device), in place but for x: the
+// final x is in x after the launch sequence, and after the resident route in
+// x when n_steps is even, in parity when it is odd.
+//   parity: (ny, nx) scratch; grad: (ny, nx) scratch; tmp: (rank, ny, nx)
+//   scratch; duals: (8, ny, nx) for the TV prox; aux: (8, ny, nx) for the
+//   ME-TV envelope prox, or (2, ny, nx) for the MC-TV clamped gradient (null
+//   in mode tv).
 //   taps: host, rank * (ky + kx) floats, for each rank wy then wx.
 //   coef: host, 10 floats [1 - tau/gamma, tau, tau/gamma,
 //         noise_scale * sqrt(2 tau), sigma, tv_gamma, lamda, gamma_mc,
@@ -107,11 +556,14 @@ __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad
 // The envelope prox runs niter_inner trips of the same solver as the TV
 // prox; with tv_warm both duals carry across the steps of this call and
 // start from zeros at each call, as on the TPU.
+// plan: out, 4 ints: the route (1 resident, 0 the launch sequence) and the
+// resident tile's T_y, T_x and h (0 for the sequence).
 // Returns the cudaError_t of the launches (0 on success), or -1 on arguments
 // outside the supported range.
 extern "C" int lmc_myula_block(
-    float* x, const float* atbs, float* mean, float* m2, float* qh, float* qn,
-    float* grad, float* tmp, float* duals, float* aux, int ny, int nx,
+    float* x, float* parity, const float* atbs, float* mean, float* m2,
+    float* qh, float* qn, float* grad, float* tmp, float* duals, float* aux,
+    int* plan, int ny, int nx,
     const float* taps, int rank, int ky, int kx, int oy, int ox, int n_steps,
     int niter_tv, float tv_step, int fgp, const float* fgp_coef, int tv_warm,
     int mode, int niter_inner, int with_noise, int with_stats,
@@ -124,6 +576,12 @@ extern "C" int lmc_myula_block(
       (mode != MODE_TV && aux == nullptr))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
+  plan[0] = plan[1] = plan[2] = plan[3] = 0;
+  int e = rs_launch(x, parity, atbs, mean, m2, qh, qn, duals, aux, plan, ny,
+                    nx, t, n_steps, niter_tv, tv_step, fgp, fgp_coef, tv_warm,
+                    mode, niter_inner, with_noise, with_stats, qcoef, n_q, thin,
+                    coef, seed, chain, step0, burn, cnt0, s);
+  if (e != 0 || plan[0]) return e;
   const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
   const size_t npix = (size_t)ny * nx;
 

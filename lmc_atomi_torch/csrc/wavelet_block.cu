@@ -27,7 +27,11 @@
 // last forward pass), and one per-pixel launch for the update, noise, Welford
 // and P^2. Bound by launch latency at 512^2 (13 launches a MYULA step at 3
 // levels). A faster D4/D8 (a cluster of CTAs sharing the image through
-// distributed shared memory) is later work.
+// distributed shared memory) is later work. A Haar transform of more levels
+// than a CTA's region holds (2^levels > LMC_TILE_SIDE; the host passes
+// rh = rw = 0) takes the same per-level launches, each pass the Haar
+// butterfly (a + b) * (1/sqrt2), (a - b) * (1/sqrt2) of _haar_pass, not the
+// 2-tap filter bank, whose sum of products rounds otherwise.
 //
 // Every operation rounds as in the plain torch versions
 // (wavelet_fused.py::*_ref), with --fmad=false: the Haar butterflies multiply
@@ -309,7 +313,10 @@ __global__ void wv_db_pass(const float* __restrict__ in, float* __restrict__ out
         return axis == 0 ? in[t * nx + j] : in[i * nx + t];
       };
       float acc = 0.0f;
-      if (!inverse) {
+      if (f.taps == 2) {
+        // the Haar butterfly, an involution: forward and inverse alike
+        acc = r == 0 ? (v + rd(1)) * LMC_SQRT1_2 : (rd(-1) - v) * LMC_SQRT1_2;
+      } else if (!inverse) {
         for (int m = 0; m < f.taps; ++m)
           acc = acc + (r == 0 ? f.h[m] * rd(m) : f.g[m] * rd(m - 1));
       } else {
@@ -417,9 +424,9 @@ bool load_common(Sched* sc, Filt* f, int ny, int nx, int taps,
                  const float* qh, const float* qn, float* const bufs[2]) {
   if (ny < 2 || nx < 2 || n_q < 0 || n_q > LMC_MAXQ || thin < 1 || levels < 0)
     return false;
-  if (taps == 2) {
+  if (taps == 2 && rh > 0) {
     if (!lmc_region_ok(ny, nx, rh, rw, levels)) return false;
-  } else if (taps == 4 || taps == 8) {
+  } else if (taps == 2 || taps == 4 || taps == 8) {
     if (bufs[0] == nullptr || bufs[1] == nullptr) return false;
   } else {
     return false;
@@ -450,9 +457,10 @@ bool load_common(Sched* sc, Filt* f, int ny, int nx, int taps,
 // Kernel 4: n_steps MYULA steps in place on x, mean, m2, qh, qn (float32,
 // row-major, contiguous, on the current device).
 //   y, m: the observation and the 0/1 mask; bufs: (2, ny, nx) scratch for
-//   D4/D8 (null for Haar); taps 2, 4 or 8 with filt, host, 16 floats: h, then
-//   g, each zero padded to 8; levels: the levels the transform applies
-//   (wavelet_fused.py::dwt_levels); rh x rw: the region of one CTA (Haar).
+//   the per-level launches (null for the Haar tiles); taps 2, 4 or 8 with
+//   filt, host, 16 floats: h, then g, each zero padded to 8; levels: the
+//   levels the transform applies (wavelet_fused.py::dwt_levels); rh x rw: the
+//   region of one CTA for Haar in tiles, 0 x 0 for Haar in per-level launches.
 //   coef: host, 6 floats [1 - tau/gamma, tau, tau/gamma,
 //         noise_scale sqrt(2 tau), sig, thr].
 //   qcoef: host, n_q * 3 floats (dn - 1) / 4 for the interior markers.
@@ -476,7 +484,7 @@ extern "C" int lmc_wavelet_block(
   Coef cf;
   for (int i = 0; i < 6; ++i) cf.c[i] = coef[i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (taps == 2) {
+  if (taps == 2 && rh > 0) {
     const dim3 grid(nx / rw, ny / rh);
 #define LMC_WV_MYULA(NQ)                                                     \
   wv_myula_haar<NQ><<<grid, LMC_TILE_THREADS, 0, s>>>(                       \
@@ -531,7 +539,7 @@ extern "C" int lmc_ulpda_wavelet_block(
   Coef cf;
   for (int i = 0; i < 6; ++i) cf.c[i] = coef[i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (taps == 2) {
+  if (taps == 2 && rh > 0) {
     const dim3 grid(nx / rw, ny / rh);
 #define LMC_WV_ULPDA(NQ)                                                     \
   wv_ulpda_haar<NQ><<<grid, LMC_TILE_THREADS, 0, s>>>(                       \

@@ -19,7 +19,13 @@ TV, a second TV prox at ``gamma`` of ``niter_inner`` trips).
 
 ``myula_tv_block_update`` dispatches by device: ``csrc/myula_block.cu`` for
 CUDA tensors, ``myula_tv_block_update_ref`` (the same function in torch ops,
-term for term) for CPU tensors.
+term for term) for CPU tensors. On the card kernel 2 takes one of two routes,
+chosen from the shape, the mode and the card before any launch: the
+resident route (one cooperative launch per call, every CTA a 2-D halo tile
+of the image with the chain's state in its shared memory, where
+``resident_plan`` finds a tiling of at most one CTA an SM whose tile fits;
+512^2) or the launch sequence (a few launches per step, the fields in device
+memory; 2048^2 and up). The wrapper counts the calls of each route.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ __all__ = [
     "myula_tv_block_update_cuda",
     "myula_tv_block_update_ref",
     "myula_imaging_sep_fused",
+    "resident_plan",
     "run_myula_tv_fused",
     "FusedChainResult",
 ]
@@ -57,6 +64,48 @@ _MAX_TAPS = 32
 _MAX_QUANTILES = 4
 _FGP_STEP = 0.125  # the dual gradient's 1/L
 MODES = ("tv", "mctv", "metv")  # the kernels' data-term modes, in their order
+# csrc/block_common.cuh: LMC_MAXTRIP; the H100 SXM's SMs and its shared memory
+# a CTA can opt into (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+_MAX_TRIPS = 64
+H100_SMS, H100_SMEM_OPTIN = 132, 232448
+
+
+def resident_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
+                  tv_solver: str = "chambolle", mode: str = "tv",
+                  niter_inner: int = 10, n_steps: int = 1,
+                  n_sm: int = H100_SMS, smem_optin: int = H100_SMEM_OPTIN):
+    """Kernel 2's resident route on a card of ``n_sm`` SMs and
+    ``smem_optin`` bytes of shared memory a CTA: ``(ty, tx, h)``, the interior
+    of a CTA's tile and its halo, or ``None`` for the launch sequence. The
+    rule of ``csrc/myula_block.cu::rs_geometry``: the halo is kernel 6's
+    (the TV prox's ``niter_tv + 1``, the taps' reach, MC-TV 2, ME-TV
+    ``niter_inner + 1``); the interior, sides multiples of 8, is the first in
+    ``(ty, tx)`` order with the least tile area ``(ty + 2h)(tx + 2h)`` among
+    those whose tiles number at most ``n_sm`` and whose shared memory (5
+    tile fields, 7 for FGP, 3 interior fields, the row and column indices
+    and 64 floats of FGP momentum) fits ``smem_optin``. The card's launcher
+    also asks the occupancy API that every CTA is resident at once."""
+    ny, nx = shape
+    if n_steps < 1 or not 0 <= niter_tv <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
+        return None
+    ky, kx = len(taps[0][0]), len(taps[0][1])
+    h = max(niter_tv + 1, oy, ky - 1 - oy, ox, kx - 1 - ox)
+    if mode == "mctv":
+        h = max(h, 2)
+    elif mode == "metv":
+        h = max(h, niter_inner + 1)
+    fields = 7 if tv_solver == "fgp" else 5
+    best = None
+    for ty in range(8, ny + 8, 8):
+        for tx in range(8, nx + 8, 8):
+            count = -(-ny // ty) * -(-nx // tx)
+            sy, sx = ty + 2 * h, tx + 2 * h
+            smem = 4 * (fields * sy * sx + 3 * ty * tx) + 4 * (sy + sx)
+            if count > n_sm or smem + 4 * _MAX_TRIPS > smem_optin:
+                continue
+            if best is None or sy * sx < best[0]:
+                best = (sy * sx, ty, tx)
+    return None if best is None else (best[1], best[2], h)
 
 
 def separable_gram_taps(hh, tol: float = 1e-6) -> Taps:
@@ -364,6 +413,7 @@ def myula_tv_block_update_cuda(
     seed, chain = base_key(seed)
 
     x = x.clone()
+    parity = torch.empty_like(x)
     if with_stats:
         mean, m2 = mean.clone(), m2.clone()
     if n_q:
@@ -380,6 +430,7 @@ def myula_tv_block_update_cuda(
     # the envelope duals (metv) or the clamped gradient (mctv)
     aux = None if mode == "tv" else torch.empty(
         (8 if mode == "metv" else 2, ny, nx), dtype=x.dtype, device=x.device)
+    plan = np.zeros(4, np.int32)  # the route and the resident tile, from the launcher
 
     def ptr(t, used):
         return t.data_ptr() if used else None
@@ -388,10 +439,10 @@ def myula_tv_block_update_cuda(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmc_myula_block(
-            x.data_ptr(), atbs.data_ptr(), ptr(mean, with_stats),
-            ptr(m2, with_stats), ptr(qh, n_q), ptr(qn, n_q),
-            grad.data_ptr(), tmp.data_ptr(), duals.data_ptr(),
-            ptr(aux, aux is not None), ny, nx,
+            x.data_ptr(), parity.data_ptr(), atbs.data_ptr(),
+            ptr(mean, with_stats), ptr(m2, with_stats), ptr(qh, n_q),
+            ptr(qn, n_q), grad.data_ptr(), tmp.data_ptr(), duals.data_ptr(),
+            ptr(aux, aux is not None), plan.ctypes.data, ny, nx,
             tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
             int(n_steps), int(niter_tv), float(tv_step), int(fgp),
             fgp_coef.ctypes.data, int(tv_warm), MODES.index(mode),
@@ -402,10 +453,18 @@ def myula_tv_block_update_cuda(
         )
     _build.check(rc, "lmc_myula_block")
     myula_tv_block_update_cuda.launches += 1
+    route = "resident" if plan[0] else "sequence"
+    myula_tv_block_update_cuda.routes[route] += 1
+    myula_tv_block_update_cuda.last_plan = (route, *(int(v) for v in plan[1:]))
+    if route == "resident" and n_steps % 2:
+        x = parity  # the resident route's last step wrote the other buffer
     return x, mean, m2, qh, qn
 
 
 myula_tv_block_update_cuda.launches = 0  # calls that launched the kernel
+# calls per route, and the last call's (route, ty, tx, h)
+myula_tv_block_update_cuda.routes = {"resident": 0, "sequence": 0}
+myula_tv_block_update_cuda.last_plan = None
 
 
 def myula_tv_block_update(x, *args, **kwargs):

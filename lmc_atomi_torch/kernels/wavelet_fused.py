@@ -31,9 +31,10 @@ and unfused chains draw one stream.
 Each dispatches by device: ``csrc/wavelet_block.cu`` for CUDA tensors, the
 ``_ref`` plain version (the same function in torch ops, term for term) for
 CPU tensors. On the card the Haar transform is tile-local (``levels``
-levels never leave an aligned ``2^levels`` square), so a Haar block is one
-launch; D4/D8 wrap around the whole image and run one launch per level and
-axis (see the CUDA source).
+levels never leave an aligned ``2^levels`` square), so a Haar block of at
+most ``_TILE_LEVELS`` levels is one launch (route ``"tile"``); D4/D8, and
+Haar past ``_TILE_LEVELS`` levels, whose squares outgrow a CTA, run one
+launch per level and axis (route ``"passes"``, see the CUDA source).
 """
 from __future__ import annotations
 
@@ -76,6 +77,7 @@ _SQRT1_2 = 0.7071067811865476
 TAPS = (2, 4, 8)
 _MAX_QUANTILES = 4  # csrc/block_common.cuh: LMC_MAXQ
 _TILE_SIDE = 32  # csrc/block_common.cuh: LMC_TILE_SIDE, the side of a CTA's region
+_TILE_LEVELS = 5  # the most Haar levels whose 2^levels square fits _TILE_SIDE
 
 
 def _haar_pass(x, s, axis, iy, ix, roll):
@@ -291,7 +293,9 @@ def _filters(taps):
 
 def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
     """Checks shared by the CUDA wrappers; returns the applied levels, the
-    CTA region of the Haar kernels, the step counters and the P^2 inputs."""
+    route (``"tile"``: a Haar block in one launch; ``"passes"``: one launch
+    per level and axis), the CTA region of the tile route (``(0, 0)`` for the
+    passes), the step counters and the P^2 inputs."""
     if x.ndim != 2 or min(x.shape) < 2:
         raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
     ny, nx = x.shape
@@ -304,9 +308,10 @@ def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
             raise ValueError("marker state must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
     l_eff = dwt_levels((ny, nx), taps, levels)
-    rh, rw = tile_region((ny, nx), l_eff) if taps == 2 else (0, 0)
+    route = "tile" if taps == 2 and l_eff <= _TILE_LEVELS else "passes"
+    rh, rw = tile_region((ny, nx), l_eff) if route == "tile" else (0, 0)
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
-    return l_eff, (rh, rw), (step0, burn, cnt0), qcoef
+    return l_eff, route, (rh, rw), (step0, burn, cnt0), qcoef
 
 
 def _ptr(t, used):
@@ -327,7 +332,7 @@ def wavelet_block_update_cuda(
     fields = {"x": x, "y": y, "mask": mask}
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    l_eff, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
+    l_eff, route, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
         x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
     ny, nx = x.shape
     n_q = len(quantiles)
@@ -337,8 +342,8 @@ def wavelet_block_update_cuda(
         mean, m2 = mean.clone(), m2.clone()
     if n_q:
         qh, qn = qh.clone(), qn.clone()
-    bufs = None if taps == 2 else torch.empty((2, ny, nx), dtype=x.dtype,
-                                              device=x.device)
+    bufs = None if route == "tile" else torch.empty((2, ny, nx), dtype=x.dtype,
+                                                    device=x.device)
     coef = np.array(_myula_coefs(scal_f), np.float32)
     filt = _filters(taps)
     lib = _build.library()
@@ -437,7 +442,7 @@ def ulpda_wavelet_block_update_cuda(
         fields["xbar"] = xbar
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    l_eff, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
+    l_eff, route, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
         x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
     ny, nx = x.shape
     n_q = len(quantiles)
@@ -448,8 +453,8 @@ def ulpda_wavelet_block_update_cuda(
         mean, m2 = mean.clone(), m2.clone()
     if n_q:
         qh, qn = qh.clone(), qn.clone()
-    bufs = None if taps == 2 else torch.empty((2, ny, nx), dtype=x.dtype,
-                                              device=x.device)
+    bufs = None if route == "tile" else torch.empty((2, ny, nx), dtype=x.dtype,
+                                                    device=x.device)
     coef = np.array(_ulpda_coefs(scal_f), np.float32)
     filt = _filters(taps)
     lib = _build.library()

@@ -293,3 +293,22 @@ def test_tile_region_and_guards():
     with pytest.raises(ValueError, match="taps=6"):
         t_wf.wavelet_block_update(z, z, z, z, z, 0, (1e-3, 1e-2, 1.0, 0.1, 1.0),
                                   (0, 0, 0), taps=6)
+
+
+@pytest.mark.parametrize("shape, taps, levels, route, region", [
+    ((512, 512), 2, 3, "tile", (32, 32)),
+    ((512, 512), 2, 5, "tile", (32, 32)),
+    ((512, 512), 2, 6, "passes", (0, 0)),
+    ((128, 64), 2, 7, "passes", (0, 0)),
+    ((512, 512), 4, 3, "passes", (0, 0)),
+])
+def test_prepare_routes_haar_levels(monkeypatch, shape, taps, levels, route, region):
+    """The CUDA wrappers' checks take any number of Haar levels: up to 5 the
+    block runs in tiles of one CTA, past 5 (a 2^levels square larger than a
+    CTA's 32x32 region) in one launch per level and axis, as D4/D8 do."""
+    monkeypatch.setattr(t_wf._build, "require_cuda_f32", lambda *a, **k: None)
+    z = torch.zeros(shape, dtype=torch.float32)
+    l_eff, got_route, got_region, steps, _ = t_wf._prepare(
+        z, taps, levels, 4, (0, 0, 0), (), None, None, {"x": z})
+    assert (l_eff, got_route, got_region, steps) == (
+        t_wf.dwt_levels(shape, taps, levels), route, region, (0, 0, 0))
