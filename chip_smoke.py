@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel6-turns ROOT [ROOT ...]
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
@@ -17,7 +18,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. kernel 3 (``ulpda_block_update_cuda``) the same way for the
    deconvolution models (l21/tv, l1/mctv, l21/metv in both ``gfirst``
    orders, FGP with the warm envelope dual, and model M10's 4-level Haar
-   ``wl1`` dual in both orders), then timed per mode;
+   ``wl1`` dual in both orders, and at 6 levels bit for bit), then timed
+   per mode;
 5b. kernels 4 and 5 (``wavelet_block_update_cuda``,
    ``ulpda_wavelet_block_update_cuda``) the same way on the 512^2
    inpainting posterior: kernel 4 for Haar, D4 and D8 and Haar with 95% CI
@@ -27,8 +29,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``ulpda_tv_tiled_update_cuda``, ``myula_tv_fused_update_cuda``) against
    their plain versions at 2048^2, 40 steps in blocks of 20, noise on, and
    kernels 6 and 7 against the whole-image kernels 2 (on its launch
-   sequence) and 3 on the same steps; then timed per 200-step block beside
-   kernels 2 and 3;
+   sequence) and 3 on the same steps, kernel 6 bit for bit and on the
+   geometry ``tiled_plan`` names, also at 1024 x 1500; then timed per
+   200-step block beside kernels 2 and 3 (kernel 6 in TV cold-10, FGP-8,
+   MC-TV and ME-TV);
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
@@ -64,6 +68,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
    iteration), of the inpainting cells (a fused Haar MYULA block, the
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it).
+
+With ``--kernel6-turns`` the script runs only a measurement of kernel 6 at
+2048^2: the registers and spills ``ptxas`` reports for the tile kernels, and
+each mode of KERNEL6_MODES timed per 200-step block in alternating turns
+(forward, then backward) on the kernel 6 of each ROOT (another checkout of
+the repository, imported beside this one, e.g. a ``git archive`` of a parent
+commit), held bit for bit to this checkout's, and on this checkout's
+geometries of rank 0 and 2 in ``tiled_plan``'s order and its best at 512
+threads a CTA.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; each of its kernels must have launched, and on the MYULA-main and
@@ -579,13 +592,12 @@ KERNEL3_RUNS.append((2, False, dict(tv_solver="fgp", niter_inner=8, env_warm=Tru
 
 
 def phase_kernel3(dev, y, models, report):
-    import torch
-
     from lmc_atomi_torch.kernels.myula_fused import separable_gram_taps
     from lmc_atomi_torch.kernels.ulpda_fused import (
         ulpda_block_update_cuda,
         ulpda_block_update_ref,
     )
+    from lmc_atomi_torch.ops.wavelet import HaarDWT2D
 
     worst = 0.0
     for i, gfirst, opts in KERNEL3_RUNS:
@@ -600,6 +612,20 @@ def phase_kernel3(dev, y, models, report):
                              ("x", "py", "px", "xbar", "mean", "m2"))
         worst = max(worst, err)
         log(f"kernel3 {label} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
+    # M10's wl1 dual past the 5 Haar levels of a CTA's region: one launch per
+    # level and axis, bit for bit
+    name, proxf, proxg, _ = models[9]
+    lv = DEEP_HAAR_LEVELS
+    for gfirst in (False, True):
+        args = (proxf, proxg, y, CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst, niter_solve=3), 7,
+                HaarDWT2D(levels=lv))
+        err, parts = compare(f"kernel 3 (wl1, {lv} levels, gfirst={gfirst})",
+                             _run_ulpda_blocks(ulpda_block_update_cuda, *args),
+                             _run_ulpda_blocks(ulpda_block_update_ref, *args),
+                             ("x", "py", "px", "xbar", "mean", "m2"), exact=True)
+        worst = max(worst, err)
+        log(f"kernel3 {name} wl1 {lv} levels gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, "
+            f"noise on: max_abs_err {parts}")
     times = {}
     reps = TIMED_STEPS // BLOCK
     for i in (0, 1, 2, 9):
@@ -777,9 +803,10 @@ def phase_kernel45(dev, report):
 
 
 def make_large(dev, n, seed=0):
-    """The large-image workload at n^2: the image, the observation and the
-    data terms (TV, and the MC-TV / ME-TV of the deconvolution models M2/M3:
-    lamda 0.3, gamma 15, 10 envelope trips)."""
+    """The large-image workload at n^2 (``n`` a side, or ``(ny, nx)``: the
+    phantom's top-left corner): the image, the observation and the data
+    terms (TV, and the MC-TV / ME-TV of the deconvolution models M2/M3: lamda
+    0.3, gamma 15, 10 envelope trips)."""
     import torch
 
     from lmc_atomi_torch.ops.functionals import L2Data
@@ -787,11 +814,12 @@ def make_large(dev, n, seed=0):
     from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
     from lmc_atomi_torch.utils.images import phantom
 
-    img = torch.from_numpy(phantom(n)).to(dev)
-    blur = CirculantBlur2D.from_kernel((n, n), uniform_kernel(5, torch.float32, dev))
+    ny, nx = (n, n) if isinstance(n, int) else n
+    img = torch.from_numpy(phantom(max(ny, nx))[:ny, :nx].copy()).to(dev)
+    blur = CirculantBlur2D.from_kernel((ny, nx), uniform_kernel(5, torch.float32, dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
     y = blur.matvec(img) + SIGMA_NOISE * torch.randn(
-        (n, n), generator=gen, device=dev, dtype=torch.float32)
+        (ny, nx), generator=gen, device=dev, dtype=torch.float32)
     terms = {"tv": L2Data.create(op=blur, b=y, sigma=1.0 / SIGMA_NOISE**2)}
     for mode, op2 in (("mctv", Gradient2D()), ("metv", None)):
         terms[mode] = L2NcvxTV(op=blur, b=y, op2=op2, sigma=1.0 / SIGMA_NOISE**2,
@@ -814,6 +842,45 @@ def _myula_tiling(l2, cfg, n):
     oy = _fused_params(l2)[1][0]
     mode, _, _, niter_inner = _fused_mode(l2)
     return _tiling(_halo_need(cfg.get("niter_tv", 10), oy, mode, niter_inner), n)
+
+
+def kernel6_ranking(l2, cfg, shape):
+    """The geometries ``tiled_plan`` weighs for kernel 6 on ``l2`` with
+    ``cfg`` on this card, in its order: its pick first."""
+    import torch
+
+    from lmc_atomi_torch.kernels import myula_tiled
+    from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params
+
+    taps, (oy, ox), _ = _fused_params(l2)
+    mode, _, _, niter_inner = _fused_mode(l2)
+    n_sm, smem_limit = myula_tiled._card_limits(torch.device("cuda", torch.cuda.current_device()))
+    return myula_tiled._tiled_ranking(shape, taps, oy, ox, niter_tv=cfg.get("niter_tv", 10),
+                                      tv_solver=cfg.get("tv_solver", "chambolle"), mode=mode,
+                                      niter_inner=niter_inner, n_sm=n_sm, smem_limit=smem_limit)
+
+
+def kernel6_on(geometry):
+    """Kernel 6's wrapper launching ``geometry`` (an entry of
+    ``kernel6_ranking``) in place of ``tiled_plan``'s pick: a measurement."""
+    from unittest import mock
+
+    from lmc_atomi_torch.kernels import myula_tiled
+
+    def run(*args, **kwargs):
+        with mock.patch.object(myula_tiled, "tiled_plan", lambda *_, **__: geometry):
+            return myula_tiled.myula_tv_tiled_update_cuda(*args, **kwargs)
+
+    return run
+
+
+# kernel 6's timed modes at 2048^2: (name, data term, options)
+KERNEL6_MODES = [("cold10", "tv", dict(niter_tv=10)),
+                 ("fgp8", "tv", dict(niter_tv=8, tv_solver="fgp")),
+                 ("mctv_cold10", "mctv", dict(niter_tv=10)),
+                 ("metv_cold10", "metv", dict(niter_tv=10))]
+# kernel 6's check on a size whose chosen interior divides neither side
+NONSQUARE = (1024, 1500)
 
 
 def _run_ulpda_tiled_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed):
@@ -845,10 +912,10 @@ def _run_ulpda_tiled_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed)
 def phase_kernel678(dev, report):
     """Kernels 6, 7 and 8 against their plain versions at 2048^2, 40 steps in
     blocks of 20, noise on, and against the whole-image kernels 2 and 3 on
-    the same steps; then kernels 6 and 7, their plain versions and kernels 2
-    and 3 timed per 200-step block, kernel 8 per step."""
-    import torch
-
+    the same steps (kernel 6 bit for bit, also at NONSQUARE, on the plan
+    ``tiled_plan`` names); then kernels 6 (in KERNEL6_MODES) and 7, their
+    plain versions and kernels 2 and 3 timed per 200-step block, kernel 8
+    per step."""
     from lmc_atomi_torch.kernels.myula_cuda import (
         myula_tv_fused_update_cuda,
         myula_tv_fused_update_ref,
@@ -869,25 +936,38 @@ def phase_kernel678(dev, report):
     _, y, terms = make_large(dev, n)
     runs6 = [(name, terms["tv"], cfg) for name, cfg in SOLVERS.items() if name != "warm5"]
     runs6 += [(f"{mode}_cold10", terms[mode], dict(niter_tv=10)) for mode in ("mctv", "metv")]
+    k6 = myula_tv_tiled_update_cuda
+
+    def check6(name, data, cfg, y0, shape):
+        """Kernel 6 against its plain version and kernel 2's launch sequence,
+        bit for bit; returns its plan."""
+        cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
+        tcfg = dict(cfg, **_myula_tiling(data, cfg, shape[0]))
+        got = _run_blocks(k6, data, y0, CHECK_STEPS, CHECK_BLOCK, tcfg, seed=7)
+        plan = k6.last_plan
+        want = _run_blocks(myula_tv_tiled_update_ref, data, y0, CHECK_STEPS, CHECK_BLOCK,
+                           tcfg, seed=7)
+        err, parts = compare(f"kernel 6 ({name})", got, want, ("x", "mean", "m2", "qh", "qn"),
+                             exact=True)
+        k2, routes = routes_of(lambda: _run_blocks(
+            myula_tv_block_update_cuda, data, y0, CHECK_STEPS, CHECK_BLOCK, cfg, seed=7),
+            myula_tv_block_update_cuda)
+        _, parts2 = compare(f"kernel 6 against kernel 2 ({name})", got, k2,
+                            ("x", "mean", "m2", "qh", "qn"), exact=True)
+        log(f"kernel6 {name} {shape[0]}x{shape[1]} {CHECK_STEPS} steps, noise on, plan {plan}: "
+            f"max_abs_err {parts}; against kernel 2 (routes {routes}): {parts2}")
+        if routes["resident"]:
+            raise AssertionError(f"kernel 2 took the resident route at {shape}")
+        return err, plan
+
     worst6 = 0.0
     for name, data, cfg in runs6:
-        cfg = dict(cfg, burn_in=10) if "quantiles" in cfg else dict(cfg)
-        tcfg = dict(cfg, **_myula_tiling(data, cfg, n))
-        got = _run_blocks(myula_tv_tiled_update_cuda, data, y, CHECK_STEPS, CHECK_BLOCK,
-                          tcfg, seed=7)
-        want = _run_blocks(myula_tv_tiled_update_ref, data, y, CHECK_STEPS, CHECK_BLOCK,
-                           tcfg, seed=7)
-        err, parts = compare(f"kernel 6 ({name})", got, want, ("x", "mean", "m2", "qh", "qn"))
-        k2, routes = routes_of(lambda: _run_blocks(
-            myula_tv_block_update_cuda, data, y, CHECK_STEPS, CHECK_BLOCK, cfg, seed=7),
-            myula_tv_block_update_cuda)
-        err2, parts2 = compare(f"kernel 6 against kernel 2 ({name})", got, k2,
-                               ("x", "mean", "m2", "qh", "qn"))
-        worst6 = max(worst6, err)
-        log(f"kernel6 {name} {n}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}; "
-            f"against kernel 2 (routes {routes}): {parts2}")
-        if routes["resident"]:
-            raise AssertionError(f"kernel 2 took the resident route at {n}^2")
+        worst6 = max(worst6, check6(name, data, cfg, y, (n, n))[0])
+    _, y_ns, terms_ns = make_large(dev, NONSQUARE)
+    err, plan = check6("cold10", terms_ns["tv"], dict(niter_tv=10), y_ns, NONSQUARE)
+    worst6 = max(worst6, err)
+    if NONSQUARE[0] % plan[0] == 0 or NONSQUARE[1] % plan[1] == 0:
+        raise AssertionError(f"kernel 6's interior {plan[:2]} divides a side of {NONSQUARE}")
     duals = {"tv": L21Norm(sigma=TV_WEIGHT), "mctv": L1Norm(sigma=TV_WEIGHT),
              "metv": L21Norm(sigma=TV_WEIGHT)}
     runs7 = [("tv", False), ("tv", True), ("mctv", False), ("metv", False)]
@@ -924,13 +1004,17 @@ def phase_kernel678(dev, report):
     taps = _fused_params(l2)[0]
     npix, blk = n * n, LARGE_BLOCK
     times = {}
-    for name, cfg in (("cold10", dict(niter_tv=10)), ("fgp8", dict(niter_tv=8, tv_solver="fgp"))):
-        tcfg = dict(cfg, **_myula_tiling(l2, cfg, n))
-        k6, _ = cuda_ms(lambda: _run_blocks(myula_tv_tiled_update_cuda, l2, y, blk, blk, tcfg, 8), 2)
-        k2, _ = cuda_ms(lambda: _run_blocks(myula_tv_block_update_cuda, l2, y, blk, blk, cfg, 8), 2)
-        times[name] = (k6, k2)
-        log(f"kernel6 {name} timing {n}^2 per {blk}-step block: kernel 6 {k6:.3f} ms "
-            f"({blk / k6 * 1e3:.1f} iters/s), kernel 2 {k2:.3f} ms ({blk / k2 * 1e3:.1f} iters/s)")
+    for name, mode, cfg in KERNEL6_MODES:
+        data = terms[mode]
+        tcfg = dict(cfg, **_myula_tiling(data, cfg, n))
+        t6, _ = cuda_ms(lambda: _run_blocks(k6, data, y, blk, blk, tcfg, 8), 2)
+        plan = k6.last_plan
+        t2, _ = cuda_ms(lambda: _run_blocks(myula_tv_block_update_cuda, data, y, blk, blk, cfg,
+                                            8), 2)
+        times[name] = (t6, t2)
+        log(f"kernel6 {name} timing {n}^2 per {blk}-step block: kernel 6 {t6:.3f} ms "
+            f"({blk / t6 * 1e3:.1f} iters/s) on plan {plan}, kernel 2 {t2:.3f} ms "
+            f"({blk / t2 * 1e3:.1f} iters/s)")
     p6, _ = cuda_ms(lambda: _run_blocks(myula_tv_tiled_update_ref, l2, y, blk, blk,
                                         dict(niter_tv=10, **_myula_tiling(l2, {}, n)), 8))
     b6 = bound_kernel2(npix, blk, taps, 10)
@@ -1490,6 +1574,78 @@ def phase_profile_large(dev):
             block=LARGE_BLOCK))
 
 
+def load_checkout(root):
+    """``myula_tv_tiled_update_cuda`` of the package in another checkout at
+    ``root``, imported beside this one: its modules load under the same
+    names while this package's are set aside, and keep their own build."""
+    import importlib
+
+    def ours():
+        return [k for k in sys.modules if k.split(".")[0] == "lmc_atomi_torch"]
+
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(root))
+    try:
+        mod = importlib.import_module("lmc_atomi_torch.kernels.myula_tiled")
+        mod._build.library()
+    finally:
+        sys.path.remove(str(root))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return mod.myula_tv_tiled_update_cuda
+
+
+def ptxas_report():
+    """The registers, spills and shared memory ``ptxas -v`` reports for the
+    kernels of csrc/tiled_block.cu."""
+    import tempfile
+
+    from lmc_atomi_torch import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp) / "t.o"), str(_build.CSRC / "tiled_block.cu")],
+            capture_output=True, text=True, check=True)
+    for line in proc.stderr.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"ptxas {line.strip()}")
+
+
+def phase_kernel6_turns(dev, roots, turns=2):
+    """Kernel 6 of each checkout in ``roots`` and this checkout's at ranks 0
+    and 2 of ``tiled_plan`` and at its best 512-thread geometry, per 200-step
+    block at 2048^2 in alternating turns (each turn all variants forward,
+    then backward); every variant's block is held bit for bit to rank 0's."""
+    from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
+
+    ptxas_report()
+    n, blk = LARGE_N, LARGE_BLOCK
+    _, y, terms = make_large(dev, n)
+    others = [(Path(r).name, load_checkout(r)) for r in roots]
+    for name, mode, cfg in KERNEL6_MODES:
+        data = terms[mode]
+        ranking = kernel6_ranking(data, cfg, (n, n))
+        rank512 = next(r for r, geo in enumerate(ranking) if geo[3] == 512)
+        variants = others + [(f"rank{r} {ranking[r]}", kernel6_on(ranking[r]))
+                             for r in (0, 2, rank512)]
+        tcfg = dict(cfg, **_myula_tiling(data, cfg, n))
+        ref = _run_blocks(myula_tv_tiled_update_cuda, data, y, blk, blk, tcfg, 8)
+        for label, fn in variants:
+            compare(f"kernel 6 {label} ({name})", _run_blocks(fn, data, y, blk, blk, tcfg, 8),
+                    ref, ("x", "mean", "m2", "qh", "qn"), exact=True)
+        ms = {label: [] for label, _ in variants}
+        order = variants + variants[::-1]
+        for _ in range(turns):
+            for label, fn in order:
+                ms[label].append(cuda_ms(lambda: _run_blocks(fn, data, y, blk, blk, tcfg, 8),
+                                         2)[0])
+        for label, vals in ms.items():
+            log(f"kernel6 turns {name} {n}^2 per {blk}-step block, {label}: "
+                + ", ".join(f"{v:.3f}" for v in vals) + " ms")
+
+
 KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
     "prox_tv_iso_cuda": ("lmc_atomi_torch/csrc/tv_prox.cu",
                          "lmc_atomi_tpu/ops/tv_pallas.py:91"),
@@ -1566,6 +1722,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     name, _ = phase_device()
     phase_build()
+    if sys.argv[1:2] == ["--kernel6-turns"]:
+        phase_kernel6_turns(dev, sys.argv[2:])
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     report = {}
     phase_kernel1(dev, report)
     img, y, l2 = make_problem(dev)

@@ -101,8 +101,9 @@ _SIGNATURES = {
         _I, _I, _I,  # mode, niter_inner, with_noise
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
-        _P,  # stream
+        _I, _I, _I, _P,  # ty, tx, threads, stream
     ),
+    "lmc_card_limits": (_P,),  # out: SMs, opt-in shared memory a CTA
     "lmc_ulpda_tiled": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, xp, py, px, atb, mean, m2, qh, qn
         _I, _I,  # ny, nx

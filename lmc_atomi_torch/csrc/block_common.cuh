@@ -256,6 +256,26 @@ __device__ __forceinline__ int wrap(int a, int n) {
   return a < 0 ? a + n : a;
 }
 
+// Pixel (i, j) after one interleaved Haar butterfly pass at stride s > 0
+// along axis over a whole (ny, nx) image in global memory, the per-level
+// form of lmc_haar_pass (wavelet_fused.py::_haar_pass): on the lattice where
+// the other index % s == 0, slot idx % 2s == 0 of a pair (a, b) = (in[idx],
+// in[idx + s]) takes (a + b) * (1/sqrt2) and slot s takes (a - b) * (1/sqrt2);
+// every other pixel copies through. The butterfly is an involution, so
+// forward and inverse passes alike; pairs wrap around the image.
+__device__ __forceinline__ float lmc_haar_point(const float* __restrict__ in,
+                                                int ny, int nx, int i, int j,
+                                                int s, int axis) {
+  const float v = in[(size_t)i * nx + j];
+  const int idx = axis == 0 ? i : j;
+  const int other = axis == 0 ? j : i;
+  const int r = idx & (2 * s - 1);
+  if ((other & (s - 1)) != 0 || (r != 0 && r != s)) return v;
+  const int t = wrap(idx + (r == 0 ? s : -s), axis == 0 ? ny : nx);
+  const float w = axis == 0 ? in[(size_t)t * nx + j] : in[(size_t)i * nx + t];
+  return r == 0 ? (v + w) * LMC_SQRT1_2 : (w - v) * LMC_SQRT1_2;
+}
+
 // tmp[r, i, j] = sum_b wx_r[b] x[i, (j - b + ox) mod nx]
 __global__ void blk_rowconv(const float* __restrict__ x, float* __restrict__ tmp,
                             int ny, int nx, Taps t) {
@@ -529,11 +549,25 @@ __device__ __forceinline__ void lmc_tile_load(float* buf,
   LMC_TILE_LOOP(t, li, r, c) buf[li] = src[lmc_tile_k(r, c, t)];
 }
 
+// Edge-free tiles (kFree in the helpers below): a tile whose rows and
+// columns avoid image row ny - 1 and column nx - 1 (no wrap, not the last
+// row or column of tiles) has every forward-difference mask at "keep". Its
+// helpers drop the mask lookups and the tile-edge checks, so a caller that
+// stays off the tile's first and last rows and columns (a cone grown by at
+// most h - 1) takes the same operations on the same values. The CTA decides
+// once, uniformly, from its tile position.
+__device__ __forceinline__ bool lmc_tile_free(const TileGeo& t) {
+  const int y0 = blockIdx.y * t.ty - t.h, x0 = blockIdx.x * t.tx - t.h;
+  return y0 >= 0 && x0 >= 0 && y0 + t.sy <= t.ny - 1 && x0 + t.sx <= t.nx - 1;
+}
+
 // lmc_div at tile pixel li = (r, c): the divergence with the dual masked at
 // the image's last row/column.
+template <bool kFree = false>
 __device__ __forceinline__ float lmc_tile_div(const float* py, const float* px,
                                               int li, int r, int c,
                                               const TileGeo& t) {
+  if (kFree) return (py[li] - py[li - t.sx]) + (px[li] - px[li - 1]);
   const float a = t.gr[r] != t.ny - 1 ? py[li] : 0.0f;
   const float b = (r > 0 && t.gr[r - 1] != t.ny - 1) ? py[li - t.sx] : 0.0f;
   const float cc = t.gc[c] != t.nx - 1 ? px[li] : 0.0f;
@@ -543,9 +577,15 @@ __device__ __forceinline__ float lmc_tile_div(const float* py, const float* px,
 
 // Forward differences of f at tile pixel li, zero at the image's last
 // row/column.
+template <bool kFree = false>
 __device__ __forceinline__ void lmc_tile_fwd(const float* f, int li, int r,
                                              int c, const TileGeo& t,
                                              float* gy, float* gx) {
+  if (kFree) {
+    *gy = f[li + t.sx] - f[li];
+    *gx = f[li + 1] - f[li];
+    return;
+  }
   *gy = (t.gr[r] != t.ny - 1 && r + 1 < t.sy) ? f[li + t.sx] - f[li] : 0.0f;
   *gx = (t.gc[c] != t.nx - 1 && c + 1 < t.sx) ? f[li + 1] - f[li] : 0.0f;
 }
@@ -597,34 +637,6 @@ __device__ void lmc_tile_chambolle(const float* f, float* u, float* py,
   }
 }
 
-// niter cold FGP trips (blk_fgp_trip) on the tile: the iterate (py, px) and
-// the momentum point (ry, rx) in place, u scratch, momentum coef[tr].
-__device__ void lmc_tile_fgp(const float* f, float* u, float* py, float* px,
-                             float* ry, float* rx, float inv_gamma, int niter,
-                             const float* coef, const TileGeo& t) {
-  lmc_tile_zero(py, px, t);
-  lmc_tile_zero(ry, rx, t);
-  __syncthreads();
-  for (int tr = 0; tr < niter; ++tr) {
-    lmc_tile_u(f, ry, rx, u, inv_gamma, t);
-    const float mom = coef[tr];
-    LMC_TILE_LOOP(t, li, r, c) {
-      float gy, gx;
-      lmc_tile_fwd(u, li, r, c, t, &gy, &gx);
-      const float ty = ry[li] + 0.125f * gy;
-      const float tx = rx[li] + 0.125f * gx;
-      const float scale = fminf(1.0f, rsqrtf(ty * ty + tx * tx));
-      const float ay = ty * scale;
-      const float ax = tx * scale;
-      ry[li] = ay + mom * (ay - py[li]);
-      rx[li] = ax + mom * (ax - px[li]);
-      py[li] = ay;
-      px[li] = ax;
-    }
-    __syncthreads();
-  }
-}
-
 // rowconv then colconv of rank rr (blk_rowconv / blk_colconv's order) over
 // the whole tile: acc over the column taps of u into tmp, a barrier, acc over
 // the row taps of tmp summed over the ranks into gu, a barrier. Taps past the
@@ -659,6 +671,153 @@ __device__ void lmc_tile_gram(const float* u, float* tmp, float* gu,
       }
       gu[li] = rr == 0 ? acc : gu[li] + acc;
     }
+    __syncthreads();
+  }
+}
+
+// --- the dependency cone of a tile's interior (kernel 2's resident route,
+// kernel 6) -------------------------------------------------------------------
+
+// A rectangle of the tile: rows [r0, r0 + nh), columns [c0, c0 + nw).
+struct Rect {
+  int r0, c0, nh, nw;
+};
+
+// The interior grown by e on every side, at most to the tile's edge.
+__device__ __forceinline__ Rect rs_grown(const TileGeo& t, int e) {
+  const int g = e < t.h ? e : t.h;
+  return Rect{t.h - g, t.h - g, t.ty + 2 * g, t.tx + 2 * g};
+}
+
+// fn(li, r, c) for each pixel of R, strided over the CTA's threads without a
+// division per pixel.
+template <typename F>
+__device__ __forceinline__ void rs_rect(const Rect& R, int sx, F&& fn) {
+  const int dr = blockDim.x / R.nw, dc = blockDim.x % R.nw;
+  int r = R.r0 + threadIdx.x / R.nw, c = R.c0 + threadIdx.x % R.nw;
+  for (int q = threadIdx.x; q < R.nh * R.nw; q += blockDim.x) {
+    fn(r * sx + c, r, c);
+    r += dr;
+    c += dc;
+    if (c >= R.c0 + R.nw) {
+      c -= R.nw;
+      ++r;
+    }
+  }
+}
+
+// The gram where the interior's data gradient reads it: the row pass (the
+// column taps) on the interior's columns and the rows within the row taps'
+// reach ry of it, then the column pass on the interior (lmc_tile_gram's
+// arithmetic; gu then holds A^T A x on the interior only, at the tile's
+// index, or with kInnerOut in a ty x tx buffer at the interior's index); a
+// barrier after each pass. The taps never leave the tile (h >= the taps'
+// reach), so kFree drops the tile-edge checks.
+template <bool kFree = false, bool kInnerOut = false>
+__device__ void rs_gram(const float* u, float* tmp, float* gu, const Taps& tp,
+                        const TileGeo& t, int ry) {
+  const Rect rows{t.h - ry, t.h, t.ty + 2 * ry, t.tx};
+  const Rect inner = rs_grown(t, 0);
+  for (int rr = 0; rr < tp.rank; ++rr) {
+    rs_rect(rows, t.sx, [&](int li, int r, int c) {
+      float acc = 0.0f;
+      bool first = true;
+      for (int b = 0; b < tp.kx; ++b) {
+        const float w = tp.wx[rr][b];
+        if (w == 0.0f) continue;
+        const int cc = c - b + tp.ox;
+        const float term =
+            (kFree || (cc >= 0 && cc < t.sx)) ? u[r * t.sx + cc] * w : 0.0f;
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      tmp[li] = acc;
+    });
+    __syncthreads();
+    rs_rect(inner, t.sx, [&](int li, int r, int c) {
+      float acc = 0.0f;
+      bool first = true;
+      for (int a = 0; a < tp.ky; ++a) {
+        const float w = tp.wy[rr][a];
+        if (w == 0.0f) continue;
+        const int rs = r - a + tp.oy;
+        const float term =
+            (kFree || (rs >= 0 && rs < t.sy)) ? tmp[rs * t.sx + c] * w : 0.0f;
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      const int o = kInnerOut ? (r - t.h) * t.tx + (c - t.h) : li;
+      gu[o] = rr == 0 ? acc : gu[o] + acc;
+    });
+    __syncthreads();
+  }
+}
+
+// niter trips of the TV prox of the tile f at 1/gamma = inv_gamma, Chambolle
+// at p.tv_step (lmc_tile_chambolle<true>'s arithmetic) or FGP (p.fgp) with
+// momentum coef (blk_fgp_trip's), from the dual (py, px) = (sy_, sx_) of the previous
+// step in global memory (warm, every pixel exact) or from zeros; the FGP
+// point (ry, rx) starts at the dual. Each trip computes only what the
+// interior's prox reads after the last trip: trip tr computes u and then the
+// dual on the interior grown by e = niter - tr. u reads the dual one pixel up
+// and left, which the trip before computed exactly on the interior grown by
+// e + 1, so u is exact on its rectangle; the dual update reads u one pixel
+// down and right, so the dual is exact there but on its bottom and right
+// edges, which nothing after reads. At the end the dual is exact on the
+// interior and the ring above and left of it, which the divergence on the
+// interior reads. Ends with a barrier. The trips stay e <= niter < h pixels
+// off the tile's edge, so an edge-free tile takes kFree.
+template <bool kFree = false, typename P>
+__device__ void rs_trips(const P& p, const float* f, float* u,
+                         float* py, float* px, float* ry, float* rx,
+                         const float* sy_, const float* sx_, float inv_gamma,
+                         int niter, const float* coef, const TileGeo& t) {
+  LMC_TILE_LOOP(t, li, r, c) {
+    float a = 0.0f, b = 0.0f;
+    if (sy_ != nullptr) {
+      // loads of what other CTAs wrote in this launch go to L2 (__ldcg)
+      const size_t k = lmc_tile_k(r, c, t);
+      a = __ldcg(sy_ + k);
+      b = __ldcg(sx_ + k);
+    }
+    py[li] = a;
+    px[li] = b;
+    if (p.fgp) {
+      ry[li] = a;
+      rx[li] = b;
+    }
+  }
+  __syncthreads();
+  // u reads the dual (Chambolle) or the FGP point
+  const float* qy = p.fgp ? ry : py;
+  const float* qx = p.fgp ? rx : px;
+  for (int tr = 0; tr < niter; ++tr) {
+    const int e = niter - tr;
+    rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
+      u[li] = lmc_tile_div<kFree>(qy, qx, li, r, c, t) - f[li] * inv_gamma;
+    });
+    __syncthreads();
+    const float mom = coef[tr];
+    rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
+      float gy, gx;
+      lmc_tile_fwd<kFree>(u, li, r, c, t, &gy, &gx);
+      if (p.fgp) {
+        const float ty = ry[li] + 0.125f * gy;
+        const float tx = rx[li] + 0.125f * gx;
+        const float scale = fminf(1.0f, rsqrtf(ty * ty + tx * tx));
+        const float ay = ty * scale;
+        const float ax = tx * scale;
+        ry[li] = ay + mom * (ay - py[li]);
+        rx[li] = ax + mom * (ax - px[li]);
+        py[li] = ay;
+        px[li] = ax;
+      } else {
+        const float mag = sqrtf(gy * gy + gx * gx);
+        const float inv = 1.0f / (1.0f + p.tv_step * mag);
+        py[li] = (py[li] + p.tv_step * gy) * inv;
+        px[li] = (px[li] + p.tv_step * gx) * inv;
+      }
+    });
     __syncthreads();
   }
 }

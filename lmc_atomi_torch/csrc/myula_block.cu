@@ -143,142 +143,6 @@ static inline size_t rs_smem_bytes(int ty, int tx, int h, int fgp) {
          sizeof(int) * (sy + sx);
 }
 
-// A rectangle of the tile: rows [r0, r0 + nh), columns [c0, c0 + nw).
-struct Rect {
-  int r0, c0, nh, nw;
-};
-
-// The interior grown by e on every side, at most to the tile's edge.
-__device__ __forceinline__ Rect rs_grown(const TileGeo& t, int e) {
-  const int g = e < t.h ? e : t.h;
-  return Rect{t.h - g, t.h - g, t.ty + 2 * g, t.tx + 2 * g};
-}
-
-// fn(li, r, c) for each pixel of R, strided over the CTA's threads without a
-// division per pixel.
-template <typename F>
-__device__ __forceinline__ void rs_rect(const Rect& R, int sx, F&& fn) {
-  const int dr = blockDim.x / R.nw, dc = blockDim.x % R.nw;
-  int r = R.r0 + threadIdx.x / R.nw, c = R.c0 + threadIdx.x % R.nw;
-  for (int q = threadIdx.x; q < R.nh * R.nw; q += blockDim.x) {
-    fn(r * sx + c, r, c);
-    r += dr;
-    c += dc;
-    if (c >= R.c0 + R.nw) {
-      c -= R.nw;
-      ++r;
-    }
-  }
-}
-
-// The gram where the interior's data gradient reads it: the row pass (the
-// column taps) on the interior's columns and the rows within the row taps'
-// reach ry of it, then the column pass on the interior (lmc_tile_gram's
-// arithmetic; gu then holds A^T A x on the interior only); a barrier after
-// each pass.
-__device__ void rs_gram(const float* u, float* tmp, float* gu, const Taps& tp,
-                        const TileGeo& t, int ry) {
-  const Rect rows{t.h - ry, t.h, t.ty + 2 * ry, t.tx};
-  const Rect inner = rs_grown(t, 0);
-  for (int rr = 0; rr < tp.rank; ++rr) {
-    rs_rect(rows, t.sx, [&](int li, int r, int c) {
-      float acc = 0.0f;
-      bool first = true;
-      for (int b = 0; b < tp.kx; ++b) {
-        const float w = tp.wx[rr][b];
-        if (w == 0.0f) continue;
-        const int cc = c - b + tp.ox;
-        const float term = (cc >= 0 && cc < t.sx) ? u[r * t.sx + cc] * w : 0.0f;
-        acc = first ? term : acc + term;
-        first = false;
-      }
-      tmp[li] = acc;
-    });
-    __syncthreads();
-    rs_rect(inner, t.sx, [&](int li, int r, int c) {
-      float acc = 0.0f;
-      bool first = true;
-      for (int a = 0; a < tp.ky; ++a) {
-        const float w = tp.wy[rr][a];
-        if (w == 0.0f) continue;
-        const int rs = r - a + tp.oy;
-        const float term = (rs >= 0 && rs < t.sy) ? tmp[rs * t.sx + c] * w : 0.0f;
-        acc = first ? term : acc + term;
-        first = false;
-      }
-      gu[li] = rr == 0 ? acc : gu[li] + acc;
-    });
-    __syncthreads();
-  }
-}
-
-// niter trips of the TV prox of the tile f at 1/gamma = inv_gamma, Chambolle
-// at p.tv_step (lmc_tile_chambolle<true>'s arithmetic) or FGP with momentum
-// coef (lmc_tile_fgp's), from the dual (py, px) = (sy_, sx_) of the previous
-// step in global memory (warm, every pixel exact) or from zeros; the FGP
-// point (ry, rx) starts at the dual. Each trip computes only what the
-// interior's prox reads after the last trip: trip tr computes u and then the
-// dual on the interior grown by e = niter - tr. u reads the dual one pixel up
-// and left, which the trip before computed exactly on the interior grown by
-// e + 1, so u is exact on its rectangle; the dual update reads u one pixel
-// down and right, so the dual is exact there but on its bottom and right
-// edges, which nothing after reads. At the end the dual is exact on the
-// interior and the ring above and left of it, which the divergence on the
-// interior reads. Ends with a barrier.
-__device__ void rs_trips(const ResidentParams& p, const float* f, float* u,
-                         float* py, float* px, float* ry, float* rx,
-                         const float* sy_, const float* sx_, float inv_gamma,
-                         int niter, const float* coef, const TileGeo& t) {
-  LMC_TILE_LOOP(t, li, r, c) {
-    float a = 0.0f, b = 0.0f;
-    if (sy_ != nullptr) {
-      // loads of what other CTAs wrote in this launch go to L2 (__ldcg)
-      const size_t k = lmc_tile_k(r, c, t);
-      a = __ldcg(sy_ + k);
-      b = __ldcg(sx_ + k);
-    }
-    py[li] = a;
-    px[li] = b;
-    if (p.fgp) {
-      ry[li] = a;
-      rx[li] = b;
-    }
-  }
-  __syncthreads();
-  // u reads the dual (Chambolle) or the FGP point
-  const float* qy = p.fgp ? ry : py;
-  const float* qx = p.fgp ? rx : px;
-  for (int tr = 0; tr < niter; ++tr) {
-    const int e = niter - tr;
-    rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
-      u[li] = lmc_tile_div(qy, qx, li, r, c, t) - f[li] * inv_gamma;
-    });
-    __syncthreads();
-    const float mom = coef[tr];
-    rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
-      float gy, gx;
-      lmc_tile_fwd(u, li, r, c, t, &gy, &gx);
-      if (p.fgp) {
-        const float ty = ry[li] + 0.125f * gy;
-        const float tx = rx[li] + 0.125f * gx;
-        const float scale = fminf(1.0f, rsqrtf(ty * ty + tx * tx));
-        const float ay = ty * scale;
-        const float ax = tx * scale;
-        ry[li] = ay + mom * (ay - py[li]);
-        rx[li] = ax + mom * (ax - px[li]);
-        py[li] = ay;
-        px[li] = ax;
-      } else {
-        const float mag = sqrtf(gy * gy + gx * gx);
-        const float inv = 1.0f / (1.0f + p.tv_step * mag);
-        py[li] = (py[li] + p.tv_step * gy) * inv;
-        px[li] = (px[li] + p.tv_step * gx) * inv;
-      }
-    });
-    __syncthreads();
-  }
-}
-
 // The resident route: n_steps MYULA steps, x from xs[0] (step i reads xs[i %
 // 2] and writes xs[1 - i % 2]); with tv_warm the TV dual through dv[0..3] and
 // the ME-TV envelope dual through ev[0..3] the same way ((y, x) planes of

@@ -4,21 +4,30 @@
 // Kernel 6 replaces lmc_atomi_tpu/kernels/myula_tiled.py::myula_tv_tiled_update
 // (_tiled_kernel), which runs MYULA steps over full-width row bands with a
 // halo of rows, x and sigma A^T b resident in a TPU core's VMEM. Here one
-// launch is one step: each CTA reads its tile of x (interior T x T, halo h in
-// rows AND columns, since a band of full rows does not fit 228 KiB of shared
-// memory past ~1024 columns) and computes, all in shared memory, the
-// separable gram of A^T A, the MC-TV clamp or the ME-TV envelope trips, and
-// the niter_tv Chambolle or FGP trips with a barrier between the phases of a
-// trip; it writes only its interior: the MYULA update, the Philox normal at
-// the global pixel and step, weighted Welford and P^2. x ping-pongs between
-// two global buffers (a tile reads its neighbours' halo of the previous
-// step). Per step the kernel moves x in and out, atbs, mean and m2 in and
-// out (and the markers on recorded steps) through device memory once, plus
-// the halo rereads; at 2048^2 the 16.8 MB fields do not stay in the 50 MB L2
-// across the ten launches of a whole-image kernel-2 step, which is what this
-// design avoids. It is bound by shared-memory traffic and barriers: each TV
-// trip is two passes over the tile, and the halo (h = niter_tv + 1) makes a
-// 48 x 48 interior a 70 x 70 tile, ~2.1x the interior's work.
+// launch is one step: each CTA reads its tile of x (interior ty x tx, halo h
+// in rows AND columns, since a band of full rows does not fit 227 KB of
+// shared memory past ~1024 columns) and computes, all in shared memory, only
+// what its interior's result reads (the cone of kernel 2's resident route,
+// block_common.cuh: rs_gram, rs_trips): the separable gram on the interior,
+// the MC-TV clamp on the interior grown by 1 or the ME-TV envelope trips,
+// and the niter_tv cold Chambolle or FGP trips, trip tr on the interior grown
+// by niter_tv - tr, with a barrier between the phases of a trip; it writes
+// only its interior: the MYULA update, the Philox normal at the global pixel
+// and step, weighted Welford and P^2. x ping-pongs between two global
+// buffers (a tile reads its neighbours' halo of the previous step). A tile
+// whose rows and columns avoid image row ny - 1 and column nx - 1 (all but
+// the first and last row and column of tiles) runs the same step without the
+// per-pixel mask lookups and tile-edge checks (kFree), decided once per CTA.
+// Per step the kernel moves x in and out, atbs, mean and m2 in and out (and
+// the markers on recorded steps) through device memory once, plus the halo
+// rereads; at 2048^2 the 16.8 MB fields do not stay in the 50 MB L2 across
+// the ten launches of a whole-image kernel-2 step, which is what this design
+// avoids. It is bound by instruction issue in the TV trips (two passes a
+// trip over the cone, the IEEE square root and division of each pixel's
+// update) and their barriers. The host picks the interior and the CTA size
+// (kernels/myula_tiled.py::tiled_plan) that minimise the grid's cone work per
+// step, counted in waves over the card's SMs, within the shared memory of two
+// CTAs of 512 threads or one of 1024 an SM.
 //
 // Kernel 7 replaces lmc_atomi_tpu/kernels/ulpda_tiled.py::ulpda_tv_tiled_update
 // (_ulpda_tiled_kernel): two launches a step. The dual pass
@@ -47,26 +56,87 @@ struct MyulaTile {
   Taps taps;
   float c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma;
   float lamda, gamma_mc, clamp_mc, c_env, inv_tv_gamma, inv_gamma_mc, tv_step;
-  int niter_tv, niter_inner, fgp, mode, side, h;
+  int niter_tv, niter_inner, fgp, mode, ty, tx, h;
+  int ry;  // the row taps' reach
   float fgp_coef[LMC_MAXTRIP];
 };
 
-// The TV prox trips of kernel 6 (cold): Chambolle at tv_step or FGP.
-__device__ __forceinline__ void tl_trips(const MyulaTile& p, const float* f,
-                                         float* u, float* py, float* px,
-                                         float* ry, float* rx,
-                                         float inv_gamma, int niter,
-                                         const float* fgp_coef,
-                                         const TileGeo& t) {
-  if (p.fgp) {
-    lmc_tile_fgp(f, u, py, px, ry, rx, inv_gamma, niter, fgp_coef, t);
-  } else {
-    lmc_tile_chambolle<true>(f, u, py, px, inv_gamma, p.tv_step, niter, t);
+// Kernel 6's step on one CTA's tile, kFree on an edge-free tile: the gram
+// on the interior into G (ty x tx), the MC-TV clamp on the interior grown by
+// 1 or the cold ME-TV envelope trips, the data gradient and correction on
+// the interior, the cold TV trips (each on its cone, rs_trips), then the
+// update, noise, Welford and P^2 on the interior.
+template <bool kFree>
+__device__ __forceinline__ void tl_myula_tile(
+    const float* __restrict__ src, float* __restrict__ dst,
+    const float* __restrict__ atbs, float* __restrict__ mean,
+    float* __restrict__ m2, float* __restrict__ qh, float* __restrict__ qn,
+    const MyulaTile& p, const Sched& sc, long long g, float* X, float* U,
+    float* PY, float* PX, float* RY, float* RX, float* G,
+    const float* fgp_coef, const TileGeo& t) {
+  lmc_tile_load(X, src, t);
+  __syncthreads();
+  rs_gram<kFree, true>(X, U, G, p.taps, t, p.ry);
+  if (p.mode == MODE_MCTV) {
+    // the clamped gradient min(1/gamma, 1/|G x|) G x (blk_mctv_clamp) where
+    // its divergence on the interior reads it
+    rs_rect(rs_grown(t, 1), t.sx, [&](int li, int r, int c) {
+      float gy, gx;
+      lmc_tile_fwd<kFree>(X, li, r, c, t, &gy, &gx);
+      float mag = sqrtf(gy * gy + gx * gx);
+      mag = (mag != 0.0f) ? mag : 1e-9f;
+      const float clamp = fminf(1.0f / mag, p.clamp_mc);
+      PY[li] = clamp * gy;
+      PX[li] = clamp * gx;
+    });
+    __syncthreads();
+  } else if (p.mode == MODE_METV) {
+    rs_trips<kFree>(p, X, U, PY, PX, RY, RX, nullptr, nullptr, p.inv_gamma_mc,
+                    p.niter_inner, fgp_coef, t);
+  }
+  // the data gradient and the mode's correction on the interior (blk_colconv,
+  // then blk_update's order)
+  for (int li = threadIdx.x; li < t.ty * t.tx; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    float gv = p.sigma * G[li] - atbs[k];
+    if (p.mode == MODE_MCTV) {
+      gv = gv + p.lamda * lmc_tile_div<kFree>(PY, PX, lt, r, c, t);
+    } else if (p.mode == MODE_METV) {
+      const float xv = X[lt];
+      const float env = xv - p.gamma_mc * lmc_tile_div<kFree>(PY, PX, lt, r, c, t);
+      gv = gv - p.c_env * (xv - env);
+    }
+    G[li] = gv;
+  }
+  __syncthreads();
+  rs_trips<kFree>(p, X, U, PY, PX, RY, RX, nullptr, nullptr, p.inv_tv_gamma,
+                  p.niter_tv, fgp_coef, t);
+
+  const StepW sw = lmc_step_w(sc, g);
+  const size_t npix = (size_t)t.ny * t.nx;
+  for (int li = threadIdx.x; li < t.ty * t.tx; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    const float xv = X[lt];
+    const float prox = xv - p.tv_gamma * lmc_tile_div<kFree>(PY, PX, lt, r, c, t);
+    float xn = p.c_keep * xv - p.c_grad * G[li] + p.c_prox * prox;
+    if (sc.with_noise) {
+      xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
+                                         (uint32_t)g);
+    }
+    dst[k] = xn;
+    lmc_record_global(xn, k, npix, mean, m2, qh, qn, sc, sw);
   }
 }
 
-// Kernel 6: MYULA step g from src into dst, Welford / P^2 in place.
-__global__ void __launch_bounds__(LMC_TL_THREADS)
+// Kernel 6: MYULA step g from src into dst, Welford / P^2 in place. An SM
+// runs 1024 threads of it (two CTAs of 512 or one of 1024), at most 64
+// registers a thread.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
               const float* __restrict__ atbs, float* __restrict__ mean,
               float* __restrict__ m2, float* __restrict__ qh,
@@ -74,72 +144,25 @@ tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
               long long g) {
   extern __shared__ float sm[];
   __shared__ float fgp_coef[LMC_MAXTRIP];
-  const int n = (p.side + 2 * p.h) * (p.side + 2 * p.h);
+  const int n = (p.ty + 2 * p.h) * (p.tx + 2 * p.h);
   float* X = sm;
   float* U = X + n;
-  float* G = U + n;
-  float* PY = G + n;
+  float* PY = U + n;
   float* PX = PY + n;
   float* RY = PX + n;  // FGP only
   float* RX = RY + n;
-  const TileGeo t = lmc_tile_geo((int*)(sm + (p.fgp ? 7 : 5) * n), ny, nx,
-                                 p.side, p.side, p.h);
+  float* G = sm + (p.fgp ? 6 : 4) * n;  // the interior's gradient, ty x tx
+  const TileGeo t = lmc_tile_geo((int*)(G + p.ty * p.tx), ny, nx, p.ty, p.tx,
+                                 p.h);
   for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x)
     fgp_coef[i] = p.fgp_coef[i];
   __syncthreads();
-  lmc_tile_load(X, src, t);
-  __syncthreads();
-  lmc_tile_gram(X, U, G, p.taps, t);
-
-  if (p.mode == MODE_MCTV) {
-    // the clamped gradient min(1/gamma, 1/|G x|) G x (blk_mctv_clamp)
-    LMC_TILE_LOOP(t, li, r, c) {
-      float gy, gx;
-      lmc_tile_fwd(X, li, r, c, t, &gy, &gx);
-      float mag = sqrtf(gy * gy + gx * gx);
-      mag = (mag != 0.0f) ? mag : 1e-9f;
-      const float clamp = fminf(1.0f / mag, p.clamp_mc);
-      PY[li] = clamp * gy;
-      PX[li] = clamp * gx;
-    }
-    __syncthreads();
-  } else if (p.mode == MODE_METV) {
-    tl_trips(p, X, U, PY, PX, RY, RX, p.inv_gamma_mc, p.niter_inner, fgp_coef, t);
-  }
-  // the data gradient and the mode's correction on the interior (blk_colconv,
-  // then blk_update's order)
-  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
-    int lt, r, c;
-    size_t k;
-    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
-    float gv = p.sigma * G[lt] - atbs[k];
-    if (p.mode == MODE_MCTV) {
-      gv = gv + p.lamda * lmc_tile_div(PY, PX, lt, r, c, t);
-    } else if (p.mode == MODE_METV) {
-      const float xv = X[lt];
-      const float env = xv - p.gamma_mc * lmc_tile_div(PY, PX, lt, r, c, t);
-      gv = gv - p.c_env * (xv - env);
-    }
-    G[lt] = gv;
-  }
-  __syncthreads();
-  tl_trips(p, X, U, PY, PX, RY, RX, p.inv_tv_gamma, p.niter_tv, fgp_coef, t);
-
-  const StepW sw = lmc_step_w(sc, g);
-  const size_t npix = (size_t)ny * nx;
-  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
-    int lt, r, c;
-    size_t k;
-    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
-    const float xv = X[lt];
-    const float prox = xv - p.tv_gamma * lmc_tile_div(PY, PX, lt, r, c, t);
-    float xn = p.c_keep * xv - p.c_grad * G[lt] + p.c_prox * prox;
-    if (sc.with_noise) {
-      xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
-                                         (uint32_t)g);
-    }
-    dst[k] = xn;
-    lmc_record_global(xn, k, npix, mean, m2, qh, qn, sc, sw);
+  if (lmc_tile_free(t)) {
+    tl_myula_tile<true>(src, dst, atbs, mean, m2, qh, qn, p, sc, g, X, U, PY,
+                        PX, RY, RX, G, fgp_coef, t);
+  } else {
+    tl_myula_tile<false>(src, dst, atbs, mean, m2, qh, qn, p, sc, g, X, U, PY,
+                         PX, RY, RX, G, fgp_coef, t);
   }
 }
 
@@ -325,6 +348,14 @@ Sched tl_sched(int n_q, int thin, int with_noise, const float* qcoef,
 
 int tl_max(int a, int b) { return a > b ? a : b; }
 
+// Dynamic shared memory of a kernel-6 CTA: x, u and the dual (with FGP also
+// its point) on the tile, the gradient on the interior, the gr/gc indices.
+size_t tl_smem_bytes(int ty, int tx, int h, int fgp) {
+  const size_t sy = ty + 2 * h, sx = tx + 2 * h;
+  return sizeof(float) * ((fgp ? 6 : 4) * sy * sx + (size_t)ty * tx) +
+         sizeof(int) * (sy + sx);
+}
+
 }  // namespace
 
 // Kernel 6: n_steps (even) MYULA steps on x (float32, row-major, contiguous,
@@ -333,9 +364,10 @@ int tl_max(int a, int b) { return a > b ? a : b; }
 // 10 floats), fgp_coef (max(niter_tv, niter_inner) floats), qcoef: host,
 // as for lmc_myula_block. The halo is the least exact one, h = max(niter_tv
 // + 1, the taps' reach, 2 for mctv, niter_inner + 1 for metv); the interior
-// side the largest of 64..8 whose tile fits two CTAs on an SM (else one).
-// Returns the cudaError_t of the launches (0 on success), or -1 on arguments
-// outside the supported range.
+// and the CTA size (512 or 1024 threads) are the caller's
+// (kernels/myula_tiled.py::tiled_plan). Returns the cudaError_t of the
+// launches (0 on success), or -1 on arguments outside the supported range or
+// when the tile does not fit the card's shared memory.
 extern "C" int lmc_myula_tiled(
     float* x, float* parity, const float* atbs, float* mean, float* m2,
     float* qh, float* qn, int ny, int nx, const float* taps, int rank, int ky,
@@ -343,12 +375,13 @@ extern "C" int lmc_myula_tiled(
     const float* fgp_coef, int mode, int niter_inner, int with_noise,
     const float* qcoef, int n_q, int thin, const float* coef,
     unsigned int seed, unsigned int chain, long long step0, long long burn,
-    long long cnt0, void* stream) {
+    long long cnt0, int ty, int tx, int threads, void* stream) {
   MyulaTile p;
   if (!lmc_taps(&p.taps, taps, rank, ky, kx, oy, ox) || n_q < 0 ||
       n_q > LMC_MAXQ || thin < 1 || ny < 2 || nx < 2 || n_steps % 2 ||
       mode < MODE_TV || mode > MODE_METV || niter_tv < 0 ||
-      niter_tv > LMC_MAXTRIP || niter_inner < 0 || niter_inner > LMC_MAXTRIP)
+      niter_tv > LMC_MAXTRIP || niter_inner < 0 || niter_inner > LMC_MAXTRIP ||
+      ty < 1 || tx < 1 || (threads != 512 && threads != 1024))
     return -1;
   p.c_keep = coef[0];
   p.c_grad = coef[1];
@@ -374,24 +407,45 @@ extern "C" int lmc_myula_tiled(
   int h = tl_max(niter_tv + 1, tl_max(lmc_taps_reach_y(p.taps), lmc_taps_reach_x(p.taps)));
   if (mode == MODE_MCTV) h = tl_max(h, 2);
   if (mode == MODE_METV) h = tl_max(h, niter_inner + 1);
-  size_t smem = 0;
-  p.side = lmc_pick_tile(h, fgp ? 7 : 5, &smem);
   p.h = h;
-  if (p.side == 0) return -1;
-  int e = tl_smem(tl_myula_step, smem);
-  if (e) return e;
+  p.ry = lmc_taps_reach_y(p.taps);
+
+  p.ty = ty;
+  p.tx = tx;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = tl_smem_bytes(ty, tx, h, fgp);
+  if (smem + sizeof(float) * LMC_MAXTRIP > (size_t)optin) return -1;  // + static
+  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
+  auto step = threads == 512 ? tl_myula_step<512> : tl_myula_step<1024>;
+  e = (cudaError_t)tl_smem(step, smem);
+  if (e != cudaSuccess) return (int)e;
   const Sched sc = tl_sched(n_q, thin, with_noise, qcoef, seed, chain, step0, burn, cnt0);
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = tl_grid(ny, nx, p.side);
   for (int it = 0; it < n_steps; ++it) {
     const float* src = it % 2 ? parity : x;
     float* dst = it % 2 ? x : parity;
-    tl_myula_step<<<grid, LMC_TL_THREADS, smem, s>>>(src, dst, atbs, mean, m2, qh,
-                                                     qn, ny, nx, p, sc, step0 + it);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    step<<<grid, threads, smem, s>>>(src, dst, atbs, mean, m2, qh, qn, ny, nx,
+                                     p, sc, step0 + it);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+// The current device's SM count and opt-in shared memory a CTA, into out[0]
+// and out[1], for kernel 6's host picker. Returns the cudaError_t.
+extern "C" int lmc_card_limits(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)e;
 }
 
 // Kernel 7: n_steps (even) ULPDA steps on x (xp the previous sample, the

@@ -28,8 +28,10 @@
 // one coefficient field: (0)/(5) is y <- clip(y + mu W xbar) and (1) reads
 // W^T y, each one launch whose CTAs own whole 2^levels tiles and run the
 // transform in shared memory (block_common.cuh: lmc_haar_fwd/inv, shared
-// with kernels 4 and 5). The gram passes are not tile-local, so the step
-// stays a launch sequence.
+// with kernels 4 and 5). Past 5 levels a 2^levels tile outgrows a CTA's
+// 32 x 32 region, and each transform takes one launch per level and axis
+// with the Haar butterfly of kernel 4's per-level passes (lmc_haar_point).
+// The gram passes are not tile-local, so the step stays a launch sequence.
 // Every launch is bound by device-memory bytes and, at 512^2, by launch
 // latency: a TV step with 3 sweeps is 12 launches of a few us. Persistent
 // launches, shared-memory row bands and CUDA graphs are later work.
@@ -197,13 +199,72 @@ ul_wl1_dual(const float* __restrict__ xbar, float* __restrict__ py, int nx,
   }
 }
 
+// The wl1 dual past a CTA's region (2^levels > LMC_TILE_SIDE): one launch
+// per Haar level and axis over the whole image (lmc_haar_point, kernel 4's
+// per-level passes), out = the pass of in; the last pass of a transform
+// runs the epilogue in place of the write: py <- clip(py + mu w, g_sigma)
+// after W xbar (0)/(5), or v = x - tau w after W^T py (1), written as
+// rhs = v + ts atb in mode tv (rhs non-null), else to v.
+struct Wl1Epi {
+  int kind;  // 0 none, 1 the dual update, 2 the primal input
+  float* py;
+  const float* x;
+  const float* atb;
+  float* v;
+  float* rhs;
+  float mu, g_sigma, tau, ts;
+};
+
+__global__ void ul_wl1_pass(const float* __restrict__ in,
+                            float* __restrict__ out, int ny, int nx, int s,
+                            int axis, Wl1Epi e) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int k = i * nx + j;
+  const float w = lmc_haar_point(in, ny, nx, i, j, s, axis);
+  if (e.kind == 1) {
+    e.py[k] = fminf(fmaxf(e.py[k] + e.mu * w, -e.g_sigma), e.g_sigma);
+  } else if (e.kind == 2) {
+    const float vv = e.x[k] - e.tau * w;
+    if (e.rhs) {
+      e.rhs[k] = vv + e.ts * e.atb[k];
+    } else {
+      e.v[k] = vv;
+    }
+  } else {
+    out[k] = w;
+  }
+}
+
+// The forward (W) or inverse (W^T) transform of src through the ping-pong
+// buffers bufs, levels >= 1, the epilogue on the last pass.
+void ul_wl1_transform(const float* src, float* const bufs[2], int ny, int nx,
+                      int levels, int inverse, Wl1Epi epi, cudaStream_t s) {
+  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
+  const Wl1Epi none{0, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
+  int out = 0;
+  for (int n = 0; n < levels; ++n) {
+    const int lv = inverse ? levels - 1 - n : n;
+    for (int a = 0; a < 2; ++a) {
+      const bool last = n == levels - 1 && a == 1;
+      ul_wl1_pass<<<grid, block, 0, s>>>(src, bufs[out], ny, nx, 1 << lv,
+                                         inverse ? 1 - a : a, last ? epi : none);
+      src = bufs[out];
+      out ^= 1;
+    }
+  }
+}
+
 }  // namespace
 
 // One call runs n_steps ULPDA steps in place on x, py, px, xbar, mean, m2
 // (float32, row-major, contiguous, on the current device).
 //   dual: 0 l1, 1 l21 (the Gradient2D dual (py, px)), 2 wl1 (py the
 //   interleaved Haar coefficient dual of levels levels, px unused; each CTA
-//   of its launches owns an rh x rw region of whole tiles).
+//   of its launches owns an rh x rw region of whole tiles, or, with
+//   rh = rw = 0, one launch per level and axis with u and d as the
+//   ping-pong buffers).
 //   atb: A^T b (unscaled). With gfirst = 0 the incoming xbar is never read;
 //   the outgoing one is the genuine x' + theta (x' - x) in both orders.
 //   scratch, each (ny, nx): v, rhs, u, d, gu; tmp: (rank, ny, nx);
@@ -236,7 +297,9 @@ extern "C" int lmc_ulpda_block(
       niter_solve < 0 || mode < MODE_TV || mode > MODE_METV ||
       (mode != MODE_TV && aux == nullptr) || dual < DUAL_L1 ||
       dual > DUAL_WL1 || (dual != DUAL_WL1 && px == nullptr) ||
-      (dual == DUAL_WL1 && !lmc_region_ok(ny, nx, rh, rw, levels)))
+      (dual == DUAL_WL1 && (rh > 0 || rw > 0) &&
+       !lmc_region_ok(ny, nx, rh, rw, levels)) ||
+      (dual == DUAL_WL1 && rh == 0 && rw == 0 && levels < 1))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
@@ -259,8 +322,14 @@ extern "C" int lmc_ulpda_block(
   const DualBufs envb = lmc_dual_bufs(aux, npix);
   int cur_env = -1;  // index into envb.P of the carried envelope dual
   const dim3 tgrid(rw > 0 ? nx / rw : 0, rh > 0 ? ny / rh : 0);
+  const bool passes = dual == DUAL_WL1 && rh == 0;  // the per-level route
+  float* const bufs[2] = {u, d};  // free between the steps' Chebyshev solves
+  Wl1Epi epi{0, py, x, atb, v, nullptr, mu, g_sigma, tau, ts};
   auto dual_update = [&]() {
-    if (dual == DUAL_WL1) {
+    if (passes) {
+      epi.kind = 1;
+      ul_wl1_transform(xbar, bufs, ny, nx, levels, 0, epi, s);
+    } else if (dual == DUAL_WL1) {
       ul_wl1_dual<<<tgrid, LMC_TILE_THREADS, 0, s>>>(xbar, py, nx, rh, rw,
                                                       levels, mu, g_sigma);
     } else {
@@ -270,7 +339,11 @@ extern "C" int lmc_ulpda_block(
   };
   // (1), writing rhs in mode tv and v otherwise
   auto primal_in = [&](float* rhs_out) {
-    if (dual == DUAL_WL1) {
+    if (passes) {
+      epi.kind = 2;
+      epi.rhs = rhs_out;
+      ul_wl1_transform(py, bufs, ny, nx, levels, 1, epi, s);
+    } else if (dual == DUAL_WL1) {
       ul_wl1_primal_in<<<tgrid, LMC_TILE_THREADS, 0, s>>>(
           x, py, atb, v, rhs_out, nx, rh, rw, levels, tau, ts);
     } else {

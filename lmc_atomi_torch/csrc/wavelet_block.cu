@@ -30,8 +30,9 @@
 // distributed shared memory) is later work. A Haar transform of more levels
 // than a CTA's region holds (2^levels > LMC_TILE_SIDE; the host passes
 // rh = rw = 0) takes the same per-level launches, each pass the Haar
-// butterfly (a + b) * (1/sqrt2), (a - b) * (1/sqrt2) of _haar_pass, not the
-// 2-tap filter bank, whose sum of products rounds otherwise.
+// butterfly (a + b) * (1/sqrt2), (a - b) * (1/sqrt2) of _haar_pass
+// (block_common.cuh: lmc_haar_point, shared with kernel 3's wl1 dual), not
+// the 2-tap filter bank, whose sum of products rounds otherwise.
 //
 // Every operation rounds as in the plain torch versions
 // (wavelet_fused.py::*_ref), with --fmad=false: the Haar butterflies multiply
@@ -302,7 +303,9 @@ __global__ void wv_db_pass(const float* __restrict__ in, float* __restrict__ out
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
   float v = in[k];
-  if (s > 0) {
+  if (s > 0 && f.taps == 2) {
+    v = lmc_haar_point(in, ny, nx, i, j, s, axis);
+  } else if (s > 0) {
     const int idx = axis == 0 ? i : j;
     const int other = axis == 0 ? j : i;
     const int n = axis == 0 ? ny : nx;
@@ -313,10 +316,7 @@ __global__ void wv_db_pass(const float* __restrict__ in, float* __restrict__ out
         return axis == 0 ? in[t * nx + j] : in[i * nx + t];
       };
       float acc = 0.0f;
-      if (f.taps == 2) {
-        // the Haar butterfly, an involution: forward and inverse alike
-        acc = r == 0 ? (v + rd(1)) * LMC_SQRT1_2 : (rd(-1) - v) * LMC_SQRT1_2;
-      } else if (!inverse) {
+      if (!inverse) {
         for (int m = 0; m < f.taps; ++m)
           acc = acc + (r == 0 ? f.h[m] * rd(m) : f.g[m] * rd(m - 1));
       } else {

@@ -70,6 +70,20 @@ _MAX_TRIPS = 64
 H100_SMS, H100_SMEM_OPTIN = 132, 232448
 
 
+def _tile_halo(taps: Taps, oy: int, ox: int, niter_tv: int, mode: str,
+               niter_inner: int) -> int:
+    """The least exact halo of a tile step (kernel 2's resident route and
+    kernel 6): the TV prox's ``niter_tv + 1``, the taps' reach, MC-TV 2,
+    ME-TV ``niter_inner + 1``."""
+    ky, kx = len(taps[0][0]), len(taps[0][1])
+    h = max(niter_tv + 1, oy, ky - 1 - oy, ox, kx - 1 - ox)
+    if mode == "mctv":
+        h = max(h, 2)
+    elif mode == "metv":
+        h = max(h, niter_inner + 1)
+    return h
+
+
 def resident_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
                   tv_solver: str = "chambolle", mode: str = "tv",
                   niter_inner: int = 10, n_steps: int = 1,
@@ -88,12 +102,7 @@ def resident_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
     ny, nx = shape
     if n_steps < 1 or not 0 <= niter_tv <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
         return None
-    ky, kx = len(taps[0][0]), len(taps[0][1])
-    h = max(niter_tv + 1, oy, ky - 1 - oy, ox, kx - 1 - ox)
-    if mode == "mctv":
-        h = max(h, 2)
-    elif mode == "metv":
-        h = max(h, niter_inner + 1)
+    h = _tile_halo(taps, oy, ox, niter_tv, mode, niter_inner)
     fields = 7 if tv_solver == "fgp" else 5
     best = None
     for ty in range(8, ny + 8, 8):

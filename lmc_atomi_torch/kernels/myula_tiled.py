@@ -18,8 +18,12 @@ tile reads its neighbours' rows of the previous step.
   interior kept.
 - ``myula_tv_tiled_update_cuda`` runs ``csrc/tiled_block.cu``: one launch
   per step, each CTA a 2-D tile with the least exact halo in rows AND
-  columns, held in shared memory. ``band`` and ``halo`` are checked as the
-  JAX package checks them; the result does not depend on the tiling.
+  columns, held in shared memory, on which it computes only the cone its
+  interior's result reads. The interior and the CTA size are
+  ``tiled_plan``'s, the geometry of least cone work per step on the card,
+  which the wrapper picks and keeps in ``last_plan``. ``band`` and
+  ``halo`` are checked as the JAX package checks them; the result does not
+  depend on the tiling.
 
 Noise is the Philox normal at the global pixel and step
 (``core/random.py``), so a tiled chain draws the same noise as
@@ -30,6 +34,7 @@ and the ME-TV envelope start cold every step. Not ported: the TPU's
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -38,6 +43,9 @@ import torch
 from lmc_atomi_torch import _build
 from lmc_atomi_torch.core.random import normal_field
 from lmc_atomi_torch.kernels.myula_fused import (
+    _MAX_TRIPS,
+    H100_SMEM_OPTIN,
+    H100_SMS,
     MODES,
     FusedChainResult,
     Taps,
@@ -52,6 +60,7 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _p2_coefs,
     _pack_scal_f,
     _sep_gram,
+    _tile_halo,
     _tv_prox_any,
     _update_coefs,
 )
@@ -59,12 +68,127 @@ from lmc_atomi_torch.ops.tv_cuda import _stencils
 from lmc_atomi_torch.run.runner import base_key
 
 __all__ = [
+    "tiled_plan",
     "pick_band",
     "myula_tv_tiled_update",
     "myula_tv_tiled_update_cuda",
     "myula_tv_tiled_update_ref",
     "run_myula_tv_tiled",
 ]
+
+
+_RESERVED_SMEM = 1024  # shared memory the card reserves for each CTA
+_SM_THREADS = 1024  # an SM's threads of kernel 6: 2 CTAs of 512 or 1 of 1024
+
+
+def _trip_work(ty: int, tx: int, h: int, niter: int) -> int:
+    """Pixel passes of ``niter`` cold trips on the cone: a zeroing pass over
+    the tile, then two passes a trip on the interior grown by ``niter -
+    trip``."""
+    w = (ty + 2 * h) * (tx + 2 * h)
+    for e in range(1, niter + 1):
+        g = min(e, h)
+        w += 2 * (ty + 2 * g) * (tx + 2 * g)
+    return w
+
+
+def _tile_work(ty, tx, h, ry, rank, niter_tv, mode, niter_inner) -> int:
+    """Pixel passes of one CTA's step on its cone: the tile's load, the gram's row pass on the interior's columns within the
+    row taps' reach ``ry`` and its column pass on the interior, per rank, the
+    MC-TV clamp on the interior grown by 1 or the envelope trips, the
+    gradient, the TV trips and the update."""
+    area = ty * tx
+    w = (ty + 2 * h) * (tx + 2 * h) + rank * ((ty + 2 * ry) * tx + area)
+    if mode == "mctv":
+        w += (ty + 2) * (tx + 2)
+    elif mode == "metv":
+        w += _trip_work(ty, tx, h, niter_inner)
+    return w + 2 * area + _trip_work(ty, tx, h, niter_tv)
+
+
+def _free_lines(n: int, t: int, h: int) -> int:
+    """Rows (or columns) of tiles of side ``t`` whose halo tile avoids image
+    row ``n - 1`` without wrapping."""
+    return sum(b * t - h >= 0 and (b + 1) * t + h <= n - 1
+               for b in range(-(-n // t)))
+
+
+@functools.lru_cache(maxsize=64)
+def _ranking(ny, nx, h, ry, n_taps, niter_tv, fields, mode, niter_inner, n_sm, smem_limit):
+    """``_tiled_ranking`` on the numbers it depends on, computed once per
+    shape and options: the wrapper asks on every call."""
+    cands = []
+    for threads in (512, 1024):
+        per_sm = _SM_THREADS // threads
+        for ty in range(8, ny + 8, 8):
+            for tx in range(8, nx + 8, 8):
+                sy, sx = ty + 2 * h, tx + 2 * h
+                cta = 4 * (fields * sy * sx + ty * tx) + 4 * (sy + sx) + 4 * _MAX_TRIPS
+                if (cta > smem_limit
+                        or per_sm * (cta + _RESERVED_SMEM) > smem_limit + _RESERVED_SMEM):
+                    break
+                tiles = -(-ny // ty) * -(-nx // tx)
+                waves = -(-tiles // (n_sm * per_sm))
+                cost = waves * per_sm * _tile_work(ty, tx, h, ry, n_taps, niter_tv,
+                                                   mode, niter_inner)
+                cands.append((cost, threads, ty, tx, tiles))
+    return tuple((ty, tx, h, threads, tiles - _free_lines(ny, ty, h) * _free_lines(nx, tx, h),
+                  tiles) for _, threads, ty, tx, tiles in sorted(cands))
+
+
+def _tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
+                   tv_solver: str = "chambolle", mode: str = "tv",
+                   niter_inner: int = 10, n_sm: int = H100_SMS,
+                   smem_limit: int = H100_SMEM_OPTIN):
+    """Every geometry ``tiled_plan`` weighs, as its ``(ty, tx, h, threads,
+    edge_tiles, tiles)``, in the order of its ranking: least cost first."""
+    if not 0 <= niter_tv <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
+        return ()
+    ry = max(oy, len(taps[0][0]) - 1 - oy)
+    h = _tile_halo(taps, oy, ox, niter_tv, mode, niter_inner)
+    return _ranking(*shape, h, ry, len(taps), niter_tv, 6 if tv_solver == "fgp" else 4,
+                    mode, niter_inner, n_sm, smem_limit)
+
+
+def tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
+               tv_solver: str = "chambolle", mode: str = "tv",
+               niter_inner: int = 10, n_sm: int = H100_SMS,
+               smem_limit: int = H100_SMEM_OPTIN):
+    """Kernel 6's geometry on a card of ``n_sm`` SMs whose CTA takes at
+    most ``smem_limit`` bytes of shared memory, the one the wrapper
+    launches: ``(ty, tx, h, threads, edge_tiles, tiles)``, or ``None`` when
+    nothing fits.
+
+    The halo ``h`` is the least exact one (``myula_fused._tile_halo``, as
+    the resident route's). Candidates are the
+    interiors ``ty x tx`` (multiples of 8) at 512 threads a CTA (two CTAs an
+    SM) or 1024 (one), whose shared memory (x, u and the dual on the tile,
+    with FGP also its point, the gradient on the interior, the row and
+    column indices, 64 floats of FGP momentum) fits, each CTA reserving 1 KiB
+    of the SM's ``smem_limit + 1024`` (as on sm_80 and sm_90). A step costs
+    the waves ``ceil(tiles / (n_sm * per_sm))`` times the CTAs of a wave on
+    an SM times one CTA's cone work (``_tile_work``), ragged tiles at full
+    cost; the least cost wins, ties to fewer threads, then the smaller
+    ``ty`` and ``tx``. ``edge_tiles`` counts the tiles that are not
+    edge-free."""
+    ranking = _tiled_ranking(shape, taps, oy, ox, niter_tv=niter_tv, tv_solver=tv_solver,
+                             mode=mode, niter_inner=niter_inner, n_sm=n_sm,
+                             smem_limit=smem_limit)
+    return ranking[0] if ranking else None
+
+
+_CARD_LIMITS = {}  # device index -> (SMs, opt-in shared memory a CTA)
+
+
+def _card_limits(device: torch.device):
+    """The SM count and the opt-in shared memory of a CTA of ``device``, as
+    the CUDA runtime reports them."""
+    if device.index not in _CARD_LIMITS:
+        out = np.zeros(2, np.int32)
+        with torch.cuda.device(device):
+            _build.check(_build.library().lmc_card_limits(out.ctypes.data), "lmc_card_limits")
+        _CARD_LIMITS[device.index] = tuple(int(v) for v in out)
+    return _CARD_LIMITS[device.index]
 
 
 def pick_band(ny: int, halo: int) -> int:
@@ -211,9 +335,10 @@ def myula_tv_tiled_update_cuda(
     quantile_thin: int = 1, mode: str = "tv", niter_inner: int = 0,
 ):
     """Kernel 6 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors:
-    one launch per step. Works on copies of ``x, mean, m2, qh, qn`` and
-    returns them; raises on a CPU tensor or on options the kernel does not
-    take."""
+    one launch per step, on ``tiled_plan``'s geometry for the card, kept in
+    ``last_plan``. Works on copies of
+    ``x, mean, m2, qh, qn`` and returns them; raises on a CPU tensor, on
+    options the kernel does not take, or when no geometry fits."""
     _check_myula_tiled(x, taps, oy, n_steps, band, halo, niter_tv, mode,
                        niter_inner, quantiles, quantile_thin, tv_solver)
     ny, nx = x.shape
@@ -237,6 +362,13 @@ def myula_tv_tiled_update_cuda(
     fgp_coef = _fgp_coef(max(niter_tv, niter_inner if mode == "metv" else 0))
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
 
+    n_sm, smem_limit = _card_limits(x.device)
+    plan = tiled_plan((ny, nx), taps, oy, ox, niter_tv=niter_tv, tv_solver=tv_solver,
+                      mode=mode, niter_inner=niter_inner, n_sm=n_sm, smem_limit=smem_limit)
+    if plan is None:
+        raise ValueError(f"no kernel-6 tile fits {smem_limit} bytes of shared memory")
+    ty, tx, _, threads, _, _ = plan
+
     def ptr(t, used):
         return t.data_ptr() if used else None
 
@@ -251,14 +383,16 @@ def myula_tv_tiled_update_cuda(
             int(tv_solver == "fgp"), fgp_coef.ctypes.data, MODES.index(mode),
             int(niter_inner), int(bool(with_noise)), qcoef.ctypes.data, n_q,
             int(quantile_thin), coef.ctypes.data, seed & 0xFFFFFFFF,
-            chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+            chain & 0xFFFFFFFF, step0, burn, cnt0, ty, tx, threads, stream,
         )
     _build.check(rc, "lmc_myula_tiled")
     myula_tv_tiled_update_cuda.launches += 1
+    myula_tv_tiled_update_cuda.last_plan = plan
     return x, mean, m2, qh, qn
 
 
 myula_tv_tiled_update_cuda.launches = 0  # calls that launched the kernel
+myula_tv_tiled_update_cuda.last_plan = None  # the last launch's tiled_plan
 
 
 def myula_tv_tiled_update(x, *args, **kwargs):

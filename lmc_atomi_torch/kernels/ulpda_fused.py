@@ -20,7 +20,9 @@ moments with burn-in.
 
 ``ulpda_block_update`` dispatches by device: ``csrc/ulpda_block.cu`` for CUDA
 tensors, ``ulpda_block_update_ref`` (the same function in torch ops, term for
-term) for CPU tensors. The lane-packed multi-chain runner is not ported
+term) for CPU tensors. On the card the ``"wl1"`` dual's transforms take the
+route ``_wl1_plan`` names: up to ``_TILE_LEVELS`` levels one launch whose CTAs
+own whole ``2^levels`` tiles, past that one launch per level and axis. The lane-packed multi-chain runner is not ported
 yet.
 """
 from __future__ import annotations
@@ -52,6 +54,7 @@ from lmc_atomi_torch.kernels.myula_fused import (
     sep_fused_supported,
 )
 from lmc_atomi_torch.kernels.wavelet_fused import (
+    _TILE_LEVELS,
     _iotas,
     haar_interleaved,
     haar_interleaved_inv,
@@ -218,6 +221,17 @@ def ulpda_block_update_ref(
     return x, py, px, xbar, mean, m2
 
 
+def _wl1_plan(shape, levels: int):
+    """The ``"wl1"`` dual's applied levels, route and CTA region on the
+    card: up to ``_TILE_LEVELS`` levels ``"tile"``, each CTA a region of whole
+    ``2^levels`` tiles (``tile_region``); past that ``"passes"``, one launch
+    per level and axis over the whole image, region ``(0, 0)``."""
+    l_eff = haar_levels(shape, levels)
+    if l_eff <= _TILE_LEVELS:
+        return l_eff, "tile", tile_region(shape, l_eff)
+    return l_eff, "passes", (0, 0)
+
+
 def ulpda_block_update_cuda(
     x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *,
     taps: Taps, oy: int, ox: int, lam: float = 1.0, n_steps: int = 1,
@@ -246,8 +260,7 @@ def ulpda_block_update_cuda(
     _build.require_cuda_f32((ny, nx), **fields)
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
     seed, chain = base_key(seed)
-    l_eff = haar_levels((ny, nx), levels) if wl1 else 0
-    rh, rw = tile_region((ny, nx), l_eff) if wl1 else (0, 0)
+    l_eff, _, (rh, rw) = _wl1_plan((ny, nx), levels) if wl1 else (0, None, (0, 0))
 
     x, py = x.clone(), py.clone()
     px = None if wl1 else px.clone()

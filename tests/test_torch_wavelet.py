@@ -237,27 +237,36 @@ def test_ulpda_wavelet_block_ref_matches_jax(taps, gfirst, case):
             _close(g, w, name=name)
 
 
-@pytest.mark.parametrize("gfirst", [False, True])
-def test_ulpda_wl1_block_ref_matches_jax(gfirst):
+# (image side, Haar levels): model M10's 3 levels, and 6, past the 5 of a
+# CTA's region, where the card takes one launch per level and axis; the
+# 3-level cases keep their ids
+WL1_CASES = [pytest.param(32, 3, False, id="False"), pytest.param(32, 3, True, id="True"),
+             pytest.param(64, 6, False, id="64-6-False"),
+             pytest.param(64, 6, True, id="64-6-True")]
+
+
+@pytest.mark.parametrize("n, want_levels, gfirst", WL1_CASES)
+def test_ulpda_wl1_block_ref_matches_jax(n, want_levels, gfirst):
     """Kernel 3's ``"wl1"`` dual (plain version) against the JAX kernel in
-    interpret mode: the k5 deconvolution data term at 32^2 with a 3-level
-    interleaved Haar dual, 3 steps from a mid-chain state, noise off."""
-    n, sig = 32, 0.75
+    interpret mode: the k5 deconvolution data term at n^2 with an interleaved
+    Haar dual of ``want_levels`` levels, 3 steps from a mid-chain state, noise
+    off."""
+    sig = 0.75
     img = phantom(n, np.float64)
     jb = j_lin.CirculantBlur2D.from_kernel((n, n), j_lin.uniform_kernel(5, jnp.float64))
     rng = np.random.default_rng(4)
     y = np.asarray(jb.matvec(jnp.asarray(img))) + sig * rng.normal(size=(n, n))
     jl2 = j_fn.L2Data.create(op=jb, b=jnp.asarray(y), sigma=1 / sig**2)
     (taps, (oy, ox), atb, mode, _, _, _, dual, lam, levels) = j_ulpda._ulpda_setup(
-        jl2, j_fn.L1Norm(sigma=0.3), j_wav.HaarDWT2D(levels=3), 0.95 * sig**2, 1.0)
-    assert (dual, levels, mode) == ("wl1", 3, "tv")
+        jl2, j_fn.L1Norm(sigma=0.3), j_wav.HaarDWT2D(levels=want_levels), 0.95 * sig**2, 1.0)
+    assert (dual, levels, mode) == ("wl1", want_levels, "tv")
     x, xbar, mean = rng.normal(size=(3, n, n)) * 20 + 100
     py = np.clip(rng.normal(size=(n, n)), -0.3, 0.3)
     m2 = rng.uniform(1, 5, size=(n, n)) * 30
     scal_f = (0.95 * sig**2, 1.0, 1.0, 0.0, 1 / sig**2, 0.3)
     scal_i = (7, 8, 2)
     kw = dict(taps=taps, oy=oy, ox=ox, lam=lam, n_steps=3, niter_solve=3,
-              gfirst=gfirst, dual="wl1", levels=3, with_noise=False)
+              gfirst=gfirst, dual="wl1", levels=levels, with_noise=False)
     want = j_ulpda.ulpda_block_update(
         *_jnp(x, py), jnp.zeros((1, 1)), *_jnp(xbar, atb, mean, m2),
         jnp.asarray([3, 4], jnp.int32), jnp.asarray(scal_f),
@@ -267,6 +276,20 @@ def test_ulpda_wl1_block_ref_matches_jax(gfirst):
     assert got[2] is None
     for name, i in (("x", 0), ("py", 1), ("xbar", 3), ("mean", 4), ("m2", 5)):
         _close(got[i], want[i], tol=1e-10, name=name)
+
+
+@pytest.mark.parametrize("levels", range(1, 8))
+def test_ulpda_wl1_route_by_levels(levels):
+    """Kernel 3's ``"wl1"`` dual takes any number of Haar levels on the card:
+    up to 5 the tile route on a CTA's region of whole 2^levels tiles, past 5
+    (a tile larger than the 32x32 region) one launch per level and axis."""
+    for shape in ((512, 512), (256, 128)):
+        l_eff, route, region = t_ulpda._wl1_plan(shape, levels)
+        assert l_eff == t_wf.haar_levels(shape, levels) == levels
+        if levels <= 5:
+            assert route == "tile" and region == t_wf.tile_region(shape, levels)
+        else:
+            assert route == "passes" and region == (0, 0)
 
 
 def test_tile_region_and_guards():
