@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel6-turns ROOT [ROOT ...]
+    python3 chip_smoke.py --turns KERNELS ROOT [ROOT ...]
+    python3 chip_smoke.py --clock [ROOT ...]
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
@@ -18,8 +19,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. kernel 3 (``ulpda_block_update_cuda``) the same way for the
    deconvolution models (l21/tv, l1/mctv, l21/metv in both ``gfirst``
    orders, FGP with the warm envelope dual, and model M10's 4-level Haar
-   ``wl1`` dual in both orders, and at 6 levels bit for bit), then timed
-   per mode;
+   ``wl1`` dual in both orders, and at 6 levels), bit for bit, every call
+   of a Gradient2D dual on the resident route and the wl1 dual's on the
+   launch sequence; then timed per mode per 500-step call and per one-step
+   call;
 5b. kernels 4 and 5 (``wavelet_block_update_cuda``,
    ``ulpda_wavelet_block_update_cuda``) the same way on the 512^2
    inpainting posterior: kernel 4 for Haar, D4 and D8 and Haar with 95% CI
@@ -28,11 +31,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5c. kernels 6, 7 and 8 (``myula_tv_tiled_update_cuda``,
    ``ulpda_tv_tiled_update_cuda``, ``myula_tv_fused_update_cuda``) against
    their plain versions at 2048^2, 40 steps in blocks of 20, noise on, and
-   kernels 6 and 7 against the whole-image kernels 2 (on its launch
-   sequence) and 3 on the same steps, kernel 6 bit for bit and on the
-   geometry ``tiled_plan`` names, also at 1024 x 1500; then timed per
-   200-step block beside kernels 2 and 3 (kernel 6 in TV cold-10, FGP-8,
-   MC-TV and ME-TV);
+   kernels 6 and 7 against the whole-image kernels 2 and 3 (on their
+   launch sequences) on the same steps, bit for bit and on the geometry
+   ``tiled_plan`` / ``ulpda_tiled_plan`` names, also at 1024 x 1500; then
+   timed per 200-step block beside kernels 2 and 3 (kernel 6 in TV
+   cold-10, FGP-8, MC-TV and ME-TV, kernel 7 in TV, MC-TV and ME-TV);
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
@@ -69,18 +72,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it).
 
-With ``--kernel6-turns`` the script runs only a measurement of kernel 6 at
-2048^2: the registers and spills ``ptxas`` reports for the tile kernels, and
-each mode of KERNEL6_MODES timed per 200-step block in alternating turns
-(forward, then backward) on the kernel 6 of each ROOT (another checkout of
-the repository, imported beside this one, e.g. a ``git archive`` of a parent
-commit), held bit for bit to this checkout's, and on this checkout's
-geometries of rank 0 and 2 in ``tiled_plan``'s order and its best at 512
-threads a CTA.
+With ``--turns KERNELS`` (a comma list of 3, 6, 7) the script runs only a
+measurement: the registers and spills ``ptxas`` reports for kernels 3 and
+6-8, and each kernel timed in alternating turns (forward, then backward) on
+the kernel of each ROOT (another checkout of the repository, imported
+beside this one, e.g. a ``git archive`` of a parent commit) and on this
+checkout's variants, each held bit for bit to this checkout's pick: kernel 3
+per 500-step block and per one-step call at 512^2 in TV, MC-TV and ME-TV on
+the resident route and the launch sequence, kernels 6 (KERNEL6_MODES)
+and 7 (TV, MC-TV, ME-TV) per 200-step block at 2048^2 on their planners'
+geometries of rank 2 and the best at 512 threads a CTA. With ``--clock`` it
+prints the ``clock64`` phase split of kernel 3's resident step at 512² for
+each ROOT (this checkout by default), from an instrumented copy of its
+sources (``CLOCK_PATCHES``).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after; each of its kernels must have launched, and on the MYULA-main and
-deconvolution paths every kernel-2 call must have taken the resident route. The script then prints one
+after; each of its kernels must have launched, on the MYULA-main and
+deconvolution paths every kernel-2 call and on the deconvolution path every
+kernel-3 call but the wl1 dual's must have taken the resident route, and on
+the large-image path none. The script then prints one
 JSON line describing each kernel (launches on the four paths, errors,
 times, the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -556,31 +566,39 @@ def _block_scalars(l2):
     return atbs, scal_f, dict(taps=taps, oy=oy, ox=ox, mode=mode, niter_inner=niter_inner)
 
 
+def _ulpda_scalars(proxf, proxg, a_op=None):
+    """``(atb, scal_f, keywords)`` of a kernel-3 call on ``proxf``, ``proxg``
+    and the dual of ``a_op`` (default Gradient2D), as ``_run_ulpda_blocks``
+    makes them."""
+    from lmc_atomi_torch.kernels.ulpda_fused import _pack_ulpda_scal, _ulpda_setup
+    from lmc_atomi_torch.ops.linops import Gradient2D
+
+    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
+     lam, levels) = _ulpda_setup(proxf, proxg, Gradient2D() if a_op is None else a_op)
+    scal_f = _pack_ulpda_scal(proxf, proxg, 0.95 * SIGMA_NOISE**2, 1.0, 1.0, 1.0, lamda,
+                              gamma_mc)
+    return atb, scal_f, dict(taps=taps, oy=oy, ox=ox, lam=lam, dual=dual, mode=mode,
+                             niter_inner=niter_inner, levels=levels)
+
+
 def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed,
                       a_op=None):
     """run_ulpda_fused's block loop with the block update passed in (the dual
     of ``a_op``, default Gradient2D)."""
     import torch
 
-    from lmc_atomi_torch.kernels.ulpda_fused import _pack_ulpda_scal, _ulpda_setup
-    from lmc_atomi_torch.ops.linops import Gradient2D
-
-    (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
-     lam, levels) = _ulpda_setup(proxf, proxg, Gradient2D() if a_op is None else a_op)
-    tau0 = 0.95 * SIGMA_NOISE**2
-    scal_f = _pack_ulpda_scal(proxf, proxg, tau0, 1.0, 1.0, 1.0, lamda, gamma_mc)
+    atb, scal_f, kw = _ulpda_scalars(proxf, proxg, a_op)
     cfg = dict(cfg)
-    niter_inner = cfg.pop("niter_inner", niter_inner)  # as run_ulpda_fused's
+    kw["niter_inner"] = cfg.pop("niter_inner", kw["niter_inner"])  # as run_ulpda_fused's
     zeros = torch.zeros_like(x0)
     x, py, px, xbar, mean, m2 = x0, zeros, zeros, x0, zeros, zeros
-    if dual == "wl1":
+    if kw["dual"] == "wl1":
         px = None
     for b in range(n_steps // block):
         step0 = b * block
         x, py, px, xbar, mean, m2 = update(
             x, py, px, xbar, atb, mean, m2, (seed, 0), scal_f, (step0, 5, max(step0 - 5, 0)),
-            taps=taps, oy=oy, ox=ox, lam=lam, n_steps=block, dual=dual, mode=mode,
-            niter_inner=niter_inner, levels=levels, **cfg)
+            n_steps=block, **kw, **cfg)
     return x, py, px, xbar, mean, m2
 
 
@@ -592,6 +610,13 @@ KERNEL3_RUNS.append((2, False, dict(tv_solver="fgp", niter_inner=8, env_warm=Tru
 
 
 def phase_kernel3(dev, y, models, report):
+    """Kernel 3 against its plain version (max abs error 0 in every field),
+    each call's route logged (every 512^2 call of a Gradient2D dual takes
+    the resident route, the wl1 dual the launch sequence); then timed per
+    mode per 500-step call, and per one-step call without statistics (the
+    deconvolution grid's call)."""
+    import torch
+
     from lmc_atomi_torch.kernels.myula_fused import separable_gram_taps
     from lmc_atomi_torch.kernels.ulpda_fused import (
         ulpda_block_update_cuda,
@@ -599,19 +624,24 @@ def phase_kernel3(dev, y, models, report):
     )
     from lmc_atomi_torch.ops.wavelet import HaarDWT2D
 
+    k3 = ulpda_block_update_cuda
+    fields = ("x", "py", "px", "xbar", "mean", "m2")
     worst = 0.0
     for i, gfirst, opts in KERNEL3_RUNS:
         name, proxf, proxg, a_op = models[i]
         cfg = dict(gfirst=gfirst, niter_solve=3, **opts)
         label = f"{name} gfirst={gfirst} {opts or ''}".strip()
-        got = _run_ulpda_blocks(ulpda_block_update_cuda, proxf, proxg, y,
-                                CHECK_STEPS, CHECK_BLOCK, cfg, 7, a_op)
+        got, routes = routes_of(lambda: _run_ulpda_blocks(k3, proxf, proxg, y, CHECK_STEPS,
+                                                          CHECK_BLOCK, cfg, 7, a_op), k3)
         want = _run_ulpda_blocks(ulpda_block_update_ref, proxf, proxg, y,
                                  CHECK_STEPS, CHECK_BLOCK, cfg, 7, a_op)
-        err, parts = compare(f"kernel 3 ({label})", got, want,
-                             ("x", "py", "px", "xbar", "mean", "m2"))
+        err, parts = compare(f"kernel 3 ({label})", got, want, fields, exact=True)
         worst = max(worst, err)
-        log(f"kernel3 {label} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
+        log(f"kernel3 {label} {N}^2 {CHECK_STEPS} steps, noise on: routes {routes} plan "
+            f"{k3.last_plan}; max_abs_err {parts}")
+        wl1 = isinstance(a_op, HaarDWT2D)
+        if routes["sequence"] or routes["resident" if wl1 else "wl1"]:
+            raise AssertionError(f"kernel 3 ({label}) at {N}^2 took the routes {routes}")
     # M10's wl1 dual past the 5 Haar levels of a CTA's region: one launch per
     # level and axis, bit for bit
     name, proxf, proxg, _ = models[9]
@@ -620,9 +650,9 @@ def phase_kernel3(dev, y, models, report):
         args = (proxf, proxg, y, CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst, niter_solve=3), 7,
                 HaarDWT2D(levels=lv))
         err, parts = compare(f"kernel 3 (wl1, {lv} levels, gfirst={gfirst})",
-                             _run_ulpda_blocks(ulpda_block_update_cuda, *args),
+                             _run_ulpda_blocks(k3, *args),
                              _run_ulpda_blocks(ulpda_block_update_ref, *args),
-                             ("x", "py", "px", "xbar", "mean", "m2"), exact=True)
+                             fields, exact=True)
         worst = max(worst, err)
         log(f"kernel3 {name} wl1 {lv} levels gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, "
             f"noise on: max_abs_err {parts}")
@@ -632,7 +662,8 @@ def phase_kernel3(dev, y, models, report):
         name, proxf, proxg, a_op = models[i]
         cfg = dict(gfirst=False, niter_solve=3)
         k_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(
-            ulpda_block_update_cuda, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op), reps)
+            k3, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op), reps)
+        plan = k3.last_plan
         mode = name.split("-")[1].lower()
         p_ms = plain_ms(mode == "tv", lambda: _run_ulpda_blocks(
             ulpda_block_update_ref, proxf, proxg, y, BLOCK, BLOCK, cfg, 8, a_op))
@@ -640,10 +671,19 @@ def phase_kernel3(dev, y, models, report):
         dual = {"mctv": "l1", "wl1": "wl1"}.get(mode, "l21")
         b_ms, b_by = bound_kernel3(N * N, BLOCK, taps, 3, mode="tv" if dual == "wl1" else mode,
                                    dual=dual, niter_inner=10)
+        atb, scal_f, kw = _ulpda_scalars(proxf, proxg, a_op)
+        py0 = torch.zeros_like(y)
+        one, _ = cuda_ms(lambda: k3(y, py0, None if dual == "wl1" else py0, None, atb, None,
+                                    None, (9, 0), scal_f, (3, 0, 0), n_steps=1,
+                                    with_stats=False, niter_solve=3, **kw), 200)
+        b1, _ = bound_kernel3(N * N, 1, taps, 3, mode="tv" if dual == "wl1" else mode,
+                              dual=dual, niter_inner=10)
         times[mode] = (k_ms, p_ms, b_ms, b_by)
-        log(f"kernel3 {name} timing ({reps * BLOCK} steps, plain {BLOCK}): kernel "
+        log(f"kernel3 {name} timing ({reps * BLOCK} steps, plain {BLOCK}) on {plan}: kernel "
             f"{k_ms:.3f} ms / {BLOCK / k_ms * 1e3:.1f} iters/s{plain_note(p_ms, BLOCK)}, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}), {k_ms / b_ms:.1f}x the bound; one step, no "
+            f"statistics: {one * 1e3:.2f} us per call on {k3.last_plan}, bound "
+            f"{b1 * 1e3:.3f} us")
     k_ms, p_ms, b_ms, b_by = times["tv"]
     report["ulpda_block_update_cuda"] = dict(
         max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
@@ -879,8 +919,32 @@ KERNEL6_MODES = [("cold10", "tv", dict(niter_tv=10)),
                  ("fgp8", "tv", dict(niter_tv=8, tv_solver="fgp")),
                  ("mctv_cold10", "mctv", dict(niter_tv=10)),
                  ("metv_cold10", "metv", dict(niter_tv=10))]
-# kernel 6's check on a size whose chosen interior divides neither side
+# kernels 6 and 7's check on a size whose chosen interior divides neither side
 NONSQUARE = (1024, 1500)
+# kernel 7's duals per mode (the deconvolution models': l21, l1, l21)
+L1_OR_L21 = {"tv": "l21", "mctv": "l1", "metv": "l21"}
+
+
+def _dual7(mode):
+    from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm
+
+    return (L21Norm if L1_OR_L21[mode] == "l21" else L1Norm)(sigma=TV_WEIGHT)
+
+
+def kernel7_ranking(data, shape):
+    """The geometries ``ulpda_tiled_plan`` weighs for kernel 7 on ``data``
+    on this card, in its order: its pick first."""
+    import torch
+
+    from lmc_atomi_torch.kernels import myula_tiled, ulpda_tiled
+    from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params
+
+    taps, (oy, ox), _ = _fused_params(data)
+    mode, _, _, niter_inner = _fused_mode(data)
+    n_sm, smem_limit = myula_tiled._card_limits(torch.device("cuda", torch.cuda.current_device()))
+    return ulpda_tiled._ulpda_tiled_ranking(tuple(shape), taps, oy, ox, niter_solve=3, mode=mode,
+                                            niter_inner=niter_inner, n_sm=n_sm,
+                                            smem_limit=smem_limit)
 
 
 def _run_ulpda_tiled_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed):
@@ -930,7 +994,6 @@ def phase_kernel678(dev, report):
         ulpda_tv_tiled_update_cuda,
         ulpda_tv_tiled_update_ref,
     )
-    from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm
 
     n = LARGE_N
     _, y, terms = make_large(dev, n)
@@ -968,24 +1031,38 @@ def phase_kernel678(dev, report):
     worst6 = max(worst6, err)
     if NONSQUARE[0] % plan[0] == 0 or NONSQUARE[1] % plan[1] == 0:
         raise AssertionError(f"kernel 6's interior {plan[:2]} divides a side of {NONSQUARE}")
-    duals = {"tv": L21Norm(sigma=TV_WEIGHT), "mctv": L1Norm(sigma=TV_WEIGHT),
-             "metv": L21Norm(sigma=TV_WEIGHT)}
-    runs7 = [("tv", False), ("tv", True), ("mctv", False), ("metv", False)]
-    worst7 = 0.0
-    for mode, gfirst in runs7:
-        label = f"{mode} {type(duals[mode]).__name__} gfirst={gfirst}"
-        args = (terms[mode], duals[mode], y, CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst), 7)
-        got = _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_cuda, *args)
+    k7, k3 = ulpda_tv_tiled_update_cuda, ulpda_block_update_cuda
+    fields = ("x", "py", "px", "xbar", "mean", "m2")
+
+    def check7(mode, gfirst, data, y0, shape):
+        """Kernel 7 against its plain version and kernel 3's launch sequence,
+        bit for bit, on ``ulpda_tiled_plan``'s geometry; returns its plan."""
+        label = f"{mode} {type(_dual7(mode)).__name__} gfirst={gfirst}"
+        args = (data, _dual7(mode), y0, CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst), 7)
+        got = _run_ulpda_tiled_blocks(k7, *args)
+        plan = k7.last_plan
         want = _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_ref, *args)
-        err, parts = compare(f"kernel 7 ({label})", got, want,
-                             ("x", "py", "px", "xbar", "mean", "m2"))
-        k3 = _run_ulpda_blocks(ulpda_block_update_cuda, terms[mode], duals[mode], y,
-                               CHECK_STEPS, CHECK_BLOCK, dict(gfirst=gfirst, niter_solve=3), 7)
-        _, parts3 = compare(f"kernel 7 against kernel 3 ({label})", got, k3,
-                            ("x", "py", "px", "xbar", "mean", "m2"))
-        worst7 = max(worst7, err)
-        log(f"kernel7 {label} {n}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}; "
-            f"against kernel 3: {parts3}")
+        err, parts = compare(f"kernel 7 ({label})", got, want, fields, exact=True)
+        whole, routes = routes_of(lambda: _run_ulpda_blocks(
+            k3, data, _dual7(mode), y0, CHECK_STEPS, CHECK_BLOCK,
+            dict(gfirst=gfirst, niter_solve=3), 7), k3)
+        _, parts3 = compare(f"kernel 7 against kernel 3 ({label})", got, whole, fields,
+                            exact=True)
+        log(f"kernel7 {label} {shape[0]}x{shape[1]} {CHECK_STEPS} steps, noise on, plan "
+            f"{plan}: max_abs_err {parts}; against kernel 3 (routes {routes}): {parts3}")
+        if plan != kernel7_ranking(data, shape)[0]:
+            raise AssertionError(f"kernel 7 ran {plan}, not ulpda_tiled_plan's")
+        if routes["resident"]:
+            raise AssertionError(f"kernel 3 took the resident route at {shape}")
+        return err, plan
+
+    worst7 = 0.0
+    for mode, gfirst in (("tv", False), ("tv", True), ("mctv", False), ("metv", False)):
+        worst7 = max(worst7, check7(mode, gfirst, terms[mode], y, (n, n))[0])
+    err, plan = check7("tv", False, terms_ns["tv"], y_ns, NONSQUARE)
+    worst7 = max(worst7, err)
+    if NONSQUARE[0] % plan[0] == 0 or NONSQUARE[1] % plan[1] == 0:
+        raise AssertionError(f"kernel 7's interior {plan[:2]} divides a side of {NONSQUARE}")
     l2 = terms["tv"]
     gamma = SIGMA_NOISE**2
     tail = (0.2 * gamma, gamma, TV_WEIGHT * gamma)
@@ -1024,18 +1101,24 @@ def phase_kernel678(dev, report):
         bound_by=b6[1], library_ms=None)
 
     cfg = dict(gfirst=False)
-    k7, _ = cuda_ms(lambda: _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_cuda, l2, duals["tv"],
-                                                    y, blk, blk, cfg, 8), 2)
-    k3, _ = cuda_ms(lambda: _run_ulpda_blocks(ulpda_block_update_cuda, l2, duals["tv"], y, blk,
-                                              blk, dict(niter_solve=3), 8), 2)
-    p7, _ = cuda_ms(lambda: _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_ref, l2, duals["tv"],
+    times7 = {}
+    for mode in ("tv", "mctv", "metv"):
+        data, dual = terms[mode], _dual7(mode)
+        t7, _ = cuda_ms(lambda: _run_ulpda_tiled_blocks(k7, data, dual, y, blk, blk, cfg, 8), 2)
+        plan = k7.last_plan
+        t3, _ = cuda_ms(lambda: _run_ulpda_blocks(k3, data, dual, y, blk, blk,
+                                                  dict(niter_solve=3), 8), 2)
+        b7 = bound_kernel7(npix, blk, taps, 3, mode=mode, dual=L1_OR_L21[mode], niter_inner=10)
+        times7[mode] = (t7, b7)
+        log(f"kernel7 {mode} timing {n}^2 per {blk}-step block: kernel 7 {t7:.3f} ms "
+            f"({blk / t7 * 1e3:.1f} iters/s) on plan {plan}, kernel 3 {t3:.3f} ms "
+            f"({blk / t3 * 1e3:.1f} iters/s); bound {b7[0]:.4f} ms ({b7[1]})")
+    p7, _ = cuda_ms(lambda: _run_ulpda_tiled_blocks(ulpda_tv_tiled_update_ref, l2, _dual7("tv"),
                                                     y, blk, blk, cfg, 8))
-    b7 = bound_kernel7(npix, blk, taps, 3)
-    log(f"kernel7 tv timing {n}^2 per {blk}-step block: kernel 7 {k7:.3f} ms "
-        f"({blk / k7 * 1e3:.1f} iters/s), kernel 3 {k3:.3f} ms ({blk / k3 * 1e3:.1f} iters/s), "
-        f"plain {p7:.3f} ms; bound {b7[0]:.4f} ms ({b7[1]})")
+    t7, b7 = times7["tv"]
+    log(f"kernel7 tv plain {p7:.3f} ms per {blk} steps")
     report["ulpda_tv_tiled_update_cuda"] = dict(
-        max_abs_err=worst7, ms=k7, plain_ms=p7, bound_ms=b7[0], bound_by=b7[1],
+        max_abs_err=worst7, ms=t7, plain_ms=p7, bound_ms=b7[0], bound_by=b7[1],
         library_ms=None)
 
     grad = l2.grad(y)
@@ -1574,10 +1657,10 @@ def phase_profile_large(dev):
             block=LARGE_BLOCK))
 
 
-def load_checkout(root):
-    """``myula_tv_tiled_update_cuda`` of the package in another checkout at
-    ``root``, imported beside this one: its modules load under the same
-    names while this package's are set aside, and keep their own build."""
+def load_checkout(root, module, attr):
+    """``attr`` of ``module`` of the package in another checkout at ``root``,
+    imported beside this one: its modules load under the same names while
+    this package's are set aside, and keep their own build."""
     import importlib
 
     def ours():
@@ -1586,64 +1669,254 @@ def load_checkout(root):
     saved = {k: sys.modules.pop(k) for k in ours()}
     sys.path.insert(0, str(root))
     try:
-        mod = importlib.import_module("lmc_atomi_torch.kernels.myula_tiled")
+        mod = importlib.import_module(module)
         mod._build.library()
     finally:
         sys.path.remove(str(root))
         for k in ours():
             del sys.modules[k]
         sys.modules.update(saved)
-    return mod.myula_tv_tiled_update_cuda
+    return getattr(mod, attr)
 
 
 def ptxas_report():
     """The registers, spills and shared memory ``ptxas -v`` reports for the
-    kernels of csrc/tiled_block.cu."""
+    kernels of csrc/ulpda_block.cu and csrc/tiled_block.cu."""
     import tempfile
 
     from lmc_atomi_torch import _build
 
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-             str(Path(tmp) / "t.o"), str(_build.CSRC / "tiled_block.cu")],
-            capture_output=True, text=True, check=True)
-    for line in proc.stderr.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log(f"ptxas {line.strip()}")
+    for src in ("ulpda_block.cu", "tiled_block.cu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run(
+                [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / "t.o"), str(_build.CSRC / src)],
+                capture_output=True, text=True, check=True)
+        for line in proc.stderr.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"ptxas {src}: {line.strip()}")
 
 
-def phase_kernel6_turns(dev, roots, turns=2):
-    """Kernel 6 of each checkout in ``roots`` and this checkout's at ranks 0
-    and 2 of ``tiled_plan`` and at its best 512-thread geometry, per 200-step
-    block at 2048^2 in alternating turns (each turn all variants forward,
-    then backward); every variant's block is held bit for bit to rank 0's."""
+def kernel3_sequence(*args, **kwargs):
+    """Kernel 3's wrapper on the launch sequence in place of
+    ``ulpda_resident_plan``'s route: a measurement."""
+    from unittest import mock
+
+    from lmc_atomi_torch.kernels import ulpda_fused
+
+    with mock.patch.object(ulpda_fused, "ulpda_resident_plan", lambda *_, **__: None):
+        return ulpda_fused.ulpda_block_update_cuda(*args, **kwargs)
+
+
+def kernel7_on(geometry):
+    """Kernel 7's wrapper launching ``geometry`` (an entry of
+    ``kernel7_ranking``) in place of ``ulpda_tiled_plan``'s pick."""
+    from unittest import mock
+
+    from lmc_atomi_torch.kernels import ulpda_tiled
+
+    def run(*args, **kwargs):
+        with mock.patch.object(ulpda_tiled, "ulpda_tiled_plan", lambda *_, **__: geometry):
+            return ulpda_tiled.ulpda_tv_tiled_update_cuda(*args, **kwargs)
+
+    return run
+
+
+def _turns(label, variants, run, fields, turns):
+    """Each variant's ``run`` held bit for bit to the first's, then timed in
+    alternating turns (each turn all variants forward, then backward)."""
+    ref = run(variants[0][1])
+    for name, fn in variants[1:]:
+        compare(f"{label} {name}", run(fn), ref, fields, exact=True)
+    ms = {name: [] for name, _ in variants}
+    for _ in range(turns):
+        for name, fn in variants + variants[::-1]:
+            ms[name].append(cuda_ms(lambda: run(fn), 2)[0])
+    for name, vals in ms.items():
+        log(f"turns {label}, {name}: " + ", ".join(f"{v:.3f}" for v in vals) + " ms")
+
+
+def phase_turns(dev, kernels, roots, turns=2):
+    """Kernels 3, 6 and 7 (those in ``kernels``) of each checkout in
+    ``roots`` and of this one in its variants, timed per block in
+    alternating turns, every variant held bit for bit to this checkout's
+    pick: kernel 3 per 500-step block at 512^2 (the deconvolution models' TV,
+    MC-TV, ME-TV) on the resident route and the launch sequence, and per
+    one-step call without statistics; kernels 6 and 7 per 200-step block at
+    2048^2 at ranks 0 and 2 of their planner and its best 512-thread
+    geometry."""
+    import torch
+
     from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
+    from lmc_atomi_torch.kernels.ulpda_fused import ulpda_block_update_cuda
+    from lmc_atomi_torch.kernels.ulpda_tiled import ulpda_tv_tiled_update_cuda
 
     ptxas_report()
+    ufields = ("x", "py", "px", "xbar", "mean", "m2")
+    if 3 in kernels:
+        others = [(Path(r).name, load_checkout(r, "lmc_atomi_torch.kernels.ulpda_fused",
+                                               "ulpda_block_update_cuda")) for r in roots]
+        _, y, models = make_deconv_models(dev)
+        variants = [("pick", ulpda_block_update_cuda)] + others + [
+            ("sequence", kernel3_sequence)]
+        for name, proxf, proxg, _ in models[:3]:
+            cfg = dict(gfirst=False, niter_solve=3)
+            _turns(f"kernel3 {name} {N}^2 per {BLOCK}-step block", variants,
+                   lambda fn: _run_ulpda_blocks(fn, proxf, proxg, y, BLOCK, BLOCK, cfg, 8),
+                   ufields, turns)
+            log(f"kernel3 {name} pick: {ulpda_block_update_cuda.last_plan}")
+            atb, scal_f, kw = _ulpda_scalars(proxf, proxg)
+            z = torch.zeros_like(y)
+            _turns(f"kernel3 {name} {N}^2 one step, no statistics, x200", variants,
+                   lambda fn: [fn(y, z, z, None, atb, None, None, (9, 0), scal_f, (3, 0, 0),
+                                  n_steps=1, with_stats=False, niter_solve=3, **kw)[0]
+                               for _ in range(200)][-1:],
+                   ("x",), turns)
     n, blk = LARGE_N, LARGE_BLOCK
-    _, y, terms = make_large(dev, n)
-    others = [(Path(r).name, load_checkout(r)) for r in roots]
-    for name, mode, cfg in KERNEL6_MODES:
-        data = terms[mode]
-        ranking = kernel6_ranking(data, cfg, (n, n))
-        rank512 = next(r for r, geo in enumerate(ranking) if geo[3] == 512)
-        variants = others + [(f"rank{r} {ranking[r]}", kernel6_on(ranking[r]))
-                             for r in (0, 2, rank512)]
-        tcfg = dict(cfg, **_myula_tiling(data, cfg, n))
-        ref = _run_blocks(myula_tv_tiled_update_cuda, data, y, blk, blk, tcfg, 8)
-        for label, fn in variants:
-            compare(f"kernel 6 {label} ({name})", _run_blocks(fn, data, y, blk, blk, tcfg, 8),
-                    ref, ("x", "mean", "m2", "qh", "qn"), exact=True)
-        ms = {label: [] for label, _ in variants}
-        order = variants + variants[::-1]
-        for _ in range(turns):
-            for label, fn in order:
-                ms[label].append(cuda_ms(lambda: _run_blocks(fn, data, y, blk, blk, tcfg, 8),
-                                         2)[0])
-        for label, vals in ms.items():
-            log(f"kernel6 turns {name} {n}^2 per {blk}-step block, {label}: "
-                + ", ".join(f"{v:.3f}" for v in vals) + " ms")
+    if 6 in kernels or 7 in kernels:
+        _, y, terms = make_large(dev, n)
+    if 6 in kernels:
+        others = [(Path(r).name, load_checkout(r, "lmc_atomi_torch.kernels.myula_tiled",
+                                               "myula_tv_tiled_update_cuda")) for r in roots]
+        for name, mode, cfg in KERNEL6_MODES:
+            data = terms[mode]
+            ranking = kernel6_ranking(data, cfg, (n, n))
+            rank512 = next(r for r, geo in enumerate(ranking) if geo[3] == 512)
+            variants = [("pick", myula_tv_tiled_update_cuda)] + others + [
+                (f"rank{r} {ranking[r]}", kernel6_on(ranking[r])) for r in (2, rank512)]
+            tcfg = dict(cfg, **_myula_tiling(data, cfg, n))
+            _turns(f"kernel6 {name} {n}^2 per {blk}-step block", variants,
+                   lambda fn: _run_blocks(fn, data, y, blk, blk, tcfg, 8),
+                   ("x", "mean", "m2", "qh", "qn"), turns)
+            log(f"kernel6 {name} pick: {myula_tv_tiled_update_cuda.last_plan}")
+    if 7 in kernels:
+        others = [(Path(r).name, load_checkout(r, "lmc_atomi_torch.kernels.ulpda_tiled",
+                                               "ulpda_tv_tiled_update_cuda")) for r in roots]
+        for mode in ("tv", "mctv", "metv"):
+            data = terms[mode]
+            ranking = kernel7_ranking(data, (n, n))
+            rank512 = next(r for r, geo in enumerate(ranking) if geo[3] == 512)
+            variants = [("pick", ulpda_tv_tiled_update_cuda)] + others + [
+                (f"rank{r} {ranking[r]}", kernel7_on(ranking[r])) for r in (2, rank512)]
+            _turns(f"kernel7 {mode} {n}^2 per {blk}-step block", variants,
+                   lambda fn: _run_ulpda_tiled_blocks(fn, data, _dual7(mode), y, blk, blk,
+                                                      dict(gfirst=False), 8),
+                   ufields, turns)
+            log(f"kernel7 {mode} pick: {ulpda_tv_tiled_update_cuda.last_plan}")
+
+
+# ``--clock``: clock64 ticks inserted into a copy of kernel 3's resident step
+# (text anchors in csrc/, each must be found once): (file, anchor, text after)
+CLOCK_TICK = """
+__device__ unsigned long long ul_clk[32];
+__device__ long long ul_tlast[4096];
+__device__ __forceinline__ void ul_tick(int i) {
+  if (threadIdx.x == 0) {
+    const int b = blockIdx.y * gridDim.x + blockIdx.x;
+    const long long t = clock64();
+    atomicAdd(&ul_clk[i], (unsigned long long)(t - ul_tlast[b]));
+    ul_tlast[b] = t;
+  }
+}
+"""
+CLOCK_READ = """
+extern "C" int lmc_clk_read(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, ul_clk, sizeof(unsigned long long) * 32);
+  if (e == cudaSuccess && reset) {
+    unsigned long long z[32] = {0};
+    e = cudaMemcpyToSymbol(ul_clk, z, sizeof(z));
+  }
+  return (int)e;
+}
+"""
+CLOCK_PATCHES = [
+    ("block_common.cuh", "// Elementwise sort", CLOCK_TICK + "\n// Elementwise sort"),
+    ("block_common.cuh", "    T[li] = __ldcg(px + k);\n  });\n  __syncthreads();\n",
+     "    T[li] = __ldcg(px + k);\n  });\n  __syncthreads();\n  ul_tick(1);\n"),
+    ("block_common.cuh", "vv + p.ts * atb[lmc_tile_k(r, c, t)] : vv;\n  });\n  __syncthreads();\n",
+     "vv + p.ts * atb[lmc_tile_k(r, c, t)] : vv;\n  });\n  __syncthreads();\n  ul_tick(2);\n"),
+    ("block_common.cuh", "  // (3) the Chebyshev sweeps", "  ul_tick(3);\n  // (3) the Chebyshev sweeps"),
+    ("block_common.cuh", "    if (p.grow == 0 && sw + 1 < ns) xch(sw);",
+     "    ul_tick(4);\n    if (p.grow == 0 && sw + 1 < ns) xch(sw);"),
+    ("ulpda_block.cu", "        u[k] = X[lt];\n      }\n      grid.sync();",
+     "        u[k] = X[lt];\n      }\n      ul_tick(5);\n      grid.sync();\n      ul_tick(6);"),
+    ("ulpda_block.cu", "        X[li] = __ldcg(u + lmc_tile_k(r, c, t));\n      });\n      __syncthreads();",
+     "        X[li] = __ldcg(u + lmc_tile_k(r, c, t));\n      });\n      __syncthreads();\n"
+     "      ul_tick(7);"),
+    ("ulpda_block.cu", "  cg::grid_group grid = cg::this_grid();\n",
+     "  cg::grid_group grid = cg::this_grid();\n"
+     "  if (threadIdx.x == 0) ul_tlast[blockIdx.y * gridDim.x + blockIdx.x] = clock64();\n"),
+    ("ulpda_block.cu", "    float* dst = par ? x0 : x1;\n    if (gfirst) {",
+     "    float* dst = par ? x0 : x1;\n    ul_tick(0);\n    if (gfirst) {"),
+    ("ulpda_block.cu", "    if (!gfirst) {\n      grid.sync();\n      dual_phase();\n    }",
+     "    ul_tick(8);\n    if (!gfirst) {\n      grid.sync();\n      ul_tick(9);\n      dual_phase();\n"
+     "      ul_tick(10);\n    }"),
+]
+CLOCK_PHASES = ("the last grid barrier", "load x, p", "v", "correction", "sweeps",
+                "exchange writes", "exchange grid barriers", "exchange reloads", "finish",
+                "first grid barrier", "dual phase")
+
+
+def clock_copy(root, dst):
+    """A copy of ``root``'s package under ``dst`` with kernel 3's resident
+    step timed phase by phase (``CLOCK_PATCHES``, thread 0 of each CTA,
+    summed over the CTAs and steps); raises if an anchor is missing."""
+    import shutil
+
+    shutil.copytree(Path(root) / "lmc_atomi_torch", Path(dst) / "lmc_atomi_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    csrc = Path(dst) / "lmc_atomi_torch" / "csrc"
+    for name, anchor, text in CLOCK_PATCHES:
+        src = (csrc / name).read_text()
+        if src.count(anchor) != 1:
+            raise AssertionError(f"--clock: anchor {anchor!r} found {src.count(anchor)} times "
+                                 f"in {root}/{name}")
+        (csrc / name).write_text(src.replace(anchor, text))
+    with open(csrc / "ulpda_block.cu", "a") as fh:
+        fh.write(CLOCK_READ)
+
+
+def phase_clock(dev, roots):
+    """The clock64 phase split of kernel 3's resident step for each checkout
+    in ``roots`` (this one by default): per 500-step block at 512² in the
+    deconvolution models' TV, MC-TV and ME-TV, on each checkout's route,
+    the cycles of a CTA's step by phase (thread 0's view, after its CTA's
+    barriers) at the card's maximum SM clock. The ticks add atomics and
+    clock reads to every phase, so the block is timed too."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lmc_atomi_torch import _build
+
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    _, y, models = make_deconv_models(dev)
+    out = np.zeros(32, np.uint64)
+    for root in roots or [str(ROOT)]:
+        with tempfile.TemporaryDirectory() as tmp:
+            clock_copy(root, tmp)
+            k3 = load_checkout(tmp, "lmc_atomi_torch.kernels.ulpda_fused",
+                               "ulpda_block_update_cuda")
+            lib = k3.__globals__["_build"].library()
+            lib.lmc_clk_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            for name, proxf, proxg, _ in models[:3]:
+                cfg = dict(gfirst=False, niter_solve=3)
+                _run_ulpda_blocks(k3, proxf, proxg, y, BLOCK, BLOCK, cfg, 8)
+                torch.cuda.synchronize()
+                _build.check(lib.lmc_clk_read(out.ctypes.data, 1), "lmc_clk_read")
+                ms, _ = cuda_ms(lambda: _run_ulpda_blocks(k3, proxf, proxg, y, BLOCK, BLOCK,
+                                                          cfg, 8))
+                _build.check(lib.lmc_clk_read(out.ctypes.data, 1), "lmc_clk_read")
+                plan = k3.last_plan
+                ctas = -(-N // plan[1]) * -(-N // plan[2])
+                per = out[:len(CLOCK_PHASES)].astype(np.float64) / (ctas * BLOCK)
+                tot = per.sum()
+                log(f"clock {Path(root).resolve().name} {name} {N}^2 on {plan}: {ms:.3f} ms per {BLOCK} "
+                    f"steps; a CTA's step {tot:.0f} cycles = {tot / mhz:.2f} us at {mhz:.0f} "
+                    "MHz: " + "; ".join(f"{n} {v / tot:.3f} ({v / mhz:.2f} us)"
+                                        for n, v in zip(CLOCK_PHASES, per) if v))
 
 
 KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
@@ -1695,26 +1968,29 @@ def main() -> int:
                 "ulpda_tv_tiled_update_cuda": ulpda_tv_tiled_update_cuda,
                 "myula_tv_fused_update_cuda": myula_tv_fused_update_cuda}
 
-    k2 = myula_tv_block_update_cuda
+    k2, k3 = myula_tv_block_update_cuda, ulpda_block_update_cuda
 
-    def drive(path, kernels, fn, *args, k2_resident=False):
+    def drive(path, kernels, fn, *args, resident=False):
         """Run one path with every count at 0 before it; its kernels must
-        have launched, and with ``k2_resident`` every kernel-2 call (all at
-        512^2) must have taken the resident route."""
+        have launched, and with ``resident`` (the 512^2 paths) every kernel-2
+        call and every kernel-3 call but the wl1 dual's must have taken the
+        resident route, without it (the large-image path) none."""
         for w in wrappers.values():
             w.launches = 0
-        k2.routes = dict.fromkeys(k2.routes, 0)
+        for w in (k2, k3):
+            w.routes = dict.fromkeys(w.routes, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fn(*args)
         counts = {k: w.launches for k, w in wrappers.items()}
         log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}; "
-            f"kernel 2 routes {k2.routes}")
+            f"kernel 2 routes {k2.routes}; kernel 3 routes {k3.routes}")
         for k in kernels:
             if counts[k] < 1:
                 raise AssertionError(f"{k} was not launched on the {path} path")
-        if k2_resident and k2.routes["sequence"]:
-            raise AssertionError(f"kernel 2 took the launch sequence on the {path} path")
+        if (k2.routes["sequence"] + k3.routes["sequence"] if resident
+                else k2.routes["resident"] + k3.routes["resident"]):
+            raise AssertionError(f"the {path} path took the routes {k2.routes}, {k3.routes}")
         return counts
 
     t_start = time.perf_counter()
@@ -1722,8 +1998,12 @@ def main() -> int:
     torch.cuda.set_device(dev)
     name, _ = phase_device()
     phase_build()
-    if sys.argv[1:2] == ["--kernel6-turns"]:
-        phase_kernel6_turns(dev, sys.argv[2:])
+    if sys.argv[1:2] == ["--turns"]:
+        phase_turns(dev, {int(k) for k in sys.argv[2].split(",")}, sys.argv[3:])
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:2] == ["--clock"]:
+        phase_clock(dev, sys.argv[2:])
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     report = {}
@@ -1738,10 +2018,10 @@ def main() -> int:
 
     paths = [
         drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
-              phase_main_path, dev, img, y, l2, k2_resident=True),
+              phase_main_path, dev, img, y, l2, resident=True),
         drive("deconvolution", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",
                                 "ulpda_block_update_cuda"),
-              phase_deconv, dev, d_img, models, k2_resident=True),
+              phase_deconv, dev, d_img, models, resident=True),
         drive("inpainting", ("wavelet_block_update_cuda", "ulpda_wavelet_block_update_cuda"),
               phase_inpainting, dev),
         drive("large image", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",

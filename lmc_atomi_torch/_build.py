@@ -63,7 +63,7 @@ _SIGNATURES = {
         _P,  # stream
     ),
     "lmc_ulpda_block": (
-        _P, _P, _P, _P, _P, _P, _P,  # x, py, px, xbar, atb, mean, m2
+        _P, _P, _P, _P, _P, _P, _P, _P,  # x, parity, py, px, xbar, atb, mean, m2
         _P, _P, _P, _P, _P, _P, _P,  # v, rhs, u, d, gu, tmp, aux
         _I, _I,  # ny, nx
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
@@ -73,6 +73,7 @@ _SIGNATURES = {
         _F, _I, _P, _I,  # tv_step, fgp, fgp_coef, env_warm
         _I, _I, _P,  # with_noise, with_stats, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
+        _I, _I, _P,  # ty, tx, ub (the resident route)
         _P,  # stream
     ),
     "lmc_wavelet_block": (
@@ -112,7 +113,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,  # gfirst, dual, mode, niter_inner, with_noise
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
-        _P,  # stream
+        _I, _I, _I, _P,  # ty, tx, threads, stream
     ),
     "lmc_myula_tail": (
         _P, _P, _P, _I, _I,  # x, grad, out, ny, nx

@@ -26,6 +26,9 @@
 
 namespace {
 
+// Data-term modes of the block kernels (myula_fused.py: MODES).
+enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
+
 // Elementwise sort of 5 values (myula_fused.py::_sort5's network).
 __device__ __forceinline__ void sort5(float v[5]) {
   const int pairs[9][2] = {{0, 1}, {3, 4}, {2, 4}, {2, 3}, {0, 3},
@@ -766,12 +769,15 @@ __device__ void rs_gram(const float* u, float* tmp, float* gu, const Taps& tp,
 // edges, which nothing after reads. At the end the dual is exact on the
 // interior and the ring above and left of it, which the divergence on the
 // interior reads. Ends with a barrier. The trips stay e <= niter < h pixels
-// off the tile's edge, so an edge-free tile takes kFree.
+// off the tile's edge, so an edge-free tile takes kFree. With e0 > 0 every
+// rectangle grows by e0 more: the prox is then read on the interior grown
+// by e0 (kernel 3's resident route and kernel 7, ul_primal_cone).
 template <bool kFree = false, typename P>
 __device__ void rs_trips(const P& p, const float* f, float* u,
                          float* py, float* px, float* ry, float* rx,
                          const float* sy_, const float* sx_, float inv_gamma,
-                         int niter, const float* coef, const TileGeo& t) {
+                         int niter, const float* coef, const TileGeo& t,
+                         int e0 = 0) {
   LMC_TILE_LOOP(t, li, r, c) {
     float a = 0.0f, b = 0.0f;
     if (sy_ != nullptr) {
@@ -792,12 +798,12 @@ __device__ void rs_trips(const P& p, const float* f, float* u,
   const float* qy = p.fgp ? ry : py;
   const float* qx = p.fgp ? rx : px;
   for (int tr = 0; tr < niter; ++tr) {
-    const int e = niter - tr;
+    const int e = e0 + niter - tr;
     rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
       u[li] = lmc_tile_div<kFree>(qy, qx, li, r, c, t) - f[li] * inv_gamma;
     });
     __syncthreads();
-    const float mom = coef[tr];
+    const float mom = p.fgp ? coef[tr] : 0.0f;
     rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
       float gy, gx;
       lmc_tile_fwd<kFree>(u, li, r, c, t, &gy, &gx);
@@ -828,6 +834,199 @@ static inline int lmc_taps_reach_y(const Taps& tp) {
 }
 static inline int lmc_taps_reach_x(const Taps& tp) {
   return tp.ox > tp.kx - 1 - tp.ox ? tp.ox : tp.kx - 1 - tp.ox;
+}
+
+// --- ULPDA's primal step on the cone of a tile's interior (kernel 3's
+// resident route, kernel 7) ---------------------------------------------------
+// The step's operators read their input on a neighbourhood: sweep k of the
+// niter_solve Chebyshev sweeps reads u one gram reach further out than it
+// writes, the MC-TV clamp and the ME-TV envelope trips read v, v reads the
+// dual one pixel up and left. With grow = reach, sweep k runs on the
+// interior grown by grow (niter_solve - 1 - k), so rhs is needed on the
+// interior grown by E = grow (niter_solve - 1), v on the interior grown by
+// Ev = E (tv), E + 2 (mctv: the clamp on E + 1 reads v one pixel down and
+// right) or E + niter_inner (metv: envelope trip tr on E + niter_inner - tr,
+// rs_trips), x on the interior grown by E + reach and Ev, the dual on
+// Ev + 1. With grow = 0 (kernel 3's resident route: split sweeps) every
+// sweep runs on the interior and u is exchanged between the CTAs after each
+// sweep but the last. The halo h = max(E + reach, Ev + 1) holds all of it,
+// every stencil one pixel off the tile's edge, so an edge-free tile takes
+// kFree.
+
+// A nonzero tap of a gram pass: the offset of its input from the output
+// pixel in the tile's row-major index, and its weight.
+struct TapW {
+  int off;
+  float w;
+};
+
+struct UlpdaTile {
+  // the gram's nonzero taps per rank, in tap order: the row pass (the
+  // column taps wx) and the column pass (the row taps wy)
+  int rank, nrow[LMC_MAXR], ncol[LMC_MAXR];
+  TapW rtap[LMC_MAXR][LMC_MAXK], ctap[LMC_MAXR][LMC_MAXK];
+  float tau, mu, theta, noise_amp, ts, g_sigma;
+  float c_mc, gamma_mc, clamp_mc, c_me, inv_gamma_mc, tv_step;
+  int niter_solve, mode, niter_inner, fgp, l21, ty, tx, h;
+  int reach, ry;  // the taps' reach (rows and columns), the row taps' reach
+  int grow;       // reach, or 0 with split sweeps
+  float cheb[LMC_MAXTRIP][2];
+  float fgp_coef[LMC_MAXTRIP];
+};
+
+// E and Ev above.
+__host__ __device__ inline int ul_cone_rhs(int grow, int niter_solve) {
+  return niter_solve > 0 ? grow * (niter_solve - 1) : 0;
+}
+__host__ __device__ inline int ul_cone_v(int grow, int niter_solve, int mode,
+                                         int niter_inner) {
+  const int e = ul_cone_rhs(grow, niter_solve);
+  return e + (mode == MODE_MCTV ? 2 : (mode == MODE_METV ? niter_inner : 0));
+}
+
+// The halo of the cone, kernels/ulpda_fused.py::_ulpda_halo.
+static inline int ul_halo(int reach, int grow, int niter_solve, int mode,
+                          int niter_inner) {
+  const int a = niter_solve > 0 ? ul_cone_rhs(grow, niter_solve) + reach : 0;
+  const int b = ul_cone_v(grow, niter_solve, mode, niter_inner) + 1;
+  return a > b ? a : b;
+}
+
+// p's tap lists from tp for a tile row of sx pixels: tap b of wx reads
+// column c - b + ox, tap a of wy row r - a + oy (blk_rowconv, blk_colconv),
+// zero taps dropped as those passes skip them.
+static inline void ul_tap_lists(UlpdaTile* p, const Taps& tp, int sx) {
+  p->rank = tp.rank;
+  for (int rr = 0; rr < tp.rank; ++rr) {
+    p->nrow[rr] = p->ncol[rr] = 0;
+    for (int b = 0; b < tp.kx; ++b)
+      if (tp.wx[rr][b] != 0.0f) p->rtap[rr][p->nrow[rr]++] = TapW{tp.ox - b, tp.wx[rr][b]};
+    for (int a = 0; a < tp.ky; ++a)
+      if (tp.wy[rr][a] != 0.0f)
+        p->ctap[rr][p->ncol[rr]++] = TapW{(tp.oy - a) * sx, tp.wy[rr][a]};
+  }
+}
+
+// The primal step of one CTA's tile up to the solve: x from src and the
+// dual (py, px) from global memory (loads of what other CTAs may have
+// written go to L2, __ldcg), v, the mode's correction and rhs
+// (ul_primal_in, ul_mctv_rhs / ul_metv_rhs), then the Chebyshev sweeps warm
+// started at x (blk_rowconv, blk_colconv and ul_cheb_sweep, the column pass
+// of the last rank fused with the sweep), each on its cone. Ends with a
+// barrier and u in X on the interior (x when niter_solve is 0). Tile fields:
+// X (x, then u), V (v, then rhs), D and T (the dual, the MC-TV clamp or the
+// envelope dual, then T the row pass and D the Chebyshev direction), G (the
+// trips' u, then the gram's sum over the ranks but the last), RY and RX (the
+// FGP point; metv with fgp only). The envelope dual starts from (ey, ex) in
+// global memory (warm) or zeros, and with eo its interior goes out to eo.
+// With split sweeps (grow 0), xch(sw) runs after each sweep but the last:
+// the exchange of u, which leaves X exact on the interior grown by reach.
+template <bool kFree, typename Xch>
+__device__ void ul_primal_cone(const UlpdaTile& p, const float* src,
+                               const float* py, const float* px,
+                               const float* __restrict__ atb, const float* ey,
+                               const float* ex, float* eo, float* X, float* V,
+                               float* D, float* T, float* G, float* RY,
+                               float* RX, const float* fgp_coef,
+                               const float (*cheb)[2], const TileGeo& t,
+                               Xch&& xch) {
+  const int ns = p.niter_solve;
+  const int E = ul_cone_rhs(p.grow, ns);
+  const int Ev = ul_cone_v(p.grow, ns, p.mode, p.niter_inner);
+  const int Lx = ns > 0 && E + p.reach > Ev ? E + p.reach : Ev;
+  rs_rect(rs_grown(t, Lx), t.sx, [&](int li, int r, int c) {
+    X[li] = __ldcg(src + lmc_tile_k(r, c, t));
+  });
+  rs_rect(rs_grown(t, Ev + 1), t.sx, [&](int li, int r, int c) {
+    const size_t k = lmc_tile_k(r, c, t);
+    D[li] = __ldcg(py + k);
+    T[li] = __ldcg(px + k);
+  });
+  __syncthreads();
+  // (1) v = x - tau A^T p, A^T p = -div p; in mode tv rhs = v + ts atb
+  rs_rect(rs_grown(t, Ev), t.sx, [&](int li, int r, int c) {
+    const float aty = -lmc_tile_div<kFree>(D, T, li, r, c, t);
+    const float vv = X[li] - p.tau * aty;
+    V[li] = p.mode == MODE_TV ? vv + p.ts * atb[lmc_tile_k(r, c, t)] : vv;
+  });
+  __syncthreads();
+  // (2) the concave part's linearization, rhs in place of v
+  if (p.mode == MODE_MCTV) {
+    rs_rect(rs_grown(t, E + 1), t.sx, [&](int li, int r, int c) {
+      float gy, gx;
+      lmc_tile_fwd<kFree>(V, li, r, c, t, &gy, &gx);
+      float mag = sqrtf(gy * gy + gx * gx);
+      mag = (mag != 0.0f) ? mag : 1e-9f;
+      const float clamp = fminf(1.0f / mag, p.clamp_mc);
+      D[li] = clamp * gy;
+      T[li] = clamp * gx;
+    });
+    __syncthreads();
+    rs_rect(rs_grown(t, E), t.sx, [&](int li, int r, int c) {
+      const float vv = V[li] - p.c_mc * lmc_tile_div<kFree>(D, T, li, r, c, t);
+      V[li] = vv + p.ts * atb[lmc_tile_k(r, c, t)];
+    });
+    __syncthreads();
+  } else if (p.mode == MODE_METV) {
+    rs_trips<kFree>(p, V, G, D, T, RY, RX, ey, ex, p.inv_gamma_mc,
+                    p.niter_inner, fgp_coef, t, E);
+    rs_rect(rs_grown(t, E), t.sx, [&](int li, int r, int c) {
+      const float vk = V[li];
+      const float pe = vk - p.gamma_mc * lmc_tile_div<kFree>(D, T, li, r, c, t);
+      const float vv = vk + p.c_me * (vk - pe);
+      V[li] = vv + p.ts * atb[lmc_tile_k(r, c, t)];
+    });
+    if (eo != nullptr) {
+      const size_t npix = (size_t)t.ny * t.nx;
+      for (int li = threadIdx.x; li < t.ty * t.tx; li += blockDim.x) {
+        int lt, r, c;
+        size_t k;
+        if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+        eo[k] = D[lt];
+        eo[npix + k] = T[lt];
+      }
+    }
+    __syncthreads();
+  }
+  // (3) the Chebyshev sweeps, sweep sw on the interior grown by
+  // grow (ns - 1 - sw); X turns into u in place (the column pass reads only T)
+  for (int sw = 0; sw < ns; ++sw) {
+    const int e = p.grow * (ns - 1 - sw);
+    const Rect rows{t.h - e - p.ry, t.h - e, t.ty + 2 * (e + p.ry),
+                    t.tx + 2 * e};
+    const float c_d = cheb[sw][0], c_r = cheb[sw][1];
+    for (int rr = 0; rr < p.rank; ++rr) {
+      // every tap stays in the tile (the halo holds the cone): no edge checks
+      const int nr = p.nrow[rr], nc = p.ncol[rr];
+      rs_rect(rows, t.sx, [&](int li, int r, int c) {
+        float acc = nr > 0 ? X[li + p.rtap[rr][0].off] * p.rtap[rr][0].w : 0.0f;
+#pragma unroll 4
+        for (int j = 1; j < nr; ++j)
+          acc = acc + X[li + p.rtap[rr][j].off] * p.rtap[rr][j].w;
+        T[li] = acc;
+      });
+      __syncthreads();
+      const bool last = rr == p.rank - 1;
+      rs_rect(rs_grown(t, e), t.sx, [&](int li, int r, int c) {
+        float acc = nc > 0 ? T[li + p.ctap[rr][0].off] * p.ctap[rr][0].w : 0.0f;
+#pragma unroll 4
+        for (int j = 1; j < nc; ++j)
+          acc = acc + T[li + p.ctap[rr][j].off] * p.ctap[rr][j].w;
+        const float gu = rr == 0 ? acc : G[li] + acc;
+        if (!last) {
+          G[li] = gu;
+          return;
+        }
+        const float uk = X[li];
+        const float res = V[li] - (uk + p.ts * gu);
+        const float dk = sw == 0 ? res * c_r : c_d * D[li] + c_r * res;
+        D[li] = dk;
+        X[li] = uk + dk;
+      });
+      __syncthreads();
+    }
+    if (p.grow == 0 && sw + 1 < ns) xch(sw);
+  }
 }
 
 // Host side: the largest interior side T (a square T x T interior) whose

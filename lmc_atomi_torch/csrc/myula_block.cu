@@ -53,9 +53,6 @@
 
 namespace {
 
-// Data-term modes of the block (myula_fused.py::_fused_mode).
-enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
-
 struct UpdateParams {
   float c_keep, c_grad, c_prox, noise_amp, tv_gamma;
   float lamda, gamma_mc, c_env;  // nonconvex modes: lamda, gamma, lamda/gamma

@@ -33,10 +33,18 @@
 // (_ulpda_tiled_kernel): two launches a step. The dual pass
 // p <- proj(p + mu grad xbar) is row-local and runs one thread per pixel in
 // place, xbar = x_new + theta (x_new - x_old) recomputed from the x parity
-// pair. The primal pass is a halo tile (h = niter_solve * reach + 1 +
-// the correction's depth): v = x - tau A^T p, the MC-TV / ME-TV correction,
-// rhs = v + tau sigma A^T b and the niter_solve Chebyshev sweeps, then noise,
-// Welford and P^2 on the interior.
+// pair. The primal pass is a halo tile on which each CTA computes only the
+// cone its interior's result reads (kernel 3's resident route shares it,
+// block_common.cuh: ul_primal_cone): v = x - tau A^T p on the interior grown
+// by the Chebyshev sweeps' reach and the correction's depth, the MC-TV clamp
+// or the cold ME-TV envelope trips, rhs = v + tau sigma A^T b, sweep k of
+// the niter_solve Chebyshev sweeps on the interior grown by
+// reach (niter_solve - 1 - k); then noise, Welford and P^2 on the interior.
+// Edge-free tiles take kernel 6's mask-free instantiation, and the host
+// picks the interior and the CTA size
+// (kernels/ulpda_tiled.py::ulpda_tiled_plan) as it does for kernel 6. It is
+// bound by instruction issue in the gram passes (and the envelope trips) on
+// the cone, and by the Philox of the update.
 //
 // Kernel 8 replaces lmc_atomi_tpu/kernels/myula_pallas.py::myula_tv_fused_update
 // (_kernel): one MYULA step given the data gradient, kernel 6's tile with the
@@ -49,8 +57,6 @@
 #include "block_common.cuh"
 
 namespace {
-
-enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
 
 struct MyulaTile {
   Taps taps;
@@ -166,14 +172,6 @@ tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-struct UlpdaTile {
-  Taps taps;
-  float tau, mu, theta, noise_amp, ts, g_sigma;
-  float c_mc, gamma_mc, clamp_mc, c_me, inv_gamma_mc;
-  int niter_solve, mode, niter_inner, l21, side, h;
-  float cheb[LMC_MAXTRIP][2];
-};
-
 // Kernel 7's dual pass: p <- proj(p + mu grad xbar) in place, one thread per
 // pixel, xbar = xn + theta (xn - xo) (ul_finish's form) at (i, j), (i+1, j)
 // and (i, j+1).
@@ -194,8 +192,12 @@ __global__ void tl_ulpda_dual(const float* __restrict__ xn,
                    &px[k]);
 }
 
-// Kernel 7's primal pass: step g from src into dst, Welford / P^2 in place.
-__global__ void __launch_bounds__(LMC_TL_THREADS)
+// Kernel 7's primal pass: step g from src into dst, Welford / P^2 in place,
+// on the cone of the tile's interior (ul_primal_cone), kFree on an edge-free
+// tile. An SM runs 1024 threads of it (two CTAs of 512 or one of 1024), at
+// most 64 registers a thread.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
                 const float* __restrict__ py, const float* __restrict__ px,
                 const float* __restrict__ atb, float* __restrict__ mean,
@@ -203,75 +205,36 @@ tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
                 float* __restrict__ qn, int ny, int nx, UlpdaTile p, Sched sc,
                 long long g) {
   extern __shared__ float sm[];
-  const int n = (p.side + 2 * p.h) * (p.side + 2 * p.h);
-  float* U = sm;     // x, then the Chebyshev iterate
-  float* V = U + n;  // v, then rhs
-  float* D = V + n;  // the Chebyshev direction (the correction's scratch before)
-  float* T = D + n;  // the row pass of the gram
-  float* GU = T + n;  // A^T A u
-  const TileGeo t = lmc_tile_geo((int*)(sm + 5 * n), ny, nx, p.side, p.side,
-                                 p.h);
-  __syncthreads();
-  // (1) v = x - tau A^T p, A^T p = -div p with the image's masks (ul_primal_in)
-  LMC_TILE_LOOP(t, li, r, c) {
-    const int gi = t.gr[r], gj = t.gc[c];
-    const size_t k = (size_t)gi * nx + gj;
-    const float xv = src[k];
-    U[li] = xv;
-    const float aty = -lmc_div(py, px, gi, gj, ny, nx);
-    const float vv = xv - p.tau * aty;
-    V[li] = p.mode == MODE_TV ? vv + p.ts * atb[k] : vv;
+  __shared__ float cheb[LMC_MAXTRIP][2];
+  const int n = (p.ty + 2 * p.h) * (p.tx + 2 * p.h);
+  float* X = sm;  // x, then u
+  float* V = X + n;
+  float* D = V + n;
+  float* T = D + n;
+  float* G = T + n;
+  const TileGeo t = lmc_tile_geo((int*)(sm + 5 * n), ny, nx, p.ty, p.tx, p.h);
+  for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x) {
+    cheb[i][0] = p.cheb[i][0];
+    cheb[i][1] = p.cheb[i][1];
   }
   __syncthreads();
-  // (2) the concave part's linearization (ul_mctv_rhs / ul_metv_rhs)
-  if (p.mode == MODE_MCTV) {
-    LMC_TILE_LOOP(t, li, r, c) {
-      float gy, gx;
-      lmc_tile_fwd(V, li, r, c, t, &gy, &gx);
-      float mag = sqrtf(gy * gy + gx * gx);
-      mag = (mag != 0.0f) ? mag : 1e-9f;
-      const float clamp = fminf(1.0f / mag, p.clamp_mc);
-      D[li] = clamp * gy;
-      T[li] = clamp * gx;
-    }
-    __syncthreads();
-    LMC_TILE_LOOP(t, li, r, c) {
-      const float vv = V[li] - p.c_mc * lmc_tile_div(D, T, li, r, c, t);
-      V[li] = vv + p.ts * atb[lmc_tile_k(r, c, t)];
-    }
-    __syncthreads();
-  } else if (p.mode == MODE_METV) {
-    lmc_tile_chambolle<true>(V, GU, D, T, p.inv_gamma_mc, 0.25f,
-                             p.niter_inner, t);
-    LMC_TILE_LOOP(t, li, r, c) {
-      const float vk = V[li];
-      const float pe = vk - p.gamma_mc * lmc_tile_div(D, T, li, r, c, t);
-      const float vv = vk + p.c_me * (vk - pe);
-      V[li] = vv + p.ts * atb[lmc_tile_k(r, c, t)];
-    }
-    __syncthreads();
-  }
-  // (3) Chebyshev sweeps warm started at x (ul_cheb_sweep)
-  for (int sw = 0; sw < p.niter_solve; ++sw) {
-    lmc_tile_gram(U, T, GU, p.taps, t);
-    const float c_d = p.cheb[sw][0], c_r = p.cheb[sw][1];
-    LMC_TILE_LOOP(t, li, r, c) {
-      const float uk = U[li];
-      const float res = V[li] - (uk + p.ts * GU[li]);
-      const float dk = sw == 0 ? res * c_r : c_d * D[li] + c_r * res;
-      D[li] = dk;
-      U[li] = uk + dk;
-    }
-    __syncthreads();
+  if (lmc_tile_free(t)) {
+    ul_primal_cone<true>(p, src, py, px, atb, nullptr, nullptr, nullptr, X, V,
+                         D, T, G, nullptr, nullptr, nullptr, cheb, t,
+                         [](int) {});
+  } else {
+    ul_primal_cone<false>(p, src, py, px, atb, nullptr, nullptr, nullptr, X, V,
+                          D, T, G, nullptr, nullptr, nullptr, cheb, t,
+                          [](int) {});
   }
   // (4) noise, Welford, P^2 on the interior (ul_finish)
   const StepW stw = lmc_step_w(sc, g);
   const size_t npix = (size_t)ny * nx;
-  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
+  for (int li = threadIdx.x; li < p.ty * p.tx; li += blockDim.x) {
     int lt, r, c;
     size_t k;
     if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
-    float xn = U[lt];
+    float xn = X[lt];
     if (sc.with_noise) {
       xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
                                          (uint32_t)g);
@@ -437,7 +400,8 @@ extern "C" int lmc_myula_tiled(
 }
 
 // The current device's SM count and opt-in shared memory a CTA, into out[0]
-// and out[1], for kernel 6's host picker. Returns the cudaError_t.
+// and out[1], for the host planners of kernels 3, 6 and 7. Returns the
+// cudaError_t.
 extern "C" int lmc_card_limits(int* out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -456,8 +420,11 @@ extern "C" int lmc_card_limits(int* out) {
 // theta, noise_amp, tau sigma, g_sigma, tau lamda, gamma_mc, 1 / gamma_mc,
 // tau lamda / gamma_mc]; the ME-TV envelope is niter_inner cold Chambolle
 // trips at step 0.25. Each step is the dual pass before (gfirst) or after the
-// primal pass. Returns the cudaError_t of the launches, or -1 on arguments
-// outside the supported range.
+// primal pass. The halo is the cone's (ul_halo); the interior and the CTA
+// size (512 or 1024 threads) are the caller's
+// (kernels/ulpda_tiled.py::ulpda_tiled_plan). Returns the cudaError_t of the
+// launches, or -1 on arguments outside the supported range or when the tile
+// does not fit the card's shared memory.
 extern "C" int lmc_ulpda_tiled(
     float* x, float* xp, float* py, float* px, const float* atb, float* mean,
     float* m2, float* qh, float* qn, int ny, int nx, const float* taps,
@@ -465,12 +432,15 @@ extern "C" int lmc_ulpda_tiled(
     const float* cheb, int gfirst, int dual, int mode, int niter_inner,
     int with_noise, const float* qcoef, int n_q, int thin, const float* coef,
     unsigned int seed, unsigned int chain, long long step0, long long burn,
-    long long cnt0, void* stream) {
+    long long cnt0, int ty, int tx, int threads, void* stream) {
   UlpdaTile p;
-  if (!lmc_taps(&p.taps, taps, rank, ky, kx, oy, ox) || n_q < 0 ||
+  Taps tp;
+  if (!lmc_taps(&tp, taps, rank, ky, kx, oy, ox) || n_q < 0 ||
       n_q > LMC_MAXQ || thin < 1 || ny < 2 || nx < 2 || n_steps % 2 ||
       mode < MODE_TV || mode > MODE_METV || dual < 0 || dual > 1 ||
-      niter_solve < 0 || niter_solve > LMC_MAXTRIP || niter_inner < 0)
+      niter_solve < 0 || niter_solve > LMC_MAXTRIP || niter_inner < 0 ||
+      niter_inner > LMC_MAXTRIP || ty < 1 || tx < 1 ||
+      (threads != 512 && threads != 1024))
     return -1;
   p.tau = coef[0];
   p.mu = coef[1];
@@ -483,26 +453,38 @@ extern "C" int lmc_ulpda_tiled(
   p.clamp_mc = coef[8];
   p.c_me = coef[9];
   p.inv_gamma_mc = 1.0f / coef[7];
+  p.tv_step = 0.25f;
   p.niter_solve = niter_solve;
   p.mode = mode;
   p.niter_inner = niter_inner;
+  p.fgp = 0;
   p.l21 = dual == 1;
   for (int sw = 0; sw < LMC_MAXTRIP; ++sw) {
     p.cheb[sw][0] = sw < niter_solve ? cheb[2 * sw] : 0.0f;
     p.cheb[sw][1] = sw < niter_solve ? cheb[2 * sw + 1] : 0.0f;
+    p.fgp_coef[sw] = 0.0f;
   }
-  const int corr = mode == MODE_TV ? 0 : (mode == MODE_MCTV ? 2 : niter_inner + 1);
-  const int h = niter_solve * tl_max(lmc_taps_reach_y(p.taps), lmc_taps_reach_x(p.taps)) +
-                1 + corr;
-  size_t smem = 0;
-  p.side = lmc_pick_tile(h, 5, &smem);
-  p.h = h;
-  if (p.side == 0) return -1;
-  int e = tl_smem(tl_ulpda_primal, smem);
-  if (e) return e;
+  p.ry = lmc_taps_reach_y(tp);
+  p.reach = tl_max(p.ry, lmc_taps_reach_x(tp));
+  p.grow = p.reach;
+  p.h = ul_halo(p.reach, p.grow, niter_solve, mode, niter_inner);
+  p.ty = ty;
+  p.tx = tx;
+  ul_tap_lists(&p, tp, tx + 2 * p.h);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t sy = ty + 2 * p.h, sx = tx + 2 * p.h;
+  const size_t smem = sizeof(float) * 5 * sy * sx + sizeof(int) * (sy + sx);
+  if (smem + sizeof(float) * 2 * LMC_MAXTRIP > (size_t)optin) return -1;  // + static
+  auto primal = threads == 512 ? tl_ulpda_primal<512> : tl_ulpda_primal<1024>;
+  e = (cudaError_t)tl_smem(primal, smem);
+  if (e != cudaSuccess) return (int)e;
   const Sched sc = tl_sched(n_q, thin, with_noise, qcoef, seed, chain, step0, burn, cnt0);
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = tl_grid(ny, nx, p.side);
+  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
   const dim3 dgrid = lmc_grid(ny, nx), dblock = lmc_block();
   for (int it = 0; it < n_steps; ++it) {
     float* src = it % 2 ? xp : x;
@@ -510,8 +492,8 @@ extern "C" int lmc_ulpda_tiled(
     if (gfirst)  // xbar of the previous step: (current, the stale partner)
       tl_ulpda_dual<<<dgrid, dblock, 0, s>>>(src, dst, py, px, ny, nx, p.mu,
                                              p.theta, p.g_sigma, p.l21);
-    tl_ulpda_primal<<<grid, LMC_TL_THREADS, smem, s>>>(
-        src, dst, py, px, atb, mean, m2, qh, qn, ny, nx, p, sc, step0 + it);
+    primal<<<grid, threads, smem, s>>>(src, dst, py, px, atb, mean, m2, qh, qn,
+                                       ny, nx, p, sc, step0 + it);
     if (!gfirst)
       tl_ulpda_dual<<<dgrid, dblock, 0, s>>>(dst, src, py, px, ny, nx, p.mu,
                                              p.theta, p.g_sigma, p.l21);

@@ -3,9 +3,39 @@
 //
 // Replaces lmc_atomi_tpu/kernels/ulpda_fused.py::ulpda_block_update
 // (_ulpda_kernel), which keeps x, the dual and the moments of a whole block of
-// steps in one TPU core's VMEM. Here every field stays in global memory (at
-// 512^2 the ~15 fields of a block fit the 50 MB L2) and one host call makes,
-// for each step g = step0 + i, a sequence of one-thread-per-pixel launches:
+// steps in one TPU core's VMEM. Hopper has no such scratch, but at 512^2 a
+// chain's state fits the shared memory of the card's SMs taken together. So
+// the host call takes one of two routes, named by the caller before any
+// launch (kernels/ulpda_fused.py::ulpda_resident_plan: ty > 0 here):
+//
+// Resident route (ul_resident_block, the Gradient2D duals): one cooperative
+// launch runs the whole call, one CTA of 1024 threads per 2-D tile of the
+// image, every CTA resident at once (the planner takes the least tile area
+// over tilings of at most one CTA an SM). A CTA keeps its interior's mean
+// and m2 in shared memory for the call and writes them back once at the end.
+// A step is two phases with a grid barrier after each: the primal phase
+// reads its tile of x (interior ty x tx, halo h) from one of two parity
+// buffers and the dual around it, computes v, the MC-TV / ME-TV correction,
+// rhs and the Chebyshev sweeps in shared memory on only the pixels its
+// interior's result depends on (block_common.cuh: ul_primal_cone), and
+// writes its interior's x' (to the other parity buffer) and xbar; the dual
+// phase updates its interior's dual from xbar in global memory, in place
+// (the barrier after the primal phase separates its writers from its
+// readers). gfirst puts the dual phase first. With env_warm the ME-TV
+// envelope dual goes through parity buffers too. The Chebyshev sweeps run
+// split: each on the interior, u exchanged through two planes in device
+// memory with a grid barrier after each sweep but the last, so the halo is
+// the gram's reach or the correction's depth (4 in TV and MC-TV, 11 in
+// ME-TV with 10 envelope trips, for a 5 x 5 blur). On the H100 that beat
+// computing each sweep on its cone (kernel 7's form, h 12 and 19) by 0-18%
+// per mode: the cone's extra pixels cost more than niter_solve - 1 grid
+// barriers and the exchange (PERF.md §6). At 512^2 the exchange stays in
+// the 50 MB L2; a step is bound by instruction issue in the gram passes and
+// the envelope trips, then its four grid barriers and the update's Philox.
+//
+// Launch sequence (2048^2 and up, and the wl1 dual): every field stays in
+// global memory (at 512^2 the ~15 fields of a block fit the 50 MB L2) and the
+// host issues, for each step g = step0 + i, one-thread-per-pixel launches:
 //   gfirst: (0) the dual update from the incoming xbar;
 //   (1) v = x - tau A^T y with A^T y = -div y (the Gradient2D duals) or
 //       A^T y = W^T y (the wl1 dual, W the interleaved Haar transform);
@@ -31,15 +61,18 @@
 // with kernels 4 and 5). Past 5 levels a 2^levels tile outgrows a CTA's
 // 32 x 32 region, and each transform takes one launch per level and axis
 // with the Haar butterfly of kernel 4's per-level passes (lmc_haar_point).
-// The gram passes are not tile-local, so the step stays a launch sequence.
 // Every launch is bound by device-memory bytes and, at 512^2, by launch
-// latency: a TV step with 3 sweeps is 12 launches of a few us. Persistent
-// launches, shared-memory row bands and CUDA graphs are later work.
+// latency (a TV step with 3 sweeps is 12 launches of a few us). At 2048^2 it
+// is the whole-image yardstick of kernel 7.
+//
+// Both routes take every pixel through the same float operations in the same
+// order, so they equal the plain version bit for bit (chip_smoke.py checks it).
+#include <cooperative_groups.h>
+
 #include "block_common.cuh"
 
 namespace {
 
-enum { MODE_TV = 0, MODE_MCTV = 1, MODE_METV = 2 };
 enum { DUAL_L1 = 0, DUAL_L21 = 1, DUAL_WL1 = 2 };  // ulpda_fused.py: DUALS
 
 // (1): v = x - tau (-div y); in mode tv also rhs = v + ts atb.
@@ -256,6 +289,197 @@ void ul_wl1_transform(const float* src, float* const bufs[2], int ny, int nx,
   }
 }
 
+// --- the resident route ------------------------------------------------------
+
+// 32 warps, one CTA an SM
+#define UL_RS_THREADS 1024
+
+// Tile fields of the resident route (X, V, D, T, G, and the FGP point with
+// the FGP envelope) and its dynamic shared memory: the tile fields, the
+// interior's mean and m2, the gr/gc indices
+// (kernels/ulpda_fused.py::ulpda_resident_plan).
+__host__ __device__ inline int ul_rs_fields(int mode, int fgp) {
+  return mode == MODE_METV && fgp ? 7 : 5;
+}
+static inline size_t ul_rs_smem(int ty, int tx, int h, int fields) {
+  const size_t sy = ty + 2 * h, sx = tx + 2 * h;
+  return sizeof(float) * (fields * sy * sx + 2 * (size_t)ty * tx) +
+         sizeof(int) * (sy + sx);
+}
+
+// The resident route: n_steps ULPDA steps, x from xs[0] (step i reads
+// xs[i % 2] and writes xs[1 - i % 2]), the dual (py, px) and xbar in place;
+// with env_warm the envelope dual through ev[0..3] ((y, x) planes of parity
+// 0, then 1), from zeros at the first step; u after sweep k through
+// ub[k % 2] ((ny, nx) planes), a grid barrier after each but the last. Fields
+// other CTAs write in this launch are read at L2 (__ldcg) and are not
+// __restrict__.
+__global__ void __launch_bounds__(UL_RS_THREADS, 1)
+ul_resident_block(float* x0, float* x1, float* py, float* px, float* xbar,
+                  const float* __restrict__ atb, float* __restrict__ mean,
+                  float* __restrict__ m2, float* ev, float* ub, int ny,
+                  int nx, int n_steps, int gfirst, int env_warm, UlpdaTile p,
+                  Sched sc) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float sm[];
+  __shared__ float fgp_coef[LMC_MAXTRIP];
+  __shared__ float cheb[LMC_MAXTRIP][2];
+  const int n = (p.ty + 2 * p.h) * (p.tx + 2 * p.h);
+  const int ni = p.ty * p.tx;
+  float* X = sm;
+  float* V = X + n;
+  float* D = V + n;
+  float* T = D + n;
+  float* G = T + n;
+  float* RY = G + n;  // the FGP envelope only
+  float* RX = RY + n;
+  float* MU = sm + ul_rs_fields(p.mode, p.fgp) * n;
+  float* M2 = MU + ni;
+  const TileGeo t = lmc_tile_geo((int*)(M2 + ni), ny, nx, p.ty, p.tx, p.h);
+  for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x) {
+    fgp_coef[i] = p.fgp_coef[i];
+    cheb[i][0] = p.cheb[i][0];
+    cheb[i][1] = p.cheb[i][1];
+  }
+  if (sc.with_stats) {
+    for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+      int lt, r, c;
+      size_t k;
+      if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+      MU[li] = mean[k];
+      M2[li] = m2[k];
+    }
+  }
+  __syncthreads();
+  const size_t npix = (size_t)ny * nx;
+  cg::grid_group grid = cg::this_grid();
+  // y <- proj(y + mu G xbar) on the interior (ul_dual)
+  auto dual_phase = [&]() {
+    for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+      int lt, r, c;
+      size_t k;
+      if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+      const float xb = __ldcg(xbar + k);
+      const float gy = t.gr[r] < ny - 1 ? __ldcg(xbar + k + nx) - xb : 0.0f;
+      const float gx = t.gc[c] < nx - 1 ? __ldcg(xbar + k + 1) - xb : 0.0f;
+      lmc_project_dual(__ldcg(py + k) + p.mu * gy, __ldcg(px + k) + p.mu * gx,
+                       p.g_sigma, p.l21, &py[k], &px[k]);
+    }
+  };
+
+  for (int it = 0; it < n_steps; ++it) {
+    const long long g = sc.step0 + it;
+    const int par = it & 1;
+    const float* src = par ? x1 : x0;
+    float* dst = par ? x0 : x1;
+    if (gfirst) {
+      dual_phase();
+      grid.sync();
+    }
+    const float* ein = env_warm && it > 0 ? ev + (size_t)(2 * (1 - par)) * npix : nullptr;
+    float* eout = env_warm ? ev + (size_t)(2 * par) * npix : nullptr;
+    // after a sweep: u of the interior out, a barrier, u on the interior
+    // grown by reach in
+    auto xch = [&](int sw) {
+      float* u = ub + (size_t)(sw & 1) * npix;
+      for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+        int lt, r, c;
+        size_t k;
+        if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+        u[k] = X[lt];
+      }
+      grid.sync();
+      rs_rect(rs_grown(t, p.reach), t.sx, [&](int li, int r, int c) {
+        X[li] = __ldcg(u + lmc_tile_k(r, c, t));
+      });
+      __syncthreads();
+    };
+    ul_primal_cone<false>(p, src, py, px, atb, ein, ein ? ein + npix : nullptr,
+                          eout, X, V, D, T, G, RY, RX, fgp_coef, cheb, t, xch);
+    // (4) x' = u + noise, xbar = x' + theta (x' - x), Welford (ul_finish)
+    const StepW sw = lmc_step_w(sc, g);
+    for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+      int lt, r, c;
+      size_t k;
+      if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+      const float xo = __ldcg(src + k);
+      float xn = X[lt];
+      if (sc.with_noise) {
+        xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
+                                           (uint32_t)g);
+      }
+      dst[k] = xn;
+      xbar[k] = xn + p.theta * (xn - xo);
+      if (sc.with_stats) lmc_welford(xn, &MU[li], &M2[li], sw);
+    }
+    // x' and xbar are read next (the dual phase, the next primal phase)
+    if (!gfirst) {
+      grid.sync();
+      dual_phase();
+    }
+    if (it + 1 < n_steps) grid.sync();
+  }
+  if (!sc.with_stats) return;
+  for (int li = threadIdx.x; li < ni; li += blockDim.x) {
+    int lt, r, c;
+    size_t k;
+    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
+    mean[k] = MU[li];
+    m2[k] = M2[li];
+  }
+}
+
+// The resident launch on interiors ty x tx (the caller's plan). Returns a
+// cudaError_t, or -1 when the tile does not fit the card's shared memory or
+// the tiles are not all resident at once.
+static int ul_resident_launch(float* x, float* parity, float* py, float* px,
+                              float* xbar, const float* atb, float* mean,
+                              float* m2, float* aux, float* ub, int ny, int nx,
+                              UlpdaTile& p, int n_steps, int gfirst,
+                              int env_warm, int with_noise, int with_stats,
+                              unsigned int seed, unsigned int chain,
+                              long long step0, long long burn, long long cnt0,
+                              cudaStream_t s) {
+  int dev = 0, n_sm = 0, optin = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = ul_rs_smem(p.ty, p.tx, p.h, ul_rs_fields(p.mode, p.fgp));
+  if (!coop || smem + sizeof(float) * 3 * LMC_MAXTRIP > (size_t)optin) return -1;
+  e = cudaFuncSetAttribute(ul_resident_block,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ul_resident_block,
+                                                      UL_RS_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((nx + p.tx - 1) / p.tx, (ny + p.ty - 1) / p.ty);
+  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y) return -1;
+  Sched sc;
+  sc.step0 = step0;
+  sc.burn = burn;
+  sc.cnt0 = cnt0;
+  sc.thin = 1;
+  sc.n_q = 0;
+  sc.with_noise = with_noise;
+  sc.with_stats = with_stats;
+  sc.seed = seed;
+  sc.chain = chain;
+  float* ev = env_warm && p.mode == MODE_METV ? aux : nullptr;
+  int warm = ev != nullptr;
+  void* args[] = {&x, &parity, &py, &px, &xbar, (void*)&atb, &mean, &m2, &ev,
+                  &ub, &ny, &nx, &n_steps, &gfirst, &warm, &p, &sc};
+  e = cudaLaunchCooperativeKernel((const void*)ul_resident_block, grid,
+                                  dim3(UL_RS_THREADS), args, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One call runs n_steps ULPDA steps in place on x, py, px, xbar, mean, m2
@@ -280,18 +504,24 @@ void ul_wl1_transform(const float* src, float* const bufs[2], int ny, int nx,
 //   fgp_coef: host, niter_inner floats (FGP momentum; ignored for Chambolle).
 // With env_warm the envelope dual carries across this call's steps and starts
 // from zeros at each call, as on the TPU.
+// ty, tx: the resident route's interior (ty > 0; a Gradient2D dual, at most
+// LMC_MAXTRIP sweeps and envelope trips, n_steps >= 1), whose final x is in x
+// when n_steps is even and in parity ((ny, nx) scratch) when it is odd; it
+// reads none of v, rhs, u, d, gu, tmp and, in mode metv with env_warm, takes
+// the first 4 planes of aux for the envelope dual, and exchanges u between
+// the sweeps through ub ((2, ny, nx) scratch). 0 for the launch sequence.
 // Returns the cudaError_t of the launches (0 on success), or -1 on arguments
-// outside the supported range.
+// outside the supported range or a resident tile that does not fit the card.
 extern "C" int lmc_ulpda_block(
-    float* x, float* py, float* px, float* xbar, const float* atb, float* mean,
-    float* m2, float* v, float* rhs, float* u, float* d, float* gu, float* tmp,
-    float* aux, int ny, int nx, const float* taps, int rank, int ky, int kx,
-    int oy, int ox, int n_steps, int niter_solve, const float* cheb,
-    int gfirst, int dual, int levels, int rh, int rw, int mode,
-    int niter_inner, float tv_step, int fgp,
+    float* x, float* parity, float* py, float* px, float* xbar,
+    const float* atb, float* mean, float* m2, float* v, float* rhs, float* u,
+    float* d, float* gu, float* tmp, float* aux, int ny, int nx,
+    const float* taps, int rank, int ky, int kx, int oy, int ox, int n_steps,
+    int niter_solve, const float* cheb, int gfirst, int dual, int levels,
+    int rh, int rw, int mode, int niter_inner, float tv_step, int fgp,
     const float* fgp_coef, int env_warm, int with_noise, int with_stats,
     const float* coef, unsigned int seed, unsigned int chain, long long step0,
-    long long burn, long long cnt0, void* stream) {
+    long long burn, long long cnt0, int ty, int tx, float* ub, void* stream) {
   Taps t;
   if (!lmc_taps(&t, taps, rank, ky, kx, oy, ox) || ny < 2 || nx < 2 ||
       niter_solve < 0 || mode < MODE_TV || mode > MODE_METV ||
@@ -302,6 +532,46 @@ extern "C" int lmc_ulpda_block(
       (dual == DUAL_WL1 && rh == 0 && rw == 0 && levels < 1))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
+  if (ty > 0) {
+    if (tx < 1 || dual == DUAL_WL1 || n_steps < 1 || niter_solve > LMC_MAXTRIP ||
+        niter_inner < 0 || niter_inner > LMC_MAXTRIP || ub == nullptr)
+      return -1;
+    UlpdaTile p;
+    p.tau = coef[0];
+    p.mu = coef[1];
+    p.theta = coef[2];
+    p.noise_amp = coef[3];
+    p.ts = coef[4];
+    p.g_sigma = coef[5];
+    p.c_mc = coef[6];
+    p.gamma_mc = coef[7];
+    p.clamp_mc = coef[8];
+    p.c_me = coef[9];
+    // x / gamma as x * (1 / gamma), as the launch sequence
+    p.inv_gamma_mc = 1.0f / coef[7];
+    p.tv_step = tv_step;
+    p.niter_solve = niter_solve;
+    p.mode = mode;
+    p.niter_inner = niter_inner;
+    p.fgp = fgp;
+    p.l21 = dual == DUAL_L21;
+    p.ty = ty;
+    p.tx = tx;
+    const int ry = lmc_taps_reach_y(t), rx = lmc_taps_reach_x(t);
+    p.ry = ry;
+    p.reach = ry > rx ? ry : rx;
+    p.grow = 0;  // split sweeps
+    p.h = ul_halo(p.reach, p.grow, niter_solve, mode, niter_inner);
+    ul_tap_lists(&p, t, tx + 2 * p.h);
+    for (int i = 0; i < LMC_MAXTRIP; ++i) {
+      p.cheb[i][0] = i < niter_solve ? cheb[2 * i] : 0.0f;
+      p.cheb[i][1] = i < niter_solve ? cheb[2 * i + 1] : 0.0f;
+      p.fgp_coef[i] = fgp && mode == MODE_METV && i < niter_inner ? fgp_coef[i] : 0.0f;
+    }
+    return ul_resident_launch(x, parity, py, px, xbar, atb, mean, m2, aux, ub,
+                              ny, nx, p, n_steps, gfirst, env_warm, with_noise,
+                              with_stats, seed, chain, step0, burn, cnt0, s);
+  }
   const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
   const size_t npix = (size_t)ny * nx;
 

@@ -182,7 +182,7 @@ _CARD_LIMITS = {}  # device index -> (SMs, opt-in shared memory a CTA)
 
 def _card_limits(device: torch.device):
     """The SM count and the opt-in shared memory of a CTA of ``device``, as
-    the CUDA runtime reports them."""
+    the CUDA runtime reports them (the planners of kernels 3, 6 and 7)."""
     if device.index not in _CARD_LIMITS:
         out = np.zeros(2, np.int32)
         with torch.cuda.device(device):

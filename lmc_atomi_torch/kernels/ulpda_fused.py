@@ -20,13 +20,21 @@ moments with burn-in.
 
 ``ulpda_block_update`` dispatches by device: ``csrc/ulpda_block.cu`` for CUDA
 tensors, ``ulpda_block_update_ref`` (the same function in torch ops, term for
-term) for CPU tensors. On the card the ``"wl1"`` dual's transforms take the
-route ``_wl1_plan`` names: up to ``_TILE_LEVELS`` levels one launch whose CTAs
-own whole ``2^levels`` tiles, past that one launch per level and axis. The lane-packed multi-chain runner is not ported
-yet.
+term) for CPU tensors. On the card kernel 3 takes one of two routes, chosen
+from the shape, the options and the card before any launch: the resident
+route (one cooperative launch per call, every CTA a 2-D halo tile of the
+image computing only the cone its interior reads, where
+``ulpda_resident_plan`` finds a tiling of at most one CTA an SM whose tile
+fits; 512^2 with a Gradient2D dual) or the launch sequence (a few launches
+per step, the fields in device memory; 2048^2 and up, and the ``"wl1"``
+dual, whose transforms take the route ``_wl1_plan`` names: up to
+``_TILE_LEVELS`` levels one launch whose CTAs own whole ``2^levels`` tiles,
+past that one launch per level and axis). The wrapper counts the calls of
+each route. The lane-packed multi-chain runner is not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, List, Optional, Tuple
 
@@ -40,6 +48,9 @@ from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.base import Kernel
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import (
+    _MAX_TRIPS,
+    H100_SMEM_OPTIN,
+    H100_SMS,
     MODES,
     FusedChainResult,
     Taps,
@@ -53,6 +64,7 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _tv_prox_any,
     sep_fused_supported,
 )
+from lmc_atomi_torch.kernels.myula_tiled import _card_limits
 from lmc_atomi_torch.kernels.wavelet_fused import (
     _TILE_LEVELS,
     _iotas,
@@ -72,6 +84,7 @@ __all__ = [
     "ulpda_block_update",
     "ulpda_block_update_cuda",
     "ulpda_block_update_ref",
+    "ulpda_resident_plan",
     "ulpda_sep_fused",
     "run_ulpda_fused",
 ]
@@ -221,6 +234,61 @@ def ulpda_block_update_ref(
     return x, py, px, xbar, mean, m2
 
 
+def _ulpda_halo(taps: Taps, oy: int, ox: int, niter_solve: int, mode: str,
+                niter_inner: int, split: bool = False) -> int:
+    """The halo of ULPDA's primal step on the cone of a tile's interior
+    (``csrc/block_common.cuh::ul_halo``). Kernel 7 runs Chebyshev sweep k
+    on the interior grown by ``reach (niter_solve - 1 - k)``, ``reach`` the
+    gram's; kernel 3's resident route (``split``) runs every sweep on the
+    interior and exchanges u between the CTAs. So rhs is needed on the
+    interior grown by ``e = reach (niter_solve - 1)`` (0 split) and x on ``e
+    + reach``; v, the correction's input, on ``e`` (tv), ``e + 2`` (mctv) or
+    ``e + niter_inner`` (metv), and the dual one pixel further out."""
+    ky, kx = len(taps[0][0]), len(taps[0][1])
+    reach = max(oy, ky - 1 - oy, ox, kx - 1 - ox)
+    e = (0 if split else reach) * max(niter_solve - 1, 0)
+    ev = e + {"tv": 0, "mctv": 2}.get(mode, niter_inner)
+    return max(e + reach if niter_solve else 0, ev + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def ulpda_resident_plan(shape, taps: Taps, oy: int, ox: int, *, mode: str = "tv",
+                        niter_inner: int = 10, niter_solve: int = 3,
+                        dual: str = "l21", tv_solver: str = "chambolle",
+                        n_sm: int = H100_SMS, smem_optin: int = H100_SMEM_OPTIN):
+    """Kernel 3's resident route on a card of ``n_sm`` SMs and
+    ``smem_optin`` bytes of shared memory a CTA: ``(ty, tx, h)``, the
+    interior of a CTA's tile and its halo (``_ulpda_halo`` with split
+    sweeps), or ``None`` for the launch sequence (the ``"wl1"`` dual, or no
+    tiling fits). The interior, sides multiples of 8, is the first in
+    ``(ty, tx)`` order with the least tile area ``(ty + 2h)(tx + 2h)`` among
+    those whose tiles number at most ``n_sm`` and whose shared memory (5
+    tile fields, 7 with the FGP envelope, the interior's mean and m2, the
+    row and column indices and 192 floats of coefficients) fits
+    ``smem_optin``: kernel 2's rule (``myula_fused.resident_plan``). The
+    launcher also asks the occupancy API that every CTA is resident at
+    once, and raises if not. Computed once per shape and options: the
+    wrapper asks on every call."""
+    ny, nx = shape
+    if (dual == "wl1" or not 0 <= niter_solve <= _MAX_TRIPS
+            or not 0 <= niter_inner <= _MAX_TRIPS):
+        return None
+    h = _ulpda_halo(taps, oy, ox, niter_solve, mode, niter_inner, split=True)
+    fields = 7 if mode == "metv" and tv_solver == "fgp" else 5
+    best = None
+    for ty in range(8, ny + 8, 8):
+        for tx in range(8, nx + 8, 8):
+            sy, sx = ty + 2 * h, tx + 2 * h
+            smem = 4 * (fields * sy * sx + 2 * ty * tx) + 4 * (sy + sx)
+            if smem + 4 * 3 * _MAX_TRIPS > smem_optin:
+                break  # the tile only grows with tx
+            if -(-ny // ty) * -(-nx // tx) > n_sm:
+                continue
+            if best is None or sy * sx < best[0]:
+                best = (sy * sx, ty, tx)
+    return None if best is None else (best[1], best[2], h)
+
+
 def _wl1_plan(shape, levels: int):
     """The ``"wl1"`` dual's applied levels, route and CTA region on the
     card: up to ``_TILE_LEVELS`` levels ``"tile"``, each CTA a region of whole
@@ -240,11 +308,14 @@ def ulpda_block_update_cuda(
     with_noise: bool = True, tv_solver: str = "chambolle",
     with_stats: bool = True, env_warm: bool = False, levels: int = 3,
 ):
-    """Kernel 3 (``csrc/ulpda_block.cu``) on contiguous float32 CUDA tensors.
+    """Kernel 3 (``csrc/ulpda_block.cu``) on contiguous float32 CUDA tensors,
+    on the route ``ulpda_resident_plan`` names for the card (counted in
+    ``routes``, the last call's ``(route, ty, tx, h)`` in ``last_plan``).
     Works on copies of ``x, py, px, xbar, mean, m2`` and returns them
     (``xbar`` may be None for ``gfirst=False``, which never reads it, and
-    ``px`` None for the ``"wl1"`` dual); raises on a CPU tensor or on shapes
-    and options the kernel does not take."""
+    ``px`` None for the ``"wl1"`` dual); raises on a CPU tensor, on shapes
+    and options the kernel does not take, or when a resident tiling fails
+    to fit or launch on the card."""
     _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
     if x.ndim != 2 or min(x.shape) < 2:
         raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
@@ -275,37 +346,58 @@ def ulpda_block_update_cuda(
     cheb = np.array(_chebyshev_coefs(coefs[4], lam, niter_solve) or [(0.0, 0.0)],
                     np.float32)
     fgp_coef = _fgp_coef(niter_inner if mode == "metv" else 0)
-    scratch = torch.empty((5, ny, nx), dtype=x.dtype, device=x.device)
-    tmp = torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
+    n_sm, smem_optin = _card_limits(x.device)
+    plan = ulpda_resident_plan(
+        (ny, nx), taps, int(oy), int(ox), mode=mode, niter_inner=int(niter_inner),
+        niter_solve=int(niter_solve), dual=dual, tv_solver=tv_solver, n_sm=n_sm,
+        smem_optin=smem_optin) if n_steps > 0 else None
+    ty, tx, h = plan or (0, 0, 0)
+    # the resident route's other x parity and the two planes that exchange u
+    # between its sweeps, or the launch sequence's scratch (v, rhs, u, d, gu
+    # and the row pass's rank planes)
+    parity = torch.empty_like(x) if plan else None
+    ub = torch.empty((2, ny, nx), dtype=x.dtype, device=x.device) if plan else None
+    scratch = [None] * 5 if plan else torch.empty((5, ny, nx), dtype=x.dtype, device=x.device)
+    tmp = None if plan else torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
     # the envelope duals (metv) or the clamped gradient (mctv)
     aux = None if mode == "tv" else torch.empty(
         (8 if mode == "metv" else 2, ny, nx), dtype=x.dtype, device=x.device)
 
-    def ptr(t, used):
-        return t.data_ptr() if used else None
+    def ptr(t, used=True):
+        return t.data_ptr() if used and t is not None else None
 
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmc_ulpda_block(
-            x.data_ptr(), py.data_ptr(), ptr(px, not wl1), xbar.data_ptr(),
-            atb.data_ptr(), ptr(mean, with_stats), ptr(m2, with_stats),
-            *(scratch[i].data_ptr() for i in range(5)), tmp.data_ptr(),
-            ptr(aux, aux is not None), ny, nx,
-            tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
+            x.data_ptr(), ptr(parity), py.data_ptr(), ptr(px, not wl1),
+            xbar.data_ptr(), atb.data_ptr(), ptr(mean, with_stats),
+            ptr(m2, with_stats),
+            *(ptr(t) for t in scratch), ptr(tmp),
+            ptr(aux), ny, nx, tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
             int(n_steps), int(niter_solve), cheb.ctypes.data,
             int(bool(gfirst)), DUALS.index(dual), l_eff, rh, rw, MODES.index(mode),
             int(niter_inner), float(tv_step), int(tv_solver == "fgp"),
             fgp_coef.ctypes.data, int(bool(env_warm)),
             int(bool(with_noise)), int(bool(with_stats)), coef.ctypes.data,
-            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, ty, tx,
+            ptr(ub), stream,
         )
     _build.check(rc, "lmc_ulpda_block")
     ulpda_block_update_cuda.launches += 1
+    route = "resident" if plan else ("wl1" if wl1 else "sequence")
+    ulpda_block_update_cuda.routes[route] += 1
+    ulpda_block_update_cuda.last_plan = (route, ty, tx, h)
+    if plan and n_steps % 2:
+        x = parity  # the resident route's last step wrote the other buffer
     return x, py, px, xbar, mean, m2
 
 
 ulpda_block_update_cuda.launches = 0  # calls that launched the kernel
+# calls per route ("wl1": the launch sequence of the wl1 dual, which has no
+# resident route), and the last call's (route, ty, tx, h)
+ulpda_block_update_cuda.routes = {"resident": 0, "sequence": 0, "wl1": 0}
+ulpda_block_update_cuda.last_plan = None
 
 
 def ulpda_block_update(x, *args, **kwargs):

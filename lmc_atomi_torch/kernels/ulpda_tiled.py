@@ -22,13 +22,17 @@ The tiling of ``myula_tiled.py`` applied to the primal-dual step of
 ``ulpda_tv_tiled_update_ref`` computes band by band as the TPU kernel does;
 ``ulpda_tv_tiled_update_cuda`` runs ``csrc/tiled_block.cu``, two launches a
 step (the dual pass one thread per pixel, the primal pass 2-D tiles in
-shared memory). The noise is the Philox normal at the global pixel and
-step, and each pixel's operations come in kernel 3's order, so a tiled
-chain equals ``run_ulpda_fused`` (``env_warm=False``, Chambolle envelope)
-bit for bit. Not ported: the TPU's ``stream_x`` layout and its VMEM budget.
+shared memory, each CTA computing only the cone its interior reads, without
+the boundary masks on edge-free tiles), on ``ulpda_tiled_plan``'s geometry,
+the one of least cone work per step on the card, kept in ``last_plan``.
+The noise is the Philox normal at the global pixel and step, and each
+pixel's operations come in kernel 3's order, so a tiled chain equals
+``run_ulpda_fused`` (``env_warm=False``, Chambolle envelope) bit for bit. Not
+ported: the TPU's ``stream_x`` layout and its VMEM budget.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -38,6 +42,9 @@ from lmc_atomi_torch import _build
 from lmc_atomi_torch.core.random import normal_field
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import (
+    _MAX_TRIPS,
+    H100_SMEM_OPTIN,
+    H100_SMS,
     MODES,
     FusedChainResult,
     Taps,
@@ -50,9 +57,13 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _tv_prox,
 )
 from lmc_atomi_torch.kernels.myula_tiled import (
+    _RESERVED_SMEM,
+    _SM_THREADS,
     _band_masks,
+    _card_limits,
     _check_thin,
     _check_tiles,
+    _free_lines,
     _read_tile,
     _round8,
     _tile_rows,
@@ -66,12 +77,14 @@ from lmc_atomi_torch.kernels.ulpda_fused import (
     _chebyshev_gram_solve,
     _dual_project,
     _pack_ulpda_scal,
+    _ulpda_halo,
     _ulpda_setup,
 )
 from lmc_atomi_torch.ops.tv_cuda import _stencils
 from lmc_atomi_torch.run.runner import base_key
 
 __all__ = [
+    "ulpda_tiled_plan",
     "ulpda_tv_tiled_update",
     "ulpda_tv_tiled_update_cuda",
     "ulpda_tv_tiled_update_ref",
@@ -88,6 +101,89 @@ def _ulpda_halo_need(niter_solve: int, oy: int, mode: str,
     ``niter_solve`` gram applications (depth ``oy`` each)."""
     corr = {"tv": 0, "mctv": 2}.get(mode, niter_inner + 1)
     return niter_solve * oy + 1 + corr
+
+
+def _ulpda_tile_work(ty, tx, h, reach, ry, rank, niter_solve, mode, niter_inner) -> int:
+    """Pixel passes of one CTA's primal step on its cone
+    (``csrc/block_common.cuh::ul_primal_cone``): the loads of x and the
+    dual, v, the MC-TV clamp and rhs or the envelope trips (a zeroing pass
+    over the tile, two passes a trip) and rhs, per sweep and rank the gram's
+    row pass (the rows within ``ry`` of the sweep's rectangle) and its
+    column pass fused with the update, and the finish on the interior
+    (counted twice: the Philox normal)."""
+    def area(e):
+        return (ty + 2 * e) * (tx + 2 * e)
+
+    e = reach * max(niter_solve - 1, 0)
+    ev = e + {"tv": 0, "mctv": 2}.get(mode, niter_inner)
+    w = area(max(e + reach if niter_solve else 0, ev)) + area(ev + 1) + area(ev)
+    if mode == "mctv":
+        w += area(e + 1) + area(e)
+    elif mode == "metv":
+        w += area(h) + 2 * sum(area(e + k) for k in range(1, niter_inner + 1)) + area(e)
+    for k in range(niter_solve):
+        g = reach * (niter_solve - 1 - k)
+        w += rank * ((ty + 2 * g + 2 * ry) * (tx + 2 * g) + area(g))
+    return w + 2 * ty * tx
+
+
+@functools.lru_cache(maxsize=64)
+def _ulpda_tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_solve: int = 3,
+                         mode: str = "tv", niter_inner: int = 10, n_sm: int = H100_SMS,
+                         smem_limit: int = H100_SMEM_OPTIN):
+    """Every geometry ``ulpda_tiled_plan`` weighs, as its ``(ty, tx, h,
+    threads, edge_tiles, tiles)``, in the order of its ranking: least cost
+    first. Computed once per shape and options: the wrapper asks on every
+    call."""
+    if not 0 <= niter_solve <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
+        return ()
+    ny, nx = shape
+    ky, kx = len(taps[0][0]), len(taps[0][1])
+    ry = max(oy, ky - 1 - oy)
+    reach = max(ry, ox, kx - 1 - ox)
+    h = _ulpda_halo(taps, oy, ox, niter_solve, mode, niter_inner)
+    cands = []
+    for threads in (512, 1024):
+        per_sm = _SM_THREADS // threads
+        for ty in range(8, ny + 8, 8):
+            for tx in range(8, nx + 8, 8):
+                sy, sx = ty + 2 * h, tx + 2 * h
+                cta = 4 * 5 * sy * sx + 4 * (sy + sx) + 4 * 2 * _MAX_TRIPS
+                if (cta > smem_limit
+                        or per_sm * (cta + _RESERVED_SMEM) > smem_limit + _RESERVED_SMEM):
+                    break
+                tiles = -(-ny // ty) * -(-nx // tx)
+                waves = -(-tiles // (n_sm * per_sm))
+                cost = waves * per_sm * _ulpda_tile_work(ty, tx, h, reach, ry, len(taps),
+                                                         niter_solve, mode, niter_inner)
+                cands.append((cost, threads, ty, tx, tiles))
+    return tuple((ty, tx, h, threads, tiles - _free_lines(ny, ty, h) * _free_lines(nx, tx, h),
+                  tiles) for _, threads, ty, tx, tiles in sorted(cands))
+
+
+def ulpda_tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_solve: int = 3,
+                     mode: str = "tv", niter_inner: int = 10, n_sm: int = H100_SMS,
+                     smem_limit: int = H100_SMEM_OPTIN):
+    """Kernel 7's primal geometry on a card of ``n_sm`` SMs whose CTA takes
+    at most ``smem_limit`` bytes of shared memory, the one the wrapper
+    launches: ``(ty, tx, h, threads, edge_tiles, tiles)``, or ``None`` when
+    nothing fits.
+
+    Kernel 6's rule (``myula_tiled.tiled_plan``) on kernel 7's cone: the
+    halo ``h`` is the cone's (``ulpda_fused._ulpda_halo``, each sweep on its
+    cone); candidates are the interiors ``ty x tx`` (multiples of 8) at 512
+    threads a CTA (two CTAs an SM) or 1024 (one) whose shared memory (5
+    tile fields, the row and column indices, 128 floats of Chebyshev
+    coefficients) fits, 1 KiB reserved a CTA; a step costs the waves
+    ``ceil(tiles / (n_sm *
+    per_sm))`` times the CTAs of a wave on an SM times one CTA's cone work
+    (``_ulpda_tile_work``); the least cost wins, ties to fewer threads, then
+    the smaller ``ty`` and ``tx``. ``edge_tiles`` counts the tiles that are
+    not edge-free."""
+    ranking = _ulpda_tiled_ranking(tuple(shape), taps, oy, ox, niter_solve=niter_solve,
+                                   mode=mode, niter_inner=niter_inner, n_sm=n_sm,
+                                   smem_limit=smem_limit)
+    return ranking[0] if ranking else None
 
 
 def _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
@@ -189,9 +285,10 @@ def ulpda_tv_tiled_update_cuda(
     mode: str = "tv", niter_inner: int = 0,
 ):
     """Kernel 7 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors:
-    two launches per step. Works on copies of ``x, xp, py, px, mean, m2,
-    qh, qn`` and returns them; raises on a CPU tensor or on options the
-    kernel does not take."""
+    two launches per step, the primal pass on ``ulpda_tiled_plan``'s
+    geometry for the card, kept in ``last_plan``. Works on copies of ``x, xp,
+    py, px, mean, m2, qh, qn`` and returns them; raises on a CPU tensor, on
+    options the kernel does not take, or when no geometry fits."""
     _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
                        niter_inner, dual, quantiles, quantile_thin)
     ny, nx = x.shape
@@ -218,6 +315,14 @@ def ulpda_tv_tiled_update_cuda(
                     np.float32)
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
 
+    n_sm, smem_limit = _card_limits(x.device)
+    plan = ulpda_tiled_plan((ny, nx), taps, int(oy), int(ox), niter_solve=int(niter_solve),
+                            mode=mode, niter_inner=int(niter_inner), n_sm=n_sm,
+                            smem_limit=smem_limit)
+    if plan is None:
+        raise ValueError(f"no kernel-7 tile fits {smem_limit} bytes of shared memory")
+    ty, tx, _, threads, _, _ = plan
+
     def ptr(t, used):
         return t.data_ptr() if used else None
 
@@ -232,14 +337,16 @@ def ulpda_tv_tiled_update_cuda(
             int(bool(gfirst)), DUALS.index(dual), MODES.index(mode),
             int(niter_inner), int(bool(with_noise)), qcoef.ctypes.data, n_q,
             int(quantile_thin), coef.ctypes.data, seed & 0xFFFFFFFF,
-            chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+            chain & 0xFFFFFFFF, step0, burn, cnt0, ty, tx, threads, stream,
         )
     _build.check(rc, "lmc_ulpda_tiled")
     ulpda_tv_tiled_update_cuda.launches += 1
+    ulpda_tv_tiled_update_cuda.last_plan = plan
     return x, xp, py, px, mean, m2, qh, qn
 
 
 ulpda_tv_tiled_update_cuda.launches = 0  # calls that launched the kernel
+ulpda_tv_tiled_update_cuda.last_plan = None  # the last launch's ulpda_tiled_plan
 
 
 def ulpda_tv_tiled_update(x, *args, **kwargs):
