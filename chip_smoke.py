@@ -9,7 +9,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
 2. build: the CUDA kernels from ``lmc_atomi_torch/csrc`` (one nvcc per source);
-3. kernel 1 (``prox_tv_iso_cuda``) against its plain torch version at 512^2;
+3. kernel 1 (``prox_tv_iso_cuda``) against its plain torch version, bit for
+   bit, at 512^2 (the resident route), 2048^2 (the cone) and 1024 x 1500
+   (ragged tiles) for niter 0, 3, 10 and 20, and at 2048^2 for niter 60 (one
+   launch a segment); then timed per call at 512^2 and 2048^2;
 4. kernel 2 (``myula_tv_block_update_cuda``) against its plain version at
    512^2, 40 steps in blocks of 20, noise on (the same Philox stream on both
    sides), for cold-10 Chambolle, FGP-8, warm-5 and cold-10 with 95% CI
@@ -33,7 +36,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    their plain versions at 2048^2, 40 steps in blocks of 20, noise on, and
    kernels 6 and 7 against the whole-image kernels 2 and 3 (on their
    launch sequences) on the same steps, bit for bit and on the geometry
-   ``tiled_plan`` / ``ulpda_tiled_plan`` names, also at 1024 x 1500; then
+   ``tiled_plan`` / ``ulpda_tiled_plan`` names, also at 1024 x 1500, and
+   kernel 8 bit for bit at 2048^2 (the cone), 1024 x 1500 and 512^2 (the
+   resident route); then
    timed per 200-step block beside kernels 2 and 3 (kernel 6 in TV
    cold-10, FGP-8, MC-TV and ME-TV, kernel 7 in TV, MC-TV and ME-TV);
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
@@ -70,14 +75,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ULPDA block, the one-step fused grid with its metrics, the MAP
    iteration), of the inpainting cells (a fused Haar MYULA block, the
    unfused MYULA step) and of the large-image cell (one 200-step block at
-   2048^2 of each tiled runner and of the whole-image runner beside it).
+   2048^2 of each tiled runner and of the whole-image runner beside it), and
+   kernel 1's device time per call at 512^2 and 2048^2.
 
-With ``--turns KERNELS`` (a comma list of 3, 6, 7) the script runs only a
-measurement: the registers and spills ``ptxas`` reports for kernels 3 and
-6-8, and each kernel timed in alternating turns (forward, then backward) on
-the kernel of each ROOT (another checkout of the repository, imported
-beside this one, e.g. a ``git archive`` of a parent commit) and on this
-checkout's variants, each held bit for bit to this checkout's pick: kernel 3
+With ``--turns KERNELS`` (a comma list of 1, 3, 6, 7, 8) the script runs
+only a measurement: the registers and spills ``ptxas`` reports for kernels
+1, 3 and 6-8, and each kernel timed in alternating turns (forward, then
+backward) on the kernel of each ROOT (another checkout of the repository,
+imported beside this one, e.g. a ``git archive`` of a parent commit) and on
+this checkout's variants, each held bit for bit to this checkout's pick:
+kernel 1 per call at 512^2 and 2048^2 and kernel 8 per 2048^2 step (niter
+10) on ``prox_plan``'s rank 2, another route, ``k = niter`` and the best
+geometry at 512 threads a CTA, and the unfused main path with each
+checkout's kernel 1; kernel 3
 per 500-step block and per one-step call at 512^2 in TV, MC-TV and ME-TV on
 the resident route and the launch sequence, kernels 6 (KERNEL6_MODES)
 and 7 (TV, MC-TV, ME-TV) per 200-step block at 2048^2 on their planners'
@@ -88,9 +98,10 @@ sources (``CLOCK_PATCHES``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; each of its kernels must have launched, on the MYULA-main and
-deconvolution paths every kernel-2 call and on the deconvolution path every
-kernel-3 call but the wl1 dual's must have taken the resident route, and on
-the large-image path none. The script then prints one
+deconvolution paths every kernel-1 and kernel-2 call and on the
+deconvolution path every kernel-3 call but the wl1 dual's must have taken
+the resident route, and on the large-image path no kernel-2 or kernel-3
+call, and every kernel-1 and kernel-8 call the cone. The script then prints one
 JSON line describing each kernel (launches on the four paths, errors,
 times, the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +130,8 @@ TIMED_STEPS = 2000
 # the timed 20k-step chains warm up with another seed over fewer steps: the
 # fused ones past the CI run's burn-in of 2000, the unfused one less
 FUSED_WARM, UNFUSED_WARM = 2500, 200
+# the unfused main path's steps per turn in ``--turns 1``
+UNFUSED_TURN_STEPS = 1000
 # kernels 2 and 3 vs their plain versions after 40 steps, for every field: the
 # gate of tests/test_myula_fused.py:89-92, atol = 3e-5 * max(1, max |field|).
 # On the H100 they agree bit for bit (max_abs_err 0): both sides take the same
@@ -170,7 +183,8 @@ PEAK_BYTES = 3.35e12
 PROFILE_MARGINS_S = (0.5, 2.5)
 PROFILE_KEPT = 0.99
 CUDA_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"})
+                               "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                               "cudaMemcpyAsync", "cudaMemsetAsync"})
 
 SOLVERS = {
     "fgp8": dict(niter_tv=8, tv_solver="fgp"),
@@ -379,28 +393,56 @@ def make_problem(dev, seed=0):
     return img, y, l2
 
 
+# kernel 1's trip counts against its plain version, and one at 2048^2 past
+# the cone's fit
+KERNEL1_NITERS = (0, 3, 10, 20)
+KERNEL1_PAST_FIT = 60
+
+
 def phase_kernel1(dev, report):
+    """Kernel 1 against its plain version at max abs error 0: at 512^2 (the
+    resident route), 2048^2 (the cone) and NONSQUARE (ragged tiles) for
+    KERNEL1_NITERS, and at 2048^2 past the cone's fit (one launch a
+    segment); then timed per call with CUDA events at 512^2 and 2048^2,
+    niter 10."""
     import torch
 
     from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda, prox_tv_iso_ref
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = 100.0 + 50.0 * torch.randn((N, N), generator=gen, device=dev)
     gamma = TV_WEIGHT * SIGMA_NOISE**2
-    got = prox_tv_iso_cuda(x, gamma, niter=10)
-    want = prox_tv_iso_ref(x, gamma, niter=10)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = 1e-4 * max(1.0, float(x.abs().max()))
-    ms, _ = cuda_ms(lambda: prox_tv_iso_cuda(x, gamma, niter=10), 200)
-    plain_ms, _ = cuda_ms(lambda: prox_tv_iso_ref(x, gamma, niter=10), 50)
-    b_ms, b_by = bound_kernel1(N * N, 10)
-    log(f"kernel1 prox_tv_iso_cuda {N}^2 niter=10: max_abs_err={err:.3e} "
-        f"(tol {tol:.3e}) {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, "
-        f"bound {b_ms:.5f} ms ({b_by})")
-    if not math.isfinite(err) or err > tol:
-        raise AssertionError(f"kernel 1 disagrees with its plain version: {err} > {tol}")
-    report["prox_tv_iso_cuda"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = {shape: 100.0 + 50.0 * torch.randn(shape, generator=gen, device=dev)
+              for shape in ((N, N), (LARGE_N, LARGE_N), NONSQUARE)}
+    cases = [(shape, niter) for shape in images for niter in KERNEL1_NITERS]
+    cases.append(((LARGE_N, LARGE_N), KERNEL1_PAST_FIT))
+    worst = 0.0
+    for shape, niter in cases:
+        x = images[shape]
+        got = prox_tv_iso_cuda(x, gamma, niter=niter)
+        plan = prox_tv_iso_cuda.last_plan
+        err, _ = compare(f"kernel 1 {shape} niter={niter}", (got,),
+                         (prox_tv_iso_ref(x, gamma, niter=niter),), ("x",), exact=True)
+        worst = max(worst, err)
+        log(f"kernel1 {shape[0]}x{shape[1]} niter={niter}: max_abs_err={err:.3e}, plan {plan}")
+        want = ("resident" if shape == (N, N) else "launches" if niter == KERNEL1_PAST_FIT
+                else "cone" if shape == (LARGE_N, LARGE_N) else plan[0])
+        if plan[0] != want:
+            raise AssertionError(f"kernel 1 at {shape}, niter {niter}: route {plan[0]}, "
+                                 f"want {want}")
+        if shape == NONSQUARE and not (shape[0] % plan[1] or shape[1] % plan[2]):
+            raise AssertionError(f"kernel 1's interior {plan[1:3]} divides {NONSQUARE}")
+    times = {}
+    for n in (N, LARGE_N):
+        x = images[(n, n)]
+        ms, _ = cuda_ms(lambda: prox_tv_iso_cuda(x, gamma, niter=10), 200)
+        p_ms, _ = cuda_ms(lambda: prox_tv_iso_ref(x, gamma, niter=10), 20)
+        b_ms, b_by = bound_kernel1(n * n, 10)
+        times[n] = (ms, p_ms, b_ms, b_by)
+        log(f"kernel1 timing {n}^2 niter=10 per call: kernel {ms:.4f} ms (CUDA events, "
+            f"200 back to back) on {prox_tv_iso_cuda.last_plan}, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+    ms, p_ms, b_ms, b_by = times[N]
+    report["prox_tv_iso_cuda"] = dict(max_abs_err=worst, ms=ms, plain_ms=p_ms,
                                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -889,12 +931,13 @@ def kernel6_ranking(l2, cfg, shape):
     ``cfg`` on this card, in its order: its pick first."""
     import torch
 
+    from lmc_atomi_torch import _build
     from lmc_atomi_torch.kernels import myula_tiled
     from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params
 
     taps, (oy, ox), _ = _fused_params(l2)
     mode, _, _, niter_inner = _fused_mode(l2)
-    n_sm, smem_limit = myula_tiled._card_limits(torch.device("cuda", torch.cuda.current_device()))
+    n_sm, smem_limit = _build.card_limits(torch.device("cuda", torch.cuda.current_device()))
     return myula_tiled._tiled_ranking(shape, taps, oy, ox, niter_tv=cfg.get("niter_tv", 10),
                                       tv_solver=cfg.get("tv_solver", "chambolle"), mode=mode,
                                       niter_inner=niter_inner, n_sm=n_sm, smem_limit=smem_limit)
@@ -936,12 +979,13 @@ def kernel7_ranking(data, shape):
     on this card, in its order: its pick first."""
     import torch
 
-    from lmc_atomi_torch.kernels import myula_tiled, ulpda_tiled
+    from lmc_atomi_torch import _build
+    from lmc_atomi_torch.kernels import ulpda_tiled
     from lmc_atomi_torch.kernels.myula_fused import _fused_mode, _fused_params
 
     taps, (oy, ox), _ = _fused_params(data)
     mode, _, _, niter_inner = _fused_mode(data)
-    n_sm, smem_limit = myula_tiled._card_limits(torch.device("cuda", torch.cuda.current_device()))
+    n_sm, smem_limit = _build.card_limits(torch.device("cuda", torch.cuda.current_device()))
     return ulpda_tiled._ulpda_tiled_ranking(tuple(shape), taps, oy, ox, niter_solve=3, mode=mode,
                                             niter_inner=niter_inner, n_sm=n_sm,
                                             smem_limit=smem_limit)
@@ -1066,15 +1110,26 @@ def phase_kernel678(dev, report):
     l2 = terms["tv"]
     gamma = SIGMA_NOISE**2
     tail = (0.2 * gamma, gamma, TV_WEIGHT * gamma)
-    x, worst8 = y, 0.0
-    for g in range(5):
-        grad = l2.grad(x)
-        got = myula_tv_fused_update_cuda(x, grad, (7, 0, g), *tail)
-        want = myula_tv_fused_update_ref(x, grad, (7, 0, g), *tail)
-        err, parts = compare(f"kernel 8 (step {g})", (got,), (want,), ("x",))
-        worst8 = max(worst8, err)
-        x = got
-    log(f"kernel8 {n}^2 5 single steps, noise on: max_abs_err {worst8:.3e}")
+    _, y_512, terms_512 = make_large(dev, N)
+    worst8 = 0.0
+    for shape, data, x, n_tail in (((n, n), l2, y, 5), (NONSQUARE, terms_ns["tv"], y_ns, 2),
+                                   ((N, N), terms_512["tv"], y_512, 2)):
+        plans, err8 = set(), 0.0
+        for g in range(n_tail):
+            grad = data.grad(x)
+            got = myula_tv_fused_update_cuda(x, grad, (7, 0, g), *tail)
+            plans.add(myula_tv_fused_update_cuda.last_plan)
+            want = myula_tv_fused_update_ref(x, grad, (7, 0, g), *tail)
+            err, _ = compare(f"kernel 8 {shape} (step {g})", (got,), (want,), ("x",),
+                             exact=True)
+            err8 = max(err8, err)
+            x = got
+        worst8 = max(worst8, err8)
+        log(f"kernel8 {shape[0]}x{shape[1]} {n_tail} single steps, noise on: max_abs_err "
+            f"{err8:.3e}, plan {plans}")
+        route = {p[0] for p in plans}
+        if shape == (n, n) and route != {"cone"} or shape == (N, N) and route != {"resident"}:
+            raise AssertionError(f"kernel 8 at {shape} took the routes {route}")
 
     # device time per 200-step block (kernels and plain versions at the
     # runners' block), kernels 2 and 3 on the same blocks
@@ -1576,6 +1631,7 @@ def profile_window(label, fn):
         f"{calls} launches and copies (margin {margin} s), top kernels (share of device time, us each x count): "
         + "; ".join(f"{k} {t / sum(v[0] for v in kernels.values()):.3f} "
                     f"{t / n:.2f}us x{n}" for k, (t, n) in top))
+    return kernels
 
 
 def phase_profile(dev, l2, img, models):
@@ -1609,6 +1665,25 @@ def phase_profile(dev, l2, img, models):
         kern, x0, 3, 50, collect="stats", metrics=metrics))
     profile_window(f"deconv MAP {name} x50 (with metrics)", lambda: adaptive_pdhg(
         proxf, proxg, grad_op, x0, tau0, 1.0, 50, metrics=metrics))
+
+
+def phase_profile_kernel1(dev):
+    """Kernel 1's device time per call at 512^2 and 2048^2 (niter 10), from
+    one profiler window of 50 back-to-back calls each, beside its bound."""
+    import torch
+
+    from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda
+
+    gamma = TV_WEIGHT * SIGMA_NOISE**2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for n in (N, LARGE_N):
+        x = 100.0 + 50.0 * torch.randn((n, n), generator=gen, device=dev)
+        kernels = profile_window(f"kernel1 {n}^2 niter 10 x50", lambda: [
+            prox_tv_iso_cuda(x, gamma, niter=10) for _ in range(50)])
+        t, cnt = next(v for k, v in kernels.items() if "tv_prox_kernel" in k)
+        b_ms, b_by = bound_kernel1(n * n, 10)
+        log(f"kernel1 {n}^2 niter 10 device time {t / cnt:.2f} us a call (x{cnt}, route "
+            f"{prox_tv_iso_cuda.last_plan[0]}), bound {b_ms * 1e3:.2f} us ({b_by})")
 
 
 def phase_profile_inpainting(dev):
@@ -1681,12 +1756,12 @@ def load_checkout(root, module, attr):
 
 def ptxas_report():
     """The registers, spills and shared memory ``ptxas -v`` reports for the
-    kernels of csrc/ulpda_block.cu and csrc/tiled_block.cu."""
+    kernels of csrc/tv_prox.cu, csrc/ulpda_block.cu and csrc/tiled_block.cu."""
     import tempfile
 
     from lmc_atomi_torch import _build
 
-    for src in ("ulpda_block.cu", "tiled_block.cu"):
+    for src in ("tv_prox.cu", "ulpda_block.cu", "tiled_block.cu"):
         with tempfile.TemporaryDirectory() as tmp:
             proc = subprocess.run(
                 [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -1722,6 +1797,44 @@ def kernel7_on(geometry):
     return run
 
 
+def prox_variants(wrapper, shape, niter, tail, call, reps, roots):
+    """Kernel 1 (``tail`` false) or 8 as ``_turns`` variants, each ``reps``
+    calls of ``call(fn)`` returning the last output: this checkout's pick,
+    the kernel of each checkout in ``roots``, and this checkout's wrapper on
+    rank 2 of ``prox_plan``'s ranking, on the best geometry of another
+    route, the best with ``k = niter`` and the best at 512 threads a CTA
+    (patched in place of the pick: a measurement)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from lmc_atomi_torch import _build
+    from lmc_atomi_torch.ops import tv_cuda
+
+    def batch(fn, geometry=None):
+        def run():
+            with (mock.patch.object(tv_cuda, "prox_plan", lambda *_, **__: geometry)
+                  if geometry else contextlib.nullcontext()):
+                for _ in range(reps):
+                    out = call(fn)
+            return (out,)
+        return run
+
+    module, attr = (("lmc_atomi_torch.kernels.myula_cuda", "myula_tv_fused_update_cuda")
+                    if tail else ("lmc_atomi_torch.ops.tv_cuda", "prox_tv_iso_cuda"))
+    n_sm, smem_limit = _build.card_limits(torch.device("cuda", torch.cuda.current_device()))
+    ranking = tv_cuda._prox_ranking(*shape, niter, tail, n_sm, smem_limit)
+    picks = [ranking[2], next(g for g in ranking if g[0] != ranking[0][0]),
+             next(g for g in ranking if g[4] == niter),
+             next(g for g in ranking if g[5] == 512)]
+    variants = [("pick", batch(wrapper))] + [
+        (Path(r).name, batch(load_checkout(r, module, attr))) for r in roots]
+    for geo in dict.fromkeys(g for g in picks if g != ranking[0]):
+        variants.append((f"{geo[0]} {geo[1:6]}", batch(wrapper, geo)))
+    return variants
+
+
 def _turns(label, variants, run, fields, turns):
     """Each variant's ``run`` held bit for bit to the first's, then timed in
     alternating turns (each turn all variants forward, then backward)."""
@@ -1737,22 +1850,69 @@ def _turns(label, variants, run, fields, turns):
 
 
 def phase_turns(dev, kernels, roots, turns=2):
-    """Kernels 3, 6 and 7 (those in ``kernels``) of each checkout in
-    ``roots`` and of this one in its variants, timed per block in
-    alternating turns, every variant held bit for bit to this checkout's
-    pick: kernel 3 per 500-step block at 512^2 (the deconvolution models' TV,
+    """Kernels 1, 3, 6, 7 and 8 (those in ``kernels``) of each checkout in
+    ``roots`` and of this one in its variants, timed in alternating turns,
+    every variant held bit for bit to this checkout's pick: kernel 1 per 200
+    calls at 512^2 and 50 at 2048^2 (niter 10), kernel 8 per 50 steps at
+    2048^2, on the variants of ``prox_variants``, and the unfused MYULA main
+    path over UNFUSED_TURN_STEPS steps with each checkout's kernel 1; kernel
+    3 per 500-step block at 512^2 (the deconvolution models' TV,
     MC-TV, ME-TV) on the resident route and the launch sequence, and per
     one-step call without statistics; kernels 6 and 7 per 200-step block at
     2048^2 at ranks 0 and 2 of their planner and its best 512-thread
     geometry."""
     import torch
 
+    from lmc_atomi_torch.kernels.myula_cuda import myula_tv_fused_update_cuda
     from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
     from lmc_atomi_torch.kernels.ulpda_fused import ulpda_block_update_cuda
     from lmc_atomi_torch.kernels.ulpda_tiled import ulpda_tv_tiled_update_cuda
+    from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda
 
     ptxas_report()
     ufields = ("x", "py", "px", "xbar", "mean", "m2")
+    gamma = SIGMA_NOISE**2
+    if 1 in kernels:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for n, reps in ((N, 200), (LARGE_N, 50)):
+            x = 100.0 + 50.0 * torch.randn((n, n), generator=gen, device=dev)
+            variants = prox_variants(
+                prox_tv_iso_cuda, (n, n), 10, False,
+                lambda fn: fn(x, TV_WEIGHT * gamma, niter=10), reps, roots)
+            _turns(f"kernel1 {n}^2 niter 10 x{reps} calls", variants, lambda b: b(), ("x",),
+                   turns)
+            log(f"kernel1 {n}^2 pick: {prox_tv_iso_cuda.last_plan}")
+        # the unfused MYULA main path, kernel 1 of each checkout patched in
+        from unittest import mock
+
+        from lmc_atomi_torch.kernels.imaging import myula_imaging
+        from lmc_atomi_torch.ops import tv as tv_ops
+        from lmc_atomi_torch.ops.functionals import TVNorm
+        from lmc_atomi_torch.run.runner import run_chain
+
+        _, _, l2 = make_problem(dev)
+        kern = myula_imaging(l2, TVNorm(sigma=TV_WEIGHT, niter=10), tau=0.2 * gamma,
+                             gamma=gamma)
+        x0 = torch.zeros((N, N), device=dev)
+
+        def chain(k1):
+            with mock.patch.object(tv_ops, "prox_tv_iso_cuda", k1):
+                return (run_chain(kern, x0, 4, UNFUSED_TURN_STEPS).final_state.position,)
+
+        others = [(Path(r).name, load_checkout(r, "lmc_atomi_torch.ops.tv_cuda",
+                                               "prox_tv_iso_cuda")) for r in roots]
+        _turns(f"unfused MYULA main path {N}^2, {UNFUSED_TURN_STEPS} steps",
+               [("pick", prox_tv_iso_cuda)] + others, chain, ("x",), turns)
+    if 8 in kernels:
+        _, y8, terms8 = make_large(dev, LARGE_N)
+        grad, reps = terms8["tv"].grad(y8), 50
+        variants = prox_variants(
+            myula_tv_fused_update_cuda, (LARGE_N, LARGE_N), 10, True,
+            lambda fn: fn(y8, grad, (8, 0, 0), 0.2 * gamma, gamma, TV_WEIGHT * gamma), reps,
+            roots)
+        _turns(f"kernel8 {LARGE_N}^2 niter 10 x{reps} steps", variants, lambda b: b(), ("x",),
+               turns)
+        log(f"kernel8 {LARGE_N}^2 pick: {myula_tv_fused_update_cuda.last_plan}")
     if 3 in kernels:
         others = [(Path(r).name, load_checkout(r, "lmc_atomi_torch.kernels.ulpda_fused",
                                                "ulpda_block_update_cuda")) for r in roots]
@@ -1934,7 +2094,7 @@ KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
                                    "lmc_atomi_tpu/kernels/myula_tiled.py:416"),
     "ulpda_tv_tiled_update_cuda": ("lmc_atomi_torch/csrc/tiled_block.cu",
                                    "lmc_atomi_tpu/kernels/ulpda_tiled.py:480"),
-    "myula_tv_fused_update_cuda": ("lmc_atomi_torch/csrc/tiled_block.cu",
+    "myula_tv_fused_update_cuda": ("lmc_atomi_torch/csrc/tv_prox.cu",
                                    "lmc_atomi_tpu/kernels/myula_pallas.py:91"),
 }
 
@@ -1968,29 +2128,39 @@ def main() -> int:
                 "ulpda_tv_tiled_update_cuda": ulpda_tv_tiled_update_cuda,
                 "myula_tv_fused_update_cuda": myula_tv_fused_update_cuda}
 
-    k2, k3 = myula_tv_block_update_cuda, ulpda_block_update_cuda
+    k1, k2, k3, k8 = (prox_tv_iso_cuda, myula_tv_block_update_cuda, ulpda_block_update_cuda,
+                      myula_tv_fused_update_cuda)
 
     def drive(path, kernels, fn, *args, resident=False):
         """Run one path with every count at 0 before it; its kernels must
-        have launched, and with ``resident`` (the 512^2 paths) every kernel-2
-        call and every kernel-3 call but the wl1 dual's must have taken the
-        resident route, without it (the large-image path) none."""
+        have launched, and with ``resident`` (the 512^2 paths) every kernel-1
+        and kernel-2 call and every kernel-3 call but the wl1 dual's must
+        have taken the resident route, without it (the large-image path) no
+        kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
+        cone."""
         for w in wrappers.values():
             w.launches = 0
-        for w in (k2, k3):
+        for w in (k1, k2, k3, k8):
             w.routes = dict.fromkeys(w.routes, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fn(*args)
         counts = {k: w.launches for k, w in wrappers.items()}
         log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}; "
-            f"kernel 2 routes {k2.routes}; kernel 3 routes {k3.routes}")
+            f"kernel 1 routes {k1.routes}; kernel 2 routes {k2.routes}; kernel 3 routes "
+            f"{k3.routes}; kernel 8 routes {k8.routes}")
         for k in kernels:
             if counts[k] < 1:
                 raise AssertionError(f"{k} was not launched on the {path} path")
-        if (k2.routes["sequence"] + k3.routes["sequence"] if resident
-                else k2.routes["resident"] + k3.routes["resident"]):
-            raise AssertionError(f"the {path} path took the routes {k2.routes}, {k3.routes}")
+        if resident:
+            off = (k2.routes["sequence"] + k3.routes["sequence"] + k1.launches
+                   - k1.routes["resident"])
+        else:
+            off = (k2.routes["resident"] + k3.routes["resident"] + k1.launches
+                   - k1.routes["cone"] + k8.launches - k8.routes["cone"])
+        if off:
+            raise AssertionError(f"the {path} path took the routes {k1.routes}, {k2.routes}, "
+                                 f"{k3.routes}, {k8.routes}")
         return counts
 
     t_start = time.perf_counter()
@@ -2030,6 +2200,7 @@ def main() -> int:
               phase_large, dev),
     ]
     phase_profile(dev, l2, d_img, models)
+    phase_profile_kernel1(dev)
     phase_profile_inpainting(dev)
     phase_profile_large(dev)
     kernels = [

@@ -23,11 +23,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 __all__ = [
-    "find_nvcc", "build", "library", "require_cuda_f32", "check_steps", "check",
-    "NVCC_FLAGS",
+    "find_nvcc", "build", "library", "card_limits", "require_cuda_f32", "check_steps",
+    "check", "NVCC_FLAGS",
 ]
 
 _PKG = Path(__file__).resolve().parent
@@ -46,8 +47,12 @@ _U = ctypes.c_uint
 
 # argtypes of each extern "C" launcher; every one returns a cudaError_t as int
 _SIGNATURES = {
-    "lmc_tv_prox_chambolle": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _P,
+    "lmc_tv_prox": (
+        _P, _P, _P, _P, _I, _I,  # x, grad, out, dual, ny, nx
+        _I, _F, _P, _I, _I,  # niter, step, coef, tail, with_noise
+        _U, _U, _U,  # seed, chain, step
+        _I, _I, _I, _I, _I,  # route, ty, tx, k, threads
+        _P,  # stream
     ),
     "lmc_myula_block": (
         _P, _P, _P, _P, _P, _P, _P,  # x, parity, atbs, mean, m2, qh, qn
@@ -114,12 +119,6 @@ _SIGNATURES = {
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
         _I, _I, _I, _P,  # ty, tx, threads, stream
-    ),
-    "lmc_myula_tail": (
-        _P, _P, _P, _I, _I,  # x, grad, out, ny, nx
-        _I, _F, _P, _I,  # niter, step, coef, with_noise
-        _U, _U, _U,  # seed, chain, step
-        _P,  # stream
     ),
 }
 
@@ -201,6 +200,20 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+_CARD_LIMITS = {}  # device index -> (SMs, opt-in shared memory a CTA)
+
+
+def card_limits(device: torch.device):
+    """The SM count and the opt-in shared memory of a CTA of ``device``, as
+    the CUDA runtime reports them (the planners of kernels 1, 3 and 6-8)."""
+    if device.index not in _CARD_LIMITS:
+        out = np.zeros(2, np.int32)
+        with torch.cuda.device(device):
+            check(library().lmc_card_limits(out.ctypes.data), "lmc_card_limits")
+        _CARD_LIMITS[device.index] = tuple(int(v) for v in out)
+    return _CARD_LIMITS[device.index]
 
 
 def require_cuda_f32(shape, **tensors) -> None:

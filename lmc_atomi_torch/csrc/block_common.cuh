@@ -337,7 +337,7 @@ __global__ void blk_chambolle_trip(const float* __restrict__ x,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
-  lmc_chambolle_point<true>(x, py, px, qy, qx, inv_gamma, step, i, j, ny, nx);
+  lmc_chambolle_point(x, py, px, qy, qx, inv_gamma, step, i, j, ny, nx);
 }
 
 // One FGP trip (myula_fused.py::_tv_prox_fgp): q = proj(r + s grad u(r)),
@@ -470,7 +470,7 @@ __device__ __forceinline__ void lmc_project_dual(float ty, float tx,
   }
 }
 
-// --- halo tiles in shared memory (tiled_block.cu) ---------------------------
+// --- halo tiles in shared memory (tiled_block.cu, tv_prox.cu) ---------------
 // A CTA of the tile kernels owns an interior of ty x tx pixels at image
 // (blockIdx.y ty, blockIdx.x tx) and holds the sy x sx = (ty + 2h) x (tx + 2h)
 // tile around it in shared memory, read with image-periodic wrap: tile pixel
@@ -483,8 +483,6 @@ __device__ __forceinline__ void lmc_project_dual(float ty, float tx,
 // each interior pixel takes the same operations on the same values as in
 // the whole-image kernels 2 and 3, and the results agree bit for bit.
 
-// 16 warps a CTA, two CTAs an SM
-#define LMC_TL_THREADS 512
 #define LMC_MAXTRIP 64  // TV dual trips and Chebyshev sweeps of a tile step
 
 struct TileGeo {
@@ -591,53 +589,6 @@ __device__ __forceinline__ void lmc_tile_fwd(const float* f, int li, int r,
   }
   *gy = (t.gr[r] != t.ny - 1 && r + 1 < t.sy) ? f[li + t.sx] - f[li] : 0.0f;
   *gx = (t.gc[c] != t.nx - 1 && c + 1 < t.sx) ? f[li + 1] - f[li] : 0.0f;
-}
-
-__device__ __forceinline__ void lmc_tile_zero(float* a, float* b,
-                                              const TileGeo& t) {
-  LMC_TILE_LOOP(t, li, r, c) {
-    a[li] = 0.0f;
-    b[li] = 0.0f;
-  }
-}
-
-// u = div p - f / gamma over the tile, then a barrier.
-__device__ __forceinline__ void lmc_tile_u(const float* f, const float* py,
-                                           const float* px, float* u,
-                                           float inv_gamma, const TileGeo& t) {
-  LMC_TILE_LOOP(t, li, r, c)
-    u[li] = lmc_tile_div(py, px, li, r, c, t) - f[li] * inv_gamma;
-  __syncthreads();
-}
-
-// niter cold Chambolle trips of the TV prox of f at 1/gamma = inv_gamma on
-// the tile, the dual (py, px) in place (u scratch): per trip u, a barrier,
-// p <- (p + s grad u) / (1 + s |grad u|) (kRecip as lmc_chambolle_point), a
-// barrier.
-template <bool kRecip>
-__device__ void lmc_tile_chambolle(const float* f, float* u, float* py,
-                                   float* px, float inv_gamma, float step,
-                                   int niter, const TileGeo& t) {
-  lmc_tile_zero(py, px, t);
-  __syncthreads();
-  for (int tr = 0; tr < niter; ++tr) {
-    lmc_tile_u(f, py, px, u, inv_gamma, t);
-    LMC_TILE_LOOP(t, li, r, c) {
-      float gy, gx;
-      lmc_tile_fwd(u, li, r, c, t, &gy, &gx);
-      const float mag = sqrtf(gy * gy + gx * gx);
-      if (kRecip) {
-        const float inv = 1.0f / (1.0f + step * mag);
-        py[li] = (py[li] + step * gy) * inv;
-        px[li] = (px[li] + step * gx) * inv;
-      } else {
-        const float den = 1.0f + step * mag;
-        py[li] = (py[li] + step * gy) / den;
-        px[li] = (px[li] + step * gx) / den;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // rowconv then colconv of rank rr (blk_rowconv / blk_colconv's order) over
@@ -757,7 +708,8 @@ __device__ void rs_gram(const float* u, float* tmp, float* gu, const Taps& tp,
 }
 
 // niter trips of the TV prox of the tile f at 1/gamma = inv_gamma, Chambolle
-// at p.tv_step (lmc_tile_chambolle<true>'s arithmetic) or FGP (p.fgp) with
+// at p.tv_step (kRecip: lmc_chambolle_point's one reciprocal and two
+// multiplies, else kernel 1's two divisions) or FGP (p.fgp) with
 // momentum coef (blk_fgp_trip's), from the dual (py, px) = (sy_, sx_) of the previous
 // step in global memory (warm, every pixel exact) or from zeros; the FGP
 // point (ry, rx) starts at the dual. Each trip computes only what the
@@ -772,7 +724,7 @@ __device__ void rs_gram(const float* u, float* tmp, float* gu, const Taps& tp,
 // off the tile's edge, so an edge-free tile takes kFree. With e0 > 0 every
 // rectangle grows by e0 more: the prox is then read on the interior grown
 // by e0 (kernel 3's resident route and kernel 7, ul_primal_cone).
-template <bool kFree = false, typename P>
+template <bool kFree = false, bool kRecip = true, typename P>
 __device__ void rs_trips(const P& p, const float* f, float* u,
                          float* py, float* px, float* ry, float* rx,
                          const float* sy_, const float* sx_, float inv_gamma,
@@ -819,9 +771,15 @@ __device__ void rs_trips(const P& p, const float* f, float* u,
         px[li] = ax;
       } else {
         const float mag = sqrtf(gy * gy + gx * gx);
-        const float inv = 1.0f / (1.0f + p.tv_step * mag);
-        py[li] = (py[li] + p.tv_step * gy) * inv;
-        px[li] = (px[li] + p.tv_step * gx) * inv;
+        if (kRecip) {
+          const float inv = 1.0f / (1.0f + p.tv_step * mag);
+          py[li] = (py[li] + p.tv_step * gy) * inv;
+          px[li] = (px[li] + p.tv_step * gx) * inv;
+        } else {
+          const float den = 1.0f + p.tv_step * mag;
+          py[li] = (py[li] + p.tv_step * gy) / den;
+          px[li] = (px[li] + p.tv_step * gx) / den;
+        }
       }
     });
     __syncthreads();
@@ -1027,26 +985,6 @@ __device__ void ul_primal_cone(const UlpdaTile& p, const float* src,
     }
     if (p.grow == 0 && sw + 1 < ns) xch(sw);
   }
-}
-
-// Host side: the largest interior side T (a square T x T interior) whose
-// tile of nbuf fields (and the gr/gc indices) fits two CTAs on an SM, else
-// one; 0 if none fits. *smem gets its bytes. An SM has 228 KiB, of which
-// each CTA also takes 1 KiB for the system and its static shared memory.
-static inline int lmc_pick_tile(int h, int nbuf, size_t* smem) {
-  const int sides[] = {64, 56, 48, 40, 32, 24, 16, 8};
-  const size_t limits[] = {112 * 1024, 226 * 1024};
-  for (size_t limit : limits) {
-    for (int side : sides) {
-      const size_t s = (size_t)(side + 2 * h);
-      const size_t bytes = sizeof(float) * nbuf * s * s + sizeof(int) * 2 * s;
-      if (bytes <= limit) {
-        *smem = bytes;
-        return side;
-      }
-    }
-  }
-  return 0;
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-// Kernels 6, 7 and 8: halo-tile kernels for large images, one CTA per 2-D
+// Kernels 6 and 7: halo-tile kernels for large images, one CTA per 2-D
 // tile of the image held in shared memory (block_common.cuh, "halo tiles").
 //
 // Kernel 6 replaces lmc_atomi_tpu/kernels/myula_tiled.py::myula_tv_tiled_update
@@ -46,14 +46,10 @@
 // bound by instruction issue in the gram passes (and the envelope trips) on
 // the cone, and by the Philox of the update.
 //
-// Kernel 8 replaces lmc_atomi_tpu/kernels/myula_pallas.py::myula_tv_fused_update
-// (_kernel): one MYULA step given the data gradient, kernel 6's tile with the
-// gradient read from device memory in place of the gram and kernel 1's
-// Chambolle arithmetic (two divisions a trip), no statistics.
-//
-// Every interior pixel takes the operations of kernels 2, 3 and 1 in their
+// Every interior pixel takes the operations of kernels 2 and 3 in their
 // order, so the tile kernels equal them, and their plain versions, bit for
-// bit (chip_smoke.py checks it).
+// bit (chip_smoke.py checks it). Kernel 8, one MYULA step given the data
+// gradient, is kernel 1's tile kernel with an epilogue (tv_prox.cu).
 #include "block_common.cuh"
 
 namespace {
@@ -244,51 +240,11 @@ tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-struct TailTile {
-  float c_keep, c_grad, c_prox, noise_amp, tv_gamma, inv_tv_gamma, step;
-  int niter, with_noise, side, h;
-  uint32_t seed, chain, g;
-};
-
-// Kernel 8: x' = c_keep x - c_grad grad + c_prox prox(x) + noise.
-__global__ void __launch_bounds__(LMC_TL_THREADS)
-tl_myula_tail(const float* __restrict__ x, const float* __restrict__ grad,
-              float* __restrict__ out, int ny, int nx, TailTile p) {
-  extern __shared__ float sm[];
-  const int n = (p.side + 2 * p.h) * (p.side + 2 * p.h);
-  float* X = sm;
-  float* U = X + n;
-  float* PY = U + n;
-  float* PX = PY + n;
-  const TileGeo t = lmc_tile_geo((int*)(sm + 4 * n), ny, nx, p.side, p.side,
-                                 p.h);
-  __syncthreads();
-  lmc_tile_load(X, x, t);
-  __syncthreads();
-  lmc_tile_chambolle<false>(X, U, PY, PX, p.inv_tv_gamma, p.step, p.niter, t);
-  for (int li = threadIdx.x; li < p.side * p.side; li += blockDim.x) {
-    int lt, r, c;
-    size_t k;
-    if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
-    const float xv = X[lt];
-    const float prox = xv - p.tv_gamma * lmc_tile_div(PY, PX, lt, r, c, t);
-    float xn = p.c_keep * xv - p.c_grad * grad[k] + p.c_prox * prox;
-    if (p.with_noise) {
-      xn = xn + p.noise_amp * lmc_normal(p.seed, p.chain, (uint32_t)k, p.g);
-    }
-    out[k] = xn;
-  }
-}
-
 // Dynamic shared memory above 48 KB for kernel fn.
 template <typename F>
 int tl_smem(F fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
-}
-
-dim3 tl_grid(int ny, int nx, int side) {
-  return dim3((nx + side - 1) / side, (ny + side - 1) / side);
 }
 
 Sched tl_sched(int n_q, int thin, int with_noise, const float* qcoef,
@@ -501,40 +457,4 @@ extern "C" int lmc_ulpda_tiled(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
-}
-
-// Kernel 8: out = one MYULA step of x given grad (each (ny, nx) float32 on the
-// current device): niter cold Chambolle trips at step with kernel 1's
-// arithmetic, coef: host [1 - tau/gamma, tau, tau/gamma, noise_scale
-// sqrt(2 tau), tv_gamma], the Philox normal at (seed, chain, pixel, g).
-// Returns the cudaError_t of the launch, or -1 on arguments outside the
-// supported range.
-extern "C" int lmc_myula_tail(const float* x, const float* grad, float* out,
-                              int ny, int nx, int niter, float step,
-                              const float* coef, int with_noise,
-                              unsigned int seed, unsigned int chain,
-                              unsigned int g, void* stream) {
-  if (ny < 2 || nx < 2 || niter < 0 || niter > LMC_MAXTRIP) return -1;
-  TailTile p;
-  p.c_keep = coef[0];
-  p.c_grad = coef[1];
-  p.c_prox = coef[2];
-  p.noise_amp = coef[3];
-  p.tv_gamma = coef[4];
-  p.inv_tv_gamma = 1.0f / coef[4];
-  p.step = step;
-  p.niter = niter;
-  p.with_noise = with_noise;
-  p.seed = seed;
-  p.chain = chain;
-  p.g = g;
-  p.h = niter + 1;
-  size_t smem = 0;
-  p.side = lmc_pick_tile(p.h, 4, &smem);
-  if (p.side == 0) return -1;
-  int e = tl_smem(tl_myula_tail, smem);
-  if (e) return e;
-  tl_myula_tail<<<tl_grid(ny, nx, p.side), LMC_TL_THREADS, smem,
-                  (cudaStream_t)stream>>>(x, grad, out, ny, nx, p);
-  return (int)cudaGetLastError();
 }

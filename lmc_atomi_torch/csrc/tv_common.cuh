@@ -1,8 +1,8 @@
-// Device code shared by the TV prox kernel (tv_prox.cu) and the fused MYULA
-// block (myula_block.cu): the Neumann forward-difference stencils of
-// lmc_atomi_tpu/ops/tv_pallas.py (_masks, fwd_y/fwd_x/div), the per-pixel
-// Chambolle and FGP dual updates, and the Philox4x32-10 normal draw of
-// lmc_atomi_torch/core/random.py.
+// Device code shared by the block kernels (myula_block.cu, ulpda_block.cu)
+// and, through block_common.cuh, the tile kernels: the Neumann
+// forward-difference stencils of lmc_atomi_tpu/ops/tv_pallas.py (_masks,
+// fwd_y/fwd_x/div), the per-pixel Chambolle and FGP dual updates, and the
+// Philox4x32-10 normal draw of lmc_atomi_torch/core/random.py.
 //
 // Layout: one thread per pixel of a row-major (ny, nx) float32 image; dual
 // fields (py, px) live in global memory and are ping-ponged between launches,
@@ -61,11 +61,9 @@ static __device__ __forceinline__ void lmc_grad_u(
   if (j < nx - 1) *gx = (lmc_div(py, px, i, j + 1, ny, nx) - x[k + 1] * inv_gamma) - u;
 }
 
-// One Chambolle dual trip at pixel k: p <- (p + s g) / (1 + s |g|).
-// kRecip selects the fused block's form (one reciprocal, two multiplies,
-// myula_fused.py::_tv_prox) over the prox kernel's two divisions
-// (tv_pallas.py::_kernel).
-template <bool kRecip>
+// One Chambolle dual trip at pixel k: p <- (p + s g) / (1 + s |g|), in the
+// fused block's form (one reciprocal, two multiplies,
+// myula_fused.py::_tv_prox).
 static __device__ __forceinline__ void lmc_chambolle_point(
     const float* __restrict__ x, const float* __restrict__ py,
     const float* __restrict__ px, float* __restrict__ qy,
@@ -77,15 +75,9 @@ static __device__ __forceinline__ void lmc_chambolle_point(
   const int k = i * nx + j;
   const float py0 = py ? py[k] : 0.0f;
   const float px0 = px ? px[k] : 0.0f;
-  if (kRecip) {
-    const float inv = 1.0f / (1.0f + step * mag);
-    qy[k] = (py0 + step * gy) * inv;
-    qx[k] = (px0 + step * gx) * inv;
-  } else {
-    const float den = 1.0f + step * mag;
-    qy[k] = (py0 + step * gy) / den;
-    qx[k] = (px0 + step * gx) / den;
-  }
+  const float inv = 1.0f / (1.0f + step * mag);
+  qy[k] = (py0 + step * gy) * inv;
+  qx[k] = (px0 + step * gx) * inv;
 }
 
 // Philox4x32-10 (Salmon et al. 2011, Random123 constants) on a counter in c.

@@ -9,8 +9,8 @@ The step after the data-term gradient ``g``:
 
 with a cold Chambolle prox of ``niter`` trips (kernel 1's arithmetic) and
 ``xi`` the Philox normal of ``(seed, chain, step)`` (``core/random.py``).
-``myula_tv_fused_update`` dispatches by device: ``csrc/tiled_block.cu``
-(kernel 6's halo tile, the gram replaced by the gradient input, one launch)
+``myula_tv_fused_update`` dispatches by device: ``csrc/tv_prox.cu`` (kernel
+1's tile kernel with the update as its epilogue, on ``prox_plan``'s route)
 for CUDA tensors, ``myula_tv_fused_update_ref`` for CPU tensors.
 """
 from __future__ import annotations
@@ -18,14 +18,13 @@ from __future__ import annotations
 import math
 from typing import Any
 
-import numpy as np
 import torch
 
 from lmc_atomi_torch import _build
 from lmc_atomi_torch.core.random import normal_field
 from lmc_atomi_torch.core.state import SamplerState, StepInfo
 from lmc_atomi_torch.kernels.base import Kernel
-from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_ref
+from lmc_atomi_torch.ops.tv_cuda import ROUTES, _launch_prox_tile, prox_tv_iso_ref
 
 __all__ = [
     "myula_tv_fused_update",
@@ -59,29 +58,30 @@ def myula_tv_fused_update_ref(x, grad, seed, tau, gamma, tv_gamma,
 def myula_tv_fused_update_cuda(x, grad, seed, tau, gamma, tv_gamma,
                                noise_scale=1.0, niter: int = 10,
                                step: float = 0.25, with_noise: bool = True):
-    """Kernel 8 (``csrc/tiled_block.cu``) on contiguous float32 CUDA images:
-    one launch. Raises on a CPU tensor or on an unsupported trip count."""
+    """Kernel 8 (``csrc/tv_prox.cu``, kernel 1's tile kernel with the update
+    as its epilogue) on contiguous float32 CUDA images, on the route
+    ``ops/tv_cuda.py::prox_plan`` names (counted in ``routes``, the plan in
+    ``last_plan``). Raises on a CPU tensor, on a negative trip count, or
+    when no tile fits the card."""
     if x.ndim != 2 or min(x.shape) < 2:
         raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
-    ny, nx = x.shape
-    _build.require_cuda_f32((ny, nx), x=x, grad=grad)
-    seed, chain, g = (int(v) for v in seed)
-    coef = np.array(_tail_coefs(tau, gamma, tv_gamma, noise_scale), np.float32)
-    out = torch.empty_like(x)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lmc_myula_tail(
-            x.data_ptr(), grad.data_ptr(), out.data_ptr(), ny, nx, int(niter),
-            float(step), coef.ctypes.data, int(bool(with_noise)),
-            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, g & 0xFFFFFFFF, stream,
-        )
-    _build.check(rc, "lmc_myula_tail")
+    if niter < 0:
+        raise ValueError(f"niter={niter} must be >= 0")
+    _build.require_cuda_f32(tuple(x.shape), x=x, grad=grad)
+    c_keep, c_grad, c_prox, noise_amp, tv_gamma = _tail_coefs(
+        tau, gamma, tv_gamma, noise_scale)
+    out, plan = _launch_prox_tile(x, grad, int(niter), step,
+                                  (tv_gamma, c_keep, c_grad, c_prox, noise_amp),
+                                  with_noise, seed)
     myula_tv_fused_update_cuda.launches += 1
+    myula_tv_fused_update_cuda.routes[plan[0]] += 1
+    myula_tv_fused_update_cuda.last_plan = plan
     return out
 
 
 myula_tv_fused_update_cuda.launches = 0  # calls that launched the kernel
+myula_tv_fused_update_cuda.routes = dict.fromkeys(ROUTES, 0)  # calls per route
+myula_tv_fused_update_cuda.last_plan = None  # the last call's prox_plan
 
 
 def myula_tv_fused_update(x, grad, seed, tau, gamma, tv_gamma, noise_scale=1.0,

@@ -64,7 +64,13 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _tv_prox_any,
     _update_coefs,
 )
-from lmc_atomi_torch.ops.tv_cuda import _stencils
+from lmc_atomi_torch.ops.tv_cuda import (
+    _RESERVED_SMEM,
+    _SM_THREADS,
+    _free_lines,
+    _stencils,
+    _trip_work,
+)
 from lmc_atomi_torch.run.runner import base_key
 
 __all__ = [
@@ -75,21 +81,6 @@ __all__ = [
     "myula_tv_tiled_update_ref",
     "run_myula_tv_tiled",
 ]
-
-
-_RESERVED_SMEM = 1024  # shared memory the card reserves for each CTA
-_SM_THREADS = 1024  # an SM's threads of kernel 6: 2 CTAs of 512 or 1 of 1024
-
-
-def _trip_work(ty: int, tx: int, h: int, niter: int) -> int:
-    """Pixel passes of ``niter`` cold trips on the cone: a zeroing pass over
-    the tile, then two passes a trip on the interior grown by ``niter -
-    trip``."""
-    w = (ty + 2 * h) * (tx + 2 * h)
-    for e in range(1, niter + 1):
-        g = min(e, h)
-        w += 2 * (ty + 2 * g) * (tx + 2 * g)
-    return w
 
 
 def _tile_work(ty, tx, h, ry, rank, niter_tv, mode, niter_inner) -> int:
@@ -104,13 +95,6 @@ def _tile_work(ty, tx, h, ry, rank, niter_tv, mode, niter_inner) -> int:
     elif mode == "metv":
         w += _trip_work(ty, tx, h, niter_inner)
     return w + 2 * area + _trip_work(ty, tx, h, niter_tv)
-
-
-def _free_lines(n: int, t: int, h: int) -> int:
-    """Rows (or columns) of tiles of side ``t`` whose halo tile avoids image
-    row ``n - 1`` without wrapping."""
-    return sum(b * t - h >= 0 and (b + 1) * t + h <= n - 1
-               for b in range(-(-n // t)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -175,20 +159,6 @@ def tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
                              mode=mode, niter_inner=niter_inner, n_sm=n_sm,
                              smem_limit=smem_limit)
     return ranking[0] if ranking else None
-
-
-_CARD_LIMITS = {}  # device index -> (SMs, opt-in shared memory a CTA)
-
-
-def _card_limits(device: torch.device):
-    """The SM count and the opt-in shared memory of a CTA of ``device``, as
-    the CUDA runtime reports them (the planners of kernels 3, 6 and 7)."""
-    if device.index not in _CARD_LIMITS:
-        out = np.zeros(2, np.int32)
-        with torch.cuda.device(device):
-            _build.check(_build.library().lmc_card_limits(out.ctypes.data), "lmc_card_limits")
-        _CARD_LIMITS[device.index] = tuple(int(v) for v in out)
-    return _CARD_LIMITS[device.index]
 
 
 def pick_band(ny: int, halo: int) -> int:
@@ -362,7 +332,7 @@ def myula_tv_tiled_update_cuda(
     fgp_coef = _fgp_coef(max(niter_tv, niter_inner if mode == "metv" else 0))
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
 
-    n_sm, smem_limit = _card_limits(x.device)
+    n_sm, smem_limit = _build.card_limits(x.device)
     plan = tiled_plan((ny, nx), taps, oy, ox, niter_tv=niter_tv, tv_solver=tv_solver,
                       mode=mode, niter_inner=niter_inner, n_sm=n_sm, smem_limit=smem_limit)
     if plan is None:

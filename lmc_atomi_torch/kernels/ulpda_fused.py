@@ -64,7 +64,6 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _tv_prox_any,
     sep_fused_supported,
 )
-from lmc_atomi_torch.kernels.myula_tiled import _card_limits
 from lmc_atomi_torch.kernels.wavelet_fused import (
     _TILE_LEVELS,
     _iotas,
@@ -346,7 +345,7 @@ def ulpda_block_update_cuda(
     cheb = np.array(_chebyshev_coefs(coefs[4], lam, niter_solve) or [(0.0, 0.0)],
                     np.float32)
     fgp_coef = _fgp_coef(niter_inner if mode == "metv" else 0)
-    n_sm, smem_optin = _card_limits(x.device)
+    n_sm, smem_optin = _build.card_limits(x.device)
     plan = ulpda_resident_plan(
         (ny, nx), taps, int(oy), int(ox), mode=mode, niter_inner=int(niter_inner),
         niter_solve=int(niter_solve), dual=dual, tv_solver=tv_solver, n_sm=n_sm,

@@ -60,7 +60,6 @@ from lmc_atomi_torch.kernels.myula_tiled import (
     _RESERVED_SMEM,
     _SM_THREADS,
     _band_masks,
-    _card_limits,
     _check_thin,
     _check_tiles,
     _free_lines,
@@ -315,7 +314,7 @@ def ulpda_tv_tiled_update_cuda(
                     np.float32)
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
 
-    n_sm, smem_limit = _card_limits(x.device)
+    n_sm, smem_limit = _build.card_limits(x.device)
     plan = ulpda_tiled_plan((ny, nx), taps, int(oy), int(ox), niter_solve=int(niter_solve),
                             mode=mode, niter_inner=int(niter_inner), n_sm=n_sm,
                             smem_limit=smem_limit)
