@@ -27,10 +27,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    launch sequence; then timed per mode per 500-step call and per one-step
    call;
 5b. kernels 4 and 5 (``wavelet_block_update_cuda``,
-   ``ulpda_wavelet_block_update_cuda``) the same way on the 512^2
-   inpainting posterior: kernel 4 for Haar, D4 and D8 and Haar with 95% CI
-   markers, kernel 5 for each filter in both orders, and both for Haar at 6
-   levels (the per-level launches) bit for bit; then timed;
+   ``ulpda_wavelet_block_update_cuda``) the same way on the inpainting
+   posterior, bit for bit on every route, each call on the route named:
+   ``"warp"`` (512^2 Haar, 3 levels, kernel 4 also with 95% CI markers),
+   ``"tile"`` (Haar, 5 levels), ``"resident"`` (512^2 D4 and D8),
+   ``"passes"`` (1024^2 D4, whose tiles do not all fit the card, and 512^2
+   Haar at 6 levels), kernel 5 in both orders; then timed per filter;
 5c. kernels 6, 7 and 8 (``myula_tv_tiled_update_cuda``,
    ``ulpda_tv_tiled_update_cuda``, ``myula_tv_fused_update_cuda``) against
    their plain versions at 2048^2, 40 steps in blocks of 20, noise on, and
@@ -73,14 +75,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
-   iteration), of the inpainting cells (a fused Haar MYULA block, the
+   iteration), of the inpainting cells (a fused Haar and a D4 MYULA block, the
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it), and
    kernel 1's device time per call at 512^2 and 2048^2.
 
-With ``--turns KERNELS`` (a comma list of 1, 3, 6, 7, 8) the script runs
-only a measurement: the registers and spills ``ptxas`` reports for kernels
-1, 3 and 6-8, and each kernel timed in alternating turns (forward, then
+With ``--turns KERNELS`` (a comma list of 1, 3, 4, 5, 6, 7, 8) the script
+runs only a measurement: the registers and spills ``ptxas`` reports for
+kernels 1 and 3-8, and each kernel timed in alternating turns (forward, then
 backward) on the kernel of each ROOT (another checkout of the repository,
 imported beside this one, e.g. a ``git archive`` of a parent commit) and on
 this checkout's variants, each held bit for bit to this checkout's pick:
@@ -89,7 +91,12 @@ kernel 1 per call at 512^2 and 2048^2 and kernel 8 per 2048^2 step (niter
 geometry at 512 threads a CTA, and the unfused main path with each
 checkout's kernel 1; kernel 3
 per 500-step block and per one-step call at 512^2 in TV, MC-TV and ME-TV on
-the resident route and the launch sequence, kernels 6 (KERNEL6_MODES)
+the resident route and the launch sequence, kernel 4 per 500-step block at
+512^2 (Haar, Haar with 95% CI markers, D4, D8) and kernel 5 per 250-step
+block (Haar, D4, D8, both orders) on ``wavelet_plan``'s route and the route
+it replaced (``"tile"``, ``"passes"``), with the D4 resident route also at
+1024 threads a CTA and its grid barriers alone (copies of the source edited
+at text anchors, ``WAVELET_VARIANTS``), kernels 6 (KERNEL6_MODES)
 and 7 (TV, MC-TV, ME-TV) per 200-step block at 2048^2 on their planners'
 geometries of rank 2 and the best at 512 threads a CTA. With ``--clock`` it
 prints the ``clock64`` phase split of kernel 3's resident step at 512² for
@@ -100,10 +107,12 @@ Each path runs with the launch counts set to 0 just before it and read just
 after; each of its kernels must have launched, on the MYULA-main and
 deconvolution paths every kernel-1 and kernel-2 call and on the
 deconvolution path every kernel-3 call but the wl1 dual's must have taken
-the resident route, and on the large-image path no kernel-2 or kernel-3
-call, and every kernel-1 and kernel-8 call the cone. The script then prints one
-JSON line describing each kernel (launches on the four paths, errors,
-times, the bound of the card) and, last, ``{"ok": true, "device": {...}}``.
+the resident route, on the inpainting path every kernel-4 and kernel-5
+call the warp (Haar) or the resident route (D4/D8), and on the large-image
+path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
+cone. The script then prints one JSON line describing each kernel
+(launches and route counts on the four paths, errors, times, the bound of
+the card) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -732,8 +741,8 @@ def phase_kernel3(dev, y, models, report):
         library_ms=None)
 
 
-def make_inpainting(dev, seed=0):
-    """The inpainting workload's image (in [0, 1]) and data term, as
+def make_inpainting(dev, seed=0, n=N):
+    """The inpainting workload's image (in [0, 1]) and data term at n^2, as
     ``wavelet_inpainting`` builds them on the card: the mask, then the
     noise, from one generator."""
     import torch
@@ -742,11 +751,11 @@ def make_inpainting(dev, seed=0):
     from lmc_atomi_torch.ops.linops import Mask
     from lmc_atomi_torch.utils.images import load_image
 
-    img = torch.from_numpy(load_image("phantom", N)).to(dev) / 255.0
+    img = torch.from_numpy(load_image("phantom", n)).to(dev) / 255.0
     gen = torch.Generator(device=dev).manual_seed(seed)
-    mask = (torch.rand((N, N), generator=gen, device=dev) > 0.5).float()
+    mask = (torch.rand((n, n), generator=gen, device=dev) > 0.5).float()
     y = mask * img + INP_SIGMA * mask * torch.randn(
-        (N, N), generator=gen, dtype=torch.float32, device=dev)
+        (n, n), generator=gen, dtype=torch.float32, device=dev)
     return img, L2Data(op=Mask(mask=mask), b=y, sigma=1.0 / INP_SIGMA**2)
 
 
@@ -763,8 +772,9 @@ def _wavelet_blocks(update, l2, n_steps, block, seed, taps, quantiles=(), burn=0
     x, mean, m2 = l2.b, torch.zeros_like(l2.b), torch.zeros_like(l2.b)
     qh = qn = None
     if quantiles:
-        qh = torch.zeros((5 * len(quantiles), N, N), device=x.device)
-        qn = torch.arange(2.0, 5.0, device=x.device)[:, None, None].repeat(len(quantiles), N, N)
+        qh = torch.zeros((5 * len(quantiles), *x.shape), device=x.device)
+        qn = torch.arange(2.0, 5.0, device=x.device)[:, None, None].repeat(len(quantiles),
+                                                                          *x.shape)
     for b in range(n_steps // block):
         step0 = b * block
         x, mean, m2, qh, qn = update(
@@ -793,12 +803,24 @@ def _ulpda_wavelet_blocks(update, l2, n_steps, block, seed, taps, gfirst,
 
 # Haar past the 5 levels of a CTA's 32x32 region: the per-level launches
 DEEP_HAAR_LEVELS = 6
+# kernels 4 and 5 against their plain versions on each route: (label, size,
+# taps, levels, quantiles, the route the wrappers must take)
+WAVELET_CHECKS = [
+    ("haar", N, 2, INP_LEVELS, (), "warp"),
+    ("haar_ci95", N, 2, INP_LEVELS, (0.025, 0.975), "warp"),
+    ("haar 5 levels", N, 2, 5, (), "tile"),
+    ("d4", N, 4, INP_LEVELS, (), "resident"),
+    ("d8", N, 8, INP_LEVELS, (), "resident"),
+    ("d4", 2 * N, 4, INP_LEVELS, (), "passes"),
+    (f"haar {DEEP_HAAR_LEVELS} levels", N, 2, DEEP_HAAR_LEVELS, (), "passes"),
+]
 
 
 def phase_kernel45(dev, report):
     """Kernels 4 and 5 against their plain versions on the inpainting
-    posterior, 40 steps in blocks of 20, noise on, and Haar at 6 levels bit
-    for bit; then timed per filter."""
+    posterior, 40 steps in blocks of 20, noise on, bit for bit on every
+    route (``WAVELET_CHECKS``, kernel 5 in both orders); then timed per
+    filter."""
     from lmc_atomi_torch.kernels.wavelet_fused import (
         ulpda_wavelet_block_update_cuda,
         ulpda_wavelet_block_update_ref,
@@ -806,50 +828,39 @@ def phase_kernel45(dev, report):
         wavelet_block_update_ref,
     )
 
-    _, l2 = make_inpainting(dev)
-    worst4 = 0.0
-    runs4 = [(name, taps, ()) for name, taps in TAPS.items()]
-    runs4.append(("haar_ci95", 2, (0.025, 0.975)))
-    for name, taps, qs in runs4:
-        got = _wavelet_blocks(wavelet_block_update_cuda, l2, CHECK_STEPS, CHECK_BLOCK, 7,
-                              taps, qs, burn=10 if qs else 0)
-        want = _wavelet_blocks(wavelet_block_update_ref, l2, CHECK_STEPS, CHECK_BLOCK, 7,
-                               taps, qs, burn=10 if qs else 0)
-        err, parts = compare(f"kernel 4 ({name})", got, want, ("x", "mean", "m2", "qh", "qn"))
+    problems = {n: make_inpainting(dev, n=n)[1] for n in {c[1] for c in WAVELET_CHECKS}}
+    worst4 = worst5 = 0.0
+    for label, n, taps, lv, qs, route in WAVELET_CHECKS:
+        l2, burn = problems[n], 10 if qs else 0
+        got, routes = routes_of(lambda: _wavelet_blocks(
+            wavelet_block_update_cuda, l2, CHECK_STEPS, CHECK_BLOCK, 7, taps, qs, burn, lv),
+            wavelet_block_update_cuda)
+        want = _wavelet_blocks(wavelet_block_update_ref, l2, CHECK_STEPS, CHECK_BLOCK, 7, taps,
+                               qs, burn, lv)
+        if routes[route] != CHECK_STEPS // CHECK_BLOCK:
+            raise AssertionError(f"kernel 4 ({label}) took the routes {routes}, not {route}")
+        err, parts = compare(f"kernel 4 ({label})", got, want, ("x", "mean", "m2", "qh", "qn"),
+                             exact=True)
         worst4 = max(worst4, err)
-        log(f"kernel4 {name} {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
-    worst5 = 0.0
-    for name, taps in TAPS.items():
+        log(f"kernel4 {label} {n}^2 {CHECK_STEPS} steps, noise on, {route} "
+            f"{wavelet_block_update_cuda.last_plan}: max_abs_err {parts}")
+        if qs:
+            continue
         for gfirst in (False, True):
-            got = _ulpda_wavelet_blocks(ulpda_wavelet_block_update_cuda, l2, CHECK_STEPS,
-                                        CHECK_BLOCK, 7, taps, gfirst)
-            want = _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, l2, CHECK_STEPS,
-                                         CHECK_BLOCK, 7, taps, gfirst)
-            err, parts = compare(f"kernel 5 ({name} gfirst={gfirst})", got, want,
-                                 ("x", "c", "xbar", "mean", "m2"))
+            args = (l2, CHECK_STEPS, CHECK_BLOCK, 7, taps, gfirst, lv)
+            got, routes = routes_of(lambda: _ulpda_wavelet_blocks(
+                ulpda_wavelet_block_update_cuda, *args), ulpda_wavelet_block_update_cuda)
+            if routes[route] != CHECK_STEPS // CHECK_BLOCK:
+                raise AssertionError(f"kernel 5 ({label}) took the routes {routes}, not {route}")
+            err, parts = compare(f"kernel 5 ({label} gfirst={gfirst})", got,
+                                 _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, *args),
+                                 ("x", "c", "xbar", "mean", "m2"), exact=True)
             worst5 = max(worst5, err)
-            log(f"kernel5 {name} gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, noise on: "
+            log(f"kernel5 {label} gfirst={gfirst} {n}^2 {CHECK_STEPS} steps, noise on, {route}: "
                 f"max_abs_err {parts}")
-    lv = DEEP_HAAR_LEVELS
-    got = _wavelet_blocks(wavelet_block_update_cuda, l2, CHECK_STEPS, CHECK_BLOCK, 7, 2,
-                          levels=lv)
-    want = _wavelet_blocks(wavelet_block_update_ref, l2, CHECK_STEPS, CHECK_BLOCK, 7, 2,
-                           levels=lv)
-    err, parts = compare(f"kernel 4 (haar, {lv} levels)", got, want,
-                         ("x", "mean", "m2", "qh", "qn"), exact=True)
-    worst4 = max(worst4, err)
-    log(f"kernel4 haar {lv} levels {N}^2 {CHECK_STEPS} steps, noise on: max_abs_err {parts}")
-    for gfirst in (False, True):
-        args = (l2, CHECK_STEPS, CHECK_BLOCK, 7, 2, gfirst, lv)
-        err, parts = compare(f"kernel 5 (haar, {lv} levels, gfirst={gfirst})",
-                             _ulpda_wavelet_blocks(ulpda_wavelet_block_update_cuda, *args),
-                             _ulpda_wavelet_blocks(ulpda_wavelet_block_update_ref, *args),
-                             ("x", "c", "xbar", "mean", "m2"), exact=True)
-        worst5 = max(worst5, err)
-        log(f"kernel5 haar {lv} levels gfirst={gfirst} {N}^2 {CHECK_STEPS} steps, noise on: "
-            f"max_abs_err {parts}")
     # device time per call of the runners' default blocks (kernel 4: 500
     # steps, kernel 5: 250), kernel and plain version
+    l2 = problems[N]
     b4, b5 = BLOCK, BLOCK // 2
     times = {}
     for name, taps in TAPS.items():
@@ -1687,8 +1698,8 @@ def phase_profile_kernel1(dev):
 
 
 def phase_profile_inpainting(dev):
-    """Where the time goes in the inpainting cells: a fused Haar MYULA block
-    and the unfused MYULA step."""
+    """Where the time goes in the inpainting cells: a fused Haar and a fused
+    D4 MYULA block, and the unfused MYULA step."""
     from lmc_atomi_torch.kernels.imaging import myula_imaging
     from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
     from lmc_atomi_torch.ops.functionals import OrthogonalL1
@@ -1696,8 +1707,11 @@ def phase_profile_inpainting(dev):
     from lmc_atomi_torch.run.runner import run_chain
 
     _, l2 = make_inpainting(dev)
-    profile_window(f"run_myula_wavelet_fused haar {BLOCK} steps", lambda: run_myula_wavelet_fused(
-        l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, l2.b, 3, BLOCK, block=BLOCK))
+    for name in ("haar", "d4"):
+        profile_window(f"run_myula_wavelet_fused {name} {BLOCK} steps",
+                       lambda: run_myula_wavelet_fused(l2, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA,
+                                                       l2.b, 3, BLOCK, block=BLOCK,
+                                                       taps=TAPS[name]))
     kern = myula_imaging(l2, OrthogonalL1(op=HaarDWT2D(levels=INP_LEVELS), sigma=INP_TAU_W),
                          0.2 * INP_GAMMA, INP_GAMMA)
     profile_window("inpainting MYULA unfused step x25", lambda: run_chain(
@@ -1756,12 +1770,13 @@ def load_checkout(root, module, attr):
 
 def ptxas_report():
     """The registers, spills and shared memory ``ptxas -v`` reports for the
-    kernels of csrc/tv_prox.cu, csrc/ulpda_block.cu and csrc/tiled_block.cu."""
+    kernels of csrc/tv_prox.cu, csrc/ulpda_block.cu, csrc/wavelet_block.cu
+    and csrc/tiled_block.cu."""
     import tempfile
 
     from lmc_atomi_torch import _build
 
-    for src in ("tv_prox.cu", "ulpda_block.cu", "tiled_block.cu"):
+    for src in ("tv_prox.cu", "ulpda_block.cu", "wavelet_block.cu", "tiled_block.cu"):
         with tempfile.TemporaryDirectory() as tmp:
             proc = subprocess.run(
                 [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -1835,12 +1850,50 @@ def prox_variants(wrapper, shape, niter, tail, call, reps, roots):
     return variants
 
 
+def wavelet_on(wrapper, route):
+    """Kernel 4's or 5's wrapper of this checkout on ``route`` (``"tile"``
+    or ``"passes"``) in place of ``wavelet_plan``'s pick: a measurement."""
+    from unittest import mock
+
+    from lmc_atomi_torch.kernels import wavelet_fused
+
+    def plan(shape, taps, levels, n_sm=None):
+        l_eff = wavelet_fused.dwt_levels(shape, taps, levels)
+        return l_eff, route, (wavelet_fused.tile_region(shape, l_eff) if route == "tile"
+                              else (0, 0))
+
+    def run(*args, **kwargs):
+        with mock.patch.object(wavelet_fused, "wavelet_plan", plan):
+            return wrapper(*args, **kwargs)
+
+    return run
+
+
+# ``--turns 4,5``: variants of the D4/D8 resident route, each from a copy of
+# this checkout's sources edited at text anchors: (name, [(file, anchor,
+# text, times the anchor occurs)]). The second drops every pass's work and
+# the update, leaving a step's grid barriers (not compared: a timing only).
+WAVELET_VARIANTS = [
+    ("resident 1024 threads", [
+        ("wavelet_block.cu", "#define WV_RS_THREADS 512\n#define WV_RS_PPT 8",
+         "#define WV_RS_THREADS 1024\n#define WV_RS_PPT 4", 1)]),
+    ("grid barriers alone", [
+        ("wavelet_block.cu", "    fn(r, c, q);\n", "", 1),
+        ("wavelet_block.cu", "      const float p = rs_p<TAPS>(sh, tx, li / tx, li % tx, f);\n",
+         "      if (li >= 0) continue;\n"
+         "      const float p = rs_p<TAPS>(sh, tx, li / tx, li % tx, f);\n", 2)]),
+]
+UNCHECKED_VARIANTS = ("grid barriers alone",)
+
+
 def _turns(label, variants, run, fields, turns):
-    """Each variant's ``run`` held bit for bit to the first's, then timed in
-    alternating turns (each turn all variants forward, then backward)."""
+    """Each variant's ``run`` held bit for bit to the first's (but those of
+    ``UNCHECKED_VARIANTS``), then timed in alternating turns (each turn all
+    variants forward, then backward)."""
     ref = run(variants[0][1])
     for name, fn in variants[1:]:
-        compare(f"{label} {name}", run(fn), ref, fields, exact=True)
+        if name not in UNCHECKED_VARIANTS:
+            compare(f"{label} {name}", run(fn), ref, fields, exact=True)
     ms = {name: [] for name, _ in variants}
     for _ in range(turns):
         for name, fn in variants + variants[::-1]:
@@ -1850,7 +1903,7 @@ def _turns(label, variants, run, fields, turns):
 
 
 def phase_turns(dev, kernels, roots, turns=2):
-    """Kernels 1, 3, 6, 7 and 8 (those in ``kernels``) of each checkout in
+    """Kernels 1 and 3-8 (those in ``kernels``) of each checkout in
     ``roots`` and of this one in its variants, timed in alternating turns,
     every variant held bit for bit to this checkout's pick: kernel 1 per 200
     calls at 512^2 and 50 at 2048^2 (niter 10), kernel 8 per 50 steps at
@@ -1858,9 +1911,11 @@ def phase_turns(dev, kernels, roots, turns=2):
     path over UNFUSED_TURN_STEPS steps with each checkout's kernel 1; kernel
     3 per 500-step block at 512^2 (the deconvolution models' TV,
     MC-TV, ME-TV) on the resident route and the launch sequence, and per
-    one-step call without statistics; kernels 6 and 7 per 200-step block at
-    2048^2 at ranks 0 and 2 of their planner and its best 512-thread
-    geometry."""
+    one-step call without statistics; kernel 4 per 500-step and kernel 5 per
+    250-step block at 512^2 on ``wavelet_plan``'s route, the route it
+    replaced and, for D4/D8, ``WAVELET_VARIANTS``; kernels 6 and 7 per
+    200-step block at 2048^2 at ranks 0 and 2 of their planner and its best
+    512-thread geometry."""
     import torch
 
     from lmc_atomi_torch.kernels.myula_cuda import myula_tv_fused_update_cuda
@@ -1932,6 +1987,8 @@ def phase_turns(dev, kernels, roots, turns=2):
                                   n_steps=1, with_stats=False, niter_solve=3, **kw)[0]
                                for _ in range(200)][-1:],
                    ("x",), turns)
+    if 4 in kernels or 5 in kernels:
+        phase_turns_wavelet(dev, kernels, roots, turns)
     n, blk = LARGE_N, LARGE_BLOCK
     if 6 in kernels or 7 in kernels:
         _, y, terms = make_large(dev, n)
@@ -1963,6 +2020,49 @@ def phase_turns(dev, kernels, roots, turns=2):
                                                       dict(gfirst=False), 8),
                    ufields, turns)
             log(f"kernel7 {mode} pick: {ulpda_tv_tiled_update_cuda.last_plan}")
+
+
+def phase_turns_wavelet(dev, kernels, roots, turns):
+    """Kernels 4 and 5 (those in ``kernels``) in alternating turns at 512^2:
+    this checkout's pick, each checkout in ``roots``, this checkout on the
+    route the pick replaced (Haar ``"tile"``, D4/D8 ``"passes"``) and, for
+    D4/D8, on ``WAVELET_VARIANTS``."""
+    import tempfile
+
+    from lmc_atomi_torch.kernels import wavelet_fused
+
+    _, l2 = make_inpainting(dev)
+    module = "lmc_atomi_torch.kernels.wavelet_fused"
+    with tempfile.TemporaryDirectory() as tmp:
+        copies = {}
+        for name, patches in WAVELET_VARIANTS:
+            copies[name] = Path(tmp) / name.replace(" ", "_")
+            patched_copy(ROOT, copies[name], patches)
+        for kern in sorted({4, 5} & set(kernels)):
+            attr = "wavelet_block_update_cuda" if kern == 4 else "ulpda_wavelet_block_update_cuda"
+            pick = getattr(wavelet_fused, attr)
+            others = [(Path(r).name, load_checkout(r, module, attr)) for r in roots]
+            edited = [(name, load_checkout(d, module, attr)) for name, d in copies.items()]
+            if kern == 4:
+                runs = [(name, taps, qs, lambda fn, taps=taps, qs=qs: _wavelet_blocks(
+                    fn, l2, BLOCK, BLOCK, 8, taps, qs)) for name, taps, qs in (
+                        ("haar", 2, ()), ("haar_ci95", 2, (0.025, 0.975)), ("d4", 4, ()),
+                        ("d8", 8, ()))]
+                fields, block = ("x", "mean", "m2", "qh", "qn"), BLOCK
+            else:
+                runs = [(f"{name} gfirst={gfirst}", taps, (),
+                         lambda fn, taps=taps, gfirst=gfirst: _ulpda_wavelet_blocks(
+                             fn, l2, BLOCK // 2, BLOCK // 2, 8, taps, gfirst))
+                        for name, taps in TAPS.items() for gfirst in (False, True)]
+                fields, block = ("x", "c", "xbar", "mean", "m2"), BLOCK // 2
+            for name, taps, _, run in runs:
+                old = "tile" if taps == 2 else "passes"
+                variants = [("pick", pick)] + others + [(old, wavelet_on(pick, old))]
+                if taps > 2:
+                    variants += edited
+                _turns(f"kernel{kern} {name} {N}^2 per {block}-step block", variants, run,
+                       fields, turns)
+                log(f"kernel{kern} {name} pick: {pick.last_plan}")
 
 
 # ``--clock``: clock64 ticks inserted into a copy of kernel 3's resident step
@@ -2017,22 +2117,29 @@ CLOCK_PHASES = ("the last grid barrier", "load x, p", "v", "correction", "sweeps
                 "first grid barrier", "dual phase")
 
 
-def clock_copy(root, dst):
-    """A copy of ``root``'s package under ``dst`` with kernel 3's resident
-    step timed phase by phase (``CLOCK_PATCHES``, thread 0 of each CTA,
-    summed over the CTAs and steps); raises if an anchor is missing."""
+def patched_copy(root, dst, patches):
+    """A copy of ``root``'s package under ``dst`` with each ``(file, anchor,
+    text[, count])`` of ``patches`` applied: the anchor, found ``count``
+    times (default once), replaced by the text; raises if it is not."""
     import shutil
 
     shutil.copytree(Path(root) / "lmc_atomi_torch", Path(dst) / "lmc_atomi_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = Path(dst) / "lmc_atomi_torch" / "csrc"
-    for name, anchor, text in CLOCK_PATCHES:
+    for name, anchor, text, *count in patches:
         src = (csrc / name).read_text()
-        if src.count(anchor) != 1:
-            raise AssertionError(f"--clock: anchor {anchor!r} found {src.count(anchor)} times "
+        if src.count(anchor) != (count[0] if count else 1):
+            raise AssertionError(f"anchor {anchor!r} found {src.count(anchor)} times "
                                  f"in {root}/{name}")
         (csrc / name).write_text(src.replace(anchor, text))
-    with open(csrc / "ulpda_block.cu", "a") as fh:
+
+
+def clock_copy(root, dst):
+    """A copy of ``root``'s package under ``dst`` with kernel 3's resident
+    step timed phase by phase (``CLOCK_PATCHES``, thread 0 of each CTA,
+    summed over the CTAs and steps); raises if an anchor is missing."""
+    patched_copy(root, dst, CLOCK_PATCHES)
+    with open(Path(dst) / "lmc_atomi_torch" / "csrc" / "ulpda_block.cu", "a") as fh:
         fh.write(CLOCK_READ)
 
 
@@ -2128,19 +2235,23 @@ def main() -> int:
                 "ulpda_tv_tiled_update_cuda": ulpda_tv_tiled_update_cuda,
                 "myula_tv_fused_update_cuda": myula_tv_fused_update_cuda}
 
-    k1, k2, k3, k8 = (prox_tv_iso_cuda, myula_tv_block_update_cuda, ulpda_block_update_cuda,
-                      myula_tv_fused_update_cuda)
+    k1, k2, k3, k4, k5, k8 = (prox_tv_iso_cuda, myula_tv_block_update_cuda,
+                              ulpda_block_update_cuda, wavelet_block_update_cuda,
+                              ulpda_wavelet_block_update_cuda, myula_tv_fused_update_cuda)
+    routed = {k: w for k, w in wrappers.items() if hasattr(w, "routes")}
+    path_routes = {k: dict.fromkeys(w.routes, 0) for k, w in routed.items()}
 
-    def drive(path, kernels, fn, *args, resident=False):
+    def drive(path, kernels, fn, *args, resident=False, wavelet=False):
         """Run one path with every count at 0 before it; its kernels must
         have launched, and with ``resident`` (the 512^2 paths) every kernel-1
         and kernel-2 call and every kernel-3 call but the wl1 dual's must
         have taken the resident route, without it (the large-image path) no
         kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
-        cone."""
+        cone; with ``wavelet`` (the inpainting path) every kernel-4 and
+        kernel-5 call the warp or the resident route."""
         for w in wrappers.values():
             w.launches = 0
-        for w in (k1, k2, k3, k8):
+        for w in routed.values():
             w.routes = dict.fromkeys(w.routes, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2148,7 +2259,8 @@ def main() -> int:
         counts = {k: w.launches for k, w in wrappers.items()}
         log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}; "
             f"kernel 1 routes {k1.routes}; kernel 2 routes {k2.routes}; kernel 3 routes "
-            f"{k3.routes}; kernel 8 routes {k8.routes}")
+            f"{k3.routes}; kernel 4 routes {k4.routes}; kernel 5 routes {k5.routes}; "
+            f"kernel 8 routes {k8.routes}")
         for k in kernels:
             if counts[k] < 1:
                 raise AssertionError(f"{k} was not launched on the {path} path")
@@ -2158,9 +2270,14 @@ def main() -> int:
         else:
             off = (k2.routes["resident"] + k3.routes["resident"] + k1.launches
                    - k1.routes["cone"] + k8.launches - k8.routes["cone"])
+        if wavelet:
+            off += sum(w.routes["tile"] + w.routes["passes"] for w in (k4, k5))
         if off:
             raise AssertionError(f"the {path} path took the routes {k1.routes}, {k2.routes}, "
-                                 f"{k3.routes}, {k8.routes}")
+                                 f"{k3.routes}, {k4.routes}, {k5.routes}, {k8.routes}")
+        for k, w in routed.items():
+            for r, v in w.routes.items():
+                path_routes[k][r] += v
         return counts
 
     t_start = time.perf_counter()
@@ -2193,7 +2310,7 @@ def main() -> int:
                                 "ulpda_block_update_cuda"),
               phase_deconv, dev, d_img, models, resident=True),
         drive("inpainting", ("wavelet_block_update_cuda", "ulpda_wavelet_block_update_cuda"),
-              phase_inpainting, dev),
+              phase_inpainting, dev, wavelet=True),
         drive("large image", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda",
                               "ulpda_block_update_cuda", "myula_tv_tiled_update_cuda",
                               "ulpda_tv_tiled_update_cuda", "myula_tv_fused_update_cuda"),
@@ -2205,7 +2322,8 @@ def main() -> int:
     phase_profile_large(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
-             launches=sum(p[k] for p in paths), **report[k])
+             launches=sum(p[k] for p in paths), **report[k],
+             **({"routes": path_routes[k]} if k in path_routes else {}))
         for k in wrappers
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

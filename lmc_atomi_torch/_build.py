@@ -84,7 +84,7 @@ _SIGNATURES = {
     "lmc_wavelet_block": (
         _P, _P, _P, _P, _P, _P, _P, _P,  # x, y, m, mean, m2, qh, qn, bufs
         _I, _I, _I, _P,  # ny, nx, taps, filt
-        _I, _I, _I, _I,  # levels, rh, rw, n_steps
+        _I, _I, _I, _I, _I,  # levels, route, gh, gw, n_steps
         _I, _I,  # with_noise, with_stats
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
@@ -93,7 +93,7 @@ _SIGNATURES = {
     "lmc_ulpda_wavelet_block": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, c, xbar, y, m, mean, m2, qh, qn
         _P, _I, _I, _I, _P,  # bufs, ny, nx, taps, filt
-        _I, _I, _I, _I, _I,  # levels, rh, rw, n_steps, gfirst
+        _I, _I, _I, _I, _I, _I,  # levels, route, gh, gw, n_steps, gfirst
         _I, _I,  # with_noise, with_stats
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0

@@ -30,14 +30,21 @@ and unfused chains draw one stream.
 
 Each dispatches by device: ``csrc/wavelet_block.cu`` for CUDA tensors, the
 ``_ref`` plain version (the same function in torch ops, term for term) for
-CPU tensors. On the card the Haar transform is tile-local (``levels``
-levels never leave an aligned ``2^levels`` square), so a Haar block of at
-most ``_TILE_LEVELS`` levels is one launch (route ``"tile"``); D4/D8, and
-Haar past ``_TILE_LEVELS`` levels, whose squares outgrow a CTA, run one
-launch per level and axis (route ``"passes"``, see the CUDA source).
+CPU tensors. On the card ``wavelet_plan`` names one of four routes (see the
+CUDA source). The Haar transform is tile-local (``levels`` levels never
+leave an aligned ``2^levels`` square), so a Haar block is one launch: up to
+``_WARP_LEVELS`` levels on sides that split into 8 x 8 squares one warp a
+square with the butterflies in registers (``"warp"``), up to
+``_TILE_LEVELS`` levels a CTA a region of whole tiles in shared memory
+(``"tile"``). D4/D8 wrap around the whole image at every level: where every
+tile of the image fits co-resident on the card, one cooperative launch a
+block with a grid barrier between passes (``"resident"``); elsewhere, and
+for Haar past ``_TILE_LEVELS`` levels, one launch per level and axis
+(``"passes"``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -48,6 +55,7 @@ from lmc_atomi_torch import _build
 from lmc_atomi_torch.core.random import normal_field
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import (
+    H100_SMS,
     FusedChainResult,
     _BlockStats,
     _align_block,
@@ -71,6 +79,7 @@ __all__ = [
     "wavelet_block_update",
     "wavelet_block_update_cuda",
     "wavelet_block_update_ref",
+    "wavelet_plan",
 ]
 
 _SQRT1_2 = 0.7071067811865476
@@ -78,6 +87,13 @@ TAPS = (2, 4, 8)
 _MAX_QUANTILES = 4  # csrc/block_common.cuh: LMC_MAXQ
 _TILE_SIDE = 32  # csrc/block_common.cuh: LMC_TILE_SIDE, the side of a CTA's region
 _TILE_LEVELS = 5  # the most Haar levels whose 2^levels square fits _TILE_SIDE
+# csrc/wavelet_block.cu: the routes in the order of its RT_* codes; a warp's
+# square (WV_SQ) and the most Haar levels it holds (WV_WARP_LEVELS); the most
+# pixels of a resident tile (WV_RS_THREADS * WV_RS_PPT)
+ROUTES = ("passes", "tile", "warp", "resident")
+_WARP_SIDE = 8
+_WARP_LEVELS = 3
+_RS_MAX_PIXELS = 512 * 8
 
 
 def _haar_pass(x, s, axis, iy, ix, roll):
@@ -229,6 +245,53 @@ def tile_region(shape, levels: int) -> Tuple[int, int]:
     return side(shape[0]), side(shape[1])
 
 
+def resident_tile(shape, levels: int, n_sm: int = H100_SMS):
+    """``(ty, tx)``, the tile of one CTA of the D4/D8 ``"resident"`` route,
+    or None where no tiling fits: sides multiples of ``2^levels`` that
+    divide the image, at most ``_RS_MAX_PIXELS`` pixels, at most ``n_sm``
+    tiles (one CTA an SM, all resident at once). Among those the least area
+    (the most CTAs), then the least perimeter, then the wider tile (rows of
+    a pass's reads coalesce). The launcher asks the occupancy API too."""
+    ny, nx = shape
+    if levels < 1:
+        return None
+    t = 1 << levels
+    best = None
+    for ty in range(t, ny + 1, t):
+        if ty * t > _RS_MAX_PIXELS:
+            break
+        for tx in range(t, nx + 1, t):
+            if ty * tx > _RS_MAX_PIXELS:
+                break
+            if ny % ty or nx % tx or (ny // ty) * (nx // tx) > n_sm:
+                continue
+            key = (ty * tx, ty + tx, -tx)
+            if best is None or key < best[0]:
+                best = (key, ty, tx)
+    return None if best is None else best[1:]
+
+
+@functools.lru_cache(maxsize=64)
+def wavelet_plan(shape, taps: int, levels: int, n_sm: int = H100_SMS):
+    """Kernels 4 and 5's route on a card of ``n_sm`` SMs: ``(l_eff, route,
+    (gh, gw))``, the applied levels, one of ``ROUTES`` and its geometry.
+    Haar: ``"warp"`` (8 x 8 squares) up to ``_WARP_LEVELS`` levels on sides
+    that are multiples of 8, else ``"tile"`` (``tile_region``) up to
+    ``_TILE_LEVELS``, else ``"passes"``. D4/D8: ``"resident"`` on
+    ``resident_tile``'s tile where one exists, else ``"passes"``. The
+    geometry of ``"passes"`` is ``(0, 0)``. Computed once per shape."""
+    ny, nx = shape
+    l_eff = dwt_levels(shape, taps, levels)
+    if taps == 2:
+        if l_eff <= _WARP_LEVELS and ny % _WARP_SIDE == 0 and nx % _WARP_SIDE == 0:
+            return l_eff, "warp", (_WARP_SIDE, _WARP_SIDE)
+        if l_eff <= _TILE_LEVELS:
+            return l_eff, "tile", tile_region(shape, l_eff)
+        return l_eff, "passes", (0, 0)
+    tile = resident_tile(shape, l_eff, n_sm)
+    return (l_eff, "resident", tile) if tile else (l_eff, "passes", (0, 0))
+
+
 def _check_args(taps, quantiles, quantile_thin):
     if taps not in TAPS:
         raise ValueError(f"taps={taps}: the kernels take {TAPS} (Haar, D4, D8)")
@@ -293,9 +356,8 @@ def _filters(taps):
 
 def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
     """Checks shared by the CUDA wrappers; returns the applied levels, the
-    route (``"tile"``: a Haar block in one launch; ``"passes"``: one launch
-    per level and axis), the CTA region of the tile route (``(0, 0)`` for the
-    passes), the step counters and the P^2 inputs."""
+    route and its geometry (``wavelet_plan`` for the card of ``x``), the step
+    counters and the P^2 inputs."""
     if x.ndim != 2 or min(x.shape) < 2:
         raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
     ny, nx = x.shape
@@ -307,11 +369,12 @@ def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
         if qh.device != x.device or qn.device != x.device:
             raise ValueError("marker state must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
-    l_eff = dwt_levels((ny, nx), taps, levels)
-    route = "tile" if taps == 2 and l_eff <= _TILE_LEVELS else "passes"
-    rh, rw = tile_region((ny, nx), l_eff) if route == "tile" else (0, 0)
+    # the H100's SMs for a CPU tensor, which only a planning test hands in
+    # (the checks above refuse it)
+    n_sm = _build.card_limits(x.device)[0] if x.is_cuda else H100_SMS
+    l_eff, route, geometry = wavelet_plan((ny, nx), int(taps), int(levels), n_sm)
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
-    return l_eff, route, (rh, rw), (step0, burn, cnt0), qcoef
+    return l_eff, route, geometry, (step0, burn, cnt0), qcoef
 
 
 def _ptr(t, used):
@@ -325,14 +388,16 @@ def wavelet_block_update_cuda(
     quantile_thin: int = 1,
 ):
     """Kernel 4 (``csrc/wavelet_block.cu``) on contiguous float32 CUDA
-    tensors. Works on copies of ``x, mean, m2, qh, qn`` and returns them;
-    raises on a CPU tensor or on shapes and options the kernel does not
-    take."""
+    tensors, on the route ``wavelet_plan`` names (counted in ``routes``, the
+    last call's ``(route, levels, gh, gw)`` in ``last_plan``). Works on
+    copies of ``x, mean, m2, qh, qn`` and returns them; raises on a CPU
+    tensor, on shapes and options the kernel does not take, or when a
+    resident grid does not fit the card."""
     _check_args(taps, quantiles, quantile_thin)
     fields = {"x": x, "y": y, "mask": mask}
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    l_eff, route, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
+    l_eff, route, (gh, gw), (step0, burn, cnt0), qcoef = _prepare(
         x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
     ny, nx = x.shape
     n_q = len(quantiles)
@@ -342,8 +407,8 @@ def wavelet_block_update_cuda(
         mean, m2 = mean.clone(), m2.clone()
     if n_q:
         qh, qn = qh.clone(), qn.clone()
-    bufs = None if route == "tile" else torch.empty((2, ny, nx), dtype=x.dtype,
-                                                    device=x.device)
+    bufs = None if route in ("warp", "tile") else torch.empty(
+        (2, ny, nx), dtype=x.dtype, device=x.device)
     coef = np.array(_myula_coefs(scal_f), np.float32)
     filt = _filters(taps)
     lib = _build.library()
@@ -353,17 +418,22 @@ def wavelet_block_update_cuda(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), _ptr(mean, with_stats),
             _ptr(m2, with_stats), _ptr(qh, n_q), _ptr(qn, n_q),
             _ptr(bufs, bufs is not None), ny, nx, taps, filt.ctypes.data,
-            l_eff, rh, rw, int(n_steps), int(bool(with_noise)),
+            l_eff, ROUTES.index(route), gh, gw, int(n_steps), int(bool(with_noise)),
             int(bool(with_stats)), qcoef.ctypes.data, n_q, int(quantile_thin),
             coef.ctypes.data, seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0,
             burn, cnt0, stream,
         )
     _build.check(rc, "lmc_wavelet_block")
     wavelet_block_update_cuda.launches += 1
+    wavelet_block_update_cuda.routes[route] += 1
+    wavelet_block_update_cuda.last_plan = (route, l_eff, gh, gw)
     return x, mean, m2, qh, qn
 
 
 wavelet_block_update_cuda.launches = 0  # calls that launched the kernel
+# calls per route, and the last call's (route, levels, gh, gw)
+wavelet_block_update_cuda.routes = dict.fromkeys(ROUTES, 0)
+wavelet_block_update_cuda.last_plan = None
 
 
 def wavelet_block_update(x, *args, **kwargs):
@@ -432,17 +502,18 @@ def ulpda_wavelet_block_update_cuda(
     quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
 ):
     """Kernel 5 (``csrc/wavelet_block.cu``) on contiguous float32 CUDA
-    tensors. Works on copies of ``x, c, xbar, mean, m2, qh, qn`` and returns
-    them (``xbar`` may be None for ``gfirst=False``, which never reads it);
-    raises on a CPU tensor or on shapes and options the kernel does not
-    take."""
+    tensors, on the route ``wavelet_plan`` names (``routes`` and
+    ``last_plan`` as kernel 4's). Works on copies of ``x, c, xbar, mean, m2,
+    qh, qn`` and returns them (``xbar`` may be None for ``gfirst=False``,
+    which never reads it); raises on a CPU tensor, on shapes and options the
+    kernel does not take, or when a resident grid does not fit the card."""
     _check_args(taps, quantiles, quantile_thin)
     fields = {"x": x, "c": c, "y": y, "mask": mask}
     if gfirst:
         fields["xbar"] = xbar
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    l_eff, route, (rh, rw), (step0, burn, cnt0), qcoef = _prepare(
+    l_eff, route, (gh, gw), (step0, burn, cnt0), qcoef = _prepare(
         x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
     ny, nx = x.shape
     n_q = len(quantiles)
@@ -453,8 +524,8 @@ def ulpda_wavelet_block_update_cuda(
         mean, m2 = mean.clone(), m2.clone()
     if n_q:
         qh, qn = qh.clone(), qn.clone()
-    bufs = None if route == "tile" else torch.empty((2, ny, nx), dtype=x.dtype,
-                                                    device=x.device)
+    bufs = None if route in ("warp", "tile") else torch.empty(
+        (2, ny, nx), dtype=x.dtype, device=x.device)
     coef = np.array(_ulpda_coefs(scal_f), np.float32)
     filt = _filters(taps)
     lib = _build.library()
@@ -464,17 +535,21 @@ def ulpda_wavelet_block_update_cuda(
             x.data_ptr(), c.data_ptr(), xbar.data_ptr(), y.data_ptr(),
             mask.data_ptr(), _ptr(mean, with_stats), _ptr(m2, with_stats),
             _ptr(qh, n_q), _ptr(qn, n_q), _ptr(bufs, bufs is not None), ny, nx,
-            taps, filt.ctypes.data, l_eff, rh, rw, int(n_steps),
+            taps, filt.ctypes.data, l_eff, ROUTES.index(route), gh, gw, int(n_steps),
             int(bool(gfirst)), int(bool(with_noise)), int(bool(with_stats)),
             qcoef.ctypes.data, n_q, int(quantile_thin), coef.ctypes.data,
             seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
         )
     _build.check(rc, "lmc_ulpda_wavelet_block")
     ulpda_wavelet_block_update_cuda.launches += 1
+    ulpda_wavelet_block_update_cuda.routes[route] += 1
+    ulpda_wavelet_block_update_cuda.last_plan = (route, l_eff, gh, gw)
     return x, c, xbar, mean, m2, qh, qn
 
 
 ulpda_wavelet_block_update_cuda.launches = 0  # calls that launched the kernel
+ulpda_wavelet_block_update_cuda.routes = dict.fromkeys(ROUTES, 0)
+ulpda_wavelet_block_update_cuda.last_plan = None
 
 
 def ulpda_wavelet_block_update(x, *args, **kwargs):

@@ -318,17 +318,22 @@ def test_tile_region_and_guards():
                                   (0, 0, 0), taps=6)
 
 
+# the first and fifth cases keep the ids of the routes they named before
+# the warp and resident routes ("tile", "passes")
 @pytest.mark.parametrize("shape, taps, levels, route, region", [
-    ((512, 512), 2, 3, "tile", (32, 32)),
+    pytest.param((512, 512), 2, 3, "warp", (8, 8), id="shape0-2-3-tile-region0"),
     ((512, 512), 2, 5, "tile", (32, 32)),
     ((512, 512), 2, 6, "passes", (0, 0)),
     ((128, 64), 2, 7, "passes", (0, 0)),
-    ((512, 512), 4, 3, "passes", (0, 0)),
+    pytest.param((512, 512), 4, 3, "resident", (32, 64), id="shape4-4-3-passes-region4"),
+    pytest.param((2048, 2048), 4, 3, "passes", (0, 0), id="shape5-4-3-passes-region5"),
 ])
 def test_prepare_routes_haar_levels(monkeypatch, shape, taps, levels, route, region):
-    """The CUDA wrappers' checks take any number of Haar levels: up to 5 the
-    block runs in tiles of one CTA, past 5 (a 2^levels square larger than a
-    CTA's 32x32 region) in one launch per level and axis, as D4/D8 do."""
+    """The CUDA wrappers' checks take any number of Haar levels: up to 3 the
+    block runs in 8x8 squares of one warp, up to 5 in tiles of one CTA, past
+    5 (a 2^levels square larger than a CTA's 32x32 region) in one launch per
+    level and axis, as D4/D8 do where their tiles do not all fit the card at
+    once (2048^2); at 512^2 D4/D8 take the resident route."""
     monkeypatch.setattr(t_wf._build, "require_cuda_f32", lambda *a, **k: None)
     z = torch.zeros(shape, dtype=torch.float32)
     l_eff, got_route, got_region, steps, _ = t_wf._prepare(
