@@ -43,6 +43,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
    resident route); then
    timed per 200-step block beside kernels 2 and 3 (kernel 6 in TV
    cold-10, FGP-8, MC-TV and ME-TV, kernel 7 in TV, MC-TV and ME-TV);
+5d. kernels 2 and 3 with a chain axis, noise on, 40 steps in blocks of 20:
+   every chain of a call against the one-chain kernel call under its chain
+   key and against the plain version, max abs error 0, at 64^2 x 8 chains
+   in every mode (kernel 2: cold-10, FGP-8, CI markers, MC-TV, ME-TV;
+   kernel 3: l21/TV, l1/MC-TV, l21/ME-TV in both orders; several chains a
+   resident launch), at 512^2 x 2 chains and at 64^2 x 200 chains (more
+   than the co-resident CTAs: resident launches in turn), each call's route
+   and chains a launch logged; then timed against the plain version, and
+   one call of 64 chains at 64^2 and of 2 at 512^2 against one-chain calls;
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
@@ -72,13 +81,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    FGP-8, 1000 steps; a ``run_resumable_fused(runner="ulpda_tiled")``
    restarted from its checkpoint; ``run_chain(myula_imaging_fused)`` against
    the unfused chain;
+9b. the multichain path: ``multichain_deblur`` at 64^2 x 64 chains, 5000
+   steps (MYULA and ULPDA, the same 64 chains one call after another
+   beside them, the pooled means equal bit for bit; pooled-mean PSNR above
+   the observation's, a finite R-hat) and at 512^2 x 4 chains (the main
+   path's posterior, pooled-mean PSNR >= 40 dB); the chain farm of
+   ``run_resumable_fused``: ``"tv"`` at 512^2 restarted from its
+   checkpoint against the straight run, ``"wavelet"`` at 512^2 and
+   ``"tiled"`` at 2048^2, 2 chains each, every chain equal to its
+   one-chain run under its chain key;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
    iteration), of the inpainting cells (a fused Haar and a D4 MYULA block, the
    unfused MYULA step) and of the large-image cell (one 200-step block at
-   2048^2 of each tiled runner and of the whole-image runner beside it), and
-   kernel 1's device time per call at 512^2 and 2048^2.
+   2048^2 of each tiled runner and of the whole-image runner beside it), of
+   one packed 500-step block at 64^2 x 64 chains, and kernel 1's device
+   time per call at 512^2 and 2048^2.
 
 With ``--turns KERNELS`` (a comma list of 1, 3, 4, 5, 6, 7, 8) the script
 runs only a measurement: the registers and spills ``ptxas`` reports for
@@ -110,9 +129,11 @@ deconvolution path every kernel-3 call but the wl1 dual's must have taken
 the resident route, on the inpainting path every kernel-4 and kernel-5
 call the warp (Haar) or the resident route (D4/D8), and on the large-image
 path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
-cone. The script then prints one JSON line describing each kernel
-(launches and route counts on the four paths, errors, times, the bound of
-the card) and, last, ``{"ok": true, "device": {...}}``.
+cone, on the multichain path every kernel-2 and kernel-3 call the resident
+route. The script then prints one JSON line describing each kernel
+(launches and route counts on the five paths, errors, times, the bound of
+the card; for kernels 2 and 3 also the chain axis's plan, error and times)
+and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -275,10 +296,12 @@ def bound_kernel1(npix: int, niter: int):
 
 
 def bound_kernel2(npix, n_steps, taps, niter_tv, tv_solver="chambolle",
-                  mode="tv", niter_inner=0, n_q=0, with_noise=True, with_stats=True):
-    """One block call of n_steps MYULA steps; x, atbs, mean, m2 (and the
-    8 n_q marker planes) read once, x, mean, m2 (and the markers) written
-    once; without statistics x and atbs read, x written."""
+                  mode="tv", niter_inner=0, n_q=0, with_noise=True, with_stats=True,
+                  n_chains=1):
+    """One block call of n_steps MYULA steps of n_chains chains; each chain's
+    x, mean, m2 (and the 8 n_q marker planes) read once and written once and
+    the shared atbs read once; without statistics x and atbs read, x
+    written."""
     per = f_gram(taps) + 2 + niter_tv * F_TRIP[tv_solver] + F_PROX_FINISH + 5
     per += (F_WELFORD if with_stats else 0) + (F_NOISE if with_noise else 0) + 60 * n_q
     if mode == "mctv":
@@ -286,7 +309,8 @@ def bound_kernel2(npix, n_steps, taps, niter_tv, tv_solver="chambolle",
     elif mode == "metv":
         per += niter_inner * F_TRIP[tv_solver] + F_PROX_FINISH + 3
     fields = (4 + 3 + 16 * n_q) if with_stats else 3
-    return bound_ms(npix * n_steps * per, 4 * npix * fields)
+    return bound_ms(n_chains * npix * n_steps * per,
+                    4 * npix * (n_chains * (fields - 1) + 1))
 
 
 def f_dwt(taps: int, levels: int) -> float:
@@ -300,10 +324,11 @@ def f_dwt(taps: int, levels: int) -> float:
 
 def bound_kernel3(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
                   niter_inner=0, tv_solver="chambolle", gfirst=False,
-                  with_noise=True, levels=WL1_LEVELS):
-    """One block call of n_steps ULPDA steps; x, py, px, atb, mean, m2 (and
-    xbar with gfirst) read once, x, py, px, xbar, mean, m2 written once (no
-    px for the wl1 dual)."""
+                  with_noise=True, levels=WL1_LEVELS, n_chains=1):
+    """One block call of n_steps ULPDA steps of n_chains chains; each chain's
+    x, py, px, mean, m2 (and xbar with gfirst) read once and x, py, px,
+    xbar, mean, m2 written once (no px for the wl1 dual), the shared atb
+    read once."""
     per = 8 + niter_solve * (f_gram(taps) + 7) + 4 + F_WELFORD
     per += F_NOISE if with_noise else 0
     per += {"l21": 15, "l1": 10}.get(dual, 0)
@@ -314,7 +339,8 @@ def bound_kernel3(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
     elif mode == "metv":
         per += niter_inner * F_TRIP[tv_solver] + F_PROX_FINISH + 3
     fields = 6 + gfirst + 6 - 2 * (dual == "wl1")
-    return bound_ms(npix * n_steps * per, 4 * npix * fields)
+    return bound_ms(n_chains * npix * n_steps * per,
+                    4 * npix * (n_chains * (fields - 1) + 1))
 
 
 def bound_kernel4(npix, n_steps, taps, levels, n_q=0, with_noise=True):
@@ -498,7 +524,9 @@ def compare(label, got, want, names, exact=False):
 def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
     """run_myula_tv_fused's block loop, with the block update passed in (the
     kernel or its plain version) so both run on the card; also
-    run_myula_tv_tiled's, ``cfg`` then holding ``band`` and ``halo``."""
+    run_myula_tv_tiled's, ``cfg`` then holding ``band`` and ``halo``. An int
+    ``seed`` keys chain 0; a chain axis (``x0`` of shape ``(C, ny, nx)``)
+    takes its ``C`` keys."""
     import torch
 
     from lmc_atomi_torch.kernels.myula_fused import (
@@ -519,7 +547,8 @@ def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
     for b in range(n_steps // block):
         step0 = b * block
         x, mean, m2, qh, qn = update(
-            x, atbs, mean, m2, (seed, 0), scal_f, (step0, burn, max(step0 - burn, 0)),
+            x, atbs, mean, m2, (seed, 0) if isinstance(seed, int) else seed, scal_f,
+            (step0, burn, max(step0 - burn, 0)),
             qh, qn, taps=taps, oy=oy, ox=ox, n_steps=block, mode=mode,
             niter_inner=niter_inner, **cfg)
     return x, mean, m2, qh, qn
@@ -635,7 +664,7 @@ def _ulpda_scalars(proxf, proxg, a_op=None):
 def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed,
                       a_op=None):
     """run_ulpda_fused's block loop with the block update passed in (the dual
-    of ``a_op``, default Gradient2D)."""
+    of ``a_op``, default Gradient2D); ``seed`` as ``_run_blocks``'."""
     import torch
 
     atb, scal_f, kw = _ulpda_scalars(proxf, proxg, a_op)
@@ -648,7 +677,8 @@ def _run_ulpda_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed,
     for b in range(n_steps // block):
         step0 = b * block
         x, py, px, xbar, mean, m2 = update(
-            x, py, px, xbar, atb, mean, m2, (seed, 0), scal_f, (step0, 5, max(step0 - 5, 0)),
+            x, py, px, xbar, atb, mean, m2, (seed, 0) if isinstance(seed, int) else seed,
+            scal_f, (step0, 5, max(step0 - 5, 0)),
             n_steps=block, **kw, **cfg)
     return x, py, px, xbar, mean, m2
 
@@ -1592,6 +1622,325 @@ def phase_large(dev):
          lambda s, n=HUGE_STEPS: run_myula_tv_fused(l2, TV_WEIGHT, tau, gamma, x0, s, n, **hkw))
 
 
+# --- multi-chain sampling: kernels 2 and 3 with a chain axis ----------------
+MC_N, MC_CHAINS = 64, 8  # the chain-axis checks: 8 chains a call at 64^2
+MC_BIG = 2  # chains at 512^2
+MC_MANY = 200  # chains past the co-resident CTAs at 64^2: two resident launches
+MC_MANY_PICK = (0, 1, 131, 132, MC_MANY - 1)  # its chains held to the solo calls
+MC_TIMED_STEPS = 100  # the chain-axis call timed against its plain version
+MC_UQ = dict(size=64, n_chains=64, n_steps=5000, burn_in=500)
+MC_UQ_BIG = dict(size=N, n_chains=4, n_steps=5000, burn_in=2000)
+MC_FARM_CHAINS, MC_FARM_STEPS, MC_TILED_STEPS = 2, 1000, 400
+# kernel 2 with a chain axis: (data term, options)
+K2_CHAIN_RUNS = {
+    "cold10": ("tv", dict(niter_tv=10)),
+    "fgp8": ("tv", dict(niter_tv=8, tv_solver="fgp")),
+    "cold10_ci95": ("tv", dict(niter_tv=10, quantiles=(0.025, 0.975), burn_in=10)),
+    "mctv_cold10": ("mctv", dict(niter_tv=10)),
+    "metv_cold10": ("metv", dict(niter_tv=10)),
+}
+# kernel 3 with a chain axis: (data term, gfirst); l21 duals but MC-TV's l1
+K3_CHAIN_RUNS = [(m, g) for m in ("tv", "mctv", "metv") for g in (False, True)]
+
+
+def _chain_starts(y, n_chains):
+    """Distinct starts of ``n_chains`` chains: the observation, shifted."""
+    import torch
+
+    return torch.stack([y + 4.0 * c for c in range(n_chains)]).contiguous()
+
+
+def _ulpda_terms(terms, mode):
+    from lmc_atomi_torch.ops.functionals import L1Norm, L21Norm
+
+    return terms[mode], (L1Norm if mode == "mctv" else L21Norm)(sigma=TV_WEIGHT)
+
+
+def _hold_chains(label, kern, plain, run, x0, keys, picks, fields):
+    """Chain axis against its parts: the kernel's call on every chain of
+    ``x0`` under ``keys`` (routes counted), and for each chain in ``picks``
+    the kernel's and the plain version's one-chain calls under its key,
+    each at max abs error 0. Returns the worst error, the routes and the
+    plan."""
+    got, routes = routes_of(lambda: run(kern, x0, keys), kern)
+    plan = kern.last_plan
+    worst = 0.0
+    for c in picks:
+        mine = [None if g is None else g[c] for g in got]
+        for side, fn in (("solo", kern), ("plain", plain)):
+            want = run(fn, x0[c].contiguous(), keys[c])
+            err, _ = compare(f"{label} chain {c} vs {side}", mine, want, fields, exact=True)
+            worst = max(worst, err)
+    return worst, routes, plan
+
+
+def phase_chain_kernels(dev, report):
+    """Kernels 2 and 3 with a chain axis, noise on: every chain of a call
+    against the kernel's one-chain call under its chain key and against the
+    plain version, max abs error 0, at 64^2 x 8 chains in every mode (a
+    plan with several chains a resident launch), 512^2 x 2 and 64^2 x 200
+    (more chains than co-resident CTAs: the launches take the chains in
+    groups); then timed against the plain version and, per chain, against
+    one-chain calls."""
+    import torch
+
+    from lmc_atomi_torch.core.random import chain_keys
+    from lmc_atomi_torch.kernels.myula_fused import (
+        _fused_mode,
+        _fused_params,
+        myula_tv_block_update_cuda,
+        myula_tv_block_update_ref,
+    )
+    from lmc_atomi_torch.kernels.ulpda_fused import (
+        ulpda_block_update_cuda,
+        ulpda_block_update_ref,
+    )
+
+    k2, k3 = myula_tv_block_update_cuda, ulpda_block_update_cuda
+    f2, f3 = ("x", "mean", "m2", "qh", "qn"), ("x", "py", "px", "xbar", "mean", "m2")
+    cases = [(MC_N, MC_CHAINS, None), (N, MC_BIG, None), (MC_N, MC_MANY, MC_MANY_PICK)]
+    worst2 = worst3 = 0.0
+    plans2, plans3 = [], []
+    for n, n_chains, picks in cases:
+        _, y, terms = make_large(dev, n)
+        x0 = _chain_starts(y, n_chains)
+        keys = chain_keys((11, 0), n_chains)
+        picks = range(n_chains) if picks is None else picks
+        runs2 = K2_CHAIN_RUNS if n_chains == MC_CHAINS else {
+            k: K2_CHAIN_RUNS[k] for k in (("cold10", "fgp8") if n == N else ("cold10",))}
+        for name, (mode, cfg) in runs2.items():
+            def run(fn, x, k, data=terms[mode], cfg=cfg):
+                return _run_blocks(fn, data, x, CHECK_STEPS, CHECK_BLOCK, cfg, k)
+            err, routes, plan = _hold_chains(f"kernel 2 {name} {n}^2 x {n_chains}", k2,
+                                             myula_tv_block_update_ref, run, x0, keys,
+                                             picks, f2)
+            worst2 = max(worst2, err)
+            plans2.append((plan, n_chains))
+            log(f"kernel2 chain axis {name} {n}^2 x {n_chains} chains, {CHECK_STEPS} steps, "
+                f"noise on: routes {routes} plan {plan} (route, ty, tx, h, chains a launch); "
+                f"chains {list(picks) if len(picks) < n_chains else 'all'} equal their solo "
+                f"calls and the plain version (max_abs_err {err})")
+            if routes["sequence"]:
+                raise AssertionError(f"kernel 2 {name} {n}^2 x {n_chains} took the sequence")
+        runs3 = K3_CHAIN_RUNS if n_chains == MC_CHAINS else [("tv", False)]
+        for mode, gfirst in runs3:
+            proxf, proxg = _ulpda_terms(terms, mode)
+            cfg = dict(gfirst=gfirst, niter_solve=3)
+
+            def run(fn, x, k, proxf=proxf, proxg=proxg, cfg=cfg):
+                return _run_ulpda_blocks(fn, proxf, proxg, x, CHECK_STEPS, CHECK_BLOCK, cfg, k)
+            err, routes, plan = _hold_chains(f"kernel 3 {mode} gfirst={gfirst} {n}^2", k3,
+                                             ulpda_block_update_ref, run, x0, keys, picks, f3)
+            worst3 = max(worst3, err)
+            plans3.append((plan, n_chains))
+            log(f"kernel3 chain axis {mode} gfirst={gfirst} {n}^2 x {n_chains} chains, "
+                f"{CHECK_STEPS} steps, noise on: routes {routes} plan {plan}; chains "
+                f"{list(picks) if len(picks) < n_chains else 'all'} equal their solo calls "
+                f"and the plain version (max_abs_err {err})")
+            if routes["sequence"]:
+                raise AssertionError(f"kernel 3 {mode} {n}^2 x {n_chains} took the sequence")
+    for k, plans in (("2", plans2), ("3", plans3)):
+        if not (any(p[4] > 1 for p, _ in plans) and any(p[4] < c for p, c in plans)):
+            raise AssertionError(f"kernel {k}: no plan with several chains a launch, or "
+                                 f"none with launches in turn: {plans}")
+
+    # timed: the chain-axis call against its plain version (cold-10 and TV,
+    # 64^2 x 8 chains); then per chain against one-chain calls, at 64^2 x
+    # 64 chains and 512^2 x 2 chains, 500 steps a call
+    _, y, terms = make_large(dev, MC_N)
+    x0 = _chain_starts(y, MC_CHAINS)
+    keys = chain_keys((12, 0), MC_CHAINS)
+    l2, cfg = terms["tv"], dict(niter_tv=10)
+    mode, _, _, niter_inner = _fused_mode(l2)
+    k_ms, _ = cuda_ms(lambda: _run_blocks(k2, l2, x0, MC_TIMED_STEPS, MC_TIMED_STEPS, cfg,
+                                          keys), 5)
+    plan = k2.last_plan
+    p_ms, _ = cuda_ms(lambda: _run_blocks(myula_tv_block_update_ref, l2, x0, MC_TIMED_STEPS,
+                                          MC_TIMED_STEPS, cfg, keys))
+    b_ms, b_by = bound_kernel2(MC_N * MC_N, MC_TIMED_STEPS, _fused_params(l2)[0], 10,
+                               n_chains=MC_CHAINS)
+    chain2 = dict(shape=[MC_CHAINS, MC_N, MC_N], steps=MC_TIMED_STEPS, plan=list(plan),
+                  max_abs_err=worst2, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel2 chain axis cold10 {MC_CHAINS} x {MC_N}^2, {MC_TIMED_STEPS} steps on {plan}: "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{k_ms / b_ms:.1f}x the bound")
+    proxf, proxg = _ulpda_terms(terms, "tv")
+    cfg3 = dict(gfirst=False, niter_solve=3)
+    k_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(k3, proxf, proxg, x0, MC_TIMED_STEPS,
+                                                MC_TIMED_STEPS, cfg3, keys), 5)
+    plan = k3.last_plan
+    p_ms, _ = cuda_ms(lambda: _run_ulpda_blocks(ulpda_block_update_ref, proxf, proxg, x0,
+                                                MC_TIMED_STEPS, MC_TIMED_STEPS, cfg3, keys))
+    b_ms, b_by = bound_kernel3(MC_N * MC_N, MC_TIMED_STEPS, _fused_params(proxf)[0], 3,
+                               n_chains=MC_CHAINS)
+    chain3 = dict(shape=[MC_CHAINS, MC_N, MC_N], steps=MC_TIMED_STEPS, plan=list(plan),
+                  max_abs_err=worst3, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel3 chain axis tv {MC_CHAINS} x {MC_N}^2, {MC_TIMED_STEPS} steps on {plan}: "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{k_ms / b_ms:.1f}x the bound")
+    for n, n_chains in ((MC_N, MC_UQ["n_chains"]), (N, MC_BIG)):
+        _, y, terms = make_large(dev, n)
+        x0 = _chain_starts(y, n_chains)
+        keys = chain_keys((13, 0), n_chains)
+        proxf, proxg = _ulpda_terms(terms, "tv")
+        for k, run in ((k2, lambda x, key: _run_blocks(k2, terms["tv"], x, BLOCK, BLOCK,
+                                                       dict(niter_tv=10), key)),
+                       (k3, lambda x, key: _run_ulpda_blocks(k3, proxf, proxg, x, BLOCK, BLOCK,
+                                                             cfg3, key))):
+            packed, _ = cuda_ms(lambda: run(x0, keys), 2)
+            plan = k.last_plan
+            solo, _ = cuda_ms(lambda: [run(x0[c], keys[c]) for c in range(n_chains)], 2)
+            name = "kernel2 cold10" if k is k2 else "kernel3 tv"
+            log(f"{name} {n}^2 x {n_chains} chains, {BLOCK} steps: one call on {plan} "
+                f"{packed:.3f} ms ({BLOCK * n_chains / packed * 1e3:.1f} chain-steps/s), "
+                f"{n_chains} one-chain calls on {k.last_plan} {solo:.3f} ms "
+                f"({BLOCK * n_chains / solo * 1e3:.1f} chain-steps/s): {solo / packed:.2f}x")
+            (chain2 if k is k2 else chain3)[f"block_{n}x{n_chains}"] = dict(
+                packed_ms=packed, solo_ms=solo, steps=BLOCK)
+    report["myula_tv_block_update_cuda"]["chain_axis"] = chain2
+    report["ulpda_block_update_cuda"]["chain_axis"] = chain3
+
+
+def phase_multichain(dev):
+    """The multichain path: ``multichain_deblur`` at 64^2 x 64 chains (MYULA
+    and ULPDA, against the same chains run one call after another) and at
+    512^2 x 4 chains, with the pooled-mean PSNR gates; and the chain farm of
+    ``run_resumable_fused``: ``"tv"`` at 512^2 through a checkpoint against
+    the straight run and each chain against its one-chain run, ``"wavelet"``
+    at 512^2 and ``"tiled"`` at 2048^2 each chain against its one-chain
+    run."""
+    import tempfile
+
+    import torch
+
+    from lmc_atomi_torch.core.random import chain_keys
+    from lmc_atomi_torch.core.stats import RunningMoments
+    from lmc_atomi_torch.experiments.multichain import multichain_deblur
+    from lmc_atomi_torch.kernels.myula_fused import run_myula_tv_fused
+    from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused
+    from lmc_atomi_torch.ops.functionals import L21Norm
+    from lmc_atomi_torch.ops.linops import Gradient2D
+    from lmc_atomi_torch.parallel.mesh import merge_chain_moments
+    from lmc_atomi_torch.run.longrun import run_resumable_fused
+
+    def uq(**kw):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            pooled, rhat, rep = multichain_deblur(device=str(dev), **kw)
+        log(f"multichain {kw.get('kernel', 'myula')} {rep['size']}^2 x {rep['n_chains']} "
+            f"chains, {rep['steps']} steps ({time.perf_counter() - t0:.1f} s in all): "
+            f"aggregate {rep['aggregate_iters_per_sec']} iters/s, per chain "
+            f"{rep['per_chain_iters_per_sec']} iters/s, psnr_pooled_mean="
+            f"{rep['psnr_pooled_mean']:.4f} psnr_observed={rep['psnr_observed']:.4f} "
+            f"rhat_max={rep['rhat_max']:.5f} rhat_mean={rep['rhat_mean']:.5f}")
+        if not (rep["psnr_pooled_mean"] > rep["psnr_observed"]
+                and math.isfinite(rep["rhat_max"])):
+            raise AssertionError(f"multichain {kw}: {rep}")
+        return pooled, rhat, rep
+
+    # (c) 64^2 x 64 chains in one kernel call, and the same chains one call
+    # after another: the same pooled mean, bit for bit
+    size, n_chains, steps, burn = (MC_UQ[k] for k in ("size", "n_chains", "n_steps", "burn_in"))
+    img, y, terms = make_large(dev, size)
+    keys = chain_keys(chain_keys((0, 1), 1)[0], n_chains)
+    x0 = torch.zeros((size, size), device=dev)
+    proxf, proxg = _ulpda_terms(terms, "tv")
+    noise = 1.0 if dev.type == "cuda" else 0.0  # as multichain_deblur's
+    for kernel in ("myula", "ulpda"):
+        pooled, _, rep = uq(kernel=kernel, **MC_UQ)
+
+        def solo(key, n=steps):
+            if kernel == "ulpda":
+                return run_ulpda_fused(proxf, proxg, Gradient2D(), 0.95 * SIGMA_NOISE**2, 1.0,
+                                       x0, key, n, burn_in=burn, noise_scale=noise).moments
+            return run_myula_tv_fused(terms["tv"], TV_WEIGHT, 0.2 * SIGMA_NOISE**2,
+                                      SIGMA_NOISE**2, x0, key, n, burn_in=burn,
+                                      noise_scale=noise).moments
+        solo((0, 9), 256)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moms = [solo(k) for k in keys]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        one_by_one = merge_chain_moments(RunningMoments(
+            count=torch.tensor([m.count for m in moms]), mean=torch.stack([m.mean for m in moms]),
+            m2=torch.stack([m.m2 for m in moms])))
+        same = torch.equal(one_by_one.mean, pooled.mean)
+        log(f"multichain {kernel} {size}^2: the same {n_chains} chains one "
+            f"run_{'ulpda' if kernel == 'ulpda' else 'myula_tv'}_fused call after another: "
+            f"aggregate {steps * n_chains / dt:.1f} iters/s ({dt:.3f} s); the packed calls "
+            f"{rep['aggregate_iters_per_sec'] / (steps * n_chains / dt):.2f}x; pooled means "
+            f"equal bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"multichain {kernel}: packed and one-by-one chains differ")
+    # (d) the main path's posterior at full width
+    _, _, rep = uq(**MC_UQ_BIG)
+    if rep["psnr_pooled_mean"] < PSNR_FLOOR:
+        raise AssertionError(f"multichain {N}^2: psnr {rep['psnr_pooled_mean']} < {PSNR_FLOOR}")
+
+    # (e) the chain farm
+    def farm(label, args, total, seg, kw, resume=False):
+        x0 = args[4]
+        straight = run_resumable_fused(*args, total, seg, **kw)
+        note = ""
+        if resume:
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = str(Path(tmp) / "farm.ckpt")
+                run_resumable_fused(*args, total - seg, seg, ckpt_path=ckpt, **kw)
+                resumed = run_resumable_fused(*args, total, seg, ckpt_path=ckpt, **kw)
+            if not (torch.equal(resumed["position"], straight["position"])
+                    and torch.equal(resumed["moments"].mean, straight["moments"].mean)):
+                raise AssertionError(f"farm {label}: the resumed run differs")
+            note = "; restarted from its checkpoint: equal to the straight run"
+        ks = chain_keys(args[5], x0.shape[0])
+        for c in range(x0.shape[0]):
+            one = run_resumable_fused(*args[:4], x0[c], ks[c], total, seg, **kw)
+            if not (torch.equal(one["position"], straight["position"][c])
+                    and torch.equal(one["moments"].mean, straight["moments"].mean[c])):
+                raise AssertionError(f"farm {label}: chain {c} differs from its solo run")
+        if not bool(torch.isfinite(straight["moments"].mean).all()):
+            raise AssertionError(f"farm {label}: non-finite mean")
+        log(f"farm {label}: {x0.shape[0]} chains x {total} steps in segments of {seg}, "
+            f"counts {straight['moments'].count.tolist()}; each chain equals its solo "
+            f"run_resumable_fused under its chain key{note}")
+
+    _, y, terms = make_large(dev, N)
+    l2 = terms["tv"]
+    gamma = SIGMA_NOISE**2
+    x0 = torch.stack([y] * MC_FARM_CHAINS)
+    farm(f"tv {N}^2", (l2, TV_WEIGHT, 0.2 * gamma, gamma, x0, (21, 0)), MC_FARM_STEPS,
+         MC_FARM_STEPS // 2, dict(runner="tv", burn_in=200, quantiles=(0.025, 0.975)),
+         resume=True)
+    _, l2w = make_inpainting(dev)
+    x0 = torch.stack([l2w.b] * MC_FARM_CHAINS)
+    farm(f"wavelet {N}^2", (l2w, INP_TAU_W, 0.2 * INP_GAMMA, INP_GAMMA, x0, (22, 0)),
+         MC_FARM_STEPS, MC_FARM_STEPS // 2, dict(runner="wavelet", burn_in=200,
+                                                 levels=INP_LEVELS))
+    _, y, terms = make_large(dev, LARGE_N)
+    x0 = torch.stack([y] * MC_FARM_CHAINS)
+    farm(f"tiled {LARGE_N}^2", (terms["tv"], TV_WEIGHT, 0.2 * gamma, gamma, x0, (23, 0)),
+         MC_TILED_STEPS, MC_TILED_STEPS // 2, dict(runner="tiled", burn_in=100,
+                                                   tv_solver="fgp", niter_tv=8))
+
+
+def phase_profile_multichain(dev):
+    """Where the time goes in one packed 500-step block at 64^2 x 64 chains
+    (kernel 2's chain axis)."""
+    import torch
+
+    from lmc_atomi_torch.core.random import chain_keys
+    from lmc_atomi_torch.kernels.myula_fused import run_myula_tv_fused_packed
+
+    _, y, terms = make_large(dev, MC_N)
+    n_chains = MC_UQ["n_chains"]
+    x0 = torch.zeros((n_chains, MC_N, MC_N), device=dev)
+    gamma = SIGMA_NOISE**2
+    profile_window(f"run_myula_tv_fused_packed cold10 {n_chains} x {MC_N}^2 {BLOCK} steps",
+                   lambda: run_myula_tv_fused_packed(terms["tv"], TV_WEIGHT, 0.2 * gamma,
+                                                     gamma, x0, (3, 0), BLOCK, block=BLOCK))
+
+
 def profile_window(label, fn):
     """torch.profiler over one call of ``fn`` (after a warm-up call): the
     wall time, the share of it the card was busy (the sum of kernel times
@@ -2301,6 +2650,7 @@ def main() -> int:
     phase_kernel3(dev, y, models, report)
     phase_kernel45(dev, report)
     phase_kernel678(dev, report)
+    phase_chain_kernels(dev, report)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     paths = [
@@ -2315,11 +2665,15 @@ def main() -> int:
                               "ulpda_block_update_cuda", "myula_tv_tiled_update_cuda",
                               "ulpda_tv_tiled_update_cuda", "myula_tv_fused_update_cuda"),
               phase_large, dev),
+        drive("multichain", ("myula_tv_block_update_cuda", "ulpda_block_update_cuda",
+                             "wavelet_block_update_cuda", "myula_tv_tiled_update_cuda"),
+              phase_multichain, dev, resident=True, wavelet=True),
     ]
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)
     phase_profile_inpainting(dev)
     phase_profile_large(dev)
+    phase_profile_multichain(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=sum(p[k] for p in paths), **report[k],

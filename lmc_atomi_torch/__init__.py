@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``lmc_atomi_tpu`` for the NVIDIA H100.
 
 The subpackages mirror the JAX package (``core``, ``ops``, ``kernels``,
-``run``, ``eval``, ``utils``, ``experiments``) with the same module and
+``run``, ``eval``, ``parallel``, ``utils``, ``experiments``) with the same module and
 function names. Plain tensor code is PyTorch; the TPU kernels ported so far
 (the TV prox, the fused MYULA and ULPDA blocks, and the fused wavelet
 MYULA and wavelet-dual ULPDA blocks) are

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "lmc_myula_block": (
         _P, _P, _P, _P, _P, _P, _P,  # x, parity, atbs, mean, m2, qh, qn
         _P, _P, _P, _P, _P,  # grad, tmp, duals, aux, plan
-        _I, _I,  # ny, nx
+        _I, _I, _I, _P,  # ny, nx, n_chains, chains
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _F, _I, _P,  # n_steps, niter_tv, tv_step, fgp, fgp_coef
         _I, _I, _I,  # tv_warm, mode, niter_inner
@@ -70,7 +70,7 @@ _SIGNATURES = {
     "lmc_ulpda_block": (
         _P, _P, _P, _P, _P, _P, _P, _P,  # x, parity, py, px, xbar, atb, mean, m2
         _P, _P, _P, _P, _P, _P, _P,  # v, rhs, u, d, gu, tmp, aux
-        _I, _I,  # ny, nx
+        _I, _I, _I, _P,  # ny, nx, n_chains, chains
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _P,  # n_steps, niter_solve, cheb
         _I, _I, _I, _I, _I,  # gfirst, dual, levels, rh, rw
@@ -78,7 +78,7 @@ _SIGNATURES = {
         _F, _I, _P, _I,  # tv_step, fgp, fgp_coef, env_warm
         _I, _I, _P,  # with_noise, with_stats, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
-        _I, _I, _P,  # ty, tx, ub (the resident route)
+        _I, _I, _I, _P,  # ty, tx, per, ub (the resident route)
         _P,  # stream
     ),
     "lmc_wavelet_block": (

@@ -16,6 +16,10 @@ step) on the counter ``(0, step, 1, 0)``: its third word is 1 where every
 counterpart of ``jax.random.split`` of the step key in
 ``lmc_atomi_tpu/kernels/langevin.py::mala``).
 
+Chains of one run take the keys ``chain_keys(key, n)``: ``(seed, chain_i)``
+with ``chain_i`` a pure function of ``(seed, chain, i)``, distinct for
+distinct ``i`` (the counterpart of ``fold_in(base, i)``).
+
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``; the 32x32-bit
 products are split into 16-bit halves so that no partial product overflows.
 """
@@ -25,11 +29,12 @@ import math
 
 import torch
 
-__all__ = ["philox4x32_10", "normal_field", "uniform_scalar"]
+__all__ = ["philox4x32_10", "normal_field", "uniform_scalar", "chain_keys"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK = 0xFFFFFFFF
+_CHAIN_TAG = 0x43484E53  # chain_keys' counter word 3; every noise counter has 0
 
 
 def _mulhilo(m: int, a):
@@ -79,3 +84,34 @@ def uniform_scalar(seed: int, chain: int, step: int, dtype, device):
     w0, _, _, _ = philox4x32_10((zero, zero + (int(step) & _MASK), zero + 1, zero),
                                 (int(seed), int(chain)))
     return (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+
+
+def _fmix32(h: int) -> int:
+    """MurmurHash3's 32-bit finaliser, a bijection of ``[0, 2^32)``."""
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _MASK
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _MASK
+    return h ^ (h >> 16)
+
+
+def chain_keys(key, n_chains: int):
+    """``n_chains`` keys ``(seed, chain_i)`` of independent chains of one
+    run: ``key`` is a seed or ``(seed, chain)``, and
+
+        (w0, w1, _, _) = philox4x32_10((chain, 0, 0, 0x43484E53), (seed, 0))
+        chain_i = fmix32((w0 + i) mod 2^32) xor w1
+
+    with ``fmix32`` MurmurHash3's finaliser. Chain ``i`` then draws its
+    noise under ``(seed, chain_i)``. ``chain_i`` is a pure function of
+    ``(seed, chain, i)``; ``fmix32`` and the xor are bijections, so the words
+    are distinct for distinct ``i < 2^32``, and the tag in counter word 3
+    keeps this draw off every noise counter (whose word 3 is 0). The
+    counterpart of the JAX package's ``fold_in(base, i)``; its streams differ
+    from threefry's by design."""
+    if isinstance(key, (tuple, list)):
+        seed, chain = (int(v) for v in key)
+    else:
+        seed, chain = int(key), 0
+    w0, w1, _, _ = philox4x32_10((chain & _MASK, 0, 0, _CHAIN_TAG), (seed, 0))
+    return [(seed, _fmix32((w0 + i) & _MASK) ^ w1) for i in range(int(n_chains))]

@@ -279,13 +279,16 @@ __device__ __forceinline__ float lmc_haar_point(const float* __restrict__ in,
   return r == 0 ? (v + w) * LMC_SQRT1_2 : (w - v) * LMC_SQRT1_2;
 }
 
-// tmp[r, i, j] = sum_b wx_r[b] x[i, (j - b + ox) mod nx]
+// tmp[r, i, j] = sum_b wx_r[b] x[i, (j - b + ox) mod nx] (each grid layer a
+// chain, tmp plane-major: lmc_chain_at)
 __global__ void blk_rowconv(const float* __restrict__ x, float* __restrict__ tmp,
                             int ny, int nx, Taps t) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
-  const float* row = x + (size_t)i * nx;
+  const float* row = lmc_chain_at(x, ny, nx) + (size_t)i * nx;
+  tmp = lmc_chain_at(tmp, ny, nx);
+  const size_t plane = (size_t)gridDim.z * ny * nx;
   for (int r = 0; r < t.rank; ++r) {
     float acc = 0.0f;
     bool first = true;
@@ -296,13 +299,13 @@ __global__ void blk_rowconv(const float* __restrict__ x, float* __restrict__ tmp
       acc = first ? term : acc + term;
       first = false;
     }
-    tmp[(size_t)r * ny * nx + (size_t)i * nx + j] = acc;
+    tmp[(size_t)r * plane + (size_t)i * nx + j] = acc;
   }
 }
 
 // out[i, j] = sum_r sum_a wy_r[a] tmp[r, (i - a + oy) mod ny, j], written as
 // sigma * out - atbs[i, j] (the MYULA data gradient) or, with a null atbs,
-// as A^T A x itself (the ULPDA gram apply).
+// as A^T A x itself (the ULPDA gram apply); the chains share atbs.
 __global__ void blk_colconv(const float* __restrict__ tmp,
                             const float* __restrict__ atbs,
                             float* __restrict__ out, int ny, int nx, Taps t,
@@ -310,9 +313,11 @@ __global__ void blk_colconv(const float* __restrict__ tmp,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
+  tmp = lmc_chain_at(tmp, ny, nx);
+  out = lmc_chain_at(out, ny, nx);
   float sum = 0.0f;
   for (int r = 0; r < t.rank; ++r) {
-    const float* plane = tmp + (size_t)r * ny * nx;
+    const float* plane = tmp + (size_t)r * gridDim.z * ny * nx;
     float acc = 0.0f;
     bool first = true;
     for (int a = 0; a < t.ky; ++a) {
@@ -337,7 +342,9 @@ __global__ void blk_chambolle_trip(const float* __restrict__ x,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
-  lmc_chambolle_point(x, py, px, qy, qx, inv_gamma, step, i, j, ny, nx);
+  lmc_chambolle_point(lmc_chain_at(x, ny, nx), lmc_chain_at(py, ny, nx),
+                      lmc_chain_at(px, ny, nx), lmc_chain_at(qy, ny, nx),
+                      lmc_chain_at(qx, ny, nx), inv_gamma, step, i, j, ny, nx);
 }
 
 // One FGP trip (myula_fused.py::_tv_prox_fgp): q = proj(r + s grad u(r)),
@@ -351,6 +358,15 @@ __global__ void blk_fgp_trip(const float* __restrict__ x, const float* ry,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
+  x = lmc_chain_at(x, ny, nx);
+  ry = lmc_chain_at(ry, ny, nx);
+  rx = lmc_chain_at(rx, ny, nx);
+  py = lmc_chain_at(py, ny, nx);
+  px = lmc_chain_at(px, ny, nx);
+  qy = lmc_chain_at(qy, ny, nx);
+  qx = lmc_chain_at(qx, ny, nx);
+  sy = lmc_chain_at(sy, ny, nx);
+  sx = lmc_chain_at(sx, ny, nx);
   float gy, gx;
   lmc_grad_u(x, ry, rx, inv_gamma, i, j, ny, nx, &gy, &gx);
   const int k = i * nx + j;
@@ -375,6 +391,9 @@ __global__ void blk_mctv_clamp(const float* __restrict__ f,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
+  f = lmc_chain_at(f, ny, nx);
+  cy = lmc_chain_at(cy, ny, nx);
+  cx = lmc_chain_at(cx, ny, nx);
   const int k = i * nx + j;
   const float gy = (i < ny - 1) ? f[k + nx] - f[k] : 0.0f;
   const float gx = (j < nx - 1) ? f[k + 1] - f[k] : 0.0f;
@@ -404,13 +423,14 @@ static inline DualBufs lmc_dual_bufs(float* base, size_t npix) {
 
 // niter dual trips of the TV prox of f at 1/gamma = inv_gamma, Chambolle at
 // step tv_step or FGP at step 1/8 with momentum fgp_coef, starting from the
-// dual P[pin] (pin = -1: the zero field). Returns the index into P of the
-// final dual (-1 when niter is 0 and the start was the zero field).
+// dual P[pin] (pin = -1: the zero field), for nc chains (one grid layer
+// each; b's planes carved at nc ny nx floats). Returns the index into P of
+// the final dual (-1 when niter is 0 and the start was the zero field).
 static inline int lmc_tv_trips(const float* f, const DualBufs& b, int pin,
                                int niter, bool fgp, float tv_step,
                                const float* fgp_coef, float inv_gamma,
-                               int ny, int nx, cudaStream_t s) {
-  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
+                               int ny, int nx, cudaStream_t s, int nc = 1) {
+  const dim3 grid = lmc_grid(ny, nx, nc), block = lmc_block();
   const float* py = pin >= 0 ? b.P[pin][0] : nullptr;
   const float* px = pin >= 0 ? b.P[pin][1] : nullptr;
   if (fgp) {

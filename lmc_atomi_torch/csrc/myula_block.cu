@@ -45,6 +45,14 @@
 // Each launch is bound by device-memory bytes and launch latency: a cold-10
 // step is 13 launches. At 2048^2 it is the whole-image yardstick of kernel 6.
 //
+// Chains: a call runs n_chains chains of one posterior (multichain sampling,
+// kernels/myula_fused.py::run_myula_tv_fused_packed), each with its own x,
+// moments, markers and Philox chain word, all sharing atbs. The launch
+// sequence takes them as a grid axis (blockIdx.z, lmc_chain_at); the
+// resident route runs them in groups of G (rs_geometry: the launches in turn
+// times the tile area is least), one cooperative launch a group, grid layer
+// z of a launch a chain. At 64^2, 64 chains fill 128 SMs in one launch.
+//
 // Both routes take every pixel through the same float operations in the same
 // order, so they equal the plain version bit for bit (chip_smoke.py checks it).
 #include <cooperative_groups.h>
@@ -58,13 +66,17 @@ struct UpdateParams {
   float lamda, gamma_mc, c_env;  // nonconvex modes: lamda, gamma, lamda/gamma
   float w, inv_denom;
   int mode, with_noise, with_stats, n_q, c_prev;
+  int q_all;  // the quantiles a chain's markers hold (n_q is 0 off a record)
   uint32_t seed, chain, step;
+  const uint32_t* chains;  // device, a word per chain; null: chain
   float qcoef[LMC_MAXQ][3];
 };
 
 // (c): the nonconvex correction of the data gradient, prox, MYULA update,
 // noise, Welford and P^2, in place on x/mean/m2/qh/qn. (ay, ax) is the MC-TV
 // clamped gradient of x (mode mctv) or the ME-TV envelope dual (mode metv).
+// Grid layer z is chain z (lmc_chain_at); its markers lie at z (5 + 3) q_all
+// planes, chain-major as the caller holds them.
 __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad,
                            const float* __restrict__ py,
                            const float* __restrict__ px,
@@ -78,6 +90,19 @@ __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
   const size_t npix = (size_t)ny * nx;
+  x = lmc_chain_at(x, ny, nx);
+  grad = lmc_chain_at(grad, ny, nx);
+  py = lmc_chain_at(py, ny, nx);
+  px = lmc_chain_at(px, ny, nx);
+  ay = lmc_chain_at(ay, ny, nx);
+  ax = lmc_chain_at(ax, ny, nx);
+  mean = lmc_chain_at(mean, ny, nx);
+  m2 = lmc_chain_at(m2, ny, nx);
+  if (u.n_q) {
+    qh += (size_t)blockIdx.z * 5 * u.q_all * npix;
+    qn += (size_t)blockIdx.z * 3 * u.q_all * npix;
+  }
+  const uint32_t chain = u.chains ? u.chains[blockIdx.z] : u.chain;
   const float xv = x[k];
   float g = grad[k];
   if (u.mode == MODE_MCTV) {
@@ -91,7 +116,7 @@ __global__ void blk_update(float* __restrict__ x, const float* __restrict__ grad
   const float prox = xv - u.tv_gamma * lmc_div(py, px, i, j, ny, nx);
   float xn = u.c_keep * xv - u.c_grad * g + u.c_prox * prox;
   if (u.with_noise) {
-    xn = xn + u.noise_amp * lmc_normal(u.seed, u.chain, (uint32_t)k, u.step);
+    xn = xn + u.noise_amp * lmc_normal(u.seed, chain, (uint32_t)k, u.step);
   }
   x[k] = xn;
   if (u.with_stats) {
@@ -145,12 +170,16 @@ static inline size_t rs_smem_bytes(int ty, int tx, int h, int fgp) {
 // the ME-TV envelope dual through ev[0..3] the same way ((y, x) planes of
 // parity 0, then 1), from zeros at the first step. The x, dual and marker
 // buffers are read after other CTAs wrote them in this launch, so they are
-// not __restrict__ (no read-only cache).
+// not __restrict__ (no read-only cache). Grid layer z runs chain z of the
+// launch: its x, mean, m2 lie z ny nx floats past the pointers, its markers
+// z (5 + 3) n_q planes (chain-major), its duals z 8 planes (chain-major,
+// 8 planes a chain), its noise under chains[z] (null: sc.chain); the
+// chains share atbs, and one grid barrier steps them together.
 __global__ void __launch_bounds__(RS_THREADS, 1)
 rs_myula_block(float* x0, float* x1, const float* __restrict__ atbs,
                float* __restrict__ mean, float* __restrict__ m2, float* qh,
-               float* qn, float* dv, float* ev, int ny, int nx,
-               ResidentParams p, Sched sc) {
+               float* qn, float* dv, float* ev, const uint32_t* chains,
+               int ny, int nx, ResidentParams p, Sched sc) {
   namespace cg = cooperative_groups;
   extern __shared__ float sm[];
   __shared__ float fgp_coef[LMC_MAXTRIP];
@@ -167,6 +196,21 @@ rs_myula_block(float* x0, float* x1, const float* __restrict__ atbs,
   float* MU = A + ni;
   float* M2 = MU + ni;
   const TileGeo t = lmc_tile_geo((int*)(M2 + ni), ny, nx, p.ty, p.tx, p.h);
+  const size_t npix = (size_t)ny * nx;
+  const size_t z = blockIdx.z;
+  x0 += z * npix;
+  x1 += z * npix;
+  if (sc.with_stats) {
+    mean += z * npix;
+    m2 += z * npix;
+  }
+  if (sc.n_q) {
+    qh += z * 5 * sc.n_q * npix;
+    qn += z * 3 * sc.n_q * npix;
+  }
+  if (dv) dv += z * 8 * npix;
+  if (ev) ev += z * 8 * npix;
+  const uint32_t chain = chains ? chains[z] : sc.chain;
   for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x)
     fgp_coef[i] = p.fgp_coef[i];
   for (int li = threadIdx.x; li < ni; li += blockDim.x) {
@@ -180,7 +224,6 @@ rs_myula_block(float* x0, float* x1, const float* __restrict__ atbs,
     }
   }
   __syncthreads();
-  const size_t npix = (size_t)ny * nx;
   const bool warm_env = p.tv_warm && p.mode == MODE_METV;
   cg::grid_group grid = cg::this_grid();
 
@@ -248,8 +291,7 @@ rs_myula_block(float* x0, float* x1, const float* __restrict__ atbs,
       const float prox = xv - p.tv_gamma * lmc_tile_div(PY, PX, lt, r, c, t);
       float xn = p.c_keep * xv - p.c_grad * G[lt] + p.c_prox * prox;
       if (sc.with_noise) {
-        xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
-                                           (uint32_t)g);
+        xn = xn + p.noise_amp * lmc_normal(sc.seed, chain, (uint32_t)k, (uint32_t)g);
       }
       dst[k] = xn;
       if (dout != nullptr) {
@@ -274,14 +316,16 @@ rs_myula_block(float* x0, float* x1, const float* __restrict__ atbs,
 
 // The resident route's geometry (for at most LMC_MAXTRIP trips of either
 // prox and at least one step): the halo h (kernel 6's), and the interior
-// T_y x T_x (multiples of 8) with the least tile area (T_y + 2h)(T_x + 2h)
-// whose tiles number at most n_sm and whose shared memory (with the static
-// fgp_coef) fits smem_optin; the first such in (T_y, T_x) order. Returns
-// false when none fits.
+// T_y x T_x (multiples of 8) whose tiles number at most n_sm and whose shared
+// memory (with the static fgp_coef) fits smem_optin, with G = min(n_chains,
+// n_sm / tiles) chains a launch, that costs the least: launches in turn
+// (ceil(n_chains / G)) x tile area (T_y + 2h)(T_x + 2h), the work of the
+// busiest CTA (one chain: the least tile area); the first such in (T_y, T_x)
+// order. Returns false when none fits.
 static bool rs_geometry(int ny, int nx, const Taps& tp, int niter_tv,
-                        int fgp, int mode, int niter_inner, int n_sm,
-                        size_t smem_optin, int* ty, int* tx, int* h,
-                        size_t* smem) {
+                        int fgp, int mode, int niter_inner, int n_chains,
+                        int n_sm, size_t smem_optin, int* ty, int* tx, int* h,
+                        int* g, size_t* smem) {
   int hh = niter_tv + 1;
   hh = hh > lmc_taps_reach_y(tp) ? hh : lmc_taps_reach_y(tp);
   hh = hh > lmc_taps_reach_x(tp) ? hh : lmc_taps_reach_x(tp);
@@ -293,11 +337,14 @@ static bool rs_geometry(int ny, int nx, const Taps& tp, int niter_tv,
       const long long count = (long long)((ny + a - 1) / a) * ((nx + b - 1) / b);
       const size_t bytes = rs_smem_bytes(a, b, hh, fgp);
       if (count > n_sm || bytes + sizeof(float) * LMC_MAXTRIP > smem_optin) continue;
-      const long long area = (long long)(a + 2 * hh) * (b + 2 * hh);
-      if (best < 0 || area < best) {
-        best = area;
+      const long long per = n_sm / count < n_chains ? n_sm / count : n_chains;
+      const long long cost =
+          (n_chains + per - 1) / per * (long long)(a + 2 * hh) * (b + 2 * hh);
+      if (best < 0 || cost < best) {
+        best = cost;
         *ty = a;
         *tx = b;
+        *g = (int)per;
         *smem = bytes;
       }
     }
@@ -307,10 +354,11 @@ static bool rs_geometry(int ny, int nx, const Taps& tp, int niter_tv,
 }
 
 // The route choice and, where the tiles fit co-resident on the card, the
-// resident launch; plan[0] stays 0 for the launch sequence. Returns a
-// cudaError_t.
+// resident launches, one a group of G chains in turn; plan[0] stays 0 for
+// the launch sequence. Returns a cudaError_t.
 static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
                      float* m2, float* qh, float* qn, float* duals, float* aux,
+                     const uint32_t* chains, int n_chains,
                      int* plan, int ny, int nx, const Taps& tp, int n_steps,
                      int niter_tv, float tv_step, int fgp,
                      const float* fgp_coef, int tv_warm, int mode,
@@ -332,8 +380,9 @@ static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
   if (e != cudaSuccess) return (int)e;
   ResidentParams p;
   size_t smem = 0;
-  if (!coop || !rs_geometry(ny, nx, tp, niter_tv, fgp, mode, niter_inner, n_sm,
-                            (size_t)optin, &p.ty, &p.tx, &p.h, &smem))
+  int per = 1;
+  if (!coop || !rs_geometry(ny, nx, tp, niter_tv, fgp, mode, niter_inner, n_chains,
+                            n_sm, (size_t)optin, &p.ty, &p.tx, &p.h, &per, &smem))
     return 0;
   e = cudaFuncSetAttribute(rs_myula_block,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -342,8 +391,8 @@ static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_myula_block,
                                                       RS_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((nx + p.tx - 1) / p.tx, (ny + p.ty - 1) / p.ty);
-  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y) return 0;
+  const dim3 grid((nx + p.tx - 1) / p.tx, (ny + p.ty - 1) / p.ty, per);
+  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y * grid.z) return 0;
 
   p.taps = tp;
   p.ry = lmc_taps_reach_y(tp);
@@ -385,28 +434,50 @@ static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
   // the warm duals' parity buffers: (y, x) of parity 0, then 1
   float* dv = tv_warm ? duals : nullptr;
   float* ev = tv_warm && mode == MODE_METV ? aux : nullptr;
-  void* args[] = {&x, &parity, (void*)&atbs, &mean, &m2, &qh, &qn, &dv, &ev,
-                  &ny, &nx, &p, &sc};
-  e = cudaLaunchCooperativeKernel((const void*)rs_myula_block, grid,
-                                  dim3(RS_THREADS), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
+  const size_t npix = (size_t)ny * nx;
+  for (int c0 = 0; c0 < n_chains; c0 += per) {
+    // the group's first chain: each pointer offset as the kernel offsets z
+    float* gx = x + c0 * npix;
+    float* gpar = parity + c0 * npix;
+    float* gmean = with_stats ? mean + c0 * npix : nullptr;
+    float* gm2 = with_stats ? m2 + c0 * npix : nullptr;
+    float* gqh = n_q ? qh + c0 * 5 * n_q * npix : nullptr;
+    float* gqn = n_q ? qn + c0 * 3 * n_q * npix : nullptr;
+    float* gdv = dv ? dv + c0 * 8 * npix : nullptr;
+    float* gev = ev ? ev + c0 * 8 * npix : nullptr;
+    const uint32_t* gch = chains ? chains + c0 : nullptr;
+    dim3 gg = grid;
+    gg.z = n_chains - c0 < per ? n_chains - c0 : per;
+    void* args[] = {&gx, &gpar, (void*)&atbs, &gmean, &gm2, &gqh, &gqn, &gdv, &gev,
+                    (void*)&gch, &ny, &nx, &p, &sc};
+    e = cudaLaunchCooperativeKernel((const void*)rs_myula_block, gg,
+                                    dim3(RS_THREADS), args, smem, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   plan[0] = 1;
   plan[1] = p.ty;
   plan[2] = p.tx;
   plan[3] = p.h;
+  plan[4] = per;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One call runs n_steps MYULA steps on x, mean, m2, qh, qn (float32,
-// row-major, contiguous, on the current device), in place but for x: the
-// final x is in x after the launch sequence, and after the resident route in
-// x when n_steps is even, in parity when it is odd.
-//   parity: (ny, nx) scratch; grad: (ny, nx) scratch; tmp: (rank, ny, nx)
-//   scratch; duals: (8, ny, nx) for the TV prox; aux: (8, ny, nx) for the
-//   ME-TV envelope prox, or (2, ny, nx) for the MC-TV clamped gradient (null
-//   in mode tv).
+// One call runs n_steps MYULA steps of n_chains chains of one posterior on
+// x, mean, m2 (n_chains, ny, nx), qh (n_chains, 5 n_q, ny, nx), qn
+// (n_chains, 3 n_q, ny, nx) (float32, row-major, contiguous, on the current
+// device), in place but for x: the final x is in x after the launch
+// sequence, and after the resident route in x when n_steps is even, in
+// parity when it is odd. The chains share atbs (ny, nx); chain c draws its
+// noise under (seed, chains[c]) (device, n_chains words), or (seed, chain)
+// when chains is null (one chain).
+//   parity, grad: (n_chains, ny, nx) scratch; tmp: (rank, n_chains, ny, nx)
+//   scratch; duals: (8 n_chains, ny, nx) for the TV prox; aux: the same for
+//   the ME-TV envelope prox, or (2 n_chains, ny, nx) for the MC-TV clamped
+//   gradient (null in mode tv). The launch sequence holds the scratch
+//   plane-major (plane p of chain c at (p n_chains + c) ny nx), the resident
+//   route the duals and aux chain-major (c 8 + p).
 //   taps: host, rank * (ky + kx) floats, for each rank wy then wx.
 //   coef: host, 10 floats [1 - tau/gamma, tau, tau/gamma,
 //         noise_scale * sqrt(2 tau), sigma, tv_gamma, lamda, gamma_mc,
@@ -417,14 +488,15 @@ static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
 // The envelope prox runs niter_inner trips of the same solver as the TV
 // prox; with tv_warm both duals carry across the steps of this call and
 // start from zeros at each call, as on the TPU.
-// plan: out, 4 ints: the route (1 resident, 0 the launch sequence) and the
-// resident tile's T_y, T_x and h (0 for the sequence).
+// plan: out, 5 ints: the route (1 resident, 0 the launch sequence), the
+// resident tile's T_y, T_x and h, and the chains G a resident launch
+// carries (0 for the sequence, whose launches carry every chain).
 // Returns the cudaError_t of the launches (0 on success), or -1 on arguments
 // outside the supported range.
 extern "C" int lmc_myula_block(
     float* x, float* parity, const float* atbs, float* mean, float* m2,
     float* qh, float* qn, float* grad, float* tmp, float* duals, float* aux,
-    int* plan, int ny, int nx,
+    int* plan, int ny, int nx, int n_chains, const unsigned int* chains,
     const float* taps, int rank, int ky, int kx, int oy, int ox, int n_steps,
     int niter_tv, float tv_step, int fgp, const float* fgp_coef, int tv_warm,
     int mode, int niter_inner, int with_noise, int with_stats,
@@ -434,17 +506,20 @@ extern "C" int lmc_myula_block(
   Taps t;
   if (!lmc_taps(&t, taps, rank, ky, kx, oy, ox) || n_q < 0 || n_q > LMC_MAXQ ||
       thin < 1 || ny < 2 || nx < 2 || mode < MODE_TV || mode > MODE_METV ||
-      (mode != MODE_TV && aux == nullptr))
+      (mode != MODE_TV && aux == nullptr) || n_chains < 1 || n_chains > 65535 ||
+      (n_chains > 1 && chains == nullptr))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  plan[0] = plan[1] = plan[2] = plan[3] = 0;
-  int e = rs_launch(x, parity, atbs, mean, m2, qh, qn, duals, aux, plan, ny,
-                    nx, t, n_steps, niter_tv, tv_step, fgp, fgp_coef, tv_warm,
-                    mode, niter_inner, with_noise, with_stats, qcoef, n_q, thin,
-                    coef, seed, chain, step0, burn, cnt0, s);
+  plan[0] = plan[1] = plan[2] = plan[3] = plan[4] = 0;
+  int e = rs_launch(x, parity, atbs, mean, m2, qh, qn, duals, aux, chains,
+                    n_chains, plan, ny, nx, t, n_steps, niter_tv, tv_step, fgp,
+                    fgp_coef, tv_warm, mode, niter_inner, with_noise, with_stats,
+                    qcoef, n_q, thin, coef, seed, chain, step0, burn, cnt0, s);
   if (e != 0 || plan[0]) return e;
-  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
+  const dim3 grid = lmc_grid(ny, nx, n_chains), block = lmc_block();
   const size_t npix = (size_t)ny * nx;
+  // a plane of the plane-major scratch: every chain's copy of it
+  const size_t plane = npix * n_chains;
 
   UpdateParams u;
   u.c_keep = coef[0];
@@ -460,6 +535,8 @@ extern "C" int lmc_myula_block(
   u.with_stats = with_stats;
   u.seed = seed;
   u.chain = chain;
+  u.chains = chains;
+  u.q_all = n_q;
   for (int jq = 0; jq < n_q; ++jq)
     for (int m = 0; m < 3; ++m) u.qcoef[jq][m] = qcoef[3 * jq + m];
   const float sigma = coef[4];
@@ -469,8 +546,8 @@ extern "C" int lmc_myula_block(
   const float inv_gamma_mc = 1.0f / coef[7];
   const float clamp_mc = coef[8];
 
-  const DualBufs tvb = lmc_dual_bufs(duals, npix);
-  const DualBufs envb = lmc_dual_bufs(aux, npix);
+  const DualBufs tvb = lmc_dual_bufs(duals, plane);
+  const DualBufs envb = lmc_dual_bufs(aux, plane);
   int cur = -1;      // index into tvb.P of the carried TV dual; -1 is zero
   int cur_env = -1;  // the same for the envelope dual
 
@@ -482,18 +559,19 @@ extern "C" int lmc_myula_block(
     const float* ay = nullptr;
     const float* ax = nullptr;
     if (mode == MODE_MCTV) {
-      blk_mctv_clamp<<<grid, block, 0, s>>>(x, aux, aux + npix, ny, nx,
+      blk_mctv_clamp<<<grid, block, 0, s>>>(x, aux, aux + plane, ny, nx,
                                             clamp_mc);
       ay = aux;
-      ax = aux + npix;
+      ax = aux + plane;
     } else if (mode == MODE_METV) {
       cur_env = lmc_tv_trips(x, envb, tv_warm ? cur_env : -1, niter_inner,
-                             fgp, tv_step, fgp_coef, inv_gamma_mc, ny, nx, s);
+                             fgp, tv_step, fgp_coef, inv_gamma_mc, ny, nx, s,
+                             n_chains);
       ay = lmc_dual_y(envb, cur_env);
       ax = lmc_dual_x(envb, cur_env);
     }
     cur = lmc_tv_trips(x, tvb, tv_warm ? cur : -1, niter_tv, fgp, tv_step,
-                       fgp_coef, inv_tv_gamma, ny, nx, s);
+                       fgp_coef, inv_tv_gamma, ny, nx, s, n_chains);
 
     // weighted Welford count: cnt0 + steps of this call at or past burn-in
     const bool w = g >= burn;

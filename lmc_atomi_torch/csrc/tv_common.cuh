@@ -25,8 +25,21 @@
 
 static inline dim3 lmc_block() { return dim3(LMC_BX, LMC_BY); }
 
-static inline dim3 lmc_grid(int ny, int nx) {
-  return dim3((nx + LMC_BX - 1) / LMC_BX, (ny + LMC_BY - 1) / LMC_BY);
+// One thread per pixel; with nc > 1 one grid layer per chain (blockIdx.z,
+// see lmc_chain_at).
+static inline dim3 lmc_grid(int ny, int nx, int nc = 1) {
+  return dim3((nx + LMC_BX - 1) / LMC_BX, (ny + LMC_BY - 1) / LMC_BY, nc);
+}
+
+// The chain axis of the one-thread-per-pixel launches: grid layer blockIdx.z
+// runs chain z, whose field lies z ny nx floats past the chain-0 pointer p
+// (the planes of a multi-plane scratch field are gridDim.z ny nx apart:
+// plane-major); a null p (the zero dual) stays null. A field the chains
+// share (atbs) takes no offset. One layer (gridDim.z = 1) is the plain
+// single-chain launch.
+template <typename T>
+static __device__ __forceinline__ T* lmc_chain_at(T* p, int ny, int nx) {
+  return p ? p + (size_t)blockIdx.z * ny * nx : p;
 }
 
 // Divergence of p = (py, px) at (i, j): the negative adjoint of the forward

@@ -65,6 +65,11 @@
 // latency (a TV step with 3 sweeps is 12 launches of a few us). At 2048^2 it
 // is the whole-image yardstick of kernel 7.
 //
+// Chains: with a Gradient2D dual a call runs n_chains chains of one
+// posterior (kernels/ulpda_fused.py::run_ulpda_fused_packed) as kernel 2
+// does: a grid axis over the chains on the launch sequence, groups of G
+// chains (ulpda_resident_plan) a cooperative launch on the resident route.
+//
 // Both routes take every pixel through the same float operations in the same
 // order, so they equal the plain version bit for bit (chip_smoke.py checks it).
 #include <cooperative_groups.h>
@@ -86,6 +91,11 @@ __global__ void ul_primal_in(const float* __restrict__ x,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  x = lmc_chain_at(x, ny, nx);
+  py = lmc_chain_at(py, ny, nx);
+  px = lmc_chain_at(px, ny, nx);
+  v = lmc_chain_at(v, ny, nx);
+  rhs = lmc_chain_at(rhs, ny, nx);
   const float aty = -lmc_div(py, px, i, j, ny, nx);
   const float vv = x[k] - tau * aty;
   if (rhs) {
@@ -106,6 +116,10 @@ __global__ void ul_mctv_rhs(const float* __restrict__ v,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  v = lmc_chain_at(v, ny, nx);
+  cy = lmc_chain_at(cy, ny, nx);
+  cx = lmc_chain_at(cx, ny, nx);
+  rhs = lmc_chain_at(rhs, ny, nx);
   const float vv = v[k] - c * lmc_div(cy, cx, i, j, ny, nx);
   rhs[k] = vv + ts * atb[k];
 }
@@ -122,6 +136,10 @@ __global__ void ul_metv_rhs(const float* __restrict__ v,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  v = lmc_chain_at(v, ny, nx);
+  ey = lmc_chain_at(ey, ny, nx);
+  ex = lmc_chain_at(ex, ny, nx);
+  rhs = lmc_chain_at(rhs, ny, nx);
   const float vk = v[k];
   const float p = vk - gamma * lmc_div(ey, ex, i, j, ny, nx);
   const float vv = vk + c * (vk - p);
@@ -140,6 +158,11 @@ __global__ void ul_cheb_sweep(const float* u_in, const float* __restrict__ gu,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  u_in = lmc_chain_at(u_in, ny, nx);
+  gu = lmc_chain_at(gu, ny, nx);
+  rhs = lmc_chain_at(rhs, ny, nx);
+  d = lmc_chain_at(d, ny, nx);
+  u_out = lmc_chain_at(u_out, ny, nx);
   const float uk = u_in[k];
   const float r = rhs[k] - (uk + ts * gu[k]);
   const float dk = first ? r * c_r : c_d * d[k] + c_r * r;
@@ -151,6 +174,7 @@ struct FinishParams {
   float noise_amp, theta, w, inv_denom;
   int with_noise, with_stats;
   uint32_t seed, chain, step;
+  const uint32_t* chains;  // device, a word per chain; null: chain
 };
 
 // (4): x' = u + noise, xbar = x' + theta (x' - x), Welford; in place on x
@@ -163,10 +187,16 @@ __global__ void ul_finish(float* x, const float* u,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  x = lmc_chain_at(x, ny, nx);
+  u = lmc_chain_at(u, ny, nx);
+  xbar = lmc_chain_at(xbar, ny, nx);
+  mean = lmc_chain_at(mean, ny, nx);
+  m2 = lmc_chain_at(m2, ny, nx);
   const float xo = x[k];
   float xn = u[k];
   if (f.with_noise) {
-    xn = xn + f.noise_amp * lmc_normal(f.seed, f.chain, (uint32_t)k, f.step);
+    const uint32_t chain = f.chains ? f.chains[blockIdx.z] : f.chain;
+    xn = xn + f.noise_amp * lmc_normal(f.seed, chain, (uint32_t)k, f.step);
   }
   x[k] = xn;
   xbar[k] = xn + f.theta * (xn - xo);
@@ -188,6 +218,9 @@ __global__ void ul_dual(const float* __restrict__ xbar, float* __restrict__ py,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  xbar = lmc_chain_at(xbar, ny, nx);
+  py = lmc_chain_at(py, ny, nx);
+  px = lmc_chain_at(px, ny, nx);
   const float gy = (i < ny - 1) ? xbar[k + nx] - xbar[k] : 0.0f;
   const float gx = (j < nx - 1) ? xbar[k + 1] - xbar[k] : 0.0f;
   lmc_project_dual(py[k] + mu * gy, px[k] + mu * gx, g_sigma, l21, &py[k],
@@ -313,13 +346,17 @@ static inline size_t ul_rs_smem(int ty, int tx, int h, int fields) {
 // 0, then 1), from zeros at the first step; u after sweep k through
 // ub[k % 2] ((ny, nx) planes), a grid barrier after each but the last. Fields
 // other CTAs write in this launch are read at L2 (__ldcg) and are not
-// __restrict__.
+// __restrict__. Grid layer z runs chain z of the launch: its x, dual, xbar,
+// mean and m2 lie z ny nx floats past the pointers, its envelope duals z 8
+// planes and its u planes z 2 planes (chain-major), its noise under
+// chains[z] (null: sc.chain); the chains share atb, and the grid barriers
+// step them together.
 __global__ void __launch_bounds__(UL_RS_THREADS, 1)
 ul_resident_block(float* x0, float* x1, float* py, float* px, float* xbar,
                   const float* __restrict__ atb, float* __restrict__ mean,
-                  float* __restrict__ m2, float* ev, float* ub, int ny,
-                  int nx, int n_steps, int gfirst, int env_warm, UlpdaTile p,
-                  Sched sc) {
+                  float* __restrict__ m2, float* ev, float* ub,
+                  const uint32_t* chains, int ny, int nx, int n_steps,
+                  int gfirst, int env_warm, UlpdaTile p, Sched sc) {
   namespace cg = cooperative_groups;
   extern __shared__ float sm[];
   __shared__ float fgp_coef[LMC_MAXTRIP];
@@ -336,6 +373,20 @@ ul_resident_block(float* x0, float* x1, float* py, float* px, float* xbar,
   float* MU = sm + ul_rs_fields(p.mode, p.fgp) * n;
   float* M2 = MU + ni;
   const TileGeo t = lmc_tile_geo((int*)(M2 + ni), ny, nx, p.ty, p.tx, p.h);
+  const size_t npix = (size_t)ny * nx;
+  const size_t z = blockIdx.z;
+  x0 += z * npix;
+  x1 += z * npix;
+  py += z * npix;
+  px += z * npix;
+  xbar += z * npix;
+  if (sc.with_stats) {
+    mean += z * npix;
+    m2 += z * npix;
+  }
+  if (ev) ev += z * 8 * npix;
+  ub += z * 2 * npix;
+  const uint32_t chain = chains ? chains[z] : sc.chain;
   for (int i = threadIdx.x; i < LMC_MAXTRIP; i += blockDim.x) {
     fgp_coef[i] = p.fgp_coef[i];
     cheb[i][0] = p.cheb[i][0];
@@ -351,7 +402,6 @@ ul_resident_block(float* x0, float* x1, float* py, float* px, float* xbar,
     }
   }
   __syncthreads();
-  const size_t npix = (size_t)ny * nx;
   cg::grid_group grid = cg::this_grid();
   // y <- proj(y + mu G xbar) on the interior (ul_dual)
   auto dual_phase = [&]() {
@@ -405,8 +455,7 @@ ul_resident_block(float* x0, float* x1, float* py, float* px, float* xbar,
       const float xo = __ldcg(src + k);
       float xn = X[lt];
       if (sc.with_noise) {
-        xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
-                                           (uint32_t)g);
+        xn = xn + p.noise_amp * lmc_normal(sc.seed, chain, (uint32_t)k, (uint32_t)g);
       }
       dst[k] = xn;
       xbar[k] = xn + p.theta * (xn - xo);
@@ -429,13 +478,15 @@ ul_resident_block(float* x0, float* x1, float* py, float* px, float* xbar,
   }
 }
 
-// The resident launch on interiors ty x tx (the caller's plan). Returns a
-// cudaError_t, or -1 when the tile does not fit the card's shared memory or
-// the tiles are not all resident at once.
+// The resident launches on interiors ty x tx, per chains a launch (the
+// caller's plan), one a group of chains in turn. Returns a cudaError_t, or
+// -1 when the tile does not fit the card's shared memory or the tiles of a
+// launch are not all resident at once.
 static int ul_resident_launch(float* x, float* parity, float* py, float* px,
                               float* xbar, const float* atb, float* mean,
-                              float* m2, float* aux, float* ub, int ny, int nx,
-                              UlpdaTile& p, int n_steps, int gfirst,
+                              float* m2, float* aux, float* ub,
+                              const uint32_t* chains, int n_chains, int per,
+                              int ny, int nx, UlpdaTile& p, int n_steps, int gfirst,
                               int env_warm, int with_noise, int with_stats,
                               unsigned int seed, unsigned int chain,
                               long long step0, long long burn, long long cnt0,
@@ -458,8 +509,8 @@ static int ul_resident_launch(float* x, float* parity, float* py, float* px,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ul_resident_block,
                                                       UL_RS_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((nx + p.tx - 1) / p.tx, (ny + p.ty - 1) / p.ty);
-  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y) return -1;
+  const dim3 grid((nx + p.tx - 1) / p.tx, (ny + p.ty - 1) / p.ty, per);
+  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y * grid.z) return -1;
   Sched sc;
   sc.step0 = step0;
   sc.burn = burn;
@@ -472,18 +523,38 @@ static int ul_resident_launch(float* x, float* parity, float* py, float* px,
   sc.chain = chain;
   float* ev = env_warm && p.mode == MODE_METV ? aux : nullptr;
   int warm = ev != nullptr;
-  void* args[] = {&x, &parity, &py, &px, &xbar, (void*)&atb, &mean, &m2, &ev,
-                  &ub, &ny, &nx, &n_steps, &gfirst, &warm, &p, &sc};
-  e = cudaLaunchCooperativeKernel((const void*)ul_resident_block, grid,
-                                  dim3(UL_RS_THREADS), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
+  const size_t npix = (size_t)ny * nx;
+  for (int c0 = 0; c0 < n_chains; c0 += per) {
+    // the group's first chain: each pointer offset as the kernel offsets z
+    float* gx = x + c0 * npix;
+    float* gpar = parity + c0 * npix;
+    float* gpy = py + c0 * npix;
+    float* gpx = px + c0 * npix;
+    float* gxb = xbar + c0 * npix;
+    float* gmean = with_stats ? mean + c0 * npix : nullptr;
+    float* gm2 = with_stats ? m2 + c0 * npix : nullptr;
+    float* gev = ev ? ev + c0 * 8 * npix : nullptr;
+    float* gub = ub + c0 * 2 * npix;
+    const uint32_t* gch = chains ? chains + c0 : nullptr;
+    dim3 gg = grid;
+    gg.z = n_chains - c0 < per ? n_chains - c0 : per;
+    void* args[] = {&gx, &gpar, &gpy, &gpx, &gxb, (void*)&atb, &gmean, &gm2, &gev,
+                    &gub, (void*)&gch, &ny, &nx, &n_steps, &gfirst, &warm, &p, &sc};
+    e = cudaLaunchCooperativeKernel((const void*)ul_resident_block, gg,
+                                    dim3(UL_RS_THREADS), args, smem, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One call runs n_steps ULPDA steps in place on x, py, px, xbar, mean, m2
-// (float32, row-major, contiguous, on the current device).
+// One call runs n_steps ULPDA steps of n_chains chains of one posterior in
+// place on x, py, px, xbar, mean, m2, each (n_chains, ny, nx) (float32,
+// row-major, contiguous, on the current device). The chains share atb
+// (ny, nx); chain c draws its noise under (seed, chains[c]) (device,
+// n_chains words), or (seed, chain) when chains is null (one chain). The
+// wl1 dual takes one chain.
 //   dual: 0 l1, 1 l21 (the Gradient2D dual (py, px)), 2 wl1 (py the
 //   interleaved Haar coefficient dual of levels levels, px unused; each CTA
 //   of its launches owns an rh x rw region of whole tiles, or, with
@@ -491,9 +562,11 @@ static int ul_resident_launch(float* x, float* parity, float* py, float* px,
 //   ping-pong buffers).
 //   atb: A^T b (unscaled). With gfirst = 0 the incoming xbar is never read;
 //   the outgoing one is the genuine x' + theta (x' - x) in both orders.
-//   scratch, each (ny, nx): v, rhs, u, d, gu; tmp: (rank, ny, nx);
-//   aux: (8, ny, nx) in mode metv (envelope duals), (2, ny, nx) in mode mctv
-//   (the clamped gradient), null in mode tv.
+//   scratch, each (n_chains, ny, nx): v, rhs, u, d, gu; tmp: (rank,
+//   n_chains, ny, nx); aux: (8 n_chains, ny, nx) in mode metv (envelope
+//   duals), (2 n_chains, ny, nx) in mode mctv (the clamped gradient), null
+//   in mode tv. The launch sequence holds the multi-plane scratch
+//   plane-major (plane p of chain c at (p n_chains + c) ny nx).
 //   taps: host, rank * (ky + kx) floats, for each rank wy then wx.
 //   cheb: host, 2 * niter_solve floats, per sweep (c_d, c_r): the first sweep
 //         takes d = r c_r with c_r = 1 / theta_cheb, sweep k > 0
@@ -505,23 +578,27 @@ static int ul_resident_launch(float* x, float* parity, float* py, float* px,
 // With env_warm the envelope dual carries across this call's steps and starts
 // from zeros at each call, as on the TPU.
 // ty, tx: the resident route's interior (ty > 0; a Gradient2D dual, at most
-// LMC_MAXTRIP sweeps and envelope trips, n_steps >= 1), whose final x is in x
-// when n_steps is even and in parity ((ny, nx) scratch) when it is odd; it
-// reads none of v, rhs, u, d, gu, tmp and, in mode metv with env_warm, takes
-// the first 4 planes of aux for the envelope dual, and exchanges u between
-// the sweeps through ub ((2, ny, nx) scratch). 0 for the launch sequence.
+// LMC_MAXTRIP sweeps and envelope trips, n_steps >= 1), per: the chains a
+// resident launch carries (the launches run the groups in turn). Its final x
+// is in x when n_steps is even and in parity ((n_chains, ny, nx) scratch)
+// when it is odd; it reads none of v, rhs, u, d, gu, tmp and, in mode metv
+// with env_warm, takes the first 4 of each chain's 8 planes of aux
+// (chain-major) for the envelope dual, and exchanges u between the sweeps
+// through ub ((n_chains, 2, ny, nx) scratch). 0 for the launch sequence.
 // Returns the cudaError_t of the launches (0 on success), or -1 on arguments
 // outside the supported range or a resident tile that does not fit the card.
 extern "C" int lmc_ulpda_block(
     float* x, float* parity, float* py, float* px, float* xbar,
     const float* atb, float* mean, float* m2, float* v, float* rhs, float* u,
-    float* d, float* gu, float* tmp, float* aux, int ny, int nx,
+    float* d, float* gu, float* tmp, float* aux, int ny, int nx, int n_chains,
+    const unsigned int* chains,
     const float* taps, int rank, int ky, int kx, int oy, int ox, int n_steps,
     int niter_solve, const float* cheb, int gfirst, int dual, int levels,
     int rh, int rw, int mode, int niter_inner, float tv_step, int fgp,
     const float* fgp_coef, int env_warm, int with_noise, int with_stats,
     const float* coef, unsigned int seed, unsigned int chain, long long step0,
-    long long burn, long long cnt0, int ty, int tx, float* ub, void* stream) {
+    long long burn, long long cnt0, int ty, int tx, int per, float* ub,
+    void* stream) {
   Taps t;
   if (!lmc_taps(&t, taps, rank, ky, kx, oy, ox) || ny < 2 || nx < 2 ||
       niter_solve < 0 || mode < MODE_TV || mode > MODE_METV ||
@@ -529,12 +606,13 @@ extern "C" int lmc_ulpda_block(
       dual > DUAL_WL1 || (dual != DUAL_WL1 && px == nullptr) ||
       (dual == DUAL_WL1 && (rh > 0 || rw > 0) &&
        !lmc_region_ok(ny, nx, rh, rw, levels)) ||
-      (dual == DUAL_WL1 && rh == 0 && rw == 0 && levels < 1))
+      (dual == DUAL_WL1 && rh == 0 && rw == 0 && levels < 1) || n_chains < 1 ||
+      n_chains > 65535 || (n_chains > 1 && (chains == nullptr || dual == DUAL_WL1)))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (ty > 0) {
     if (tx < 1 || dual == DUAL_WL1 || n_steps < 1 || niter_solve > LMC_MAXTRIP ||
-        niter_inner < 0 || niter_inner > LMC_MAXTRIP || ub == nullptr)
+        niter_inner < 0 || niter_inner > LMC_MAXTRIP || ub == nullptr || per < 1)
       return -1;
     UlpdaTile p;
     p.tau = coef[0];
@@ -569,11 +647,13 @@ extern "C" int lmc_ulpda_block(
       p.fgp_coef[i] = fgp && mode == MODE_METV && i < niter_inner ? fgp_coef[i] : 0.0f;
     }
     return ul_resident_launch(x, parity, py, px, xbar, atb, mean, m2, aux, ub,
-                              ny, nx, p, n_steps, gfirst, env_warm, with_noise,
+                              chains, n_chains, per, ny, nx, p, n_steps, gfirst,
+                              env_warm, with_noise,
                               with_stats, seed, chain, step0, burn, cnt0, s);
   }
-  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
-  const size_t npix = (size_t)ny * nx;
+  const dim3 grid = lmc_grid(ny, nx, n_chains), block = lmc_block();
+  // a plane of the plane-major scratch: every chain's copy of it
+  const size_t plane = (size_t)ny * nx * n_chains;
 
   const float tau = coef[0], mu = coef[1], ts = coef[4], g_sigma = coef[5];
   const float c_mc = coef[6], gamma_mc = coef[7], clamp_mc = coef[8];
@@ -588,8 +668,9 @@ extern "C" int lmc_ulpda_block(
   f.with_stats = with_stats;
   f.seed = seed;
   f.chain = chain;
+  f.chains = chains;
 
-  const DualBufs envb = lmc_dual_bufs(aux, npix);
+  const DualBufs envb = lmc_dual_bufs(aux, plane);
   int cur_env = -1;  // index into envb.P of the carried envelope dual
   const dim3 tgrid(rw > 0 ? nx / rw : 0, rh > 0 ? ny / rh : 0);
   const bool passes = dual == DUAL_WL1 && rh == 0;  // the per-level route
@@ -631,13 +712,14 @@ extern "C" int lmc_ulpda_block(
     } else {
       primal_in(nullptr);
       if (mode == MODE_MCTV) {
-        blk_mctv_clamp<<<grid, block, 0, s>>>(v, aux, aux + npix, ny, nx,
+        blk_mctv_clamp<<<grid, block, 0, s>>>(v, aux, aux + plane, ny, nx,
                                               clamp_mc);
-        ul_mctv_rhs<<<grid, block, 0, s>>>(v, aux, aux + npix, atb, rhs, ny,
+        ul_mctv_rhs<<<grid, block, 0, s>>>(v, aux, aux + plane, atb, rhs, ny,
                                            nx, c_mc, ts);
       } else {
         cur_env = lmc_tv_trips(v, envb, env_warm ? cur_env : -1, niter_inner,
-                               fgp, tv_step, fgp_coef, inv_gamma_mc, ny, nx, s);
+                               fgp, tv_step, fgp_coef, inv_gamma_mc, ny, nx, s,
+                               n_chains);
         ul_metv_rhs<<<grid, block, 0, s>>>(v, lmc_dual_y(envb, cur_env),
                                            lmc_dual_x(envb, cur_env), atb, rhs,
                                            ny, nx, gamma_mc, c_me, ts);

@@ -15,11 +15,12 @@ import torch
 from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
-from lmc_atomi_torch.kernels.myula_fused import FusedChainResult
+from lmc_atomi_torch.kernels.myula_fused import FusedChainResult, unpack_lanes
 from lmc_atomi_torch.ops.functionals import L2Data, OrthogonalL1
 from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, Mask
 from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
 from lmc_atomi_torch.ops.wavelet import DaubechiesDWT2D, HaarDWT2D
+from lmc_atomi_torch.run.runner import base_key
 
 __all__ = [
     "blur_from_numpy",
@@ -31,6 +32,8 @@ __all__ = [
     "fused_state_from_numpy",
     "ulpda_state_from_numpy",
     "ulpda_tiled_state_from_numpy",
+    "packed_state_from_numpy",
+    "farm_bundle_from_numpy",
     "to_numpy",
 ]
 
@@ -140,6 +143,55 @@ def ulpda_tiled_state_from_numpy(x, y, xbar, xprev, mean, m2, count, qh=None,
                                m2=_t(m2, device)),
         quantile_state=qstate,
     )
+
+
+def packed_state_from_numpy(x, mean, m2, count, qh=None, qn=None, y=None,
+                            xbar=None, device=None) -> FusedChainResult:
+    """The state of a JAX packed result (``run_myula_tv_fused_packed`` or
+    ``run_ulpda_fused_packed``): pass its ``final_state.position`` and
+    ``moments.mean/m2`` (chain-major, ``(C, ny, nx)``), ``moments.count``,
+    ``quantile_state`` (which the JAX runner returns lane-packed, ``(5
+    n_q, ny, C nx)``) and the ULPDA extras ``y`` ``(2, C, ny, nx)`` and
+    ``xbar``. The markers come back chain-major, ``(C, 5 n_q, ny, nx)``, the
+    port's layout. Continue the chains with the port's packed runner of the
+    same name, ``x0=res.final_state.position``, ``quantile_state=
+    res.quantile_state`` (MYULA) or ``y0=res.final_state.extras.y,
+    xbar0=res.final_state.extras.xbar`` (ULPDA) and ``step_offset=<steps
+    done>``, under the port's own key, and merge the moments chain by chain
+    with ``RunningMoments.merge``."""
+    x = _t(x, device)
+    qstate = None if qh is None else tuple(
+        unpack_lanes(_t(q, device), x.shape[-1]) for q in (qh, qn))
+    extras = None if y is None else ULPDAExtras(y=_t(y, device), xbar=_t(xbar, device))
+    return FusedChainResult(
+        final_state=SamplerState.init(x, extras=extras),
+        moments=RunningMoments(count=int(count), mean=_t(mean, device),
+                               m2=_t(m2, device)),
+        quantile_state=qstate,
+    )
+
+
+def farm_bundle_from_numpy(position, count, mean, m2, done, key, qh=None,
+                           qn=None, y=None, xprev=None, device=None) -> dict:
+    """The bundle of a JAX ``run_resumable_fused`` chain farm (an ``x0`` of
+    shape ``(C, ny, nx)``) as the port's: pass its ``position``, per-chain
+    ``moments.count/mean/m2``, ``done``, ``quantile_state`` (chain-major in
+    both packages) and, for runner ``"ulpda_tiled"``, ``ulpda_extras`` (``y``
+    ``(C, 2, ny, nx)`` and ``xprev``). ``key`` is the port's base key the
+    farm goes on under: the JAX key's threefry streams have no counterpart
+    in the port. Save the bundle with ``core.checkpoint.save_checkpoint``
+    and call the port's ``run_resumable_fused`` with that ``ckpt_path``, the
+    same ``key`` and the runner's options to continue the farm."""
+    bundle = {"position": _t(position, device),
+              "moments": RunningMoments(count=torch.as_tensor(np.array(count)),
+                                        mean=_t(mean, device), m2=_t(m2, device)),
+              "key": base_key(key),
+              "done": int(done)}
+    if qh is not None:
+        bundle["quantile_state"] = (_t(qh, device), _t(qn, device))
+    if y is not None:
+        bundle["ulpda_extras"] = (_t(y, device), _t(xprev, device))
+    return bundle
 
 
 def to_numpy(obj: Any) -> Any:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = ["Kernel", "stepsize_at"]
@@ -25,9 +26,14 @@ class Kernel(NamedTuple):
 
 def stepsize_at(gamma, step: int):
     """Resolve a stepsize spec at a step index: a scalar, a sequence or 1-D
-    tensor of per-iteration values, or a callable ``step -> value``."""
+    tensor or numpy array of per-iteration values, or a callable ``step ->
+    value``. A numpy array or scalar becomes a tensor first (0-d: itself,
+    1-d: its ``step``-th value), as ``jnp.asarray`` makes it in the JAX
+    package."""
     if callable(gamma):
         return gamma(step)
+    if isinstance(gamma, (np.ndarray, np.generic)):
+        gamma = torch.as_tensor(gamma)
     if isinstance(gamma, torch.Tensor):
         return gamma if gamma.ndim == 0 else gamma[step]
     if isinstance(gamma, (list, tuple)):

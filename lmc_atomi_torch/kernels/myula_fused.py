@@ -26,6 +26,13 @@ of the image with the chain's state in its shared memory, where
 ``resident_plan`` finds a tiling of at most one CTA an SM whose tile fits;
 512^2) or the launch sequence (a few launches per step, the fields in device
 memory; 2048^2 and up). The wrapper counts the calls of each route.
+
+A call takes one chain ``(ny, nx)`` or ``C`` chains of one posterior
+``(C, ny, nx)`` under ``C`` chain keys, sharing ``atbs``: on the card a grid
+axis over the chains, the resident route running them in groups of ``G``
+(``resident_plan``), one cooperative launch a group; the plain version runs
+them one after another. ``run_myula_tv_fused_packed`` is the multi-chain
+runner.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from lmc_atomi_torch import _build
-from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.core.random import chain_keys, normal_field
 from lmc_atomi_torch.core.state import SamplerState, StepInfo
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.base import Kernel
@@ -54,6 +61,7 @@ __all__ = [
     "myula_imaging_sep_fused",
     "resident_plan",
     "run_myula_tv_fused",
+    "run_myula_tv_fused_packed",
     "FusedChainResult",
 ]
 
@@ -84,23 +92,36 @@ def _tile_halo(taps: Taps, oy: int, ox: int, niter_tv: int, mode: str,
     return h
 
 
+def chains_per_launch(count: int, n_chains: int, n_sm: int):
+    """``(G, launches)`` of a resident tiling of ``count`` tiles a chain:
+    ``G`` chains a cooperative launch (at most one CTA an SM) and the
+    launches ``n_chains`` chains take in turn (the resident planners' cost
+    is launches x tile area)."""
+    g = min(n_chains, n_sm // count)
+    return g, -(-n_chains // g)
+
+
 def resident_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
                   tv_solver: str = "chambolle", mode: str = "tv",
-                  niter_inner: int = 10, n_steps: int = 1,
+                  niter_inner: int = 10, n_steps: int = 1, n_chains: int = 1,
                   n_sm: int = H100_SMS, smem_optin: int = H100_SMEM_OPTIN):
     """Kernel 2's resident route on a card of ``n_sm`` SMs and
-    ``smem_optin`` bytes of shared memory a CTA: ``(ty, tx, h)``, the interior
-    of a CTA's tile and its halo, or ``None`` for the launch sequence. The
-    rule of ``csrc/myula_block.cu::rs_geometry``: the halo is kernel 6's
-    (the TV prox's ``niter_tv + 1``, the taps' reach, MC-TV 2, ME-TV
-    ``niter_inner + 1``); the interior, sides multiples of 8, is the first in
-    ``(ty, tx)`` order with the least tile area ``(ty + 2h)(tx + 2h)`` among
-    those whose tiles number at most ``n_sm`` and whose shared memory (5
-    tile fields, 7 for FGP, 3 interior fields, the row and column indices
-    and 64 floats of FGP momentum) fits ``smem_optin``. The card's launcher
-    also asks the occupancy API that every CTA is resident at once."""
+    ``smem_optin`` bytes of shared memory a CTA: ``(ty, tx, h, G)``, the
+    interior of a CTA's tile, its halo and the chains a launch carries (the
+    ``n_chains`` chains run in groups of ``G``, one cooperative launch a
+    group), or ``None`` for the launch sequence. The rule of
+    ``csrc/myula_block.cu::rs_geometry``: the halo is kernel 6's (the TV
+    prox's ``niter_tv + 1``, the taps' reach, MC-TV 2, ME-TV ``niter_inner +
+    1``); among interiors, sides multiples of 8, whose tiles number at most
+    ``n_sm`` and whose shared memory (5 tile fields, 7 for FGP, 3 interior
+    fields, the row and column indices and 64 floats of FGP momentum) fits
+    ``smem_optin``, the first in ``(ty, tx)`` order of the least cost:
+    launches in turn x tile area ``(ty + 2h)(tx + 2h)`` (one chain: the
+    least tile area). The card's launcher also asks the occupancy API that
+    every CTA of a launch is resident at once."""
     ny, nx = shape
-    if n_steps < 1 or not 0 <= niter_tv <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
+    if (n_steps < 1 or n_chains < 1 or not 0 <= niter_tv <= _MAX_TRIPS
+            or not 0 <= niter_inner <= _MAX_TRIPS):
         return None
     h = _tile_halo(taps, oy, ox, niter_tv, mode, niter_inner)
     fields = 7 if tv_solver == "fgp" else 5
@@ -112,9 +133,10 @@ def resident_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
             smem = 4 * (fields * sy * sx + 3 * ty * tx) + 4 * (sy + sx)
             if count > n_sm or smem + 4 * _MAX_TRIPS > smem_optin:
                 continue
-            if best is None or sy * sx < best[0]:
-                best = (sy * sx, ty, tx)
-    return None if best is None else (best[1], best[2], h)
+            g, launches = chains_per_launch(count, n_chains, n_sm)
+            if best is None or launches * sy * sx < best[0]:
+                best = (launches * sy * sx, ty, tx, g)
+    return None if best is None else (best[1], best[2], h, best[3])
 
 
 def separable_gram_taps(hh, tol: float = 1e-6) -> Taps:
@@ -355,6 +377,40 @@ class _BlockStats:
         return self.mean, self.m2, torch.stack(self.qh), torch.stack(self.qn)
 
 
+def chain_seeds(seed, x):
+    """``(seed, chains)`` of a block call on ``x``: an ``(ny, nx)`` image
+    takes a seed or ``(seed, chain)`` (one chain word); a chain axis
+    ``(C, ny, nx)`` takes the ``C`` keys ``(seed, chain_c)`` of
+    ``core.random.chain_keys``, which share their seed."""
+    if x.ndim == 2:
+        s, c = base_key(seed)
+        return s, [c]
+    keys = [base_key(k) for k in seed]
+    if len(keys) != x.shape[0] or len({s for s, _ in keys}) != 1:
+        raise ValueError(f"a chain axis of {x.shape[0]} takes as many (seed, chain) "
+                         "keys sharing one seed (core.random.chain_keys)")
+    return keys[0][0], [c for _, c in keys]
+
+
+def _chain_words(words, device):
+    """The chain words of a multi-chain call as a device int32 tensor (the
+    uint32 bits), or None for one chain (its word rides as a scalar)."""
+    if len(words) == 1:
+        return None
+    bits = np.array([w & 0xFFFFFFFF for w in words], np.uint32).view(np.int32)
+    return torch.from_numpy(bits).to(device)
+
+
+def per_chain(fn, x, keys, chained):
+    """A plain block version on a chain axis: chain ``c`` is ``fn`` on the
+    ``c``-th slice of ``x`` and of each of ``chained`` (None passes
+    through) under ``keys[c]``; the outputs stack along the chain axis (None
+    stays None)."""
+    outs = [fn(x[c], *(None if a is None else a[c] for a in chained), keys[c])
+            for c in range(x.shape[0])]
+    return tuple(None if o[0] is None else torch.stack(o) for o in zip(*outs))
+
+
 def myula_tv_block_update_ref(
     x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
     taps: Taps, oy: int, ox: int, n_steps: int = 1, niter_tv: int = 10,
@@ -363,7 +419,19 @@ def myula_tv_block_update_ref(
     quantile_thin: int = 1, tv_solver: str = "chambolle", mode: str = "tv",
     niter_inner: int = 10,
 ):
-    """Plain torch version of kernel 2 (see ``myula_tv_block_update``)."""
+    """Plain torch version of kernel 2 (see ``myula_tv_block_update``); a
+    chain axis runs its chains one after another."""
+    if x.ndim == 3:
+        chain_seeds(seed, x)
+        kw = dict(taps=taps, oy=oy, ox=ox, n_steps=n_steps, niter_tv=niter_tv,
+                  tv_step=tv_step, with_noise=with_noise, with_stats=with_stats,
+                  tv_warm=tv_warm, quantiles=quantiles, quantile_thin=quantile_thin,
+                  tv_solver=tv_solver, mode=mode, niter_inner=niter_inner)
+
+        def one(xc, mc, m2c, qhc, qnc, key):
+            return myula_tv_block_update_ref(xc, atbs, mc, m2c, key, scal_f, scal_i,
+                                             qhc, qnc, **kw)
+        return per_chain(one, x, seed, (mean, m2, qh, qn))
     _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode)
     (c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma, lamda, gamma_mc, _,
      c_env) = _update_coefs(scal_f)
@@ -405,21 +473,26 @@ def myula_tv_block_update_cuda(
     Works on copies of ``x, mean, m2, qh, qn`` and returns them; raises on a
     CPU tensor or on shapes and options the kernel does not take."""
     _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode)
-    if x.ndim != 2 or min(x.shape) < 2:
-        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
-    ny, nx = x.shape
+    if x.ndim not in (2, 3) or min(x.shape[-2:]) < 2:
+        raise ValueError(f"x must be an (ny, nx) image or a (C, ny, nx) chain axis, "
+                         f"got {tuple(x.shape)}")
+    ny, nx = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
     n_q = len(quantiles)
-    fields = {"x": x, "atbs": atbs}
+    fields = {"x": x}
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    _build.require_cuda_f32((ny, nx), **fields)
+    _build.require_cuda_f32(x.shape, **fields)
+    _build.require_cuda_f32((ny, nx), atbs=atbs)
     if n_q:
-        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
-        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
-        if qh.device != x.device or qn.device != x.device:
-            raise ValueError("marker state must lie on x's device")
+        _build.require_cuda_f32(lead + (5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32(lead + (3 * n_q, ny, nx), qn=qn)
+    if any(t.device != x.device for t in (atbs, qh, qn) if t is not None):
+        raise ValueError("atbs and the marker state must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
-    seed, chain = base_key(seed)
+    seed, words = chain_seeds(seed, x)
+    n_chains = len(words)
+    chains = _chain_words(words, x.device)
 
     x = x.clone()
     parity = torch.empty_like(x)
@@ -434,12 +507,14 @@ def myula_tv_block_update_cuda(
     fgp_coef = _fgp_coef(max(niter_tv, niter_inner if mode == "metv" else 0))
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
     grad = torch.empty_like(x)
-    tmp = torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
-    duals = torch.empty((8, ny, nx), dtype=x.dtype, device=x.device)
+    tmp = torch.empty((rank * n_chains, ny, nx), dtype=x.dtype, device=x.device)
+    duals = torch.empty((8 * n_chains, ny, nx), dtype=x.dtype, device=x.device)
     # the envelope duals (metv) or the clamped gradient (mctv)
     aux = None if mode == "tv" else torch.empty(
-        (8 if mode == "metv" else 2, ny, nx), dtype=x.dtype, device=x.device)
-    plan = np.zeros(4, np.int32)  # the route and the resident tile, from the launcher
+        ((8 if mode == "metv" else 2) * n_chains, ny, nx), dtype=x.dtype, device=x.device)
+    # the route, the resident tile and the chains a launch carries, from the
+    # launcher
+    plan = np.zeros(5, np.int32)
 
     def ptr(t, used):
         return t.data_ptr() if used else None
@@ -451,13 +526,14 @@ def myula_tv_block_update_cuda(
             x.data_ptr(), parity.data_ptr(), atbs.data_ptr(),
             ptr(mean, with_stats), ptr(m2, with_stats), ptr(qh, n_q),
             ptr(qn, n_q), grad.data_ptr(), tmp.data_ptr(), duals.data_ptr(),
-            ptr(aux, aux is not None), plan.ctypes.data, ny, nx,
-            tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
+            ptr(aux, aux is not None), plan.ctypes.data, ny, nx, n_chains,
+            ptr(chains, chains is not None), tap_arr.ctypes.data, rank, ky, kx,
+            int(oy), int(ox),
             int(n_steps), int(niter_tv), float(tv_step), int(fgp),
             fgp_coef.ctypes.data, int(tv_warm), MODES.index(mode),
             int(niter_inner), int(bool(with_noise)),
             int(bool(with_stats)), qcoef.ctypes.data, n_q, int(quantile_thin),
-            coef.ctypes.data, seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0,
+            coef.ctypes.data, seed & 0xFFFFFFFF, words[0] & 0xFFFFFFFF, step0,
             burn, cnt0, stream,
         )
     _build.check(rc, "lmc_myula_block")
@@ -471,7 +547,8 @@ def myula_tv_block_update_cuda(
 
 
 myula_tv_block_update_cuda.launches = 0  # calls that launched the kernel
-# calls per route, and the last call's (route, ty, tx, h)
+# calls per route, and the last call's (route, ty, tx, h, G): G chains a
+# resident launch (0 on the sequence)
 myula_tv_block_update_cuda.routes = {"resident": 0, "sequence": 0}
 myula_tv_block_update_cuda.last_plan = None
 
@@ -479,7 +556,13 @@ myula_tv_block_update_cuda.last_plan = None
 def myula_tv_block_update(x, *args, **kwargs):
     """``n_steps`` fused MYULA steps (+ Welford / P^2), kernel 2.
 
-    ``atbs = sigma * A^T b``; ``seed`` is a seed or ``(seed, chain)``;
+    ``x`` is one chain's ``(ny, nx)`` image or ``C`` chains of the same
+    posterior ``(C, ny, nx)``, with ``mean``/``m2`` of x's shape and the
+    markers ``(C, 5 n_q, ny, nx)``/``(C, 3 n_q, ny, nx)``; ``atbs`` is one
+    ``(ny, nx)`` field the chains share, and chain ``c`` is bit for bit the
+    one-chain call under ``seed[c]``.
+    ``atbs = sigma * A^T b``; ``seed`` is a seed or ``(seed, chain)`` (with a
+    chain axis the ``C`` keys of ``core.random.chain_keys``);
     ``scal_f = (tau, gamma, tv_gamma, noise_scale, sigma)``;
     ``scal_i = (step0, burn_in, count0)``: the global step of the first step,
     the burn-in in steps, and the Welford count entering the call.
@@ -611,16 +694,18 @@ def _align_block(n_steps, block, quantiles, quantile_thin, noise_scale,
 
 def _marker_state(x0, n_q, quantile_state):
     """``(qh, qn)``: ``quantile_state`` to resume, fresh P^2 markers for
-    ``n_q`` quantiles, or ``(None, None)``."""
+    ``n_q`` quantiles of ``x0``'s ``(ny, nx)`` fields (``(C, 5 n_q, ny,
+    nx)`` with a chain axis), or ``(None, None)``."""
     if not n_q:
         return None, None
     if quantile_state is not None:
         return quantile_state
-    qh = torch.zeros((5 * n_q,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
+    lead, (ny, nx) = tuple(x0.shape[:-2]), tuple(x0.shape[-2:])
+    qh = torch.zeros(lead + (5 * n_q, ny, nx), dtype=x0.dtype, device=x0.device)
     # interior marker positions start at (2, 3, 4); the extremes are implicit
     qn = torch.arange(2.0, 5.0, dtype=x0.dtype, device=x0.device)[
-        :, None, None].repeat(n_q, x0.shape[0], x0.shape[1])
-    return qh, qn
+        :, None, None].repeat(n_q, ny, nx)
+    return qh, qn.expand(lead + qn.shape).contiguous()
 
 
 def _chain_result(x, mean, m2, count, quantiles, qh, qn, extras=None):
@@ -630,7 +715,8 @@ def _chain_result(x, mean, m2, count, quantiles, qh, qn, extras=None):
         final_state=SamplerState.init(x, extras=extras),
         moments=RunningMoments(count=count, mean=mean, m2=m2),
         # marker 2 is the running quantile estimate (valid once count >= 5)
-        quantiles={p: qh[5 * j + 2] for j, p in enumerate(quantiles)} if n_q else None,
+        quantiles=({p: qh[..., 5 * j + 2, :, :] for j, p in enumerate(quantiles)}
+                   if n_q else None),
         quantile_state=(qh, qn) if n_q else None,
     )
 
@@ -654,11 +740,26 @@ def run_myula_tv_fused(
     quantile_state=None,
     step_offset: int = 0,
     tv_solver: str = "chambolle",
+    chain_nx: int = 0,
+    marker_hbm: Optional[bool] = None,
+    interpret: bool = False,
 ) -> FusedChainResult:
     """Block-fused MYULA chain: a host loop over blocks of ``block`` fused
     steps (kernel 2 per block on CUDA). Returns the posterior mean/variance
     (Welford; ``burn_in`` in steps) and, with ``quantiles``, per-pixel P^2
     maps (e.g. ``(0.025, 0.975)`` for 95% credible intervals).
+
+    An ``x0`` of shape ``(C, ny, nx)`` runs ``C`` chains of the posterior in
+    each kernel call (``run_myula_tv_fused_packed``), chain ``c`` under
+    ``chain_keys(key, C)[c]``; every field of the result then has the chain
+    axis but ``moments.count``, and the marker state is ``(C, 5 n_q, ny,
+    nx)``. ``chain_nx`` takes the JAX package's lane-packed layout: an
+    ``x0`` of shape ``(ny, C chain_nx)`` holds ``C`` chains side by side,
+    and the result (and ``quantile_state``) comes back packed so. The
+    chains share the observation, of width ``chain_nx``. ``marker_hbm`` and
+    ``interpret`` are the JAX package's (VMEM paging of the markers, Pallas
+    interpret mode) and take no effect: the markers live in device memory
+    and a CPU tensor runs the plain version.
 
     ``key`` is a seed or ``(seed, chain)``. ``quantile_state`` resumes from a
     prior result's marker state, with ``step_offset`` the global step this run
@@ -669,9 +770,20 @@ def run_myula_tv_fused(
     prox for both (pass ``niter_tv=8``). ``l2`` is an ``L2Data`` or an
     isotropic ``L2NcvxTV``.
     """
+    x0 = torch.as_tensor(x0)
+    kw = dict(niter_tv=niter_tv, burn_in=burn_in, block=block,
+              noise_scale=noise_scale, tv_warm=tv_warm, quantiles=quantiles,
+              quantile_thin=quantile_thin, step_offset=step_offset,
+              tv_solver=tv_solver)
+    if chain_nx and x0.shape[-1] != chain_nx:
+        qs = quantile_state and tuple(unpack_lanes(q, chain_nx) for q in quantile_state)
+        res = run_myula_tv_fused(l2, tv_sigma, tau, gamma, unpack_lanes(x0, chain_nx),
+                                 key, n_steps, quantile_state=qs, **kw)
+        return _map_result(res, pack_lanes)
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
-    x0 = torch.as_tensor(x0)
+    if x0.ndim == 3:
+        key = chain_keys(key, x0.shape[0])
     quantiles = tuple(float(p) for p in quantiles)
     step_offset = int(step_offset)
     block = _align_block(n_steps, min(n_steps, 256) if block is None else block,
@@ -696,3 +808,50 @@ def run_myula_tv_fused(
     count = (max(step_offset + n_steps - burn_in, 0)
              - max(step_offset - burn_in, 0))
     return _chain_result(x, mean, m2, count, quantiles, qh, qn)
+
+
+def run_myula_tv_fused_packed(l2: Any, tv_sigma: float, tau, gamma, x0, key,
+                              n_steps: int, **kwargs) -> FusedChainResult:
+    """``C`` independent chains of one posterior, ``x0`` of shape ``(C, ny,
+    nx)``, every kernel-2 call carrying all of them (a grid axis over the
+    chains): chain ``c`` is bit for bit ``run_myula_tv_fused`` of ``x0[c]``
+    under ``chain_keys(key, C)[c]``. Returns per-chain positions, moments
+    (one count), quantile maps and marker state ``(C, 5 n_q, ny, nx)``.
+    Takes every ``run_myula_tv_fused`` keyword."""
+    x0 = torch.as_tensor(x0)
+    if x0.ndim != 3:
+        raise ValueError("packed runner wants x0 of shape (n_chains, ny, nx)")
+    return run_myula_tv_fused(l2, tv_sigma, tau, gamma, x0, key, n_steps, **kwargs)
+
+
+def unpack_lanes(a, chain_nx: int):
+    """The JAX package's lane-packed layout ``(..., ny, C chain_nx)`` as a
+    chain axis ``(C, ..., ny, chain_nx)``."""
+    c = a.shape[-1] // chain_nx
+    if c * chain_nx != a.shape[-1]:
+        raise ValueError(f"width {a.shape[-1]} is not a multiple of chain_nx={chain_nx}")
+    b = a.reshape(a.shape[:-1] + (c, chain_nx))
+    return b.movedim(-2, 0).contiguous()
+
+
+def pack_lanes(a):
+    """``unpack_lanes``' inverse: ``(C, ..., ny, nx)`` side by side as
+    ``(..., ny, C nx)``."""
+    return a.movedim(0, -2).reshape(a.shape[1:-1] + (a.shape[0] * a.shape[-1],))
+
+
+def _map_result(res: FusedChainResult, fn) -> FusedChainResult:
+    """``res`` with ``fn`` applied to every per-chain field (the count
+    stays)."""
+    st = res.final_state
+    extras = st.extras
+    if extras is not None:
+        extras = type(extras)(*(None if v is None else
+                                (torch.stack([fn(w) for w in v]) if k == "y" else fn(v))
+                                for k, v in extras._asdict().items()))
+    return FusedChainResult(
+        final_state=SamplerState.init(fn(st.position), extras=extras),
+        moments=RunningMoments(count=res.moments.count, mean=fn(res.moments.mean),
+                               m2=fn(res.moments.m2)),
+        quantiles=res.quantiles and {p: fn(v) for p, v in res.quantiles.items()},
+        quantile_state=res.quantile_state and tuple(fn(q) for q in res.quantile_state))

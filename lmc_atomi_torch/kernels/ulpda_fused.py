@@ -30,7 +30,9 @@ per step, the fields in device memory; 2048^2 and up, and the ``"wl1"``
 dual, whose transforms take the route ``_wl1_plan`` names: up to
 ``_TILE_LEVELS`` levels one launch whose CTAs own whole ``2^levels`` tiles,
 past that one launch per level and axis). The wrapper counts the calls of
-each route. The lane-packed multi-chain runner is not ported yet.
+each route. A Gradient2D dual takes a chain axis as kernel 2 does
+(``ulpda_resident_plan`` names the chains a launch); ``run_ulpda_fused_packed``
+is the multi-chain runner.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from lmc_atomi_torch import _build
-from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.core.random import chain_keys, normal_field
 from lmc_atomi_torch.core.state import SamplerState, StepInfo
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.base import Kernel
@@ -55,14 +57,21 @@ from lmc_atomi_torch.kernels.myula_fused import (
     FusedChainResult,
     Taps,
     _BlockStats,
+    _chain_words,
     _check_block_args,
     _fgp_coef,
     _fused_mode,
     _fused_params,
     _mctv_clamp,
     _sep_gram,
+    _map_result,
     _tv_prox_any,
+    chain_seeds,
+    chains_per_launch,
+    pack_lanes,
+    per_chain,
     sep_fused_supported,
+    unpack_lanes,
 )
 from lmc_atomi_torch.kernels.wavelet_fused import (
     _TILE_LEVELS,
@@ -86,6 +95,7 @@ __all__ = [
     "ulpda_resident_plan",
     "ulpda_sep_fused",
     "run_ulpda_fused",
+    "run_ulpda_fused_packed",
 ]
 
 DUALS = ("l1", "l21", "wl1")  # the kernel's dual index
@@ -171,6 +181,13 @@ def _dual_project(cy, cx, dual: str, g_sigma: float):
     return torch.clamp(cy, -g_sigma, g_sigma), torch.clamp(cx, -g_sigma, g_sigma)
 
 
+def _check_chain_axis(dual):
+    if dual == "wl1":
+        raise ValueError(
+            "a chain axis is unsupported for the wavelet dual (as the JAX "
+            "package's lane packing: the fused ULPDA packs Gradient2D duals only)")
+
+
 def _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve):
     _check_block_args(taps, (), 1, tv_solver, mode)
     if dual not in DUALS:
@@ -187,8 +204,21 @@ def ulpda_block_update_ref(
     with_noise: bool = True, tv_solver: str = "chambolle",
     with_stats: bool = True, env_warm: bool = False, levels: int = 3,
 ):
-    """Plain torch version of kernel 3 (see ``ulpda_block_update``)."""
+    """Plain torch version of kernel 3 (see ``ulpda_block_update``); a
+    chain axis runs its chains one after another."""
     _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
+    if x.ndim == 3:
+        _check_chain_axis(dual)
+        chain_seeds(seed, x)
+
+        def one(xc, pyc, pxc, xbc, mc, m2c, key):
+            return ulpda_block_update_ref(
+                xc, pyc, pxc, xbc, atb, mc, m2c, key, scal_f, scal_i, taps=taps,
+                oy=oy, ox=ox, lam=lam, n_steps=n_steps, niter_solve=niter_solve,
+                tv_step=tv_step, gfirst=gfirst, dual=dual, mode=mode,
+                niter_inner=niter_inner, with_noise=with_noise, tv_solver=tv_solver,
+                with_stats=with_stats, env_warm=env_warm, levels=levels)
+        return per_chain(one, x, seed, (py, px, xbar, mean, m2))
     (tau, mu, theta, noise_amp, ts, g_sigma, c_mc, gamma_mc, _,
      c_me) = _block_coefs(scal_f)
     seed, chain = base_key(seed)
@@ -254,22 +284,24 @@ def _ulpda_halo(taps: Taps, oy: int, ox: int, niter_solve: int, mode: str,
 def ulpda_resident_plan(shape, taps: Taps, oy: int, ox: int, *, mode: str = "tv",
                         niter_inner: int = 10, niter_solve: int = 3,
                         dual: str = "l21", tv_solver: str = "chambolle",
-                        n_sm: int = H100_SMS, smem_optin: int = H100_SMEM_OPTIN):
+                        n_chains: int = 1, n_sm: int = H100_SMS,
+                        smem_optin: int = H100_SMEM_OPTIN):
     """Kernel 3's resident route on a card of ``n_sm`` SMs and
-    ``smem_optin`` bytes of shared memory a CTA: ``(ty, tx, h)``, the
-    interior of a CTA's tile and its halo (``_ulpda_halo`` with split
-    sweeps), or ``None`` for the launch sequence (the ``"wl1"`` dual, or no
-    tiling fits). The interior, sides multiples of 8, is the first in
-    ``(ty, tx)`` order with the least tile area ``(ty + 2h)(tx + 2h)`` among
-    those whose tiles number at most ``n_sm`` and whose shared memory (5
-    tile fields, 7 with the FGP envelope, the interior's mean and m2, the
-    row and column indices and 192 floats of coefficients) fits
-    ``smem_optin``: kernel 2's rule (``myula_fused.resident_plan``). The
-    launcher also asks the occupancy API that every CTA is resident at
-    once, and raises if not. Computed once per shape and options: the
-    wrapper asks on every call."""
+    ``smem_optin`` bytes of shared memory a CTA: ``(ty, tx, h, G)``, the
+    interior of a CTA's tile, its halo (``_ulpda_halo`` with split sweeps)
+    and the chains a cooperative launch carries (the ``n_chains`` chains
+    run in groups of ``G``), or ``None`` for the launch sequence (the
+    ``"wl1"`` dual, or no tiling fits). Among interiors, sides multiples of
+    8, whose tiles number at most ``n_sm`` and whose shared memory (5 tile
+    fields, 7 with the FGP envelope, the interior's mean and m2, the row and
+    column indices and 192 floats of coefficients) fits ``smem_optin``, the
+    first in ``(ty, tx)`` order of the least launches in turn x tile area
+    ``(ty + 2h)(tx + 2h)``: kernel 2's rule (``myula_fused.resident_plan``).
+    The launcher also asks the occupancy API that every CTA of a launch is
+    resident at once, and raises if not. Computed once per shape and
+    options: the wrapper asks on every call."""
     ny, nx = shape
-    if (dual == "wl1" or not 0 <= niter_solve <= _MAX_TRIPS
+    if (dual == "wl1" or n_chains < 1 or not 0 <= niter_solve <= _MAX_TRIPS
             or not 0 <= niter_inner <= _MAX_TRIPS):
         return None
     h = _ulpda_halo(taps, oy, ox, niter_solve, mode, niter_inner, split=True)
@@ -281,11 +313,13 @@ def ulpda_resident_plan(shape, taps: Taps, oy: int, ox: int, *, mode: str = "tv"
             smem = 4 * (fields * sy * sx + 2 * ty * tx) + 4 * (sy + sx)
             if smem + 4 * 3 * _MAX_TRIPS > smem_optin:
                 break  # the tile only grows with tx
-            if -(-ny // ty) * -(-nx // tx) > n_sm:
+            count = -(-ny // ty) * -(-nx // tx)
+            if count > n_sm:
                 continue
-            if best is None or sy * sx < best[0]:
-                best = (sy * sx, ty, tx)
-    return None if best is None else (best[1], best[2], h)
+            g, launches = chains_per_launch(count, n_chains, n_sm)
+            if best is None or launches * sy * sx < best[0]:
+                best = (launches * sy * sx, ty, tx, g)
+    return None if best is None else (best[1], best[2], h, best[3])
 
 
 def _wl1_plan(shape, levels: int):
@@ -309,27 +343,35 @@ def ulpda_block_update_cuda(
 ):
     """Kernel 3 (``csrc/ulpda_block.cu``) on contiguous float32 CUDA tensors,
     on the route ``ulpda_resident_plan`` names for the card (counted in
-    ``routes``, the last call's ``(route, ty, tx, h)`` in ``last_plan``).
+    ``routes``, the last call's ``(route, ty, tx, h, G)`` in ``last_plan``).
     Works on copies of ``x, py, px, xbar, mean, m2`` and returns them
     (``xbar`` may be None for ``gfirst=False``, which never reads it, and
     ``px`` None for the ``"wl1"`` dual); raises on a CPU tensor, on shapes
     and options the kernel does not take, or when a resident tiling fails
     to fit or launch on the card."""
     _check_ulpda_args(taps, tv_solver, mode, dual, niter_solve)
-    if x.ndim != 2 or min(x.shape) < 2:
-        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
-    ny, nx = x.shape
+    if x.ndim not in (2, 3) or min(x.shape[-2:]) < 2:
+        raise ValueError(f"x must be an (ny, nx) image or a (C, ny, nx) chain axis, "
+                         f"got {tuple(x.shape)}")
+    if x.ndim == 3:
+        _check_chain_axis(dual)
+    ny, nx = x.shape[-2:]
     wl1 = dual == "wl1"
-    fields = {"x": x, "py": py, "atb": atb}
+    fields = {"x": x, "py": py}
     if not wl1:
         fields["px"] = px
     if gfirst:
         fields["xbar"] = xbar
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    _build.require_cuda_f32((ny, nx), **fields)
+    _build.require_cuda_f32(x.shape, **fields)
+    _build.require_cuda_f32((ny, nx), atb=atb)
+    if atb.device != x.device:
+        raise ValueError("atb must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
-    seed, chain = base_key(seed)
+    seed, words = chain_seeds(seed, x)
+    n_chains = len(words)
+    chains = _chain_words(words, x.device)
     l_eff, _, (rh, rw) = _wl1_plan((ny, nx), levels) if wl1 else (0, None, (0, 0))
 
     x, py = x.clone(), py.clone()
@@ -348,19 +390,22 @@ def ulpda_block_update_cuda(
     n_sm, smem_optin = _build.card_limits(x.device)
     plan = ulpda_resident_plan(
         (ny, nx), taps, int(oy), int(ox), mode=mode, niter_inner=int(niter_inner),
-        niter_solve=int(niter_solve), dual=dual, tv_solver=tv_solver, n_sm=n_sm,
-        smem_optin=smem_optin) if n_steps > 0 else None
-    ty, tx, h = plan or (0, 0, 0)
-    # the resident route's other x parity and the two planes that exchange u
-    # between its sweeps, or the launch sequence's scratch (v, rhs, u, d, gu
-    # and the row pass's rank planes)
+        niter_solve=int(niter_solve), dual=dual, tv_solver=tv_solver,
+        n_chains=n_chains, n_sm=n_sm, smem_optin=smem_optin) if n_steps > 0 else None
+    ty, tx, h, per = plan or (0, 0, 0, 0)
+
+    def planes(k):
+        return torch.empty((k * n_chains, ny, nx), dtype=x.dtype, device=x.device)
+
+    # the resident route's other x parity and the two planes a chain that
+    # exchange u between its sweeps, or the launch sequence's scratch (v,
+    # rhs, u, d, gu and the row pass's rank planes)
     parity = torch.empty_like(x) if plan else None
-    ub = torch.empty((2, ny, nx), dtype=x.dtype, device=x.device) if plan else None
-    scratch = [None] * 5 if plan else torch.empty((5, ny, nx), dtype=x.dtype, device=x.device)
-    tmp = None if plan else torch.empty((rank, ny, nx), dtype=x.dtype, device=x.device)
+    ub = planes(2) if plan else None
+    scratch = [None] * 5 if plan else planes(5).view(5, -1, nx)
+    tmp = None if plan else planes(rank)
     # the envelope duals (metv) or the clamped gradient (mctv)
-    aux = None if mode == "tv" else torch.empty(
-        (8 if mode == "metv" else 2, ny, nx), dtype=x.dtype, device=x.device)
+    aux = None if mode == "tv" else planes(8 if mode == "metv" else 2)
 
     def ptr(t, used=True):
         return t.data_ptr() if used and t is not None else None
@@ -373,20 +418,21 @@ def ulpda_block_update_cuda(
             xbar.data_ptr(), atb.data_ptr(), ptr(mean, with_stats),
             ptr(m2, with_stats),
             *(ptr(t) for t in scratch), ptr(tmp),
-            ptr(aux), ny, nx, tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
+            ptr(aux), ny, nx, n_chains, ptr(chains), tap_arr.ctypes.data, rank, ky,
+            kx, int(oy), int(ox),
             int(n_steps), int(niter_solve), cheb.ctypes.data,
             int(bool(gfirst)), DUALS.index(dual), l_eff, rh, rw, MODES.index(mode),
             int(niter_inner), float(tv_step), int(tv_solver == "fgp"),
             fgp_coef.ctypes.data, int(bool(env_warm)),
             int(bool(with_noise)), int(bool(with_stats)), coef.ctypes.data,
-            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, ty, tx,
-            ptr(ub), stream,
+            seed & 0xFFFFFFFF, words[0] & 0xFFFFFFFF, step0, burn, cnt0, ty, tx,
+            per, ptr(ub), stream,
         )
     _build.check(rc, "lmc_ulpda_block")
     ulpda_block_update_cuda.launches += 1
     route = "resident" if plan else ("wl1" if wl1 else "sequence")
     ulpda_block_update_cuda.routes[route] += 1
-    ulpda_block_update_cuda.last_plan = (route, ty, tx, h)
+    ulpda_block_update_cuda.last_plan = (route, ty, tx, h, per)
     if plan and n_steps % 2:
         x = parity  # the resident route's last step wrote the other buffer
     return x, py, px, xbar, mean, m2
@@ -394,7 +440,8 @@ def ulpda_block_update_cuda(
 
 ulpda_block_update_cuda.launches = 0  # calls that launched the kernel
 # calls per route ("wl1": the launch sequence of the wl1 dual, which has no
-# resident route), and the last call's (route, ty, tx, h)
+# resident route), and the last call's (route, ty, tx, h, G): G chains a
+# resident launch (0 on the sequence)
 ulpda_block_update_cuda.routes = {"resident": 0, "sequence": 0, "wl1": 0}
 ulpda_block_update_cuda.last_plan = None
 
@@ -402,6 +449,11 @@ ulpda_block_update_cuda.last_plan = None
 def ulpda_block_update(x, *args, **kwargs):
     """``n_steps`` fused ULPDA steps (+ Welford), kernel 3.
 
+    ``x`` is one chain's ``(ny, nx)`` image or ``C`` chains of the same
+    posterior ``(C, ny, nx)`` (Gradient2D duals), with ``py, px, xbar,
+    mean, m2`` of x's shape, ``atb`` one ``(ny, nx)`` field the chains
+    share and ``seed`` the ``C`` keys of ``core.random.chain_keys``; chain
+    ``c`` is bit for bit the one-chain call under ``seed[c]``.
     ``(py, px)`` is the Gradient2D dual (``"wl1"``: ``py`` the interleaved
     Haar coefficient dual of ``levels`` levels, ``px`` unused and returned
     as None), ``xbar`` the extrapolated iterate
@@ -508,6 +560,8 @@ def run_ulpda_fused(
     y0=None,
     xbar0=None,
     step_offset: int = 0,
+    chain_nx: int = 0,
+    interpret: bool = False,
 ) -> FusedChainResult:
     """Block-fused ULPDA chain: a host loop over blocks of ``block`` fused
     steps (kernel 3 per block on CUDA), with Welford posterior moments
@@ -524,12 +578,33 @@ def run_ulpda_fused(
     moments with ``RunningMoments.merge``. ``final_state.extras.xbar`` is the
     genuine extrapolated iterate in both orders; continue a ``gfirst=False``
     state with ``gfirst=False``.
+
+    An ``x0`` of shape ``(C, ny, nx)`` runs ``C`` chains of the posterior in
+    each kernel call (``run_ulpda_fused_packed``; Gradient2D duals only),
+    chain ``c`` under ``chain_keys(key, C)[c]``: the dual ``y`` (and
+    ``y0``) is then ``(2, C, ny, nx)``, the JAX package's packed layout.
+    ``chain_nx`` takes the JAX package's lane-packed layout (``x0`` of
+    shape ``(ny, C chain_nx)``, ``y0`` ``(2, ny, C chain_nx)``), the result
+    packed back so; ``interpret`` is the JAX package's Pallas interpret mode
+    and takes no effect (a CPU tensor runs the plain version).
     """
+    x0 = torch.as_tensor(x0)
+    kw = dict(theta=theta, gfirst=gfirst, niter_solve=niter_solve, burn_in=burn_in,
+              block=block, noise_scale=noise_scale, env_warm=env_warm,
+              niter_inner=niter_inner, tv_solver=tv_solver, step_offset=step_offset)
+    if chain_nx and x0.shape[-1] != chain_nx:
+        res = run_ulpda_fused(
+            proxf, proxg, a_op, tau, mu, unpack_lanes(x0, chain_nx), key, n_steps,
+            y0=None if y0 is None else torch.stack([unpack_lanes(v, chain_nx) for v in y0]),
+            xbar0=None if xbar0 is None else unpack_lanes(xbar0, chain_nx), **kw)
+        return _map_result(res, pack_lanes)
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner_l2, dual,
      lam, levels) = _ulpda_setup(proxf, proxg, a_op)
     if niter_inner is None:
         niter_inner = niter_inner_l2
-    x0 = torch.as_tensor(x0)
+    if x0.ndim == 3:
+        _check_chain_axis(dual)
+        key = chain_keys(key, x0.shape[0])
     if block is None:
         block = min(n_steps, 128)
     while n_steps % block:
@@ -565,3 +640,18 @@ def run_ulpda_fused(
             x, extras=ULPDAExtras(y=y_fin, xbar=xbar)),
         moments=RunningMoments(count=count, mean=mean, m2=m2),
     )
+
+
+def run_ulpda_fused_packed(proxf: Any, proxg: Any, a_op: Any, tau, mu, x0, key,
+                           n_steps: int, **kwargs) -> FusedChainResult:
+    """``C`` independent chains of one posterior, ``x0`` of shape ``(C, ny,
+    nx)``, every kernel-3 call carrying all of them (a grid axis over the
+    chains; Gradient2D duals only): chain ``c`` is bit for bit
+    ``run_ulpda_fused`` of ``x0[c]`` under ``chain_keys(key, C)[c]``.
+    Returns per-chain positions and moments (one count) and the extras
+    ``y`` ``(2, C, ny, nx)`` and ``xbar`` ``(C, ny, nx)``. Takes every
+    ``run_ulpda_fused`` keyword."""
+    x0 = torch.as_tensor(x0)
+    if x0.ndim != 3:
+        raise ValueError("packed runner wants x0 of shape (n_chains, ny, nx)")
+    return run_ulpda_fused(proxf, proxg, a_op, tau, mu, x0, key, n_steps, **kwargs)

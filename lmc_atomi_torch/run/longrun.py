@@ -11,6 +11,10 @@ straight run's; the moments merge with the Chan et al. combine.
 
 A diverged chain raises ``FloatingPointError`` at the segment boundary,
 before the checkpoint is overwritten, so the last good checkpoint stays.
+
+A chain farm (``x0`` of shape ``(C, ny, nx)``) runs ``C`` chains of one
+posterior under ``core.random.chain_keys``, fixed for the whole run, and
+carries per-chain moments, markers and ULPDA state in the bundle.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Callable, Optional
 import torch
 
 from lmc_atomi_torch.core.checkpoint import restore_checkpoint, save_checkpoint
+from lmc_atomi_torch.core.random import chain_keys
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.base import Kernel
 from lmc_atomi_torch.kernels.myula_fused import _marker_state, run_myula_tv_fused
@@ -28,7 +33,7 @@ from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
 from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
 from lmc_atomi_torch.ops.functionals import L21Norm
 from lmc_atomi_torch.ops.linops import Gradient2D
-from lmc_atomi_torch.run.runner import base_key
+from lmc_atomi_torch.run.runner import base_key, stack_tree
 
 __all__ = ["run_resumable", "run_resumable_fused"]
 
@@ -117,61 +122,99 @@ def run_resumable_fused(
     ``{position, moments, key, done[, quantile_state, ulpda_extras,
     quantiles]}``.
 
-    Not ported yet, each raising ``NotImplementedError``: a chain farm from
-    an ``x0`` of shape ``(n_chains, ny, nx)`` (A6) and ``chains_mesh`` (A13).
+    A chain farm: an ``x0`` of shape ``(C, ny, nx)`` runs ``C`` chains of
+    the posterior, chain ``c`` under ``chain_keys(key, C)[c]`` for the whole
+    run (the global step is in Philox's counter, so a resumed farm goes on
+    bit for bit and each chain equals the one-chain run under its key). The
+    bundle then holds per-chain positions, moments (counts ``(C,)``), marker
+    state ``(C, 5 n_q, ny, nx)`` and, for ``"ulpda_tiled"``, ``(y, xprev)``
+    with ``y`` ``(C, 2, ny, nx)``; pool them with
+    ``parallel.mesh.merge_chain_moments`` and ``eval.diagnostics``'
+    ``rhat_from_moments``. Runner ``"tv"`` runs the farm in one packed
+    kernel-2 call a segment (``run_myula_tv_fused_packed``); the others run
+    their kernel chain after chain, each chain alone filling the card.
+    ``chains_mesh`` (a farm across devices) is not ported yet and raises
+    ``NotImplementedError`` (ROADMAP A9).
     """
     if runner not in RUNNERS:
         raise ValueError(f"unknown runner {runner!r}")
     if chains_mesh is not None:
         raise NotImplementedError(
             "chains_mesh (chain farms across devices) is not ported yet "
-            "(ROADMAP A13)")
+            "(ROADMAP A9)")
     x0 = torch.as_tensor(x0)
-    if x0.ndim == 3:
-        raise NotImplementedError(
-            "a chain farm (x0 of shape (n_chains, ny, nx)) is not ported yet "
-            "(ROADMAP A6)")
+    farm = x0.ndim == 3
     seed, chain = base_key(key)
+    keys = chain_keys((seed, chain), x0.shape[0]) if farm else None
     quantiles = tuple(float(p) for p in fused_kwargs.pop("quantiles", ()))
-    bundle = {"position": x0, "moments": RunningMoments.init(x0),
+    bundle = {"position": x0,
+              "moments": (stack_tree([RunningMoments.init(x) for x in x0]) if farm
+                          else RunningMoments.init(x0)),
               "key": (seed, chain), "done": 0}
     if quantiles:
         bundle["quantile_state"] = _marker_state(x0, len(quantiles), None)
     if runner == "ulpda_tiled":
         # the stacked dual and the previous sample; x_prev = x0 is the cold
         # start
-        bundle["ulpda_extras"] = (torch.zeros((2,) + tuple(x0.shape),
-                                              dtype=x0.dtype, device=x0.device), x0)
+        lead, field = tuple(x0.shape[:-2]), tuple(x0.shape[-2:])
+        bundle["ulpda_extras"] = (torch.zeros(lead + (2,) + field, dtype=x0.dtype,
+                                              device=x0.device), x0)
     if ckpt_path and os.path.exists(ckpt_path):
         bundle = restore_checkpoint(ckpt_path, bundle)
+
+    def one_chain(x, k, n, qstate, extras, **kw):
+        if runner == "ulpda_tiled":
+            y0, xprev0 = extras
+            return run_ulpda_tv_tiled(l2, L21Norm(sigma=tv_sigma), Gradient2D(), tau,
+                                      gamma, x, k, n, y0=y0, xprev0=xprev0,
+                                      quantile_state=qstate, **kw)
+        run = {"tv": run_myula_tv_fused, "wavelet": run_myula_wavelet_fused,
+               "tiled": run_myula_tv_tiled}[runner]
+        return run(l2, tv_sigma, tau, gamma, x, k, n, quantile_state=qstate, **kw)
+
     while bundle["done"] < total_steps:
         done = bundle["done"]
         n = min(segment_steps, total_steps - done)
-        kw = dict(burn_in=burn_in, quantiles=quantiles,
-                  quantile_state=bundle.get("quantile_state"), step_offset=done,
+        kw = dict(burn_in=burn_in, quantiles=quantiles, step_offset=done,
                   **fused_kwargs)
-        if runner == "ulpda_tiled":
-            y0, xprev0 = bundle["ulpda_extras"]
-            res = run_ulpda_tv_tiled(l2, L21Norm(sigma=tv_sigma), Gradient2D(), tau,
-                                     gamma, bundle["position"], (seed, chain), n,
-                                     y0=y0, xprev0=xprev0, **kw)
+        qstate, extras = bundle.get("quantile_state"), bundle.get("ulpda_extras")
+        if not farm or runner == "tv":
+            # one call: a packed kernel-2 call carries the farm's chains
+            res = one_chain(bundle["position"], (seed, chain), n, qstate, extras, **kw)
+            pos, qstate = res.final_state.position, res.quantile_state
+            seg = ([RunningMoments(res.moments.count, m, v)
+                    for m, v in zip(res.moments.mean, res.moments.m2)]
+                   if farm else res.moments)
+            if runner == "ulpda_tiled":
+                extras = (res.final_state.extras.y, res.final_state.extras.xprev)
         else:
-            run = {"tv": run_myula_tv_fused, "wavelet": run_myula_wavelet_fused,
-                   "tiled": run_myula_tv_tiled}[runner]
-            res = run(l2, tv_sigma, tau, gamma, bundle["position"], (seed, chain),
-                      n, **kw)
-        pos = res.final_state.position
+            res = [one_chain(bundle["position"][c], k, n,
+                             qstate and (qstate[0][c], qstate[1][c]),
+                             extras and (extras[0][c], extras[1][c]), **kw)
+                   for c, k in enumerate(keys)]
+            pos = torch.stack([r.final_state.position for r in res])
+            qstate = stack_tree([r.quantile_state for r in res])
+            seg = [r.moments for r in res]
+            if runner == "ulpda_tiled":
+                extras = (torch.stack([r.final_state.extras.y for r in res]),
+                          torch.stack([r.final_state.extras.xprev for r in res]))
         _check_finite(pos, done, n, ckpt_path)
-        new = {"position": pos, "moments": bundle["moments"].merge(res.moments),
-               "key": (seed, chain), "done": done + n}
+        if farm:
+            prev = bundle["moments"]
+            moments = stack_tree([
+                RunningMoments(int(prev.count[c]), prev.mean[c], prev.m2[c]).merge(m)
+                for c, m in enumerate(seg)])
+        else:
+            moments = bundle["moments"].merge(seg)
+        new = {"position": pos, "moments": moments, "key": (seed, chain),
+               "done": done + n}
         if quantiles:
-            new["quantile_state"] = res.quantile_state
+            new["quantile_state"] = qstate
         if runner == "ulpda_tiled":
-            new["ulpda_extras"] = (res.final_state.extras.y,
-                                   res.final_state.extras.xprev)
+            new["ulpda_extras"] = extras
         bundle = new
         _finish_segment(bundle, ckpt_path, progress)
     if quantiles:
         qh = bundle["quantile_state"][0]
-        bundle["quantiles"] = {p: qh[5 * j + 2] for j, p in enumerate(quantiles)}
+        bundle["quantiles"] = {p: qh[..., 5 * j + 2, :, :] for j, p in enumerate(quantiles)}
     return bundle

@@ -10,20 +10,30 @@ Collection modes:
   * ``collect="both"`` - thinned samples AND streaming stats in one pass;
   * ``collect="last"`` - final state only.
 
+``collect_extras`` stacks the kernel's extras (e.g. ULPDA's dual samples)
+or a projection of them at each emitted step.
+
 The base key is a seed or a ``(seed, chain)`` pair; step ``state.step`` of a
-chain draws its noise under ``(seed, chain, state.step)``.
+chain draws its noise under ``(seed, chain, state.step)``. ``run_chains``
+runs independent chains under ``core.random.chain_keys`` and stacks their
+results along a leading chain axis, as ``jax.vmap`` of ``run_chain`` does in
+the JAX package; ``run_chain_segmented`` is ``run_chain(collect="stats")``
+with a progress call every ``segment_steps``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from lmc_atomi_torch.core.random import chain_keys
 from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments, RunningQuantile
 from lmc_atomi_torch.kernels.base import Kernel
 
-__all__ = ["ChainResult", "run_chain", "base_key"]
+__all__ = ["ChainResult", "run_chain", "run_chains", "run_chain_segmented",
+           "base_key", "stack_tree"]
 
 
 class ChainResult(NamedTuple):
@@ -44,6 +54,30 @@ def base_key(key):
     return int(key), 0
 
 
+def stack_tree(items):
+    """Stack equal-structured results along a new leading axis, as
+    ``jax.vmap`` stacks its outputs: tensors and Python numbers stack, None
+    stays None, and dataclasses, NamedTuples, dicts, tuples and lists stack
+    field by field."""
+    first = items[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, (bool, int, float)):
+        return torch.tensor(items)
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return type(first)(**{f.name: stack_tree([getattr(i, f.name) for i in items])
+                              for f in dataclasses.fields(first)})
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(stack_tree(list(v)) for v in zip(*items)))
+    if isinstance(first, dict):
+        return {k: stack_tree([i[k] for i in items]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_tree(list(v)) for v in zip(*items))
+    raise TypeError(f"cannot stack {type(first).__name__}")
+
+
 def run_chain(
     kernel: Kernel,
     x0,
@@ -56,12 +90,18 @@ def run_chain(
     quantile_ps: tuple = (),
     burn_in: int = 0,
     init_args: tuple = (),
+    collect_extras: Any = False,
+    unroll: int = 1,
 ) -> ChainResult:
     """Run one chain for ``n_steps`` kernel steps.
 
     ``n_steps`` must be divisible by ``thin``; positions/metrics are emitted
     every ``thin`` steps. ``burn_in`` (in *emitted* steps) masks the streaming
-    moment/quantile updates.
+    moment/quantile updates. ``collect_extras`` (True, or a projection
+    ``fn(extras)``) stacks ``state.extras`` (or ``fn(state.extras)``) of each
+    emitted step into ``ChainResult.extras``, e.g. ULPDA's dual samples.
+    ``unroll`` is the JAX package's scan unrolling; the port's loop is
+    eager, so it takes no effect.
     """
     if n_steps % thin != 0:
         raise ValueError(f"n_steps={n_steps} not divisible by thin={thin}")
@@ -80,7 +120,7 @@ def run_chain(
          for p in quantile_ps}
         if (want_stats and quantile_ps) else None
     )
-    samples, infos = [], []
+    samples, infos, extras = [], [], []
     series = {name: [] for name in (metrics or {})}
     for idx in range(n_emit):
         for _ in range(thin):
@@ -88,6 +128,9 @@ def run_chain(
         infos.append(info)
         if want_samples:
             samples.append(state.position)
+        if collect_extras:
+            extras.append(collect_extras(state.extras) if callable(collect_extras)
+                          else state.extras)
         for name, fn in (metrics or {}).items():
             series[name].append(fn(state.position))
         if want_stats:
@@ -105,4 +148,99 @@ def run_chain(
         ),
         moments=moments,
         quantiles=quants,
+        extras=stack_tree(extras) if collect_extras and extras else None,
     )
+
+
+def run_chains(
+    kernel: Kernel,
+    x0,
+    key,
+    n_steps: int,
+    n_chains: int,
+    *,
+    axis: int = 0,
+    batched: Optional[bool] = None,
+    **kwargs,
+) -> ChainResult:
+    """``n_chains`` independent chains: chain ``i`` is ``run_chain`` under
+    ``chain_keys(key, n_chains)[i]``, and every field of the results stacks
+    along a leading chain axis (``stack_tree``, ``jax.vmap``'s semantics).
+
+    ``x0`` is one position (every chain starts there) or a batch with a
+    leading chain axis; ``batched`` settles the case where one position's
+    leading dimension equals ``n_chains`` (``True``: the axis is the chains,
+    ``False``: broadcast); ``None`` takes ``x0`` as batched when every
+    tensor in it has a leading dimension of ``n_chains``. ``axis`` is the
+    JAX package's and must be 0."""
+    if axis != 0:
+        raise ValueError("run_chains stacks its chains along axis 0")
+    keys = chain_keys(key, n_chains)
+    leaves = _leaves(x0)
+    if batched is None:
+        batched = bool(leaves) and all(
+            isinstance(l, torch.Tensor) and l.ndim > 0 and l.shape[0] == n_chains
+            for l in leaves)
+    results = [
+        run_chain(kernel, _map(lambda l: l[i], x0) if batched else x0, k, n_steps,
+                  **kwargs)
+        for i, k in enumerate(keys)
+    ]
+    return stack_tree(results)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [l for v in tree.values() for l in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [l for v in tree for l in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def run_chain_segmented(
+    kernel: Kernel,
+    x0,
+    key,
+    n_steps: int,
+    *,
+    segment_steps: int = 250,
+    burn_in: int = 0,
+    init_args: tuple = (),
+    quantile_ps: tuple = (),
+    progress: Optional[Callable] = None,
+) -> ChainResult:
+    """``run_chain(collect="stats")`` in segments of ``segment_steps``,
+    calling ``progress(done, moments)`` after each (e.g. a running-mean PSNR
+    for long chains). The noise is keyed by the global step and the moments
+    and P^2 markers carry across the segments, so the result equals
+    ``run_chain``'s bit for bit. ``burn_in`` is in steps."""
+    seed, chain = base_key(key)
+    state = kernel.init(x0, *init_args)
+    pos = state.position
+    moments = RunningMoments.init(pos)
+    quants = {p: RunningQuantile.init(pos.shape, p, pos.dtype, pos.device)
+              for p in quantile_ps} or None
+    done = 0
+    while done < n_steps:
+        ns = min(segment_steps, n_steps - done)
+        for i in range(ns):
+            state, _ = kernel.step(state, (seed, chain, state.step))
+            w = done + i >= burn_in
+            moments = moments.update(state.position, weight=w)
+            if quants is not None and w:
+                quants = {p: q.update(state.position) for p, q in quants.items()}
+        done += ns
+        if progress is not None:
+            progress(done, moments)
+    return ChainResult(final_state=state, samples=None, infos=None, metrics=None,
+                       moments=moments, quantiles=quants)

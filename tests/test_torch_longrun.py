@@ -2,9 +2,10 @@
 ``core/checkpoint.py``) on the CPU, f64: a run stopped after its first
 segments and restarted from the checkpoint equals the straight run (the
 position bit for bit, since the noise is keyed by the global step; the
-merged moments to roundoff), a diverging chain raises, and the runners and
-modes not ported yet raise ``NotImplementedError``. The tiled runners'
-checkpointed runs are held in ``tests/test_torch_tiled.py``."""
+merged moments to roundoff), a diverging chain raises, and the farm across
+devices, not ported yet, raises ``NotImplementedError``. The tiled runners'
+checkpointed runs are held in ``tests/test_torch_tiled.py``, the chain
+farm's in ``tests/test_torch_multichain.py``."""
 import numpy as np
 import pytest
 import torch
@@ -139,21 +140,17 @@ def test_diverging_chain_raises(tmp_path):
     assert good["done"] == 4 and torch.isfinite(good["position"]).all()
 
 
-@pytest.mark.parametrize("case", ["tiled", "ulpda_tiled", "farm", "mesh"])
+@pytest.mark.parametrize("case", ["ulpda_tiled", "mesh"])
 def test_not_ported_runners_raise(case):
-    """Each mode of the JAX runner the port lacks names its ROADMAP item: the
-    chain farm and the mesh, also under the tiled runners (ported, A9)."""
+    """The mode of the JAX runner the port lacks, a farm across devices
+    (``chains_mesh``), names its ROADMAP item, A9, also under a tiled
+    runner. The chain farm itself is held in
+    ``tests/test_torch_multichain.py``."""
     l2, lam, gamma = _tv_problem()
-    x0, kw = l2.b, {}
-    if case == "tiled":
-        x0, kw["runner"], item = l2.b[None].repeat(2, 1, 1), case, "A6"
-    elif case == "ulpda_tiled":
-        kw["runner"], kw["chains_mesh"], item = case, object(), "A13"
-    elif case == "farm":
-        x0, item = l2.b[None].repeat(2, 1, 1), "A6"
-    else:
-        kw["chains_mesh"], item = object(), "A13"
-    with pytest.raises(NotImplementedError, match=item):
-        run_resumable_fused(l2, lam, 0.2 * gamma, gamma, x0, 0, 4, 4, **kw)
+    kw = {"chains_mesh": object()}
+    if case == "ulpda_tiled":
+        kw["runner"] = case
+    with pytest.raises(NotImplementedError, match="A9"):
+        run_resumable_fused(l2, lam, 0.2 * gamma, gamma, l2.b, 0, 4, 4, **kw)
     with pytest.raises(ValueError, match="unknown runner"):
         run_resumable_fused(l2, lam, 0.2 * gamma, gamma, l2.b, 0, 4, 4, runner="pnp")

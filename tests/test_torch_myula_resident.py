@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.core.random import chain_keys, normal_field
 from lmc_atomi_torch.kernels import myula_fused as t_fused
 from lmc_atomi_torch.kernels.myula_tiled import _halo_need
 from lmc_atomi_torch.ops.functionals import L2Data
@@ -77,22 +77,47 @@ def _cone_prox(x, gamma, niter, tv_solver, tv_step, stencils, p0, grown):
     return x - gamma * div(py, px), (py, px)
 
 
-def _emulate(x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
-             plan, taps, oy, ox, n_steps, niter_tv=10, tv_step=0.25,
-             with_noise=True, with_stats=True, tv_warm=False, quantiles=(),
-             quantile_thin=1, tv_solver="chambolle", mode="tv", niter_inner=10):
-    """Kernel 2's resident schedule on tiles ``plan = (ty, tx, h)``."""
-    ty, tx, h = plan
+def _lockstep(schedules):
+    """Run the step generators of one cooperative launch's chains in
+    lockstep (a grid barrier steps them together); their results."""
+    out, live = [None] * len(schedules), list(range(len(schedules)))
+    while live:
+        for i in list(live):
+            try:
+                next(schedules[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+                live.remove(i)
+    return out
+
+
+def _emulate(*args, **kwargs):
+    """Kernel 2's resident schedule on one chain (see ``_schedule``)."""
+    return _lockstep([_schedule(*args, **kwargs)])[0]
+
+
+def _schedule(x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
+              plan, taps, oy, ox, n_steps, niter_tv=10, tv_step=0.25,
+              with_noise=True, with_stats=True, tv_warm=False, quantiles=(),
+              quantile_thin=1, tv_solver="chambolle", mode="tv", niter_inner=10,
+              bufs=None):
+    """Kernel 2's resident schedule on tiles ``plan = (ty, tx, h, ...)``,
+    yielding after each step; ``bufs`` are the launch's device buffers of
+    this chain, ``(xs, dv, ev)``: the x parity pair (x in the first) and the
+    (y, x) dual planes of parity 0 and 1 of the TV prox and the envelope
+    (fresh ones when None)."""
+    ty, tx, h = plan[:3]
     ny, nx = x.shape
     (c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma, lamda, gamma_mc, _,
      c_env) = t_fused._update_coefs(scal_f)
     seed, chain = base_key(seed)
     rec = t_fused._BlockStats(scal_i, mean, m2, qh, qn, quantiles,
                               quantile_thin, with_stats)
-    xs = [x, torch.empty_like(x)]
-    # (y, x) dual planes of parity 0 and 1: the TV prox's and the envelope's
-    dv = [torch.empty((2, ny, nx), dtype=x.dtype) for _ in range(2)]
-    ev = [torch.empty((2, ny, nx), dtype=x.dtype) for _ in range(2)]
+    if bufs is None:
+        bufs = ([x, torch.empty_like(x)],
+                [torch.empty((2, ny, nx), dtype=x.dtype) for _ in range(2)],
+                [torch.empty((2, ny, nx), dtype=x.dtype) for _ in range(2)])
+    xs, dv, ev = bufs
     for i in range(n_steps):
         g = rec.step0 + i
         par = i % 2
@@ -146,7 +171,34 @@ def _emulate(x, atbs, mean, m2, seed, scal_f, scal_i, qh=None, qn=None, *,
                 for k in range(2):
                     dv[par][k][img] = dual[k][inner]
         rec(dst.clone(), g)
+        yield
     return (xs[n_steps % 2], *rec.result())
+
+
+def _emulate_chains(x, atbs, mean, m2, keys, scal_f, scal_i, qh=None, qn=None, *,
+                    plan, n_steps, **kw):
+    """Kernel 2's resident route with a chain axis on ``plan = (ty, tx, h,
+    G)``: the chains in groups of ``G``, one cooperative launch a group,
+    stepping in lockstep, every field of a chain at its offset in the
+    launch's device buffers as ``csrc/myula_block.cu`` lays them out (x and
+    its parity buffer chain-major, the duals 8 planes a chain). The parity
+    and dual buffers start as NaN, so a chain that reads outside its own
+    fields, or before they are written, reaches its interior as NaN."""
+    c, ny, nx = x.shape
+    g = plan[3]
+    xbuf, parity = x.clone(), torch.full_like(x, float("nan"))
+    duals = torch.full((8 * c, ny, nx), float("nan"), dtype=x.dtype)
+    env = torch.full_like(duals, float("nan"))
+    out = []
+    for c0 in range(0, c, g):
+        out += _lockstep([_schedule(
+            xbuf[z], atbs, None if mean is None else mean[z], None if m2 is None else m2[z],
+            keys[z], scal_f, scal_i, None if qh is None else qh[z],
+            None if qn is None else qn[z], plan=plan, n_steps=n_steps,
+            bufs=([xbuf[z], parity[z]], [duals[8 * z + 2 * p:8 * z + 2 * p + 2] for p in (0, 1)],
+                  [env[8 * z + 2 * p:8 * z + 2 * p + 2] for p in (0, 1)]), **kw)
+            for z in range(c0, min(c0 + g, c))])
+    return tuple(None if o[0] is None else torch.stack(o) for o in zip(*out))
 
 
 @pytest.fixture(scope="module")
@@ -250,7 +302,8 @@ def test_resident_plan_tiles_and_halo(shape, n_sm, mode, opts):
     taps, oy = _taps(5), 4  # a 5x5 blur's autocorrelation: 9 taps, offset 4
     plan = t_fused.resident_plan(shape, taps, oy, oy, mode=mode, n_sm=n_sm, **opts)
     assert plan is not None
-    ty, tx, h = plan
+    ty, tx, h, g = plan
+    assert g == 1
     ny, nx = shape
     assert ty % 8 == 0 and tx % 8 == 0
     assert -(-ny // ty) * -(-nx // tx) <= n_sm
@@ -279,6 +332,73 @@ def test_resident_route_at_512_not_2048():
                                          **kw) is None
     assert t_fused.resident_plan((512, 512), taps, 4, 4, n_steps=0) is None
     assert t_fused.resident_plan((512, 512), taps, 4, 4, niter_tv=65) is None
+
+
+# (data term, options): the chain axis in the modes of multichain_deblur
+# and the farm, warm duals and CI markers
+CHAIN_CASES = {
+    "tv_cold10": ("tv", dict(niter_tv=10)),
+    "tv_fgp8_warm": ("tv", dict(niter_tv=8, tv_solver="fgp", tv_warm=True)),
+    "metv_warm4": ("metv", dict(niter_tv=4, tv_warm=True)),
+    "tv_cold10_ci95": ("tv", dict(niter_tv=10, quantiles=(0.025, 0.975),
+                                  quantile_thin=2)),
+}
+CHAINS = 5
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_resident_chain_axis_equals_plain_version(terms, case):
+    """The chain axis: 5 chains on the planner's chain-axis tiling for a
+    card of 16 SMs and 60000 bytes of shared memory a CTA (8 tiles of 16 x
+    32 a chain, 2 chains a launch, 3 launches in turn), held bit for bit to
+    the plain version with the chain axis over STEPS noisy steps, every
+    chain under its own key."""
+    name, opts = CHAIN_CASES[case]
+    args, kw = _block_args(terms[name], torch.float32, opts)
+    x, atbs, mean, m2, _, scal_f, scal_i, qh, qn = args
+    keys = chain_keys((7, 2), CHAINS)
+    x, mean, m2 = (torch.stack([a + 3.0 * c for c in range(CHAINS)]) for a in (x, mean, m2))
+    qh, qn = (None if a is None else torch.stack([a] * CHAINS) for a in (qh, qn))
+    plan = t_fused.resident_plan(
+        (N, N), kw["taps"], kw["oy"], kw["ox"], niter_tv=opts["niter_tv"],
+        tv_solver=opts.get("tv_solver", "chambolle"), mode=kw["mode"],
+        niter_inner=kw["niter_inner"], n_steps=STEPS, n_chains=CHAINS, n_sm=16,
+        smem_optin=60000)
+    assert plan[:2] == (16, 32) and plan[3] == 2, plan
+    args = (x, atbs, mean, m2, keys, scal_f, scal_i, qh, qn)
+    want = t_fused.myula_tv_block_update_ref(*args, n_steps=STEPS, **kw)
+    got = _emulate_chains(*args, plan=plan, n_steps=STEPS, **kw)
+    for field, g, w in zip(("x", "mean", "m2", "qh", "qn"), got, want):
+        if w is None:
+            assert g is None, field
+            continue
+        assert torch.equal(g, w), (field, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("n_chains, n_sm, want", [
+    (1, 132, (32, 64, 11, 1)), (2, 132, (64, 64, 11, 2)), (8, 132, (16, 16, 11, 8)),
+    (64, 132, (32, 64, 11, 64)), (200, 132, (64, 64, 11, 132)), (5, 40, None)])
+def test_resident_plan_chains_per_launch(n_chains, n_sm, want):
+    """The chain axis's cost rule, launches in turn x tile area: on the H100
+    one 512^2 chain keeps its 32 x 64 tiles, two take 64 x 64 tiles in one
+    launch; at 64^2 8 chains take 16 x 16 tiles, 64 chains 32 x 64 tiles,
+    200 chains whole-image tiles in two launches of at most 132; the plan
+    equals a brute-force search of the rule."""
+    taps = _taps(5)
+    shape = (512, 512) if n_chains <= 2 else (64, 64)
+    plan = t_fused.resident_plan(shape, taps, 4, 4, n_chains=n_chains, n_sm=n_sm)
+    if want is not None:
+        assert plan == want
+    ty, tx, h, g = plan
+    tiles = -(-shape[0] // ty) * -(-shape[1] // tx)
+    assert g == min(n_chains, n_sm // tiles) and g * tiles <= n_sm
+    best = min(-(-n_chains // min(n_chains, n_sm // (-(-shape[0] // a) * -(-shape[1] // b))))
+               * (a + 2 * h) * (b + 2 * h)
+               for a in range(8, shape[0] + 8, 8) for b in range(8, shape[1] + 8, 8)
+               if -(-shape[0] // a) * -(-shape[1] // b) <= n_sm
+               and 4 * (5 * (a + 2 * h) * (b + 2 * h) + 3 * a * b + a + b + 4 * h) + 256
+               <= t_fused.H100_SMEM_OPTIN)
+    assert -(-n_chains // g) * (ty + 2 * h) * (tx + 2 * h) == best
 
 
 def test_cuda_wrapper_refuses_cpu_without_counting(terms):

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from lmc_atomi_torch.core.random import normal_field
+from lmc_atomi_torch.core.random import chain_keys, normal_field
 from lmc_atomi_torch.kernels import myula_fused as t_fused
 from lmc_atomi_torch.kernels import ulpda_fused as t_ulpda
 from lmc_atomi_torch.ops.functionals import L1Norm, L2Data, L21Norm
@@ -87,12 +87,35 @@ def _cone_dual(f, gamma, niter, tv_solver, tv_step, stencils, p0, keep):
     return py, px
 
 
-def _emulate(x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *, plan, taps, oy, ox,
-             lam, n_steps, niter_solve=3, tv_step=0.25, gfirst=False, dual="l21",
-             mode="tv", niter_inner=10, with_noise=True, tv_solver="chambolle",
-             with_stats=True, env_warm=False, levels=3):
-    """Kernel 3's resident schedule on ``plan = (ty, tx, h)``."""
-    ty, tx, h = plan
+def _lockstep(schedules):
+    """Run the step generators of one cooperative launch's chains in
+    lockstep (the grid barriers step them together); their results."""
+    out, live = [None] * len(schedules), list(range(len(schedules)))
+    while live:
+        for i in list(live):
+            try:
+                next(schedules[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+                live.remove(i)
+    return out
+
+
+def _emulate(*args, **kwargs):
+    """Kernel 3's resident schedule on one chain (see ``_schedule``)."""
+    return _lockstep([_schedule(*args, **kwargs)])[0]
+
+
+def _schedule(x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *, plan, taps, oy,
+              ox, lam, n_steps, niter_solve=3, tv_step=0.25, gfirst=False, dual="l21",
+              mode="tv", niter_inner=10, with_noise=True, tv_solver="chambolle",
+              with_stats=True, env_warm=False, levels=3, bufs=None):
+    """Kernel 3's resident schedule on ``plan = (ty, tx, h, ...)``, yielding
+    at the grid barriers after the u exchanges and after each step; ``bufs`` are the launch's device buffers of this chain,
+    ``(xs, ev, ub)``: the x parity pair (x in the first), the envelope
+    dual's (y, x) planes of parity 0 and 1 and the exchanged u (fresh ones
+    when None)."""
+    ty, tx, h = plan[:3]
     ny, nx = x.shape
     (tau, mu, theta, noise_amp, ts, g_sigma, c_mc, gamma_mc, _,
      c_me) = t_ulpda._block_coefs(scal_f)
@@ -105,9 +128,12 @@ def _emulate(x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *, plan, taps
     cheb = t_ulpda._chebyshev_coefs(ts, lam, niter_solve)
     fwd_y, fwd_x, _ = _stencils(x)
     nan = torch.tensor(float("nan"), dtype=x.dtype)
-    xs = [x, torch.empty_like(x)]
-    ev = [torch.empty((2, ny, nx), dtype=x.dtype) for _ in range(2)]
-    ub = torch.empty_like(x)  # the exchanged u (two parity planes on the card)
+    if bufs is None:
+        # the exchanged u: two parity planes on the card
+        bufs = ([x, torch.empty_like(x)],
+                [torch.empty((2, ny, nx), dtype=x.dtype) for _ in range(2)],
+                torch.empty_like(x))
+    xs, ev, ub = bufs
     tiles = []
     for by in range(-(-ny // ty)):
         for bx in range(-(-nx // tx)):
@@ -177,6 +203,7 @@ def _emulate(x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *, plan, taps
                 t["X"] = torch.where(t["grown"](0), t["X"] + d, nan)
             for t in tiles:
                 ub[t["img"]] = t["X"][t["inner"]]
+            yield  # the grid barrier after an exchange
         for t in tiles:  # ul_finish on the interior
             xn = t["X"][t["inner"]]
             if with_noise:
@@ -186,8 +213,35 @@ def _emulate(x, py, px, xbar, atb, mean, m2, seed, scal_f, scal_i, *, plan, taps
         if not gfirst:
             py, px = dual_phase(py, px, xbar)
         rec(dst.clone(), g)
+        yield
     mean, m2, _, _ = rec.result()
     return xs[n_steps % 2], py, px, xbar, mean, m2
+
+
+def _emulate_chains(x, py, px, xbar, atb, mean, m2, keys, scal_f, scal_i, *, plan,
+                    n_steps, **kw):
+    """Kernel 3's resident route with a chain axis on ``plan = (ty, tx, h,
+    G)``: the chains in groups of ``G``, one cooperative launch a group,
+    stepping in lockstep, each chain's fields at its offset in the launch's
+    device buffers as ``csrc/ulpda_block.cu`` lays them out (x and its
+    parity buffer chain-major, the envelope duals 8 planes a chain, u 2
+    planes a chain). The parity, envelope and u buffers start as NaN, so a
+    chain that reads outside its own fields, or before they are written,
+    reaches its interior as NaN."""
+    c, ny, nx = x.shape
+    g = plan[3]
+    xbuf, parity = x.clone(), torch.full_like(x, float("nan"))
+    env = torch.full((8 * c, ny, nx), float("nan"), dtype=x.dtype)
+    ub = torch.full((2 * c, ny, nx), float("nan"), dtype=x.dtype)
+    out = []
+    for c0 in range(0, c, g):
+        out += _lockstep([_schedule(
+            xbuf[z], py[z], px[z], xbar[z], atb, mean[z], m2[z], keys[z], scal_f, scal_i,
+            plan=plan, n_steps=n_steps,
+            bufs=([xbuf[z], parity[z]], [env[8 * z + 2 * p:8 * z + 2 * p + 2] for p in (0, 1)],
+                  ub[2 * z]), **kw)
+            for z in range(c0, min(c0 + g, c))])
+    return tuple(torch.stack(o) for o in zip(*out))
 
 
 @pytest.fixture(scope="module")
@@ -288,7 +342,9 @@ def test_resident_plan_tiles_fit_and_halo(shape, n_sm, mode, opts):
     sweeps on the interior: x on the interior grown by the reach, the dual
     on ``e_v + 1``."""
     taps, reach = _taps(5), 4  # a 5x5 blur's autocorrelation: 9 taps, offset 4
-    ty, tx, h = t_ulpda.ulpda_resident_plan(shape, taps, 4, 4, mode=mode, n_sm=n_sm, **opts)
+    ty, tx, h, g = t_ulpda.ulpda_resident_plan(shape, taps, 4, 4, mode=mode, n_sm=n_sm,
+                                               **opts)
+    assert g == 1
     ny, nx = shape
     e_v = {"tv": 0, "mctv": 2}.get(mode, opts.get("niter_inner", 10))
     assert ty % 8 == 0 and tx % 8 == 0
@@ -321,6 +377,56 @@ def test_resident_route_at_512_not_2048_nor_wl1():
     # the planner is asked on every call: computed once per shape and options
     assert (t_ulpda.ulpda_resident_plan((512, 512), taps, 4, 4)
             is t_ulpda.ulpda_resident_plan((512, 512), taps, 4, 4))
+
+
+# (data term, dual, options): the chain axis in both orders, the nonconvex
+# terms, the warm FGP envelope
+CHAIN_CASES = {
+    "tv_l21": ("tv", "l21", dict()),
+    "tv_l21_gfirst": ("tv", "l21", dict(gfirst=True)),
+    "mctv_l1": ("mctv", "l1", dict()),
+    "metv_fgp_warm_gfirst": ("metv", "l21", dict(gfirst=True, env_warm=True,
+                                                 tv_solver="fgp", niter_inner=4)),
+}
+CHAINS = 5
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_resident_chain_axis_equals_plain_version(terms, case):
+    """The chain axis: 5 chains on the planner's chain-axis tiling for a
+    card of 9 SMs and 60000 bytes of shared memory a CTA (3 or 4 tiles a
+    chain, ragged in rows in TV and MC-TV; 2 or 3 chains a launch, launches
+    in turn), held bit for bit to
+    the plain version with the chain axis over STEPS noisy steps, every
+    chain under its own key."""
+    name, dual, opts = CHAIN_CASES[case]
+    args, kw = _block_args(terms[name], dual, torch.float32, opts)
+    x, py, px, xbar, atb, mean, m2, _, scal_f, scal_i = args
+    x, py, px, xbar, mean, m2 = (torch.stack([a + 0.5 * c for c in range(CHAINS)])
+                                 for a in (x, py, px, xbar, mean, m2))
+    keys = chain_keys((7, 2), CHAINS)
+    plan = t_ulpda.ulpda_resident_plan(
+        (N, N), kw["taps"], kw["oy"], kw["ox"], mode=kw["mode"],
+        niter_inner=kw["niter_inner"], dual=kw["dual"],
+        tv_solver=kw.get("tv_solver", "chambolle"), n_chains=CHAINS, n_sm=9,
+        smem_optin=60000)
+    tiles = -(-N // plan[0]) * -(-N // plan[1])
+    assert tiles > 1 and 1 < plan[3] < CHAINS, plan
+    args = (x, py, px, xbar, atb, mean, m2, keys, scal_f, scal_i)
+    want = t_ulpda.ulpda_block_update_ref(*args, n_steps=STEPS, **kw)
+    got = _emulate_chains(*args, plan=plan, n_steps=STEPS, **kw)
+    for field, g, w in zip(("x", "py", "px", "xbar", "mean", "m2"), got, want):
+        assert torch.equal(g, w), (field, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("n_chains, want", [(1, (32, 64, 4, 1)), (2, (64, 64, 4, 2)),
+                                            (8, (16, 16, 4, 8)), (64, (32, 64, 4, 64)),
+                                            (200, (64, 64, 4, 132))])
+def test_resident_plan_chains_per_launch(n_chains, want):
+    """Kernel 2's chain rule on the H100: 512^2 for 1 and 2 chains, 64^2
+    for 8, 64 and 200 (two launches of at most 132)."""
+    shape = (512, 512) if n_chains <= 2 else (64, 64)
+    assert t_ulpda.ulpda_resident_plan(shape, _taps(5), 4, 4, n_chains=n_chains) == want
 
 
 def test_cuda_wrapper_refuses_cpu_without_counting(terms):
