@@ -90,13 +90,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
    checkpoint against the straight run, ``"wavelet"`` at 512^2 and
    ``"tiled"`` at 2048^2, 2 chains each, every chain equal to its
    one-chain run under its chain key;
+9c. the mixtures path (the paper's workloads 1-3: the Gaussian mixture,
+   the smoothed Laplacian mixture and the mixture x Laplace prior, n=5, the
+   CLI defaults, k=1000): each CLI at 1024 chains, one step over all chains
+   (``run_chains``), every sample finite, MALA's and MYMALA's acceptance in
+   (0, 1], chain 0's final Sinkhorn W2 and each sampler's pooled mean within
+   the JAX package's gates (MIX_GATES, scripts/mixture_gates.py); chains 0
+   and 1023 of every sampler against their one-chain ``run_chain`` runs over
+   the first 200 steps (bit for bit, IHPULA within MIX_EIGH_TOL), timed
+   beside the batched rate, and 16 chains one after another; one W2 curve
+   timed at k=5000; IHPULA's gamma=0.1, n=2 chain over 10000 f32 steps, and
+   whether ``torch.linalg.eigh`` waits for the card. No TPU kernel lies on
+   this path;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
    iteration), of the inpainting cells (a fused Haar and a D4 MYULA block, the
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it), of
-   one packed 500-step block at 64^2 x 64 chains, and kernel 1's device
+   one packed 500-step block at 64^2 x 64 chains, of one batched ULA block
+   of the Gaussian mixture (1024 chains x 100 steps), and kernel 1's device
    time per call at 512^2 and 2048^2.
 
 With ``--turns KERNELS`` (a comma list of 1, 3, 4, 5, 6, 7, 8) the script
@@ -130,10 +143,11 @@ the resident route, on the inpainting path every kernel-4 and kernel-5
 call the warp (Haar) or the resident route (D4/D8), and on the large-image
 path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
 cone, on the multichain path every kernel-2 and kernel-3 call the resident
-route. The script then prints one JSON line describing each kernel
-(launches and route counts on the five paths, errors, times, the bound of
-the card; for kernels 2 and 3 also the chain axis's plan, error and times)
-and, last, ``{"ok": true, "device": {...}}``.
+route; the mixtures path launches none of them. The script then prints
+one JSON line describing each kernel (launches and route counts on the six
+paths, errors, times, the bound of the card; for kernels 2 and 3 also the
+chain axis's plan, error and times) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -1642,6 +1656,53 @@ K2_CHAIN_RUNS = {
 # kernel 3 with a chain axis: (data term, gfirst); l21 duals but MC-TV's l1
 K3_CHAIN_RUNS = [(m, g) for m in ("tv", "mctv", "metv") for g in (False, True)]
 
+# the mixtures path (experiments/{mixtures,laplace_mixtures,prox_mixtures}.py):
+# the paper's workloads 1-3 at full width (n=5 components, d=2, the CLI
+# defaults); cut in depth only, to k=1000 steps (the CLIs: 5000, 5000, 10000)
+MIX_K = 1000
+MIX_CHAINS = 1024
+MIX_PICK = (0, MIX_CHAINS - 1)  # chains held to their one-chain runs
+MIX_ONE_STEPS = 200  # the one-chain runs' depth: the first steps of the chains
+# samplers whose chains equal their one-chain runs bit for bit: all but
+# IHPULA, whose eigh a batched call may take by another algorithm; its
+# chains are held within MIX_EIGH_TOL of the one-chain run's scale
+MIX_EIGH_TOL = 1e-3
+MIX_SERIAL, MIX_SERIAL_STEPS = 16, 25  # chains one run_chain after another
+MIX_W2_FULL = 5000  # one W2 curve timed at the CLI's default k
+MIX_IHPULA_STEPS = 10000  # the gamma=0.1, n=2 f32 regression (tests/test_kernels.py:174)
+MIX_PROFILE_STEPS = 100
+# gates from the JAX package on the same configuration on the CPU (f32, 1024
+# chains x 1000 steps, seeds 0-3), computed by scripts/mixture_gates.py: the
+# final Sinkhorn W2 of chain 0 within [0.5 min, 1.5 max] of JAX's chains 0
+# and 1 over the seeds, and each sampler's pooled mean within [min (mean - 5
+# se), max (mean + 5 se)] over the seeds, per coordinate (se: the standard
+# error of the 1024 chain means). The seeds move the start and the noise,
+# which the port draws otherwise.
+MIX_GATES = {  # sampler: (W2 gate or None, pooled-mean low (x, y), high (x, y))
+    "gaussian": {
+        "ULA": ((1.0046, 5.4785), (-0.4874, -0.6855), (0.2673, 0.1366)),
+        "MALA": ((1.1473, 4.9477), (-0.5493, -0.6698), (0.1576, 0.043)),
+        "PULA": ((0.9513, 6.6264), (-0.5237, -1.0665), (0.0551, 0.0547)),
+        "IHPULA": ((1.1988, 7.0326), (-0.8309, -0.7309), (0.5095, 0.9716)),
+        "MLA": ((1.0669, 4.5994), (-0.428, -0.8483), (0.3607, 0.3259)),
+    },
+    "laplace": {
+        "ULA": ((6.9441, 24.6239), (-1.5861, -1.5897), (1.9392, 1.0807)),
+        "MALA": ((7.5873, 25.0073), (-1.7887, -1.5882), (1.842, 1.1445)),
+        "PULA": ((6.9094, 26.387), (-1.8697, -1.7234), (1.6535, 0.9926)),
+        "IHPULA": ((4.1486, 30.0976), (-1.2279, -0.9224), (1.6815, 1.3969)),
+        "MLA": ((6.061, 40.9365), (-3.9215, -4.8696), (4.2284, 3.1205)),
+    },
+    "prox": {
+        "PGLD": (None, (-0.4762, -0.6554), (0.2541, 0.1179)),
+        "MYULA": (None, (-0.4673, -0.5807), (0.1309, 0.0474)),
+        "MYMALA": (None, (-0.4696, -0.623), (0.0415, 0.0877)),
+        "PP-ULA": (None, (-0.4551, -0.6476), (-0.004, 0.0017)),
+        "FBULA": (None, (-0.4352, -0.6191), (0.1276, 0.0156)),
+        "LBMUMLA": (None, (-0.36, -0.7062), (0.2063, 0.2726)),
+    },
+}
+
 
 def _chain_starts(y, n_chains):
     """Distinct starts of ``n_chains`` chains: the observation, shifted."""
@@ -1922,6 +1983,148 @@ def phase_multichain(dev):
     farm(f"tiled {LARGE_N}^2", (terms["tv"], TV_WEIGHT, 0.2 * gamma, gamma, x0, (23, 0)),
          MC_TILED_STEPS, MC_TILED_STEPS // 2, dict(runner="tiled", burn_in=100,
                                                    tv_solver="fgp", niter_tv=8))
+
+
+def mixture_workloads(dev):
+    """The three mixture CLIs and their setups (target, generator, start,
+    kernels) at the CLI defaults and seed 0, as the CLIs build them."""
+    from lmc_atomi_torch.experiments.laplace_mixtures import laplace_setup, lmc_laplacian_mixture
+    from lmc_atomi_torch.experiments.mixtures import gaussian_setup, lmc_gaussian_mixture
+    from lmc_atomi_torch.experiments.prox_mixtures import prox_lmc_gaussian_mixture, prox_setup
+
+    return {"gaussian": (lmc_gaussian_mixture, lambda: gaussian_setup(5, 0, dev)),
+            "laplace": (lmc_laplacian_mixture, lambda: laplace_setup(5, 0.1, 0.1, 0, dev)),
+            "prox": (prox_lmc_gaussian_mixture, lambda: prox_setup(5, 0.1, 0.01, 100, 0, dev))}
+
+
+def phase_mixtures(dev):
+    """The mixtures path: each workload's CLI at 1024 chains (one step over
+    all chains through ``run_chains``), its samples finite, MALA's and
+    MYMALA's acceptance in (0, 1], chain 0's final W2 and every sampler's
+    pooled mean within the JAX package's gates (MIX_GATES); chains 0 and
+    1023 against their one-chain ``run_chain`` runs over the first
+    MIX_ONE_STEPS steps (bit for bit, IHPULA within MIX_EIGH_TOL), the
+    one-chain rate beside the batched one, and 16 chains one after another;
+    one W2 curve timed at the CLI's default k; IHPULA's gamma=0.1, n=2 chain
+    over 10000 f32 steps, finite, and whether ``torch.linalg.eigh`` waits
+    for the card."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from lmc_atomi_torch.core.random import chain_keys
+    from lmc_atomi_torch.eval.wasserstein import w2_prefix_curve
+    from lmc_atomi_torch.experiments.mixtures import gaussian_setup
+    from lmc_atomi_torch.run.runner import run_chain, run_chains
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    for wl, (cli, setup) in mixture_workloads(dev).items():
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            res, wall = timed(lambda: cli(k=MIX_K, n_chains=MIX_CHAINS, device=str(dev)))
+        samples, summary = res[0], res[-1]
+        accept = {m: float(v) for m, v in
+                  re.findall(r"(\S+) percentage of effective samples: ([0-9.]+)", err.getvalue())}
+        gates = MIX_GATES[wl]
+        _, _, x0, kernels = setup()
+        rows = []
+        for i, (name, kern) in enumerate(kernels.items()):
+            s = samples[name].reshape(MIX_CHAINS, MIX_K, 2)
+            if not np.isfinite(s).all():
+                raise AssertionError(f"mixtures {wl} {name}: non-finite samples")
+            if name in accept and not 0.0 < accept[name] <= 1.0:
+                raise AssertionError(f"mixtures {wl} {name}: acceptance {accept[name]}")
+            pooled = s.reshape(-1, 2).mean(0)
+            w2_gate, lo, hi = gates[name]
+            if not (np.all(pooled >= lo) and np.all(pooled <= hi)):
+                raise AssertionError(f"mixtures {wl} {name}: pooled mean {pooled} outside "
+                                     f"[{lo}, {hi}]")
+            w2 = summary.get("final_w2", {}).get(name)
+            if (w2 is None) != (w2_gate is None) or (
+                    w2 is not None and not w2_gate[0] <= w2 <= w2_gate[1]):
+                raise AssertionError(f"mixtures {wl} {name}: chain 0's W2 {w2} outside {w2_gate}")
+            keys = chain_keys((0, i), MIX_CHAINS)
+            diffs, one_s = [], 0.0
+            for c in MIX_PICK:
+                one, dt = timed(lambda: run_chain(kern, x0, keys[c], MIX_ONE_STEPS).samples)
+                one_s += dt
+                one, batch = one.cpu().numpy(), s[c, :MIX_ONE_STEPS]
+                diff = float(np.abs(one - batch).max())
+                exact = np.array_equal(one, batch)
+                if not (exact or (name == "IHPULA"
+                                  and diff <= MIX_EIGH_TOL * max(1.0, float(np.abs(one).max())))):
+                    raise AssertionError(f"mixtures {wl} {name}: chain {c} differs from its "
+                                         f"one-chain run by {diff}")
+                diffs.append("equal" if exact else f"{diff:.3g}")
+            rows.append(f"{name} {summary['iters_per_sec'][name]} aggregate iters/s, one chain "
+                        f"{len(MIX_PICK) * MIX_ONE_STEPS / one_s:.1f}; chains {MIX_PICK} vs "
+                        f"one-chain runs of {MIX_ONE_STEPS} steps {diffs}; W2 "
+                        f"{w2 if w2 is None else round(w2, 4)} (gate {w2_gate}); pooled mean "
+                        f"{pooled.round(4).tolist()} (gate {lo}, {hi})"
+                        + (f"; acceptance {accept[name]}" if name in accept else ""))
+        name, kern = next(iter(kernels.items()))
+        _, dt = timed(lambda: run_chains(kern._replace(chain_axis=False), x0, (0, 0),
+                                         MIX_SERIAL_STEPS, MIX_SERIAL))
+        log(f"mixtures {wl} (n=5, k={MIX_K}, {MIX_CHAINS} chains, CLI {wall:.1f} s): "
+            + "; ".join(rows) + f". {MIX_SERIAL} {name} chains one after another "
+            f"({MIX_SERIAL_STEPS} steps): {MIX_SERIAL * MIX_SERIAL_STEPS / dt:.1f} aggregate "
+            f"iters/s")
+
+    # one W2 curve at the Gaussian CLI's default k
+    gm, gen, _, _ = gaussian_setup(5, 0, dev)
+    true, s = gm.sample(gen, MIX_W2_FULL), gm.sample(gen, MIX_W2_FULL)
+    w2_prefix_curve(true[:200], s[:200])  # warm-up
+    (_, vals), dt = timed(lambda: w2_prefix_curve(true, s))
+    side = s[::max(1, MIX_W2_FULL // 2000)].shape[0]
+    log(f"mixtures: one W2 curve at k={MIX_W2_FULL} ({vals.numel()} prefixes, Sinkhorn "
+        f"200 iterations, {side} points a side): {dt * 1e3:.1f} ms; final W2 of two true "
+        f"samples {float(vals[-1]):.4f}")
+
+    # IHPULA, gamma = 0.1, n = 2, 10000 f32 steps
+    from lmc_atomi_torch.experiments.configs import gaussian_mixture_config
+    from lmc_atomi_torch.kernels import ihpula
+    from lmc_atomi_torch.models import GaussianMixture
+
+    gm2 = GaussianMixture.create(*gaussian_mixture_config(2), dtype=torch.float32, device=dev)
+    kern = ihpula(gm2.grad_potential, gm2.hess_potential, 0.1)
+    x0 = torch.randn(2, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    run_chain(kern, x0, (0, 3), 20)  # warm-up
+    res, dt = timed(lambda: run_chain(kern, x0, (0, 3), MIX_IHPULA_STEPS))
+    if not bool(torch.isfinite(res.samples).all()):
+        raise AssertionError("mixtures: the IHPULA gamma=0.1, n=2 chain diverged")
+    h = gm2.hess_potential(x0)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.linalg.eigh(h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:80] for w in caught if "synchroniz" in str(w.message)]
+    log(f"mixtures: IHPULA gamma=0.1 n=2, {MIX_IHPULA_STEPS} f32 steps finite, "
+        f"{dt / MIX_IHPULA_STEPS * 1e3:.3f} ms a step; torch.linalg.eigh waits for the card: "
+        f"{bool(syncs)} {syncs[:1]}")
+    log(f"mixtures path: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_profile_mixtures(dev):
+    """Where the time goes in one batched ULA block of the Gaussian-mixture
+    workload: 1024 chains x 100 steps, one step over all chains."""
+    from lmc_atomi_torch.experiments.mixtures import gaussian_setup
+    from lmc_atomi_torch.run.runner import run_chains
+
+    _, _, x0, kernels = gaussian_setup(5, 0, dev)
+    profile_window(f"run_chains ULA {MIX_CHAINS} chains x {MIX_PROFILE_STEPS} steps (Gaussian "
+                   "mixture, n=5)",
+                   lambda: run_chains(kernels["ULA"], x0, (4, 0), MIX_PROFILE_STEPS, MIX_CHAINS))
 
 
 def phase_profile_multichain(dev):
@@ -2668,12 +2871,14 @@ def main() -> int:
         drive("multichain", ("myula_tv_block_update_cuda", "ulpda_block_update_cuda",
                              "wavelet_block_update_cuda", "myula_tv_tiled_update_cuda"),
               phase_multichain, dev, resident=True, wavelet=True),
+        drive("mixtures", (), phase_mixtures, dev),
     ]
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)
     phase_profile_inpainting(dev)
     phase_profile_large(dev)
     phase_profile_multichain(dev)
+    phase_profile_mixtures(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=sum(p[k] for p in paths), **report[k],

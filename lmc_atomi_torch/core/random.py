@@ -18,10 +18,18 @@ counterpart of ``jax.random.split`` of the step key in
 
 Chains of one run take the keys ``chain_keys(key, n)``: ``(seed, chain_i)``
 with ``chain_i`` a pure function of ``(seed, chain, i)``, distinct for
-distinct ``i`` (the counterpart of ``fold_in(base, i)``).
+distinct ``i`` (the counterpart of ``fold_in(base, i)``). ``normal_field``
+and ``uniform_scalar`` also take ``chain`` as an int64 tensor of ``C`` such
+words and ``step`` as one of ``B`` steps and draw them all at once, each
+entry equal bit for bit to its own call: Philox is elementwise, so the words
+broadcast.
 
-uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``; the 32x32-bit
-products are split into 16-bit halves so that no partial product overflows.
+uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``. A 32x32-bit
+product needs 64 bits: int64 tensor arithmetic wraps it modulo 2^64 (two's
+complement on the CPU and the card), which leaves its low and high 32-bit
+words intact, so one multiply gives both (``>>`` is arithmetic, so the high
+word is masked). A step is launch-bound (~140 int64 launches of a Philox
+draw), so each launch saved counts.
 """
 from __future__ import annotations
 
@@ -38,11 +46,10 @@ _CHAIN_TAG = 0x43484E53  # chain_keys' counter word 3; every noise counter has 0
 
 
 def _mulhilo(m: int, a):
-    """``(hi, lo)`` 32-bit words of ``m * a`` for uint32 ``m`` and ``a``."""
-    p_lo = (a & 0xFFFF) * m  # < 2^48
-    p_hi = (a >> 16) * m  # < 2^48
-    mid = p_lo + ((p_hi & 0xFFFF) << 16)  # < 2^49
-    return (p_hi >> 16) + (mid >> 32), mid & _MASK
+    """``(hi, lo)`` 32-bit words of ``m * a`` for uint32 ``m`` and ``a`` (an
+    int64 tensor wraps the product, a Python int holds it)."""
+    p = a * m
+    return (p >> 32) & _MASK, p & _MASK
 
 
 def philox4x32_10(counter, key):
@@ -59,31 +66,50 @@ def philox4x32_10(counter, key):
             k1 = (k1 + _W1) & _MASK
         hi0, lo0 = _mulhilo(_M0, c0)
         hi1, lo1 = _mulhilo(_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        # the words' xor first: one launch fewer where both are ints
+        c0, c1, c2, c3 = hi1 ^ (c1 ^ k0), lo1, hi0 ^ (c3 ^ k1), lo0
     return c0, c1, c2, c3
 
 
-def normal_field(seed: int, chain: int, step: int, shape, dtype, device):
+def _words(chain, step):
+    """``(leading shape, key word, step word)``: ints for one chain at one
+    step; a tensor of ``C`` chain words and/or of ``B`` steps becomes a
+    word that broadcasts against the counters, leading ``(B, C)``."""
+    chain_lead = tuple(chain.shape) if isinstance(chain, torch.Tensor) else ()
+    step_lead = tuple(step.shape) if isinstance(step, torch.Tensor) else ()
+    word = chain.reshape(-1, 1) if chain_lead else int(chain)
+    if step_lead:
+        step = step.reshape((-1,) + (1,) * (len(chain_lead) + 1)) & _MASK
+    else:
+        step = int(step) & _MASK
+    return step_lead + chain_lead, word, step
+
+
+def normal_field(seed: int, chain, step, shape, dtype, device):
     """Standard normals of ``shape`` for one (seed, chain, step); element
-    ``k`` of the row-major flattening uses counter ``(k, step, 0, 0)``."""
+    ``k`` of the row-major flattening uses counter ``(k, step, 0, 0)``.
+    ``chain`` may be an int64 tensor of ``C`` words and ``step`` one of
+    ``B`` steps: the result is then ``(B, C, *shape)`` (either axis only
+    where given), entry ``[b, i]`` the draw of ``(chain[i], step[b])``."""
+    lead, word, step = _words(chain, step)
     n = math.prod(shape)
     pixel = torch.arange(n, dtype=torch.int64, device=device)
-    w0, w1, _, _ = philox4x32_10((pixel, int(step) & _MASK, 0, 0),
-                                 (int(seed), int(chain)))
+    w0, w1, _, _ = philox4x32_10((pixel, step, 0, 0), (int(seed), word))
     u1 = (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
     u2 = (w1 >> 8).to(dtype) * (1.0 / (1 << 24))
     r = torch.sqrt(-2.0 * torch.log(u1))
-    return (r * torch.cos((2.0 * math.pi) * u2)).reshape(shape)
+    return (r * torch.cos((2.0 * math.pi) * u2)).reshape(lead + tuple(shape))
 
 
-def uniform_scalar(seed: int, chain: int, step: int, dtype, device):
+def uniform_scalar(seed: int, chain, step, dtype, device):
     """One uniform in ``(0, 1)`` for (seed, chain, step), as a 0-d tensor on
-    ``device``: the top 24 bits of the first word of counter
+    ``device`` (``(B, C)`` for tensors of ``B`` steps and ``C`` chain words,
+    as ``normal_field``): the top 24 bits of the first word of counter
     ``(0, step, 1, 0)``, centred in its bin like ``normal_field``'s ``u1``."""
+    lead, word, step = _words(chain, step)
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    w0, _, _, _ = philox4x32_10((zero, zero + (int(step) & _MASK), zero + 1, zero),
-                                (int(seed), int(chain)))
-    return (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+    w0, _, _, _ = philox4x32_10((zero, zero + step, zero + 1, zero), (int(seed), word))
+    return ((w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))).reshape(lead)
 
 
 def _fmix32(h: int) -> int:

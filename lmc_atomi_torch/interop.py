@@ -16,6 +16,13 @@ from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import FusedChainResult, unpack_lanes
+from lmc_atomi_torch.models import (
+    GaussianMixture,
+    LaplaceMixture,
+    LaplacePrior,
+    MixtureWithLaplacePrior,
+    MultivariateLaplace,
+)
 from lmc_atomi_torch.ops.functionals import L2Data, OrthogonalL1
 from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, Mask
 from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
@@ -34,6 +41,10 @@ __all__ = [
     "ulpda_tiled_state_from_numpy",
     "packed_state_from_numpy",
     "farm_bundle_from_numpy",
+    "gaussian_mixture_from_numpy",
+    "laplace_mixture_from_numpy",
+    "composite_from_numpy",
+    "mvlaplace_from_numpy",
     "to_numpy",
 ]
 
@@ -192,6 +203,37 @@ def farm_bundle_from_numpy(position, count, mean, m2, done, key, qh=None,
     if y is not None:
         bundle["ulpda_extras"] = (_t(y, device), _t(xprev, device))
     return bundle
+
+
+def gaussian_mixture_from_numpy(mus, sigmas, log_weights, precs, log_norms, chols,
+                                device=None) -> GaussianMixture:
+    """The port's ``GaussianMixture`` from the JAX dataclass's fields."""
+    return GaussianMixture(mus=_t(mus, device), sigmas=_t(sigmas, device),
+                           log_weights=_t(log_weights, device), precs=_t(precs, device),
+                           log_norms=_t(log_norms, device), chols=_t(chols, device))
+
+
+def laplace_mixture_from_numpy(mus, alphas, log_weights, lam, device=None) -> LaplaceMixture:
+    """The port's ``LaplaceMixture`` from the JAX dataclass's fields."""
+    return LaplaceMixture(mus=_t(mus, device), alphas=_t(alphas, device),
+                          log_weights=_t(log_weights, device), lam=_t(lam, device))
+
+
+def composite_from_numpy(mixture, mu, alpha, lam, device=None) -> MixtureWithLaplacePrior:
+    """The port's ``MixtureWithLaplacePrior``: pass the mixture as the port's
+    model (``gaussian_mixture_from_numpy``), the prior's ``mu`` and
+    ``alpha`` and the target's ``lam``."""
+    return MixtureWithLaplacePrior(
+        mixture=mixture, prior=LaplacePrior(mu=_t(mu, device), alpha=_t(alpha, device)),
+        lam=_t(lam, device))
+
+
+def mvlaplace_from_numpy(mean, cov, prec_u, log_det_cov, color,
+                         device=None) -> MultivariateLaplace:
+    """The port's ``MultivariateLaplace`` from the JAX dataclass's fields."""
+    return MultivariateLaplace(mean=_t(mean, device), cov=_t(cov, device),
+                               prec_u=_t(prec_u, device),
+                               log_det_cov=_t(log_det_cov, device), color=_t(color, device))
 
 
 def to_numpy(obj: Any) -> Any:

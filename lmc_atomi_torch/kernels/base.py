@@ -8,6 +8,15 @@ Every sampler is a factory returning ``Kernel(init, step)``::
 In the port ``key`` is the tuple ``(seed, chain, step)`` that the runner
 builds from its base key and ``state.step``; a kernel draws its noise from
 ``core.random.normal_field(*key, ...)``.
+
+A kernel with ``chain_axis`` set also steps ``C`` chains at once: the
+position has a leading axis of ``C`` and ``chain`` is an int64 tensor of
+their ``C`` words (``run_chains`` builds both), and row ``i`` of the step is
+the one-chain step under word ``i``. PULA, IHPULA, MLA and the proximal
+samplers set it: their targets batch over leading axes. ``ula`` and ``mala``
+leave it off, since the imaging workloads hand them one-image terms; a
+caller whose terms batch sets it with ``kernel._replace(chain_axis=True)``,
+as the mixture workloads do.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ __all__ = ["Kernel", "stepsize_at"]
 class Kernel(NamedTuple):
     init: Callable
     step: Callable
+    chain_axis: bool = False
 
 
 def stepsize_at(gamma, step: int):

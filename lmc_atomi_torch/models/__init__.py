@@ -1,0 +1,14 @@
+"""Mixture targets, the composite mixture x Laplace-prior target and the
+multivariate Laplace distribution."""
+from lmc_atomi_torch.models.composite import LaplacePrior, MixtureWithLaplacePrior
+from lmc_atomi_torch.models.gaussian_mixture import GaussianMixture
+from lmc_atomi_torch.models.laplace_mixture import LaplaceMixture
+from lmc_atomi_torch.models.mvlaplace import MultivariateLaplace
+
+__all__ = [
+    "GaussianMixture",
+    "LaplaceMixture",
+    "LaplacePrior",
+    "MixtureWithLaplacePrior",
+    "MultivariateLaplace",
+]

@@ -17,20 +17,24 @@ The base key is a seed or a ``(seed, chain)`` pair; step ``state.step`` of a
 chain draws its noise under ``(seed, chain, state.step)``. ``run_chains``
 runs independent chains under ``core.random.chain_keys`` and stacks their
 results along a leading chain axis, as ``jax.vmap`` of ``run_chain`` does in
-the JAX package; ``run_chain_segmented`` is ``run_chain(collect="stats")``
-with a progress call every ``segment_steps``.
+the JAX package: one step over all chains for a kernel with ``chain_axis``
+(``run_chain`` with the chain words as a tensor), chain after chain for the
+others; ``run_chain_segmented`` is ``run_chain(collect="stats")`` with a
+progress call every ``segment_steps``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from lmc_atomi_torch.core.random import chain_keys
 from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments, RunningQuantile
-from lmc_atomi_torch.kernels.base import Kernel
+
+if TYPE_CHECKING:  # kernels/ imports this module: no import at run time
+    from lmc_atomi_torch.kernels.base import Kernel
 
 __all__ = ["ChainResult", "run_chain", "run_chains", "run_chain_segmented",
            "base_key", "stack_tree"]
@@ -47,10 +51,11 @@ class ChainResult(NamedTuple):
 
 
 def base_key(key):
-    """``(seed, chain)`` from an int seed or a ``(seed, chain)`` pair."""
+    """``(seed, chain)`` from an int seed or a ``(seed, chain)`` pair; a
+    chain given as a tensor of words (a chain axis) stays a tensor."""
     if isinstance(key, (tuple, list)):
         seed, chain = key
-        return int(seed), int(chain)
+        return int(seed), chain if isinstance(chain, torch.Tensor) else int(chain)
     return int(key), 0
 
 
@@ -101,7 +106,11 @@ def run_chain(
     ``fn(extras)``) stacks ``state.extras`` (or ``fn(state.extras)``) of each
     emitted step into ``ChainResult.extras``, e.g. ULPDA's dual samples.
     ``unroll`` is the JAX package's scan unrolling; the port's loop is
-    eager, so it takes no effect.
+    eager, so it takes no effect. A key ``(seed, words)`` with ``words`` an
+    int64 tensor of ``C`` chain words steps ``C`` chains at once through a
+    kernel with ``chain_axis`` (``x0`` of shape ``(C, ...)``); the results
+    then keep the chain axis inside each emitted step (``run_chains`` puts
+    it first).
     """
     if n_steps % thin != 0:
         raise ValueError(f"n_steps={n_steps} not divisible by thin={thin}")
@@ -166,6 +175,10 @@ def run_chains(
     """``n_chains`` independent chains: chain ``i`` is ``run_chain`` under
     ``chain_keys(key, n_chains)[i]``, and every field of the results stacks
     along a leading chain axis (``stack_tree``, ``jax.vmap``'s semantics).
+    A kernel with ``chain_axis`` runs one step over all chains, its key the
+    ``(C,)`` tensor of the chain words; ``metrics`` then take the ``(C,
+    ...)`` positions and return one value a chain. Other kernels run chain
+    after chain.
 
     ``x0`` is one position (every chain starts there) or a batch with a
     leading chain axis; ``batched`` settles the case where one position's
@@ -181,12 +194,50 @@ def run_chains(
         batched = bool(leaves) and all(
             isinstance(l, torch.Tensor) and l.ndim > 0 and l.shape[0] == n_chains
             for l in leaves)
+    if kernel.chain_axis:
+        words = torch.tensor([w for _, w in keys], dtype=torch.int64,
+                             device=leaves[0].device)
+        if not batched:
+            x0 = _map(lambda l: l.expand((n_chains,) + l.shape).clone(), x0)
+        return _chain_major(run_chain(kernel, x0, (keys[0][0], words), n_steps, **kwargs),
+                            n_chains)
     results = [
         run_chain(kernel, _map(lambda l: l[i], x0) if batched else x0, k, n_steps,
                   **kwargs)
         for i, k in enumerate(keys)
     ]
     return stack_tree(results)
+
+
+def _chain_major(res: ChainResult, n_chains: int) -> ChainResult:
+    """A batched ``run_chain`` result in ``stack_tree``'s layout of a chain
+    after chain run: the chain axis first in the samples, metrics, extras
+    and quantile markers, and every count a ``(C,)`` tensor."""
+    def per_chain(v):
+        return torch.full((n_chains,), v) if isinstance(v, (int, float)) else v
+
+    def first(t):
+        return None if t is None else t.movedim(1, 0)
+
+    state = res.final_state
+    moments = res.moments
+    if moments is not None:
+        moments = dataclasses.replace(moments, count=per_chain(moments.count))
+    quants = res.quantiles
+    if quants is not None:
+        quants = {p: dataclasses.replace(q, p=per_chain(q.p), count=per_chain(q.count),
+                                         heights=first(q.heights),
+                                         positions=first(q.positions))
+                  for p, q in quants.items()}
+    return ChainResult(
+        final_state=dataclasses.replace(state, step=per_chain(state.step)),
+        samples=first(res.samples),
+        infos=res.infos,
+        metrics=None if res.metrics is None else {k: first(v) for k, v in res.metrics.items()},
+        moments=moments,
+        quantiles=quants,
+        extras=None if res.extras is None else _map(first, res.extras),
+    )
 
 
 def _leaves(tree):
