@@ -55,14 +55,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
-   maps, then the unfused ``run_chain(myula_imaging)`` with kernel 1 inside.
+   maps, then the unfused ``run_chain(myula_imaging)`` with kernel 1 inside
+   (10000 steps, against a fused cold-10 chain as deep on the same key).
    Each is warmed up with another seed over fewer steps and timed; the
    posterior-mean PSNR
    must reach 40 dB and agree with the unfused path within 0.1 dB;
 7. the deconvolution path: ``prox_lmc_deconv`` at 512^2 for ULPDA and MYULA
    (1000 steps, 10 models with the wavelet row M10, fused kernels) and the
-   MAP branch (1000 adaptive PDHG iterations), the two sampling grids again
-   unfused (the same Philox stream chain for chain), and ``run_ulpda_fused``
+   MAP branch (1000 adaptive PDHG iterations), the two sampling grids fused
+   and unfused at 500 steps (the same Philox stream chain for chain), and
+   ``run_ulpda_fused``
    for TV, MC-TV and ME-TV (k5) timed at 20000 steps. The k5 and M10 PSNRs
    must reach the JAX package's (RESULTS.md) less 1 dB, and fused and
    unfused must agree within 0.1 dB;
@@ -97,11 +99,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (0, 1], chain 0's final Sinkhorn W2 and each sampler's pooled mean within
    the JAX package's gates (MIX_GATES, scripts/mixture_gates.py); chains 0
    and 1023 of every sampler against their one-chain ``run_chain`` runs over
-   the first 200 steps (bit for bit, IHPULA within MIX_EIGH_TOL), timed
+   the first 100 steps (bit for bit, IHPULA within MIX_EIGH_TOL), timed
    beside the batched rate, and 16 chains one after another; one W2 curve
    timed at k=5000; IHPULA's gamma=0.1, n=2 chain over 10000 f32 steps, and
    whether ``torch.linalg.eigh`` waits for the card. No TPU kernel lies on
    this path;
+9d. the PnP path (BASELINE.json config 5, ``experiments/pnp.py``):
+   ``pnp_ula_deblur`` at the CLI's defaults (256^2 phantom, 8 chains x 2000
+   steps, DnCNN depth 8 width 48 fitted 1500 steps under a spectral cap of
+   1.1) with the TV anchor through kernel 2 (95% CI markers, resident) and
+   the score baseline on a ScoreUNet, and again at the configuration of
+   ``scripts/pnp_gates.py`` held to the JAX package's PSNR gates
+   (PNP_GATES); each posterior mean above the observation, the certified
+   Lipschitz bound at most 1.1^8 and the measured constant within it;
+   chains 0 and 7 of a block against their runs alone (PNP_CHAIN_TOL), the
+   card's spectral norms of the fitted DnCNN against LAPACK's on the host
+   (PNP_SPECTRAL_TOL), two fits from one seed equal, and ``load_image``'s
+   photographs; kernel 2 at both sizes of the path (256^2 and the gates'
+   128^2) with CI markers against its plain version before it. The nets'
+   convolutions are library calls
+   (the JAX package's are XLA ops outside any Pallas kernel). The
+   deconvolution path (7) runs the score row (M11) once, with a 200-step
+   fit, gated above the observation;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
@@ -109,8 +128,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it), of
    one packed 500-step block at 64^2 x 64 chains, of one batched ULA block
-   of the Gaussian mixture (1024 chains x 100 steps), and kernel 1's device
-   time per call at 512^2 and 2048^2.
+   of the Gaussian mixture (1024 chains x 100 steps), of 20 PnP-ULA steps of
+   8 chains at 256^2, and kernel 1's device time per call at 512^2 and
+   2048^2.
 
 With ``--turns KERNELS`` (a comma list of 1, 3, 4, 5, 6, 7, 8) the script
 runs only a measurement: the registers and spills ``ptxas`` reports for
@@ -143,8 +163,9 @@ the resident route, on the inpainting path every kernel-4 and kernel-5
 call the warp (Haar) or the resident route (D4/D8), and on the large-image
 path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
 cone, on the multichain path every kernel-2 and kernel-3 call the resident
-route; the mixtures path launches none of them. The script then prints
-one JSON line describing each kernel (launches and route counts on the six
+route; the mixtures path launches none of them, and the PnP path kernel 2
+alone, every call on the resident route. The script then prints one JSON
+line describing each kernel (launches and route counts on the seven
 paths, errors, times, the bound of the card; for kernels 2 and 3 also the
 chain axis's plan, error and times) and, last, ``{"ok": true, "device":
 {...}}``.
@@ -164,6 +185,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N = 512
 STEPS = 20000
+UNFUSED_STEPS = 10000  # the unfused main-path chain, against a fused one as deep
 BLOCK = 500
 SIGMA_NOISE = 0.75
 TV_WEIGHT = 0.3
@@ -186,6 +208,8 @@ PSNR_FLOOR = 40.0
 PSNR_GAP = 0.1
 # the deconvolution workload (lmc_atomi_torch/experiments/deconv.py)
 DECONV_STEPS = 1000
+DECONV_SCORE_FIT = 200  # the score row's training steps (the CLI's: 4000)
+DECONV_CHECK_STEPS = 500  # the fused-against-unfused grids (cut from 1000 for time)
 # k5 PSNR (TV, MC-TV, ME-TV) of the JAX package on the same protocol
 # (RESULTS.md:82-84); the port's observation noise differs, so the gate is
 # these less DECONV_MARGIN dB
@@ -412,7 +436,8 @@ def phase_device():
     log(f"device: {name} count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda} nvcc='{nvcc}'")
     print(smi, flush=True)
-    # stated for the record: no TF32 anywhere (the port has no matmul or conv)
+    # stated for the record: no TF32 anywhere (the learned priors' nets run
+    # their convolutions under models/dncnn.py::net_precision, IEEE float32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return name, smi
@@ -535,12 +560,13 @@ def compare(label, got, want, names, exact=False):
     return worst, " ".join(parts)
 
 
-def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
+def _run_blocks(update, l2, x0, n_steps, block, cfg, seed, terms=None):
     """run_myula_tv_fused's block loop, with the block update passed in (the
     kernel or its plain version) so both run on the card; also
     run_myula_tv_tiled's, ``cfg`` then holding ``band`` and ``halo``. An int
     ``seed`` keys chain 0; a chain axis (``x0`` of shape ``(C, ny, nx)``)
-    takes its ``C`` keys."""
+    takes its ``C`` keys. ``terms`` is ``(tau, gamma, TV weight)``, by
+    default the 512^2 problem's."""
     import torch
 
     from lmc_atomi_torch.kernels.myula_fused import (
@@ -552,8 +578,8 @@ def _run_blocks(update, l2, x0, n_steps, block, cfg, seed):
 
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
-    gamma = SIGMA_NOISE**2
-    scal_f = _pack_scal_f(l2, 0.2 * gamma, gamma, TV_WEIGHT, 1.0, lamda, gamma_mc)
+    tau, gamma, weight = terms or (0.2 * SIGMA_NOISE**2, SIGMA_NOISE**2, TV_WEIGHT)
+    scal_f = _pack_scal_f(l2, tau, gamma, weight, 1.0, lamda, gamma_mc)
     cfg = dict(cfg)
     burn = cfg.pop("burn_in", 0)
     x, mean, m2 = x0, torch.zeros_like(x0), torch.zeros_like(x0)
@@ -1243,7 +1269,8 @@ def phase_kernel678(dev, report):
 
 
 def phase_main_path(dev, img, y, l2):
-    """The MYULA TV-deblur main path, 20000 steps per run."""
+    """The MYULA TV-deblur main path, 20000 steps per fused run, 10000 for
+    the unfused chain (held to a fused chain as deep, on the same key)."""
     import torch
 
     from lmc_atomi_torch.eval.metrics import psnr
@@ -1257,7 +1284,7 @@ def phase_main_path(dev, img, y, l2):
     x0 = torch.zeros((N, N), device=dev)
     blur_psnr = float(psnr(img, y))
 
-    def check_and_report(name, out, ms, wall):
+    def check_and_report(name, out, ms, wall, steps=STEPS):
         mean = out.moments.mean
         if mean.shape != (N, N) or not bool(torch.isfinite(mean).all()):
             raise AssertionError(f"{name}: bad posterior mean")
@@ -1272,16 +1299,16 @@ def phase_main_path(dev, img, y, l2):
             extra = f" ci_cover={cover:.5f} ci_mean_width={width:.4f}"
             if cover < 0.99:
                 raise AssertionError(f"{name}: CI maps bracket the mean on {cover}")
-        log(f"main {name}: {STEPS / ms * 1e3:.1f} iters/s (device {ms:.1f} ms, "
+        log(f"main {name}: {steps / ms * 1e3:.1f} iters/s (device {ms:.1f} ms, "
             f"host {wall:.3f} s) psnr_mean={p:.4f} psnr_blurred={blur_psnr:.4f}"
             f"{extra} mem_used='{nvidia_smi('memory.used')}' "
             f"max_alloc={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB")
         return p
 
-    def timed(run, warm_steps):
+    def timed(run, warm_steps, steps=STEPS):
         run(1, warm_steps)  # warm-up: another seed, fewer steps
         t0 = time.perf_counter()
-        ms, out = cuda_ms(lambda: run(2, STEPS))
+        ms, out = cuda_ms(lambda: run(2, steps))
         return out, ms, time.perf_counter() - t0
 
     psnrs = {}
@@ -1292,13 +1319,18 @@ def phase_main_path(dev, img, y, l2):
         psnrs[name] = check_and_report(name, out, ms, wall)
     kern = myula_imaging(l2, TVNorm(sigma=TV_WEIGHT, niter=10), tau=tau, gamma=gamma)
     out, ms, wall = timed(lambda seed, n: run_chain(kern, x0, seed, n, collect="stats"),
-                          UNFUSED_WARM)
-    unfused = check_and_report("unfused_cold10", out, ms, wall)
+                          UNFUSED_WARM, UNFUSED_STEPS)
+    unfused = check_and_report("unfused_cold10", out, ms, wall, UNFUSED_STEPS)
+    fused = float(psnr(img, run_myula_tv_fused(l2, TV_WEIGHT, tau, gamma, x0, 2, UNFUSED_STEPS,
+                                               block=BLOCK).moments.mean))
+    log(f"main cold10 fused / unfused at {UNFUSED_STEPS} steps: psnr {fused:.4f} / {unfused:.4f}")
+    if abs(fused - unfused) > PSNR_GAP:
+        raise AssertionError(f"fused {fused:.4f} and unfused {unfused:.4f} differ")
     for name in ("fgp8", "cold10", "warm5"):
-        if psnrs[name] < PSNR_FLOOR or abs(psnrs[name] - unfused) > PSNR_GAP:
+        if psnrs[name] < PSNR_FLOOR or abs(psnrs[name] - psnrs["cold10"]) > PSNR_GAP:
             raise AssertionError(
-                f"{name}: psnr {psnrs[name]:.4f} (floor {PSNR_FLOOR}, unfused "
-                f"{unfused:.4f}, gap {PSNR_GAP})")
+                f"{name}: psnr {psnrs[name]:.4f} (floor {PSNR_FLOOR}, cold10 "
+                f"{psnrs['cold10']:.4f}, gap {PSNR_GAP})")
 
 
 def phase_deconv(dev, img, models):
@@ -1311,37 +1343,45 @@ def phase_deconv(dev, img, models):
     from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused
     from lmc_atomi_torch.ops.linops import Gradient2D
 
-    def run(tag, **kw):
+    observed = {}
+
+    def run(tag, steps=DECONV_STEPS, **kw):
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             results, series, summary = prox_lmc_deconv(
-                size=N, n_steps=DECONV_STEPS, niter_map=DECONV_STEPS, seed=0,
+                size=N, n_steps=steps, niter_map=steps, seed=0,
                 device=str(dev), wavelet_row=True, wavelet_levels=WL1_LEVELS, **kw)
         wall = time.perf_counter() - t0
         if json.loads(out.getvalue().strip().splitlines()[-1]) != summary:
             raise AssertionError(f"deconv {tag}: summary line differs from the result")
-        if len(results) != 10 or len(series) != 10:
+        if len(results) != 10 + kw.get("score_row", False) or len(series) != 10:
             raise AssertionError(f"deconv {tag}: {len(results)} results")
         for label, est in results.items():
-            met = series[label]
             if est.shape != (N, N) or not bool(torch.isfinite(torch.from_numpy(est)).all()):
                 raise AssertionError(f"deconv {tag} {label}: bad estimate")
-            if met["psnr"].shape != (DECONV_STEPS,) or not all(
+            if label not in series:  # the score row records no metrics
+                continue
+            met = series[label]
+            if met["psnr"].shape != (steps,) or not all(
                     bool(torch.isfinite(torch.from_numpy(v)).all()) for v in met.values()):
                 raise AssertionError(f"deconv {tag} {label}: bad metric series")
         p = [summary["report"][label]["psnr"] for label in results]
         rates = list(summary["iters_per_sec"].values())
         log(f"deconv {tag}: {wall:.1f} s, iters/s {min(rates):.1f}..{max(rates):.1f}, "
-            f"psnr_blurred={summary['psnr_blurred']:.4f} psnr M1..M10 = "
+            f"psnr_blurred={summary['psnr_blurred']:.4f} psnr M1..M{len(p)} = "
             + " ".join(f"{v:.4f}" for v in p))
+        observed["psnr"] = summary["psnr_blurred"]
         return p
 
     psnrs = {"ULPDA": run("ULPDA fused", alg="ULPDA"),
-             "MYULA": run("MYULA fused", alg="MYULA"),
+             "MYULA": run("MYULA fused + score row", alg="MYULA", score_row=True,
+                          score_train_steps=DECONV_SCORE_FIT),
              "MAP": run("MAP", compute_map=True)}
-    unfused = {alg: run(f"{alg} unfused", alg=alg, fused=False)
-               for alg in ("ULPDA", "MYULA")}
+    # fused against unfused on the same keys, DECONV_CHECK_STEPS deep
+    pairs = {alg: [run(f"{alg} {kind} {DECONV_CHECK_STEPS}", DECONV_CHECK_STEPS, alg=alg,
+                       fused=kind == "fused") for kind in ("fused", "unfused")]
+             for alg in ("ULPDA", "MYULA")}
     for branch, ref in DECONV_REF.items():
         # the k5 models M1-M3 and the wavelet row M10
         for j, want in ((0, ref[0]), (1, ref[1]), (2, ref[2]), (9, M10_REF[branch])):
@@ -1349,8 +1389,12 @@ def phase_deconv(dev, img, models):
             if not got >= want - DECONV_MARGIN:
                 raise AssertionError(
                     f"deconv {branch} M{j + 1}: psnr {got:.4f} < {want} - {DECONV_MARGIN}")
-    for alg, unf in unfused.items():
-        gaps = [abs(a - b) for a, b in zip(psnrs[alg], unf)]
+    # the score row (M11): finite (checked above) and above the observation
+    if not psnrs["MYULA"][10] > observed["psnr"]:
+        raise AssertionError(f"deconv score row: psnr {psnrs['MYULA'][10]:.4f} <= the "
+                             f"observation's {observed['psnr']:.4f}")
+    for alg, (fus, unf) in pairs.items():
+        gaps = [abs(a - b) for a, b in zip(fus, unf)]
         log(f"deconv {alg} fused - unfused: max |dpsnr| = {max(gaps):.4f} dB")
         if max(gaps) > PSNR_GAP:
             raise AssertionError(f"deconv {alg}: fused and unfused differ by {gaps}")
@@ -1662,7 +1706,7 @@ K3_CHAIN_RUNS = [(m, g) for m in ("tv", "mctv", "metv") for g in (False, True)]
 MIX_K = 1000
 MIX_CHAINS = 1024
 MIX_PICK = (0, MIX_CHAINS - 1)  # chains held to their one-chain runs
-MIX_ONE_STEPS = 200  # the one-chain runs' depth: the first steps of the chains
+MIX_ONE_STEPS = 100  # the one-chain runs' depth: the first steps of the chains
 # samplers whose chains equal their one-chain runs bit for bit: all but
 # IHPULA, whose eigh a batched call may take by another algorithm; its
 # chains are held within MIX_EIGH_TOL of the one-chain run's scale
@@ -2142,6 +2186,205 @@ def phase_profile_multichain(dev):
     profile_window(f"run_myula_tv_fused_packed cold10 {n_chains} x {MC_N}^2 {BLOCK} steps",
                    lambda: run_myula_tv_fused_packed(terms["tv"], TV_WEIGHT, 0.2 * gamma,
                                                      gamma, x0, (3, 0), BLOCK, block=BLOCK))
+
+
+# the PnP path (experiments/pnp.py, BASELINE.json config 5): the CLI at its
+# defaults (256^2 phantom, 8 chains x 2000 steps, DnCNN depth 8 width 48 with
+# spectral cap 1.1 and 1500 training steps, the TV anchor through kernel 2
+# with P^2 credible intervals) with the score baseline on a ScoreUNet; no cut
+PNP_RUN = dict(score_baseline=True, score_arch="unet")
+# the gates' configuration (scripts/pnp_gates.py: JAX on the CPU, seeds 0-3)
+# and its PSNR gates [min - 1 dB, max + 1 dB] over the seeds, per prior
+PNP_GATE_RUN = dict(size=128, n_chains=4, n_steps=600, train_steps=400,
+                    score_train_steps=400, tv_baseline=True, score_baseline=True,
+                    score_arch="unet")
+PNP_GATES = {"psnr_posterior_mean": (21.5121, 24.2626),
+             "psnr_tv_baseline_mean": (12.2885, 14.3917),
+             "psnr_score_mean": (24.9475, 29.3109)}
+PNP_SIZE, PNP_CHAINS, PNP_SIGMA, PNP_DEN_SIGMA = 256, 8, 0.03, 0.05
+PNP_TV_WEIGHT = 2.0
+PNP_HELD = (0, PNP_CHAINS - 1)  # chains held to their one-chain runs
+PNP_HELD_STEPS = 100
+# a chain of a block against its run alone: the nets' convolutions may sum
+# in another order for another batch size (cuDNN picks its algorithm by shape)
+PNP_CHAIN_TOL = 1e-4
+# the card's operator norms (models/dncnn.py::_power_sigma) against LAPACK's
+# on the host, relative: the estimate's bound at any gap (3e-6) and float32
+PNP_SPECTRAL_TOL = 1e-5
+PNP_REFIT_STEPS = 100  # two fits of each net from one seed, held equal
+PNP_PROFILE_STEPS = 20
+# load_image's photographs: (side, mean, std) of tests/test_png.py
+PNP_IMAGES = {"einstein": (512, 123.31, 48.54), "hopper": (512, 81.39, 70.36),
+              "mri": (256, 45.84, 65.84)}
+
+
+def phase_kernel2_pnp(dev, report):
+    """Kernel 2 on the PnP TV anchor's problem (cold-10, 95% CI markers)
+    against its plain version, bit for bit, on the resident route, at both
+    sizes the PnP path gives it: the CLI's 256^2 and the gates' 128^2."""
+    from lmc_atomi_torch.experiments.pnp import deblur_problem
+    from lmc_atomi_torch.kernels.myula_fused import (
+        myula_tv_block_update_cuda,
+        myula_tv_block_update_ref,
+    )
+
+    k2 = myula_tv_block_update_cuda
+    terms = (0.2 * PNP_SIGMA**2, PNP_SIGMA**2, PNP_TV_WEIGHT)
+    cfg = dict(niter_tv=10, quantiles=(0.025, 0.975), burn_in=10)
+    for n in (PNP_SIZE, PNP_GATE_RUN["size"]):
+        _, _, y, l2 = deblur_problem(n, PNP_SIGMA, 5, (0, 1), dev)
+        got, routes = routes_of(lambda: _run_blocks(k2, l2, y, CHECK_STEPS, CHECK_BLOCK, cfg,
+                                                    seed=7, terms=terms), k2)
+        want = _run_blocks(myula_tv_block_update_ref, l2, y, CHECK_STEPS, CHECK_BLOCK, cfg,
+                           seed=7, terms=terms)
+        err, parts = compare(f"kernel 2 (PnP anchor {n}^2)", got, want,
+                             ("x", "mean", "m2", "qh", "qn"), exact=True)
+        log(f"kernel2 PnP anchor {n}^2 cold10 + CI {CHECK_STEPS} steps, noise on: routes "
+            f"{routes} plan {k2.last_plan}; max_abs_err {parts}")
+        if routes["sequence"] or not routes["resident"]:
+            raise AssertionError(f"kernel 2 left the resident route at {n}^2: {routes}")
+        report["myula_tv_block_update_cuda"]["max_abs_err"] = max(
+            err, report["myula_tv_block_update_cuda"]["max_abs_err"])
+
+
+def phase_pnp(dev):
+    """The PnP path through its entry point: ``pnp_ula_deblur`` at the CLI's
+    defaults with the score baseline (ScoreUNet) and at the gates'
+    configuration, each prior's posterior-mean PSNR gated (above the
+    observation's; within PNP_GATES at the gates' configuration), the
+    Lipschitz bound at most 1.1^8 and the measured constant within it, the
+    moments finite; chains 0 and 7 of a block against their runs alone
+    (PNP_CHAIN_TOL), the fitted DnCNN's operator norms on the card against
+    LAPACK's on the host (PNP_SPECTRAL_TOL, and within the cap), two fits
+    of each net from one seed equal, and ``load_image``'s photographs."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lmc_atomi_torch.core.checkpoint import restore_checkpoint
+    from lmc_atomi_torch.core.random import chain_keys
+    from lmc_atomi_torch.experiments.pnp import deblur_problem, pnp_ula_deblur
+    from lmc_atomi_torch.kernels.imaging import pnp_ula
+    from lmc_atomi_torch.models import dncnn
+    from lmc_atomi_torch.models.score import train_score_net
+    from lmc_atomi_torch.run.runner import run_chain, run_chains
+    from lmc_atomi_torch.utils.images import load_image
+
+    smi = nvidia_smi("name,power.limit")
+    log(f"pnp [{smi}]: the nets' convolutions in "
+        f"{'TF32' if dncnn.NET_TF32 else 'IEEE float32'} (cuDNN allow_tf32={dncnn.NET_TF32}, "
+        "no autotuning, deterministic algorithms)")
+    for name, (n, mean, std) in PNP_IMAGES.items():
+        img = load_image(name, n)
+        if img.shape != (n, n) or abs(img.mean() - mean) > 1.0 or abs(img.std() - std) > 1.0:
+            raise AssertionError(f"load_image({name!r}): {img.shape} mean {img.mean()} "
+                                 f"std {img.std()}")
+    log(f"pnp: load_image einstein, hopper, mri at their shapes, means and stds")
+
+    def run(tag, **kw):
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            mean, std, rep = pnp_ula_deblur(device=str(dev), make_plots=False, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        if {k: line[k] for k in rep} != rep:
+            raise AssertionError(f"pnp {tag}: the JSON line differs from the report")
+        if not (np.isfinite(mean).all() and np.isfinite(std).all()):
+            raise AssertionError(f"pnp {tag}: non-finite posterior moments")
+        log(f"pnp {tag} [{smi}]: {wall:.1f} s, peak {peak:.2f} GiB; psnr blurred "
+            f"{rep['psnr_blurred']:.4f}, PnP {rep['psnr_posterior_mean']:.4f}, TV anchor "
+            f"{rep['psnr_tv_baseline_mean']:.4f}, score {rep['psnr_score_mean']:.4f} dB; "
+            f"95% CI width PnP {rep['mean_ci_width']:.4f}, TV {rep['tv_baseline_ci_width']:.4f}, "
+            f"score {rep['score_ci_width']:.4f}; chain-steps/s PnP "
+            f"{rep['chain_steps_per_sec']}, score {rep['score_steps_per_sec']} (with its "
+            f"training), TV anchor steps/s {rep['tv_baseline_steps_per_sec']}; training "
+            f"DnCNN {rep['train_seconds']:.2f} s, score net {rep['score_train_seconds']:.2f} s; "
+            f"Lipschitz certified {rep['lipschitz_certified_bound']:.4f}, measured "
+            f"{rep['lipschitz_measured']:.4f}")
+        if not rep["psnr_posterior_mean"] > rep["psnr_blurred"]:
+            raise AssertionError(f"pnp {tag}: posterior mean below the observation")
+        bound = rep["lipschitz_certified_bound"]
+        if not (bound <= 1.1**8 * (1 + 1e-5) and rep["lipschitz_measured"] <= bound):
+            raise AssertionError(f"pnp {tag}: Lipschitz {rep['lipschitz_measured']} / {bound}")
+        return rep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dncnn.pt")
+        run("CLI defaults", params_path=path, **PNP_RUN)
+        model = dncnn.DnCNN(8, 48).to(dev)
+        model.load_state_dict(restore_checkpoint(path, model.state_dict()))
+    rep = run("gates' configuration", seed=0, **PNP_GATE_RUN)
+    for key, (lo, hi) in PNP_GATES.items():
+        if not lo <= rep[key] <= hi:
+            raise AssertionError(f"pnp {key}: {rep[key]:.4f} outside the JAX gate [{lo}, {hi}]")
+
+    # a block of chains (one net call a step) against its chains run alone
+    _, _, y, l2 = deblur_problem(PNP_SIZE, PNP_SIGMA, 5, (0, 1), dev)
+    tau = 0.5 / (1.0 / PNP_SIGMA**2 + 1.0 / PNP_DEN_SIGMA**2)
+    kern = pnp_ula(l2.grad, dncnn.make_denoiser(model.eval()), tau, eps=PNP_DEN_SIGMA**2,
+                   box=(-1.0, 2.0))
+    key = (3, 0)
+    block = run_chains(kern, y, key, PNP_HELD_STEPS, PNP_CHAINS, collect="last")
+    keys = chain_keys(key, PNP_CHAINS)
+    errs = {c: float((block.final_state.position[c] - run_chain(
+        kern, y, keys[c], PNP_HELD_STEPS, collect="last").final_state.position).abs().max())
+        for c in PNP_HELD}
+    log(f"pnp: chains {PNP_HELD} of {PNP_CHAINS} against their runs alone over "
+        f"{PNP_HELD_STEPS} steps: max abs error {errs} (tolerance {PNP_CHAIN_TOL})")
+    if not all(np.isfinite(v) and v <= PNP_CHAIN_TOL for v in errs.values()):
+        raise AssertionError(f"pnp: a chain of the block differs from its run alone: {errs}")
+
+    # the fitted net's operator norms: the card's estimate (every projection
+    # of the fit, the certified bound) against LAPACK's SVDs on the host
+    ws, card = dncnn._layer_sigmas(model, 32)
+    card = torch.stack(card).cpu().double()
+    lapack = torch.stack([dncnn._transfer_sigma(w.detach().cpu().double()) for w in ws])
+    rel = float(((card - lapack).abs() / lapack).max())
+    log(f"pnp: the fitted DnCNN's operator norms on the card against LAPACK's: max relative "
+        f"error {rel:.3e} (tolerance {PNP_SPECTRAL_TOL}); LAPACK's largest "
+        f"{float(lapack.max()):.7f} (cap 1.1)")
+    if not (rel <= PNP_SPECTRAL_TOL and float(lapack.max()) <= 1.1 * (1 + PNP_SPECTRAL_TOL)):
+        raise AssertionError(f"pnp: the card's operator norms {card.tolist()} against "
+                             f"LAPACK's {lapack.tolist()}")
+
+    # a fit is reproducible from its seed (deterministic cuDNN, one graph)
+    def same(a, b):
+        return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+
+    fits = [dncnn.train_denoiser((8, 0), noise_sigma=PNP_DEN_SIGMA, steps=PNP_REFIT_STEPS,
+                                 depth=8, features=48, spectral_norm=1.1, device=dev)
+            for _ in range(2)]
+    nets = [train_score_net((9, 0), sigma_max=0.4, sigma_min=PNP_DEN_SIGMA, n_sigmas=8,
+                            steps=PNP_REFIT_STEPS, arch="unet", device=dev)[0]
+            for _ in range(2)]
+    if not (same(*fits) and same(*nets)):
+        raise AssertionError("pnp: two fits from one seed differ")
+    log(f"pnp: two fits of {PNP_REFIT_STEPS} steps from one seed equal (DnCNN depth 8 width "
+        "48 with its projections, ScoreUNet)")
+
+
+def phase_profile_pnp(dev):
+    """Where the time goes in PnP-ULA steps: 8 chains at 256^2, one DnCNN
+    call (depth 8, width 48) a step."""
+    from lmc_atomi_torch.experiments.pnp import deblur_problem
+    from lmc_atomi_torch.kernels.imaging import pnp_ula
+    from lmc_atomi_torch.models import dncnn
+    from lmc_atomi_torch.run.runner import run_chains
+
+    _, _, y, l2 = deblur_problem(PNP_SIZE, PNP_SIGMA, 5, (0, 1), dev)
+    model = dncnn.lecun_init(dncnn.DnCNN(8, 48).to(dev), (6, 0)).eval()
+    tau = 0.5 / (1.0 / PNP_SIGMA**2 + 1.0 / PNP_DEN_SIGMA**2)
+    kern = pnp_ula(l2.grad, dncnn.make_denoiser(model), tau, eps=PNP_DEN_SIGMA**2,
+                   box=(-1.0, 2.0))
+    profile_window(f"run_chains PnP-ULA {PNP_CHAINS} x {PNP_SIZE}^2 x {PNP_PROFILE_STEPS} steps "
+                   f"[{nvidia_smi('name,power.limit')}]",
+                   lambda: run_chains(kern, y, (4, 0), PNP_PROFILE_STEPS, PNP_CHAINS,
+                                      collect="stats"))
 
 
 def profile_window(label, fn):
@@ -2854,6 +3097,7 @@ def main() -> int:
     phase_kernel45(dev, report)
     phase_kernel678(dev, report)
     phase_chain_kernels(dev, report)
+    phase_kernel2_pnp(dev, report)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     paths = [
@@ -2872,6 +3116,7 @@ def main() -> int:
                              "wavelet_block_update_cuda", "myula_tv_tiled_update_cuda"),
               phase_multichain, dev, resident=True, wavelet=True),
         drive("mixtures", (), phase_mixtures, dev),
+        drive("PnP", ("myula_tv_block_update_cuda",), phase_pnp, dev, resident=True),
     ]
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)
@@ -2879,6 +3124,7 @@ def main() -> int:
     phase_profile_large(dev)
     phase_profile_multichain(dev)
     phase_profile_mixtures(dev)
+    phase_profile_pnp(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=sum(p[k] for p in paths), **report[k],

@@ -16,6 +16,12 @@ step) on the counter ``(0, step, 1, 0)``: its third word is 1 where every
 counterpart of ``jax.random.split`` of the step key in
 ``lmc_atomi_tpu/kernels/langevin.py::mala``).
 
+``uniform_field`` draws a field of uniforms on the counter ``(k, step, 2,
+0)``: the training data of the learned priors (``utils/synthetic.py``) and
+their initial weights. ``normal_field(..., stream=j)`` puts ``j`` in counter
+word 3, a stream of its own for each ``j`` (a predictor-corrector step's
+corrector sweeps, the counterpart of ``fold_in(step_key, j)``).
+
 Chains of one run take the keys ``chain_keys(key, n)``: ``(seed, chain_i)``
 with ``chain_i`` a pure function of ``(seed, chain, i)``, distinct for
 distinct ``i`` (the counterpart of ``fold_in(base, i)``). ``normal_field``
@@ -37,7 +43,8 @@ import math
 
 import torch
 
-__all__ = ["philox4x32_10", "normal_field", "uniform_scalar", "chain_keys"]
+__all__ = ["philox4x32_10", "normal_field", "uniform_scalar", "uniform_field",
+           "chain_keys", "fold_in"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -85,16 +92,16 @@ def _words(chain, step):
     return step_lead + chain_lead, word, step
 
 
-def normal_field(seed: int, chain, step, shape, dtype, device):
+def normal_field(seed: int, chain, step, shape, dtype, device, stream: int = 0):
     """Standard normals of ``shape`` for one (seed, chain, step); element
-    ``k`` of the row-major flattening uses counter ``(k, step, 0, 0)``.
+    ``k`` of the row-major flattening uses counter ``(k, step, 0, stream)``.
     ``chain`` may be an int64 tensor of ``C`` words and ``step`` one of
     ``B`` steps: the result is then ``(B, C, *shape)`` (either axis only
     where given), entry ``[b, i]`` the draw of ``(chain[i], step[b])``."""
     lead, word, step = _words(chain, step)
     n = math.prod(shape)
     pixel = torch.arange(n, dtype=torch.int64, device=device)
-    w0, w1, _, _ = philox4x32_10((pixel, step, 0, 0), (int(seed), word))
+    w0, w1, _, _ = philox4x32_10((pixel, step, 0, int(stream)), (int(seed), word))
     u1 = (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
     u2 = (w1 >> 8).to(dtype) * (1.0 / (1 << 24))
     r = torch.sqrt(-2.0 * torch.log(u1))
@@ -110,6 +117,20 @@ def uniform_scalar(seed: int, chain, step, dtype, device):
     zero = torch.zeros((), dtype=torch.int64, device=device)
     w0, _, _, _ = philox4x32_10((zero, zero + step, zero + 1, zero), (int(seed), word))
     return ((w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))).reshape(lead)
+
+
+def uniform_field(seed: int, chain, step, shape, dtype, device):
+    """Uniforms in ``(0, 1)`` of ``shape`` for one (seed, chain, step):
+    element ``k`` of the row-major flattening takes the top 24 bits of the
+    first word of counter ``(k, step, 2, 0)``, centred in its bin as
+    ``uniform_scalar``'s; ``chain`` and ``step`` may be tensors, as in
+    ``normal_field``."""
+    lead, word, step = _words(chain, step)
+    n = math.prod(shape)
+    k = torch.arange(n, dtype=torch.int64, device=device)
+    w0, _, _, _ = philox4x32_10((k, step, 2, 0), (int(seed), word))
+    return ((w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))).reshape(
+        lead + tuple(shape))
 
 
 def _fmix32(h: int) -> int:
@@ -135,9 +156,22 @@ def chain_keys(key, n_chains: int):
     keeps this draw off every noise counter (whose word 3 is 0). The
     counterpart of the JAX package's ``fold_in(base, i)``; its streams differ
     from threefry's by design."""
+    seed, w0, w1 = _chain_words(key)
+    return [(seed, _fmix32((w0 + i) & _MASK) ^ w1) for i in range(int(n_chains))]
+
+
+def _chain_words(key):
+    """``(seed, w0, w1)`` of ``chain_keys``'s formula for ``key``."""
     if isinstance(key, (tuple, list)):
         seed, chain = (int(v) for v in key)
     else:
         seed, chain = int(key), 0
     w0, w1, _, _ = philox4x32_10((chain & _MASK, 0, 0, _CHAIN_TAG), (seed, 0))
-    return [(seed, _fmix32((w0 + i) & _MASK) ^ w1) for i in range(int(n_chains))]
+    return seed, w0, w1
+
+
+def fold_in(key, i: int):
+    """The key ``chain_keys(key, i + 1)[i]``, the counterpart of the JAX
+    package's ``fold_in(key, i)``: a key of its own for each index ``i``."""
+    seed, w0, w1 = _chain_words(key)
+    return seed, _fmix32((w0 + int(i)) & _MASK) ^ w1

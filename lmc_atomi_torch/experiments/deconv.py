@@ -12,14 +12,15 @@ unfused samplers (``ulpda``, ``myula_imaging``), which draw the same noise.
 ``wavelet_row`` adds model M10 (``k5-WL1``): the k5 data term with a
 wavelet-l1 prior, its dual in the orthogonal Haar coefficient domain (the
 ``"wl1"`` dual of the fused ULPDA kernel); MYULA samples it with the exact
-``OrthogonalL1`` prox, unfused.
+``OrthogonalL1`` prox, unfused. ``score_row`` adds the learned-prior row
+(``k5-SCORE``): annealed score-ULA under a score net trained on the bundled
+photographs, in [0, 1] units, segmented by ``segment_steps``.
 
     python -m lmc_atomi_torch.experiments.deconv --size 512 --alg ULPDA
     python -m lmc_atomi_torch.experiments.deconv --size 64 --device cpu
 
 It runs on the card unless ``--device cpu`` is given. Not ported yet:
-``make_plots``, ``show`` and ``score_row``; passing one raises
-``NotImplementedError``.
+``make_plots`` and ``show``; passing one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,10 +30,11 @@ import time
 
 import torch
 
+from lmc_atomi_torch.core.random import fold_in
 from lmc_atomi_torch.eval.metrics import mse as mse_fn
 from lmc_atomi_torch.eval.metrics import psnr as psnr_fn
 from lmc_atomi_torch.eval.metrics import snr as snr_fn
-from lmc_atomi_torch.kernels.imaging import myula_imaging, ulpda
+from lmc_atomi_torch.kernels.imaging import myula_imaging, score_ula, ulpda
 from lmc_atomi_torch.kernels.myula_fused import (
     myula_imaging_sep_fused,
     sep_fused_supported,
@@ -52,7 +54,8 @@ from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, uniform_kern
 from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
 from lmc_atomi_torch.run.optimize import adaptive_pdhg
 from lmc_atomi_torch.ops.wavelet import HaarDWT2D
-from lmc_atomi_torch.run.runner import run_chain
+from lmc_atomi_torch.models.score import geometric_sigmas, make_score_fn, train_score_net
+from lmc_atomi_torch.run.runner import run_chain, run_chain_segmented
 from lmc_atomi_torch.utils.cli import require_device
 from lmc_atomi_torch.utils.images import load_image
 
@@ -113,13 +116,19 @@ def prox_lmc_deconv(
     show: bool = False,
     wavelet_row: bool = False,
     wavelet_levels: int = 4,
-    score_row: bool = False,
+    score_row: bool = False,  # learned-prior row: k5 + annealed score-ULA
+    score_train_steps: int = 4000,
+    score_arch: str = "unet",
+    score_class: str = "photo",
+    score_alpha: float = 1.0,
+    denoiser_sigma: float = 0.03,
+    score_burn_frac: float = 0.25,
+    segment_steps: int = 1000,
 ):
-    """Deblur one observation under 9 models (10 with ``wavelet_row``);
-    returns ``(results, series, summary)`` as the JAX package's version
-    does."""
-    asked = [name for name, on in (("make_plots", make_plots), ("show", show),
-                                   ("score_row", score_row)) if on]
+    """Deblur one observation under 9 models (10 with ``wavelet_row``, and
+    the score row after them); returns ``(results, series, summary)`` as the
+    JAX package's version does."""
+    asked = [name for name, on in (("make_plots", make_plots), ("show", show)) if on]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)} not ported yet (see ROADMAP.md)")
@@ -209,6 +218,35 @@ def prox_lmc_deconv(
         results[label] = est.detach().cpu().numpy()
         if met is not None:
             series[label] = {k: v.detach().cpu().numpy() for k, v in met.items()}
+
+    if score_row and not compute_map:
+        # the learned-prior row: annealed score-ULA under the score net
+        # trained on the photographs, in [0, 1] units (the net's scale): y/255
+        # with sigma/255 noise is the TV rows' posterior up to the rescale
+        label = "M_score (k5-SCORE)"
+        sync()
+        t0 = time.perf_counter()
+        s_model, _ = train_score_net(fold_in(seed, 101), sigma_max=0.4,
+                                     sigma_min=denoiser_sigma, n_sigmas=8,
+                                     steps=score_train_steps, arch=score_arch,
+                                     image_class=score_class, dtype=dtype, device=dev)
+        score = make_score_fn(s_model)
+        sig_d = sigma / 255.0
+        l2s = L2Data.create(op=blurs[5], b=y / 255.0, sigma=1.0 / sig_d**2)
+        burn = int(score_burn_frac * n_steps)
+        ladder = geometric_sigmas(0.4, denoiser_sigma, 8, dtype, dev)
+        anneal = ladder.repeat_interleave(max(burn // 8, 1))[:burn]
+        sig_sched = torch.cat([anneal, torch.full((n_steps - anneal.shape[0],),
+                                                  float(denoiser_sigma), dtype=dtype,
+                                                  device=dev)])
+        tau_sched = 0.5 / (1.0 / sig_d**2 + score_alpha / sig_sched**2)
+        kern_sc = score_ula(l2s.grad, score, sig_sched, tau_sched, alpha=score_alpha,
+                            box=(-0.2, 1.2), box_weight=denoiser_sigma**2)
+        res = run_chain_segmented(kern_sc, y / 255.0, fold_in(seed, 102), n_steps,
+                                  burn_in=burn, segment_steps=segment_steps)
+        sync()
+        timings[label] = time.perf_counter() - t0
+        results[label] = 255.0 * res.moments.mean.detach().cpu().numpy()
 
     branch = "MAP" if compute_map else alg
     report = {}

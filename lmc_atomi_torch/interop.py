@@ -7,7 +7,8 @@ up (or a chain started) in ``lmc_atomi_tpu`` can be run (or continued) in
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import re
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -16,6 +17,8 @@ from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.kernels.imaging import ULPDAExtras
 from lmc_atomi_torch.kernels.myula_fused import FusedChainResult, unpack_lanes
+from lmc_atomi_torch.models.dncnn import DnCNN
+from lmc_atomi_torch.models.score import ScoreNet, ScoreUNet
 from lmc_atomi_torch.models import (
     GaussianMixture,
     LaplaceMixture,
@@ -45,6 +48,9 @@ __all__ = [
     "laplace_mixture_from_numpy",
     "composite_from_numpy",
     "mvlaplace_from_numpy",
+    "dncnn_from_numpy",
+    "score_net_from_numpy",
+    "score_unet_from_numpy",
     "to_numpy",
 ]
 
@@ -234,6 +240,82 @@ def mvlaplace_from_numpy(mean, cov, prec_u, log_det_cov, color,
     return MultivariateLaplace(mean=_t(mean, device), cov=_t(cov, device),
                                prec_u=_t(prec_u, device),
                                log_det_cov=_t(log_det_cov, device), color=_t(color, device))
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.array(v)
+
+
+def _load_flax(model, params, rename: Callable, transposed=(), dtype=None, device=None):
+    """Load a flax parameter tree (nested dicts of arrays, with or without
+    the top ``"params"`` level) into ``model``: module path ``(a, b, ...)``
+    becomes ``rename(a).rename(b)...``; conv kernels HWIO -> OIHW, those of
+    the top-level modules in ``transposed`` (flax ``ConvTranspose``) HWIO ->
+    ``(in, out, kh, kw)`` flipped in both spatial axes, dense kernels
+    transposed."""
+    state = {}
+    for path, a in _flat(params.get("params", params)):
+        *mods, leaf = path
+        name = ".".join(rename(m) for m in mods)
+        t = torch.as_tensor(a)
+        if leaf == "kernel":
+            if t.ndim == 4 and mods[0] in transposed:
+                t = t.permute(2, 3, 0, 1).flip(2, 3)
+            elif t.ndim == 4:
+                t = t.permute(3, 2, 0, 1)
+            else:
+                t = t.T
+            state[name + ".weight"] = t
+        else:
+            state[name + ".bias"] = t
+    model.to(device=device, dtype=dtype if dtype is not None else
+             next(iter(state.values())).dtype)
+    model.load_state_dict({k: v.contiguous() for k, v in state.items()})
+    return model
+
+
+def _indexed(names: dict):
+    """``name<i>`` -> ``names[name].<i>`` for the flax modules in ``names``."""
+    def rename(m):
+        hit = re.fullmatch(r"([a-z_]+?)(\d+)", m)
+        return f"{names[hit[1]]}.{hit[2]}" if hit and hit[1] in names else m
+    return rename
+
+
+def dncnn_from_numpy(params, dtype=None, device=None) -> DnCNN:
+    """The port's ``DnCNN`` with the weights of the JAX package's flax
+    ``DnCNN`` parameters (depth and width read from them)."""
+    p = params.get("params", params)
+    depth = len(p)
+    features = np.shape(p["conv0"]["kernel"])[-1] if depth > 1 else 1
+    return _load_flax(DnCNN(depth, features), p, lambda m: f"convs.{m}", dtype=dtype,
+                      device=device)
+
+
+def score_net_from_numpy(params, dtype=None, device=None) -> ScoreNet:
+    """The port's ``ScoreNet`` from the flax ``ScoreNet`` parameters."""
+    p = params.get("params", params)
+    depth = sum(1 for k in p if re.fullmatch(r"conv\d+", k)) + 2
+    model = ScoreNet(depth, np.shape(p["conv_in"]["kernel"])[-1],
+                     np.shape(p["sigma_embed"]["emb1"]["kernel"])[-1])
+    rename = _indexed({"conv": "convs", "film_s": "film_s", "film_b": "film_b"})
+    return _load_flax(model, p, rename, dtype=dtype, device=device)
+
+
+def score_unet_from_numpy(params, dtype=None, device=None) -> ScoreUNet:
+    """The port's ``ScoreUNet`` from the flax ``ScoreUNet`` parameters."""
+    p = params.get("params", params)
+    levels = sum(1 for k in p if re.fullmatch(r"down\d+", k))
+    features = tuple(np.shape(p[f"down{i}"]["conv"]["kernel"])[-1] for i in range(levels))
+    model = ScoreUNet(features + (np.shape(p["mid0"]["conv"]["kernel"])[-1],),
+                      np.shape(p["sigma_embed"]["emb1"]["kernel"])[-1])
+    rename = _indexed({"down": "down", "pool": "pool", "up": "up", "dec": "dec"})
+    transposed = tuple(f"up{i}" for i in range(levels))
+    return _load_flax(model, p, rename, transposed, dtype=dtype, device=device)
 
 
 def to_numpy(obj: Any) -> Any:

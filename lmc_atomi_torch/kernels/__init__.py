@@ -1,9 +1,16 @@
 """Sampler kernels: MYULA, ULPDA, ULA and MALA over functionals, the fused
 block kernels 2-5 and the large-image tile kernels 6-8, with their plain
 versions and runners; the mixtures' Langevin (PULA, IHPULA, MLA) and
-proximal (PGLD, MYULA, MYMALA, PP-ULA, FBULA, LBMUMLA) kernels."""
+proximal (PGLD, MYULA, MYMALA, PP-ULA, FBULA, LBMUMLA) kernels; PnP-ULA
+and the score-ULA samplers of the learned priors."""
 from lmc_atomi_torch.kernels.base import Kernel, stepsize_at
-from lmc_atomi_torch.kernels.imaging import myula_imaging, ulpda
+from lmc_atomi_torch.kernels.imaging import (
+    myula_imaging,
+    pnp_ula,
+    score_ula,
+    score_ula_pc,
+    ulpda,
+)
 from lmc_atomi_torch.kernels.langevin import ihpula, mala, mla, pula, sqrtm_psd, ula
 from lmc_atomi_torch.kernels.myula_cuda import myula_imaging_fused
 from lmc_atomi_torch.kernels.myula_fused import (
@@ -43,6 +50,9 @@ __all__ = [
     "lbmumla",
     "ulpda",
     "myula_imaging",
+    "pnp_ula",
+    "score_ula",
+    "score_ula_pc",
     "myula_imaging_fused",
     "myula_imaging_sep_fused",
     "run_myula_tv_fused",

@@ -12,8 +12,9 @@ builds from its base key and ``state.step``; a kernel draws its noise from
 A kernel with ``chain_axis`` set also steps ``C`` chains at once: the
 position has a leading axis of ``C`` and ``chain`` is an int64 tensor of
 their ``C`` words (``run_chains`` builds both), and row ``i`` of the step is
-the one-chain step under word ``i``. PULA, IHPULA, MLA and the proximal
-samplers set it: their targets batch over leading axes. ``ula`` and ``mala``
+the one-chain step under word ``i``. PULA, IHPULA, MLA, the proximal
+samplers and the learned priors' PnP-ULA and score-ULA set it: their
+targets and nets batch over leading axes. ``ula`` and ``mala``
 leave it off, since the imaging workloads hand them one-image terms; a
 caller whose terms batch sets it with ``kernel._replace(chain_axis=True)``,
 as the mixture workloads do.

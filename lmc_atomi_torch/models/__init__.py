@@ -1,5 +1,6 @@
 """Mixture targets, the composite mixture x Laplace-prior target and the
-multivariate Laplace distribution."""
+multivariate Laplace distribution; the learned priors are the submodules
+``models.dncnn`` and ``models.score`` (torch.nn nets and their training)."""
 from lmc_atomi_torch.models.composite import LaplacePrior, MixtureWithLaplacePrior
 from lmc_atomi_torch.models.gaussian_mixture import GaussianMixture
 from lmc_atomi_torch.models.laplace_mixture import LaplaceMixture

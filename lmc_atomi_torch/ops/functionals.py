@@ -50,7 +50,7 @@ class L2Data:
             e = self.op._half()
             e2 = e.real * e.real + e.imag * e.imag
             spec = e2 * torch.fft.rfft2(x) - self.b_spec
-            return self.sigma * torch.fft.irfft2(spec, s=x.shape)
+            return self.sigma * torch.fft.irfft2(spec, s=x.shape[-2:])
         if hasattr(self.op, "normal_grad"):
             return self.sigma * self.op.normal_grad(x, self.b)
         # operators without a spectrum (Mask, Identity, wavelets)

@@ -100,7 +100,7 @@ class CirculantBlur2D:
         """``(I + rho A^T A)^{-1} y``; ``niter`` is unused (exact solve)."""
         e = self._half()
         denom = 1.0 + rho * (e.real * e.real + e.imag * e.imag)
-        return torch.fft.irfft2(torch.fft.rfft2(y) / denom, s=y.shape)
+        return torch.fft.irfft2(torch.fft.rfft2(y) / denom, s=y.shape[-2:])
 
     def normal_grad(self, x, b):
         """``A^T(A x - b)`` in one spectral round trip on the half plane:
@@ -108,7 +108,7 @@ class CirculantBlur2D:
         e = self._half()
         e2 = e.real * e.real + e.imag * e.imag
         spec = e2 * torch.fft.rfft2(x) - e.conj() * torch.fft.rfft2(b)
-        return torch.fft.irfft2(spec, s=x.shape)
+        return torch.fft.irfft2(spec, s=x.shape[-2:])
 
     def max_gram_eig(self, probe=None, iters: int = 0):
         return torch.max(self.eigs.real ** 2 + self.eigs.imag ** 2)

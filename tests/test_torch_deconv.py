@@ -22,7 +22,7 @@ from lmc_atomi_tpu.ops.functionals import L1Norm, L21Norm, L2Data, TVNorm
 from lmc_atomi_tpu.ops.linops import CirculantBlur2D, Gradient2D, uniform_kernel
 from lmc_atomi_tpu.ops.ncvx_tv import L2NcvxTV
 from lmc_atomi_tpu.run import optimize as j_opt
-from lmc_atomi_tpu.utils.images import phantom
+from lmc_atomi_tpu.utils.images import einstein, phantom
 
 torch.set_num_threads(2)
 
@@ -222,7 +222,7 @@ def test_deconv_cli_and_device_guard(capsys, monkeypatch):
         t_deconv.prox_lmc_deconv(size=16, n_steps=2)
 
 
-@pytest.mark.parametrize("flag", ["make_plots", "show", "score_row"])
+@pytest.mark.parametrize("flag", ["make_plots", "show"])
 def test_deconv_parts_not_ported_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         t_deconv.prox_lmc_deconv(size=16, n_steps=2, device="cpu", **{flag: True})
@@ -230,7 +230,7 @@ def test_deconv_parts_not_ported_raise(flag):
 
 def test_load_image():
     np.testing.assert_array_equal(t_images.load_image("phantom", 40), phantom(40))
-    with pytest.raises(NotImplementedError, match="png"):
-        t_images.load_image("einstein", 64)
+    # the photographs are ported (utils/png.py): tests/test_torch_png_images.py
+    np.testing.assert_array_equal(t_images.load_image("einstein", 64), einstein(64))
     with pytest.raises(ValueError, match="unknown"):
         t_images.load_image("lena", 64)

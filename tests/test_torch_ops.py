@@ -180,8 +180,12 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'lmc_atomi_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'lmc_atomi_torch.kernels.myula_fused' in names, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lmc_atomi_tpu'))]\n"
+        "want = {'lmc_atomi_torch.kernels.myula_fused', 'lmc_atomi_torch.utils.png',\n"
+        "        'lmc_atomi_torch.utils.synthetic', 'lmc_atomi_torch.models.dncnn',\n"
+        "        'lmc_atomi_torch.models.score', 'lmc_atomi_torch.experiments.pnp'}\n"
+        "assert want <= set(names), want - set(names)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax')\n"
+        "       or m.startswith(('jax.', 'flax.', 'optax.', 'lmc_atomi_tpu'))]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
