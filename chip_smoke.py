@@ -8,7 +8,9 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
-2. build: the CUDA kernels from ``lmc_atomi_torch/csrc`` (one nvcc per source);
+2. build: the CUDA kernels from ``lmc_atomi_torch/csrc`` (one nvcc per source),
+   in a thread beside the mixtures path (9c), which launches no kernel of
+   the port and runs first; the kernel checks wait for the build;
 3. kernel 1 (``prox_tv_iso_cuda``) against its plain torch version, bit for
    bit, at 512^2 (the resident route), 2048^2 (the cone) and 1024 x 1500
    (ragged tiles) for niter 0, 3, 10 and 20, and at 2048^2 for niter 60 (one
@@ -56,14 +58,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
    maps, then the unfused ``run_chain(myula_imaging)`` with kernel 1 inside
-   (10000 steps, against a fused cold-10 chain as deep on the same key).
+   (5000 steps, against a fused cold-10 chain as deep on the same key).
    Each is warmed up with another seed over fewer steps and timed; the
    posterior-mean PSNR
    must reach 40 dB and agree with the unfused path within 0.1 dB;
 7. the deconvolution path: ``prox_lmc_deconv`` at 512^2 for ULPDA and MYULA
    (1000 steps, 10 models with the wavelet row M10, fused kernels) and the
    MAP branch (1000 adaptive PDHG iterations), the two sampling grids fused
-   and unfused at 500 steps (the same Philox stream chain for chain), and
+   and unfused at 250 steps (the same Philox stream chain for chain), and
    ``run_ulpda_fused``
    for TV, MC-TV and ME-TV (k5) timed at 20000 steps. The k5 and M10 PSNRs
    must reach the JAX package's (RESULTS.md) less 1 dB, and fused and
@@ -121,6 +123,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (the JAX package's are XLA ops outside any Pallas kernel). The
    deconvolution path (7) runs the score row (M11) once, with a 200-step
    fit, gated above the observation;
+9e. the CT path (``experiments/ct.py``): the dense Radon projector at
+   128^2 / 30 angles, the shear projector at 256^2 / 90 and the gather
+   projector at 128^2 / 30 against their f64 versions on the host
+   (CT_RADON_TOL), each twice with equal bits, timed;
+   ``ct_tv_myula`` at the CLI's defaults (128^2, dense: adaptive-PDHG MAP,
+   TV-MYULA with kernel 1, PnP-ULA with a DnCNN fitted in the run), each
+   PSNR gated at RESULTS.md:283 less 1 dB (CT_REF); at 256^2 / 90 (shear:
+   FISTA MAP with kernel 1 at niter 20) at 4500 steps with burn-in 4000,
+   the MAP and the posterior mean gated at the JAX run's 26.00 and 22.977
+   dB less 1 dB (CT_SHEAR_REF); the score branch (annealed score-ULA with a
+   corrector) at 128^2 / 30 twice, equal bit for bit, gated above the FBP
+   and inside scripts/ct_gates.py's band (CT_SCORE_GATE). Kernel 1 is held to its
+   plain version at the path's shapes (128^2 and 256^2 niter 10, 256^2
+   niter 20) before it. The projectors are library calls (``torch.matmul``,
+   ``torch.fft``): the JAX package's are XLA ops outside any Pallas kernel;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
@@ -129,8 +146,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    2048^2 of each tiled runner and of the whole-image runner beside it), of
    one packed 500-step block at 64^2 x 64 chains, of one batched ULA block
    of the Gaussian mixture (1024 chains x 100 steps), of 20 PnP-ULA steps of
-   8 chains at 256^2, and kernel 1's device time per call at 512^2 and
-   2048^2.
+   8 chains at 256^2, of 2 dense-MAP iterations at 128^2 and 20 shear
+   TV-MYULA steps at 256^2 on the CT path, and kernel 1's device time per
+   call at 512^2 and 2048^2.
 
 With ``--turns KERNELS`` (a comma list of 1, 3, 4, 5, 6, 7, 8) the script
 runs only a measurement: the registers and spills ``ptxas`` reports for
@@ -163,12 +181,13 @@ the resident route, on the inpainting path every kernel-4 and kernel-5
 call the warp (Haar) or the resident route (D4/D8), and on the large-image
 path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
 cone, on the multichain path every kernel-2 and kernel-3 call the resident
-route; the mixtures path launches none of them, and the PnP path kernel 2
-alone, every call on the resident route. The script then prints one JSON
-line describing each kernel (launches and route counts on the seven
-paths, errors, times, the bound of the card; for kernels 2 and 3 also the
-chain axis's plan, error and times) and, last, ``{"ok": true, "device":
-{...}}``.
+route; the mixtures path launches none of them, the PnP path kernel 2
+alone and the CT path kernel 1 alone, every call on the resident route.
+The script then prints one JSON line describing each kernel (launches and
+route counts on the eight paths, errors, times, the bound of the card; for
+kernels 2 and 3 also the chain axis's plan, error and times, for kernel 1
+its error, route and times at the CT shapes) and, last, ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -185,7 +204,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N = 512
 STEPS = 20000
-UNFUSED_STEPS = 10000  # the unfused main-path chain, against a fused one as deep
+# the unfused main-path chain, against a fused one as deep (cut from 20000 to
+# 10000, then to 5000 to make room for the CT path)
+UNFUSED_STEPS = 5000
 BLOCK = 500
 SIGMA_NOISE = 0.75
 TV_WEIGHT = 0.3
@@ -209,7 +230,9 @@ PSNR_GAP = 0.1
 # the deconvolution workload (lmc_atomi_torch/experiments/deconv.py)
 DECONV_STEPS = 1000
 DECONV_SCORE_FIT = 200  # the score row's training steps (the CLI's: 4000)
-DECONV_CHECK_STEPS = 500  # the fused-against-unfused grids (cut from 1000 for time)
+# the fused-against-unfused grids (cut from 1000 to 500, then to 250 to make
+# room for the CT path)
+DECONV_CHECK_STEPS = 250
 # k5 PSNR (TV, MC-TV, ME-TV) of the JAX package on the same protocol
 # (RESULTS.md:82-84); the port's observation noise differs, so the gate is
 # these less DECONV_MARGIN dB
@@ -443,12 +466,33 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
-    from lmc_atomi_torch import _build
+class PhaseBuild:
+    """The kernel build in a thread (its nvcc processes wait on the host's
+    other cores); ``join`` waits for it, logs it and raises its error."""
 
-    t0 = time.perf_counter()
-    lib = _build.library()
-    log(f"build: {lib._name} in {time.perf_counter() - t0:.2f} s")
+    def __init__(self):
+        import threading
+
+        from lmc_atomi_torch import _build
+
+        self.out = {}
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                self.out["lib"] = _build.library()
+            except BaseException as err:  # re-raised by join
+                self.out["err"] = err
+            self.out["s"] = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if "err" in self.out:
+            raise self.out["err"]
+        log(f"build: {self.out['lib']._name} in {self.out['s']:.2f} s")
 
 
 def make_problem(dev, seed=0):
@@ -1269,7 +1313,7 @@ def phase_kernel678(dev, report):
 
 
 def phase_main_path(dev, img, y, l2):
-    """The MYULA TV-deblur main path, 20000 steps per fused run, 10000 for
+    """The MYULA TV-deblur main path, 20000 steps per fused run, 5000 for
     the unfused chain (held to a fused chain as deep, on the same key)."""
     import torch
 
@@ -2387,6 +2431,264 @@ def phase_profile_pnp(dev):
                                       collect="stats"))
 
 
+# --- the CT path (experiments/ct.py) ---------------------------------------
+# RESULTS.md:283, the 128^2 / 30-angle row: the CLI's defaults (the JAX
+# package's run of them on the CPU gives 12.36 / 14.44 / 18.90 / 18.67 /
+# 20.30), each gated at the JAX value less CT_MARGIN
+CT_REF = {"psnr_backprojection": 12.36, "psnr_fbp": 14.44, "psnr_posterior_mean": 18.90,
+          "psnr_map_tv": 18.67, "psnr_pnp_mean": 20.39}
+CT_MARGIN = 1.0
+CT_DEFAULT = (128, 30)  # the dense projector (251.7 MB float32)
+CT_SHEAR = (256, 90)  # the shear projector (no matrix)
+# the shear run: RESULTS.md:303-318's tau_tv = 15 run (20000 steps, burn-in 4000)
+# cut to its first trace point, where the JAX package's posterior mean over steps
+# 4001-4500 read 22.977 dB (fig/r4_measurements/ct256_tv15.log) and its FISTA MAP
+# (500 iterations, the CLI's) 26.00 dB; each gated at that value less CT_MARGIN
+CT_SHEAR_RUN = dict(size=256, n_angles=90, tau_tv=15.0, n_steps=4500, burn_in=4000, pnp=False)
+CT_SHEAR_REF = {"psnr_map_tv": 26.00, "psnr_posterior_mean": 22.977}
+# the score branch (annealed score-ULA, one corrector sweep a step, a 300-step fit of
+# the score CNN) at 128^2 / 30 from the FBP start, at the configuration of
+# scripts/ct_gates.py, whose JAX runs over seeds 0-3 (20.1565, 20.1872, 20.1914,
+# 20.4860 dB on the CPU) give the gate [min - 1, max + 1]
+CT_SCORE_RUN = dict(size=128, n_angles=30, n_steps=400, burn_in=200, compute_map=False,
+                    pnp=False, score_prior=True, score_train_steps=300, pc_correctors=1)
+CT_SCORE_GATE = (19.1565, 21.4860)
+CT_RADON_TOL = 2e-5  # relative to the largest f64 value; TF32 would miss by ~1e-3
+CT_RADON_REPS = 20
+CT_PROFILE_MAP_ITERS = 2  # adaptive-PDHG iterations of the dense MAP's window
+CT_PROFILE_STEPS = 20  # TV-MYULA steps at 256^2 / 90 of the chain's window
+# (side, niter, gamma): the chain's prox at the defaults (tau_tv / L, L = lambda_max /
+# sigma^2 ~ 3431 / 4), the shear chain's and the shear FISTA MAP's (tau_tv = 15,
+# 15 / L at 256^2 / 90)
+CT_KERNEL1 = ((128, 10, 0.006), (256, 10, 0.003), (256, 20, 0.003))
+
+
+def phase_kernel1_ct(dev, report):
+    """Kernel 1 against its plain version at max abs error 0 at the CT
+    path's shapes (niter 10, the chains' prox at 128^2 and 256^2; 256^2
+    niter 20, the shear FISTA MAP's), on the route ``prox_plan`` names, then
+    timed per call with CUDA events beside the plain version and the
+    bound."""
+    import torch
+
+    from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda, prox_tv_iso_ref
+    from lmc_atomi_torch.utils.images import phantom
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ct = {}
+    for n, niter, gamma in CT_KERNEL1:
+        # an iterate of the chain's kind: the phantom in [0, 1] and noise
+        x = (torch.from_numpy(phantom(n)).to(dev) / 255.0
+             + 0.1 * torch.randn((n, n), generator=gen, device=dev))
+        got = prox_tv_iso_cuda(x, gamma, niter=niter)
+        plan = prox_tv_iso_cuda.last_plan
+        err, _ = compare(f"kernel 1 CT {n}^2 niter={niter}", (got,),
+                         (prox_tv_iso_ref(x, gamma, niter=niter),), ("x",), exact=True)
+        ms, _ = cuda_ms(lambda: prox_tv_iso_cuda(x, gamma, niter=niter), 200)
+        p_ms, _ = cuda_ms(lambda: prox_tv_iso_ref(x, gamma, niter=niter), 20)
+        b_ms, b_by = bound_kernel1(n * n, niter)
+        ct[f"{n}x{n}_niter{niter}"] = dict(max_abs_err=err, route=plan[0], ms=ms, plain_ms=p_ms,
+                                           bound_ms=b_ms, bound_by=b_by)
+        log(f"kernel1 CT {n}^2 niter={niter}: max_abs_err={err:.3e}, plan {plan}; per call "
+            f"kernel {ms:.4f} ms (CUDA events, 200 back to back), plain {p_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+    report["prox_tv_iso_cuda"]["ct"] = ct
+
+
+def _radon_f64(op):
+    """The f64 operator on the host with the card operator's angles (and
+    residual angles), in the same mode."""
+    import numpy as np
+    import torch
+
+    from lmc_atomi_torch.ops.radon import Radon2D, _dense_matrix
+
+    th = op.thetas.double().cpu()
+    dense = phis = None
+    if op.mode == "dense":
+        dense = _dense_matrix(op.shape, th.numpy(), op.n_det, torch.float64)
+    elif op.mode == "shear":
+        k = np.asarray(op.shear_ks)
+        phis = torch.from_numpy(th.numpy() - k * (np.pi / 2.0))
+    return Radon2D(thetas=th, dense=dense, shape=op.shape, mode=op.mode, shear_phis=phis,
+                   shear_ks=op.shear_ks)
+
+
+def _ct_radon_checks(dev):
+    """Each projector the CT path runs (dense at 128^2/30, shear at 256^2/90,
+    as ``create`` picks them) and the gather projector at 128^2/30 against
+    its f64 version on the host, projection and backprojection within
+    CT_RADON_TOL of the largest f64 value, each twice with equal bits (the
+    gather adjoint sums in a fixed order); then timed per call with CUDA
+    events."""
+    import torch
+
+    from lmc_atomi_torch.core.random import normal_field
+    from lmc_atomi_torch.ops.radon import Radon2D
+    from lmc_atomi_torch.utils.images import phantom
+
+    smi = nvidia_smi("name,power.limit")
+    for (n, n_angles), mode in ((CT_DEFAULT, "dense"), (CT_SHEAR, "shear"),
+                                (CT_DEFAULT, "gather")):
+        t0 = time.perf_counter()
+        op = Radon2D.create((n, n), n_angles=n_angles, device=dev,
+                            mode="gather" if mode == "gather" else None)
+        if mode == "gather":
+            op.matvec(torch.zeros((n, n), device=dev))  # builds its plan
+        t_build = time.perf_counter() - t0
+        if op.mode != mode:
+            raise AssertionError(f"ct radon {n}^2 x {n_angles}: mode {op.mode}, want {mode}")
+        ref = _radon_f64(op)
+        x = torch.from_numpy(phantom(n)).to(dev) / 255.0
+        y = op.matvec(x) + 2.0 * normal_field(7, 0, 0, (n_angles, n), torch.float32, dev)
+        errs = {}
+        for name, fn, fn64, arg in (("matvec", op.matvec, ref.matvec, x),
+                                    ("rmatvec", op.rmatvec, ref.rmatvec, y)):
+            a, b = fn(arg), fn(arg)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"ct radon {op.mode} {name}: two calls differ")
+            want = fn64(arg.double().cpu())
+            errs[name] = float((a.double().cpu() - want).abs().max() / want.abs().max())
+            if not errs[name] <= CT_RADON_TOL:
+                raise AssertionError(f"ct radon {op.mode} {name}: relative error "
+                                     f"{errs[name]:.3e} > {CT_RADON_TOL}")
+        ms = {name: cuda_ms(lambda: fn(arg), CT_RADON_REPS)[0]
+              for name, fn, arg in (("matvec", op.matvec, x), ("rmatvec", op.rmatvec, y))}
+        mbytes = 0 if op.dense is None else op.dense.numel() * 4 / 1e6
+        log(f"ct radon {op.mode} {n}^2 x {n_angles} angles [{smi}]: built in {t_build:.2f} s "
+            f"(matrix {mbytes:.1f} MB), against f64 on the host: relative error matvec "
+            f"{errs['matvec']:.3e}, rmatvec {errs['rmatvec']:.3e} (tolerance {CT_RADON_TOL}), "
+            f"two calls equal bit for bit; per call (CUDA events, {CT_RADON_REPS} back to "
+            f"back) matvec {ms['matvec']:.4f} ms, rmatvec {ms['rmatvec']:.4f} ms")
+
+
+def phase_ct(dev):
+    """The CT path through its entry point: the Radon checks, then
+    ``ct_tv_myula`` at the CLI's defaults (128^2, 30 angles, dense; MAP by
+    adaptive PDHG, TV chain with kernel 1, PnP-ULA with a DnCNN fitted in the
+    run), each PSNR gated at RESULTS.md:283 less CT_MARGIN; at 256^2 / 90
+    angles (shear; FISTA MAP with kernel 1 at niter 20) at the depth of the
+    JAX package's first trace point (CT_SHEAR_RUN), the MAP and the posterior
+    mean gated at its values less CT_MARGIN (CT_SHEAR_REF); and the score
+    branch at 128^2 / 30 (CT_SCORE_RUN) twice, its posterior mean above the
+    FBP start and inside the JAX package's band (CT_SCORE_GATE), equal bit
+    for bit across the two runs. The MAP solvers are timed apart (a wrapper
+    that synchronises around them)."""
+    import numpy as np
+    import torch
+
+    from lmc_atomi_torch.experiments import ct
+
+    _ct_radon_checks(dev)
+    smi = nvidia_smi("name,power.limit")
+    map_s = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            map_s[name] = time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def gate(tag, rep, refs):
+        for key, ref in refs.items():
+            if not rep[key] >= ref - CT_MARGIN:
+                raise AssertionError(f"ct {tag} {key}: {rep[key]:.4f} below the JAX "
+                                     f"package's {ref} less {CT_MARGIN} dB")
+
+    orig = ct.adaptive_pdhg_segmented, ct.fista_segmented
+    ct.adaptive_pdhg_segmented = timed("PDHG", orig[0])
+    ct.fista_segmented = timed("FISTA", orig[1])
+    score_means = []
+    try:
+        for tag, kw in (("CLI defaults", {}), ("shear", CT_SHEAR_RUN),
+                        ("score", CT_SCORE_RUN), ("score again", CT_SCORE_RUN)):
+            out = io.StringIO()
+            map_s.clear()
+            arrays = {}
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mean, std, rep = ct.ct_tv_myula(device=str(dev), make_plots=False,
+                                                arrays_out=arrays, **kw)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            line = json.loads(out.getvalue().strip().splitlines()[-1])
+            if {k: line[k] for k in rep} != rep:
+                raise AssertionError(f"ct {tag}: the JSON line differs from the report")
+            if not all(np.isfinite(a).all() for a in arrays.values()):
+                raise AssertionError(f"ct {tag}: non-finite images among {sorted(arrays)}")
+            msg = (f"ct {tag} ({line['size']}^2, {line['n_angles']} angles, {line['steps']} "
+                   f"steps) [{smi}]: {wall:.1f} s, peak {peak:.2f} GiB; psnr backprojection "
+                   f"{rep['psnr_backprojection']:.4f}, FBP {rep['psnr_fbp']:.4f}")
+            for (solver, secs) in map_s.items():
+                n_map = kw.get("niter_map", 500)
+                msg += (f", MAP {rep['psnr_map_tv']:.4f} ({solver}, {n_map} iterations, "
+                        f"{secs:.2f} s, {n_map / secs:.1f} it/s)")
+            msg += f", TV posterior mean {rep['psnr_posterior_mean']:.4f}"
+            for key, name in (("psnr_pnp_mean", "PnP"), ("psnr_score_mean", "score-ULA")):
+                if key in rep:
+                    msg += f", {name} {rep[key]:.4f}"
+            log(msg + f" dB; TV chain {rep['iters_per_sec']} iters/s; trace {rep['psnr_trace']}")
+            if tag == "CLI defaults":
+                gate(tag, rep, CT_REF)
+            elif tag == "shear":
+                gate(tag, rep, CT_SHEAR_REF)
+            else:
+                lo, hi = CT_SCORE_GATE
+                if not (rep["psnr_score_mean"] > rep["psnr_fbp"]
+                        and lo <= rep["psnr_score_mean"] <= hi):
+                    raise AssertionError(f"ct {tag}: score-ULA mean {rep['psnr_score_mean']:.4f}"
+                                         f" not above the FBP or outside [{lo}, {hi}]")
+                score_means.append(arrays["score_mean"])
+        if not np.array_equal(*score_means):
+            raise AssertionError("ct score: two runs from one seed differ")
+        log("ct score: two runs from one seed equal bit for bit")
+    finally:
+        ct.adaptive_pdhg_segmented, ct.fista_segmented = orig
+
+
+def phase_profile_ct(dev):
+    """Where the time goes on the CT path: CT_PROFILE_MAP_ITERS iterations
+    of the dense MAP (adaptive PDHG, each a 50-trip CG gram solve) at 128^2 /
+    30 angles, and CT_PROFILE_STEPS TV-MYULA steps at 256^2 / 90 (shear)."""
+    import torch
+
+    from lmc_atomi_torch.core.random import normal_field
+    from lmc_atomi_torch.kernels.imaging import myula_imaging
+    from lmc_atomi_torch.ops.functionals import L21Norm, L2Data, TVNorm
+    from lmc_atomi_torch.ops.linops import Gradient2D, LinOp
+    from lmc_atomi_torch.ops.radon import Radon2D, fbp
+    from lmc_atomi_torch.run.optimize import adaptive_pdhg
+    from lmc_atomi_torch.run.runner import run_chain
+    from lmc_atomi_torch.utils.images import phantom
+
+    smi = nvidia_smi("name,power.limit")
+    for (n, n_angles), what in ((CT_DEFAULT, "map"), (CT_SHEAR, "chain")):
+        op = Radon2D.create((n, n), n_angles=n_angles, device=dev)
+        img = torch.from_numpy(phantom(n)).to(dev) / 255.0
+        sino = op.matvec(img) + 2.0 * normal_field(0, 0, 0, (n_angles, n), torch.float32, dev)
+        l2 = L2Data(op=op, b=sino, sigma=0.25)
+        lips = float(LinOp.max_gram_eig(op, probe=img, iters=20)) / 4.0
+        x0 = torch.clamp(fbp(op, sino, filter_name="hann"), min=0.0)
+        if what == "map":
+            profile_window(
+                f"ct dense MAP {n}^2 x {n_angles}, {CT_PROFILE_MAP_ITERS} adaptive-PDHG "
+                f"iterations [{smi}]",
+                lambda: adaptive_pdhg(l2, L21Norm(sigma=5.0), Gradient2D(), x0, 0.95 / lips,
+                                      1.0, CT_PROFILE_MAP_ITERS).x)
+        else:
+            kern = myula_imaging(l2, TVNorm(sigma=15.0, niter=10), tau=0.2 / lips,
+                                 gamma=1.0 / lips)
+            profile_window(
+                f"ct shear TV-MYULA {n}^2 x {n_angles}, {CT_PROFILE_STEPS} steps [{smi}]",
+                lambda: run_chain(kern, x0, (2, 0), CT_PROFILE_STEPS, collect="stats"))
+
+
 def profile_window(label, fn):
     """torch.profiler over one call of ``fn`` (after a warm-up call): the
     wall time, the share of it the card was busy (the sum of kernel times
@@ -3079,7 +3381,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name, _ = phase_device()
-    phase_build()
+    build = PhaseBuild()
+    if sys.argv[1:] and sys.argv[1] in ("--turns", "--clock"):
+        build.join()
     if sys.argv[1:2] == ["--turns"]:
         phase_turns(dev, {int(k) for k in sys.argv[2].split(",")}, sys.argv[3:])
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3088,6 +3392,11 @@ def main() -> int:
         phase_clock(dev, sys.argv[2:])
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    try:
+        mixtures = drive("mixtures", (), phase_mixtures, dev)
+    finally:
+        build.thread.join()  # no nvcc outlives the script
+    build.join()
     report = {}
     phase_kernel1(dev, report)
     img, y, l2 = make_problem(dev)
@@ -3098,6 +3407,7 @@ def main() -> int:
     phase_kernel678(dev, report)
     phase_chain_kernels(dev, report)
     phase_kernel2_pnp(dev, report)
+    phase_kernel1_ct(dev, report)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     paths = [
@@ -3115,8 +3425,9 @@ def main() -> int:
         drive("multichain", ("myula_tv_block_update_cuda", "ulpda_block_update_cuda",
                              "wavelet_block_update_cuda", "myula_tv_tiled_update_cuda"),
               phase_multichain, dev, resident=True, wavelet=True),
-        drive("mixtures", (), phase_mixtures, dev),
+        mixtures,
         drive("PnP", ("myula_tv_block_update_cuda",), phase_pnp, dev, resident=True),
+        drive("CT", ("prox_tv_iso_cuda",), phase_ct, dev, resident=True),
     ]
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)
@@ -3125,6 +3436,7 @@ def main() -> int:
     phase_profile_multichain(dev)
     phase_profile_mixtures(dev)
     phase_profile_pnp(dev)
+    phase_profile_ct(dev)
     kernels = [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=sum(p[k] for p in paths), **report[k],

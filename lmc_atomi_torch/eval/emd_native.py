@@ -3,43 +3,61 @@ the port's own copy of ``lmc_atomi_tpu/eval/emd_native.py`` (the port imports
 nothing of the JAX package).
 
 Replaces the reference's POT ``ot.emd2`` (C++ network simplex, OpenMP;
-reference lmc.py:403-406). The shared library is built on demand with the
-in-repo Makefile (``make -C native`` into ``native/libemd.so``); if no C++
-toolchain is available the caller should fall back to
+reference lmc.py:403-406). The shared library is built on first use from
+``native/emd.cpp`` with ``native/Makefile``'s flags, by calling the compiler
+directly, into the git-ignored ``lmc_atomi_torch/_build/`` (the JAX package
+builds its own ``native/libemd.so``; the two never share a file). Concurrent
+first uses (pytest workers) serialise on a file lock, and the library is
+compiled under a temporary name and moved into place with ``os.replace``, so
+no process loads a half-written file. Without a C++ toolchain the caller
+should fall back to
 :func:`lmc_atomi_torch.eval.wasserstein.exact_w2_assignment` (equal weights)
 or Sinkhorn.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libemd.so")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SOURCE = os.path.join(_ROOT, "native", "emd.cpp")
+_BUILD_DIR = os.path.join(_ROOT, "lmc_atomi_torch", "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libemd.so")
+# native/Makefile's CXXFLAGS
+_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-fopenmp", "-std=c++17", "-Wall"]
 _lib = None
+
+
+def _compile() -> bool:
+    """Compile the library unless it is there, under an exclusive lock."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(_LIB_PATH + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_LIB_PATH):
+            return True
+        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+        try:
+            subprocess.run([os.environ.get("CXX", "g++"), *_CXXFLAGS, "-shared", "-o", tmp,
+                            _SOURCE], check=True, capture_output=True, timeout=120)
+            os.replace(tmp, _LIB_PATH)
+        except (subprocess.SubprocessError, OSError):
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            return False
+    return True
 
 
 def _load() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except (subprocess.SubprocessError, FileNotFoundError):
-            return None
+    if not os.path.exists(_LIB_PATH) and not _compile():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

@@ -19,8 +19,10 @@ photographs, in [0, 1] units, segmented by ``segment_steps``.
     python -m lmc_atomi_torch.experiments.deconv --size 512 --alg ULPDA
     python -m lmc_atomi_torch.experiments.deconv --size 64 --device cpu
 
-It runs on the card unless ``--device cpu`` is given. Not ported yet:
-``make_plots`` and ``show``; passing one raises ``NotImplementedError``.
+It runs on the card unless ``--device cpu`` is given. ``show`` prints the
+reference's iteration table of each model (f, g(A x), J; first 10, last 10,
+every n/10 rows) from the collected metrics; ``make_plots`` writes the image
+grid and the metric evolution under ``outdir`` (needs matplotlib).
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ from lmc_atomi_torch.models.score import geometric_sigmas, make_score_fn, train_
 from lmc_atomi_torch.run.runner import run_chain, run_chain_segmented
 from lmc_atomi_torch.utils.cli import require_device
 from lmc_atomi_torch.utils.images import load_image
+from lmc_atomi_torch.utils.trace import print_iteration_table
 
 __all__ = ["prox_lmc_deconv", "deconv_models", "main"]
 
@@ -112,6 +115,7 @@ def prox_lmc_deconv(
     collect_metrics: bool = True,
     fused: bool = True,
     device: str = "cuda",
+    outdir: str = "fig",
     make_plots: bool = False,
     show: bool = False,
     wavelet_row: bool = False,
@@ -128,10 +132,6 @@ def prox_lmc_deconv(
     """Deblur one observation under 9 models (10 with ``wavelet_row``, and
     the score row after them); returns ``(results, series, summary)`` as the
     JAX package's version does."""
-    asked = [name for name, on in (("make_plots", make_plots), ("show", show)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} not ported yet (see ROADMAP.md)")
     if alg not in ("ULPDA", "MYULA"):
         raise ValueError(f"unknown alg {alg!r}")
     dev = require_device(device, "deconvolution")
@@ -170,13 +170,19 @@ def prox_lmc_deconv(
         else:
             def cost(x):
                 return proxf(x) + proxg(x)
-        return {
+        out = {
             "cost": cost,
             "err": lambda x: torch.linalg.norm(torch.ravel(x - img)),
             "snr": lambda x: snr_fn(img, x),
             "psnr": lambda x: psnr_fn(img, x),
             "mse": lambda x: mse_fn(img, x),
         }
+        if show:
+            # the reference's show-table terms f and g(A x) (algs.py:459-467
+            # for ULPDA, 576-583 for MYULA)
+            out["f"] = proxf
+            out["gA"] = (lambda x: proxg(a_op.matvec(x))) if pd else proxg
+        return out
 
     results, series, timings = {}, {}, {}
     for idx, (name, proxf, proxg, a_op) in enumerate(models):
@@ -218,6 +224,10 @@ def prox_lmc_deconv(
         results[label] = est.detach().cpu().numpy()
         if met is not None:
             series[label] = {k: v.detach().cpu().numpy() for k, v in met.items()}
+            if show:
+                print(f"-- {label} --")
+                print_iteration_table({"f": series[label]["f"], "g(Ax)": series[label]["gA"],
+                                       "J": series[label]["cost"]})
 
     if score_row and not compute_map:
         # the learned-prior row: annealed score-ULA under the score net
@@ -263,6 +273,17 @@ def prox_lmc_deconv(
             file=sys.stderr,
         )
     n_iters = niter_map if compute_map else n_steps
+    if make_plots:
+        from lmc_atomi_torch.experiments import figures as F
+
+        F.ensure_outdir(outdir)
+        panels = {"Ground truth": img.cpu().numpy(), "Blurred": y.cpu().numpy()}
+        panels.update(results)
+        stem = f"{outdir}/fig_prox_lmc_deconv_{image}_{branch}_{n_iters}"
+        F.image_grid(panels, f"{stem}_images.pdf")
+        if series:
+            F.metric_evolution(series, f"{stem}_snr_psnr_mse.pdf")
+
     summary = {
         "workload": "deconv",
         "branch": branch,

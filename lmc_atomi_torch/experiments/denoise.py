@@ -68,11 +68,8 @@ def l1_denoise_myula(
     """Denoise the phantom (in [0, 1]) by MYULA; returns ``(mean, report)``.
     The noise comes from a ``torch.Generator`` on the device seeded with
     ``seed``, the chain runs under ``(seed, 1)``, timed on a second run
-    after a warm-up. ``make_plots`` needs ``experiments/figures.py``, not
-    ported yet."""
-    if make_plots:
-        raise NotImplementedError(
-            "make_plots needs experiments/figures.py, not ported yet")
+    after a warm-up. ``make_plots`` writes the image grid under
+    ``outdir``."""
     dev = require_device(device, "denoising")
     dtype = torch.float32
     img = torch.from_numpy(phantom(size)).to(dev, dtype) / 255.0
@@ -106,6 +103,13 @@ def l1_denoise_myula(
         "iters_per_sec": round(n_steps / dt, 1),
     }
     print(json.dumps({"workload": "l1_denoise_myula", "size": size, **report}))
+    if make_plots:
+        from lmc_atomi_torch.experiments import figures as F
+
+        F.ensure_outdir(outdir)
+        F.image_grid({"Ground truth": img.cpu().numpy(), "Noisy": y.cpu().numpy(),
+                      "Posterior mean": mean},
+                     f"{outdir}/fig_l1_denoise_{size}_{n_steps}.pdf")
     return mean, report
 
 

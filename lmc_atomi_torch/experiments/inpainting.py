@@ -72,11 +72,8 @@ def wavelet_inpainting(
     ``fold_in(ks, 7/8)`` keys: fused and unfused then draw one Philox
     stream, so their gap is roundoff, not sampling noise. The fused rows
     always sample, and are timed on a second call after a warm-up call.
-    ``make_plots`` needs ``experiments/figures.py``, not ported yet.
+    ``make_plots`` writes the posterior means' image grid under ``outdir``.
     """
-    if make_plots:
-        raise NotImplementedError(
-            "make_plots needs experiments/figures.py, not ported yet")
     if wavelet not in WAVELET_TAPS:
         raise ValueError(f"unknown wavelet {wavelet!r}")
     dev = require_device(device, "inpainting")
@@ -160,6 +157,13 @@ def wavelet_inpainting(
     report = {name: {"psnr": float(psnr_fn(img, torch.from_numpy(est).to(dev)))}
               for name, est in results.items()}
     report["observed"] = {"psnr": float(psnr_fn(img, y))}
+    if make_plots:
+        from lmc_atomi_torch.experiments import figures as F
+
+        F.ensure_outdir(outdir)
+        panels = {"Ground truth": img.cpu().numpy(), "Observed": y.cpu().numpy()}
+        panels.update({f"{k} posterior mean": v for k, v in results.items()})
+        F.image_grid(panels, f"{outdir}/fig_inpainting_{size}_{n_steps}.pdf")
     summary = {
         "workload": "wavelet_inpainting",
         "size": size,

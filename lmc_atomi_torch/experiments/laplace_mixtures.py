@@ -21,7 +21,8 @@ from lmc_atomi_torch.experiments.mixtures import (
     BETA,
     M_PRE,
     iters_per_sec,
-    no_plots,
+    plot_grid,
+    plot_samplers,
     run_samplers,
     w2_curves,
 )
@@ -80,7 +81,6 @@ def lmc_laplacian_mixture(
     from lmc_atomi_torch.eval.wasserstein import exact_w2
     from lmc_atomi_torch.utils.cli import require_device
 
-    no_plots(make_plots)
     dev = require_device(device, "Laplacian-mixture")
     lm, gen, x0, kernels = laplace_setup(n, alpha, lamda, seed, dev, gamma_ula, gamma_mala,
                                          gamma_pula, gamma_ihpula, gamma_mla)
@@ -108,6 +108,17 @@ def lmc_laplacian_mixture(
             exact_tail[name] = exact(s[-k_true:])
             print(f"{name}: exact W2 on last {k_true} samples = {exact_tail[name]:.4f}",
                   file=sys.stderr)
+    samples_np = {m: s.cpu().numpy() for m, s in samples.items()}
+    if make_plots:
+        from lmc_atomi_torch.experiments.figures import ensure_outdir
+
+        ensure_outdir(outdir)
+        xg, yg, pos = plot_grid(dev)
+        # the histograms cover the target's spread (Laplace scale 1/alpha)
+        plot_samplers(f"{outdir}/fig_laplace_n{n}_gamma{gamma_ula}_lambda{lamda}_{k}", xg, yg,
+                      lm.density(pos).cpu().numpy(), samples_np, curves,
+                      extra_panels={"Smoothed density": lm.smooth_density(pos).cpu().numpy()},
+                      lim=max(5.0, 4.0 / alpha))
     summary = {
         "workload": "laplacian_mixture_lmc",
         "n": n,
@@ -118,7 +129,7 @@ def lmc_laplacian_mixture(
         **({"tail_w2_exact": exact_tail} if exact_tail else {}),
     }
     print(json.dumps(summary))
-    return {m: s.cpu().numpy() for m, s in samples.items()}, curves, summary
+    return samples_np, curves, summary
 
 
 def main():

@@ -5,6 +5,8 @@ ULA, MALA, PULA, IHPULA and MLA on the n-component benchmark mixture, and the
 W2-vs-samples curve against ancestral true samples. With ``n_chains > 1``
 ``run_chains`` steps every chain at once; as in the JAX package the W2 curve
 then reads chain 0's samples and the ESS all chains one after another.
+``make_plots`` writes the density, histogram, KDE and W2 figures under
+``outdir`` with the reference's names (needs matplotlib).
 
     python -m lmc_atomi_torch.experiments.mixtures --k 5000 --n 5
     python -m lmc_atomi_torch.experiments.mixtures --k 200 --n 3 --device cpu
@@ -15,6 +17,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 # warm-up steps before each timed run, under another key
@@ -78,10 +81,28 @@ def w2_curves(true, samples, interval: int):
     return curves
 
 
-def no_plots(make_plots: bool):
-    if make_plots:
-        raise NotImplementedError(
-            "make_plots needs experiments/figures.py, not ported yet (ROADMAP.md queue A4)")
+def plot_grid(dev):
+    """``(xg, yg, pos)``: the figures' 300 x 300 grid over [-5, 5]^2 (numpy)
+    and its points as an f32 tensor ``(300, 300, 2)`` on ``dev``."""
+    grid = np.linspace(-5, 5, 300)
+    xg, yg = np.meshgrid(grid, grid)
+    pos = torch.as_tensor(np.stack([xg, yg], axis=-1), dtype=torch.float32, device=dev)
+    return xg, yg, pos
+
+
+def plot_samplers(stem: str, xg, yg, z, samples, curves=None, extra_panels=None,
+                  lim: float = 5.0):
+    """The density surface ``{stem}_1.pdf``, the samplers' histograms
+    ``{stem}_3.pdf`` (over ``[-lim, lim]^2``) and KDEs ``{stem}_2.pdf``, and
+    with ``curves`` the W2 curves ``{stem}_wass_dist.pdf``."""
+    from lmc_atomi_torch.experiments import figures as F
+
+    F.density_surface(xg, yg, z, f"{stem}_1.pdf")
+    F.sample_grid(xg, yg, z, samples, f"{stem}_3.pdf", mode="hist",
+                  extra_panels=extra_panels, lim=lim)
+    F.sample_grid(xg, yg, z, samples, f"{stem}_2.pdf", mode="kde", extra_panels=extra_panels)
+    if curves:
+        F.w2_curves(curves, f"{stem}_wass_dist.pdf")
 
 
 def gaussian_setup(n: int, seed: int, dev, gamma_ula: float = 5e-2,
@@ -128,13 +149,20 @@ def lmc_gaussian_mixture(
     does (samples as numpy arrays)."""
     from lmc_atomi_torch.utils.cli import require_device
 
-    no_plots(make_plots)
     dev = require_device(device, "Gaussian-mixture")
     gm, gen, x0, kernels = gaussian_setup(n, seed, dev, gamma_ula, gamma_mala, gamma_pula,
                                           gamma_ihpula, gamma_mla)
     samples, timings = run_samplers(kernels, x0, seed, k, n_chains, accept_of=("MALA",))
     true = gm.sample(gen, k)
     curves = w2_curves(true, samples, w2_interval) if eval_w2 else {}
+    samples_np = {m: s.cpu().numpy() for m, s in samples.items()}
+    if make_plots:
+        from lmc_atomi_torch.experiments.figures import ensure_outdir
+
+        ensure_outdir(outdir)
+        xg, yg, pos = plot_grid(dev)
+        plot_samplers(f"{outdir}/fig_n{n}_gamma{gamma_ula}_{k}", xg, yg,
+                      gm.density(pos).cpu().numpy(), samples_np, curves)
     summary = {
         "workload": "gaussian_mixture_lmc",
         "n": n,
@@ -144,7 +172,7 @@ def lmc_gaussian_mixture(
         "min_ess": min_ess(samples),
     }
     print(json.dumps(summary))
-    return {m: s.cpu().numpy() for m, s in samples.items()}, curves, summary
+    return samples_np, curves, summary
 
 
 def main():

@@ -15,8 +15,8 @@ moments (``eval/diagnostics.py::rhat_from_moments``): no samples are kept.
 
 It runs on the card unless ``--device cpu`` is given; there the chains draw
 their noise, on the CPU they run noise-free (identical chains), as the JAX
-package's run noisy on the TPU only. ``make_plots`` needs
-``experiments/figures.py``, not ported yet.
+package's run noisy on the TPU only. ``make_plots`` writes the pooled
+mean, std and R-hat maps under ``outdir``.
 """
 from __future__ import annotations
 
@@ -71,9 +71,6 @@ def multichain_deblur(
     ``tau_tv``), ``pack`` a kernel call (the largest divisor of
     ``n_chains`` up to ``pack``); returns ``(pooled moments, R-hat map,
     report)`` and prints the report as one JSON line."""
-    if make_plots:
-        raise NotImplementedError(
-            "make_plots needs experiments/figures.py, not ported yet (ROADMAP A4)")
     if kernel not in ("myula", "ulpda"):
         raise ValueError(f"unknown kernel {kernel!r}")
     dev = require_device(device, "multichain")
@@ -137,6 +134,16 @@ def multichain_deblur(
         "aggregate_iters_per_sec": round(n_steps * n_chains / dt, 1),
         "per_chain_iters_per_sec": round(n_steps / dt, 1),
     }
+    if make_plots:
+        from lmc_atomi_torch.experiments import figures as F
+
+        F.ensure_outdir(outdir)
+        F.image_grid({"Ground truth": img.cpu().numpy(), "Observed": y.cpu().numpy(),
+                      "Pooled posterior mean": pooled.mean.cpu().numpy(),
+                      "Pooled posterior std": pooled.std.cpu().numpy(),
+                      "R-hat map": rhat.cpu().numpy()},
+                     f"{outdir}/fig_multichain_{size}_{n_chains}ch.pdf")
+
     print(json.dumps(report))
     return pooled, rhat, report
 

@@ -22,8 +22,9 @@ either package merge in either.
     python -m lmc_atomi_torch.experiments.pnp --size 32 --n_steps 20 --train_steps 20 --device cpu
     python -m lmc_atomi_torch.experiments.pnp merge --pattern 'part_*.npz' --size 256
 
-It runs on the card unless ``--device cpu`` is given. ``make_plots`` needs
-``experiments/figures.py``, not ported yet; passing it raises.
+It runs on the card unless ``--device cpu`` is given. ``make_plots`` writes
+the posterior mean, std and baseline means under ``outdir`` (needs
+matplotlib).
 """
 from __future__ import annotations
 
@@ -122,9 +123,6 @@ def pnp_ula_deblur(
     ``(None, None, report)`` with ``train_only``. ``report`` has the JAX
     package's keys and ``train_seconds`` (with ``score_baseline``, also
     ``score_train_seconds``)."""
-    if make_plots:
-        raise NotImplementedError(
-            f"make_plots (figures under {outdir!r}) is not ported yet (see ROADMAP.md)")
     dev = require_device(device, "PnP")
 
     def sync():
@@ -225,6 +223,7 @@ def pnp_ula_deblur(
         "train_seconds": train_s,
     }
 
+    baselines = {}
     if tv_baseline:
         # the TV anchor: MYULA on the identical observation, blur, noise and
         # step budget, so the PnP mean is read against a hand-crafted prior
@@ -245,6 +244,7 @@ def pnp_ula_deblur(
             tv_ci = float(2 * ci_z * torch.mean(res_tv.moments.std))
         sync()
         report["psnr_tv_baseline_mean"] = float(psnr_fn(img, res_tv.moments.mean))
+        baselines["TV-MYULA mean (same config)"] = res_tv.moments.mean
         report["tv_baseline_ci_width"] = tv_ci
         report["tv_baseline_steps_per_sec"] = round(n_tv / (time.perf_counter() - t0), 1)
 
@@ -282,6 +282,7 @@ def pnp_ula_deblur(
                          fold_in(ks, 555))
         sync()
         report["psnr_score_mean"] = float(psnr_fn(img, pooled_sc.mean))
+        baselines["Score-ULA mean (same config)"] = pooled_sc.mean
         report["score_ci_width"] = float(2 * ci_z * torch.mean(pooled_sc.std))
         report["score_steps_per_sec"] = round(
             n_steps * n_chains / (time.perf_counter() - t0), 1)
@@ -296,6 +297,14 @@ def pnp_ula_deblur(
                  m2=pooled.m2.detach().cpu().numpy().astype(np.float64),
                  size=size, seed=seed, n_chains=n_chains, n_steps=n_steps)
         _log(f"saved pooled moments to {moments_out}")
+    if make_plots:
+        from lmc_atomi_torch.experiments import figures as F
+
+        F.ensure_outdir(outdir)
+        F.image_grid({"Ground truth": img.cpu().numpy(), "Blurred": y.cpu().numpy(),
+                      "PnP-ULA posterior mean": mean_np, "Posterior std (CI map)": std_np,
+                      **{k: v.detach().cpu().numpy() for k, v in baselines.items()}},
+                     f"{outdir}/fig_pnp_ula_{size}_{n_steps}.pdf")
     return mean_np, std_np, report
 
 

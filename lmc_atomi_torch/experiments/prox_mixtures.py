@@ -14,7 +14,14 @@ import json
 
 import torch
 
-from lmc_atomi_torch.experiments.mixtures import BETA, M_PRE, iters_per_sec, no_plots, run_samplers
+from lmc_atomi_torch.experiments.mixtures import (
+    BETA,
+    M_PRE,
+    iters_per_sec,
+    plot_grid,
+    plot_samplers,
+    run_samplers,
+)
 
 Q_PRE = [[1.0, 0.1], [0.1, 1.5]]  # PP-ULA's Q, reference prox_lmc.py:375
 SIGMA_BREG = [0.8, 0.2]  # LBMUMLA's Bregman scales
@@ -73,11 +80,25 @@ def prox_lmc_gaussian_mixture(
     does (samples as numpy arrays)."""
     from lmc_atomi_torch.utils.cli import require_device
 
-    no_plots(make_plots)
     dev = require_device(device, "proximal-mixture")
-    _, _, x0, kernels = prox_setup(n, alpha, lamda, t, seed, dev, gamma_pgld, gamma_myula,
+    tgt, _, x0, kernels = prox_setup(n, alpha, lamda, t, seed, dev, gamma_pgld, gamma_myula,
                                    gamma_mymala, gamma_ppula, gamma_fbula, gamma_lbmumla)
     samples, timings = run_samplers(kernels, x0, seed, k, n_chains, accept_of=("MYMALA",))
+    samples_np = {m: s.cpu().numpy() for m, s in samples.items()}
+    if make_plots:
+        from lmc_atomi_torch.experiments.figures import density_surface, ensure_outdir
+
+        ensure_outdir(outdir)
+        xg, yg, pos = plot_grid(dev)
+        # the smoothed prior's panel (reference prox_lmc.py:319)
+        prox_pos = tgt.prior_prox(pos)
+        env = alpha * torch.sum(torch.abs(prox_pos), dim=-1) + torch.sum(
+            (prox_pos - pos) ** 2, dim=-1) / (2 * lamda)
+        z_smooth = (tgt.mixture.density(pos) * (alpha / 2) ** 2 * torch.exp(-env)).cpu().numpy()
+        stem = f"{outdir}/fig_prox_n{n}_gamma{gamma_pgld}_lambda{lamda}_{k}"
+        density_surface(xg, yg, z_smooth, f"{stem}_1_smooth.pdf")
+        plot_samplers(stem, xg, yg, tgt.density(pos).cpu().numpy(), samples_np,
+                      extra_panels={"Smoothed density": z_smooth})
     summary = {
         "workload": "prox_lmc_mixture",
         "n": n,
@@ -85,7 +106,7 @@ def prox_lmc_gaussian_mixture(
         "iters_per_sec": iters_per_sec(timings, k, n_chains),
     }
     print(json.dumps(summary))
-    return {m: s.cpu().numpy() for m, s in samples.items()}, summary
+    return samples_np, summary
 
 
 def main():

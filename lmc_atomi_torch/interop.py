@@ -29,6 +29,7 @@ from lmc_atomi_torch.models import (
 from lmc_atomi_torch.ops.functionals import L2Data, OrthogonalL1
 from lmc_atomi_torch.ops.linops import CirculantBlur2D, Gradient2D, Mask
 from lmc_atomi_torch.ops.ncvx_tv import L2NcvxTV
+from lmc_atomi_torch.ops.radon import Radon2D
 from lmc_atomi_torch.ops.wavelet import DaubechiesDWT2D, HaarDWT2D
 from lmc_atomi_torch.run.runner import base_key
 
@@ -39,6 +40,7 @@ __all__ = [
     "l2ncvx_from_numpy",
     "mask_l2_from_numpy",
     "orthogonal_l1_from_numpy",
+    "radon_from_numpy",
     "fused_state_from_numpy",
     "ulpda_state_from_numpy",
     "ulpda_tiled_state_from_numpy",
@@ -105,6 +107,17 @@ def orthogonal_l1_from_numpy(sigma: float, levels: int,
     op = (HaarDWT2D(levels=int(levels)) if taps == 2
           else DaubechiesDWT2D(taps=int(taps), levels=int(levels)))
     return OrthogonalL1(op=op, sigma=float(sigma))
+
+
+def radon_from_numpy(thetas, shape, mode: str, dense=None, shear_phis=None,
+                     shear_ks=(), device=None) -> Radon2D:
+    """The JAX ``Radon2D``'s counterpart from its ``thetas``, ``shape``,
+    ``mode``, ``dense`` matrix, ``shear_phis`` and ``shear_ks``: the same
+    angles and matrix, so both packages apply one operator."""
+    return Radon2D(thetas=_t(thetas, device), dense=_t(dense, device),
+                   shape=tuple(int(v) for v in shape), mode=str(mode),
+                   shear_phis=_t(shear_phis, device),
+                   shear_ks=tuple(int(k) for k in shear_ks))
 
 
 def fused_state_from_numpy(x, mean, m2, count, qh=None, qn=None,

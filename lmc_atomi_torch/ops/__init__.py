@@ -1,5 +1,6 @@
-"""Linear operators, wavelets, TV proxes (with CUDA kernel 1), functionals,
-proximal operators and Bregman maps."""
-from lmc_atomi_torch.ops import bregman, functionals, linops, ncvx_tv, prox, tv
+"""Linear operators (with the Radon transform), wavelets, TV proxes (with CUDA
+kernel 1), functionals, Moreau envelopes, proximal operators and Bregman
+maps."""
+from lmc_atomi_torch.ops import bregman, functionals, linops, moreau, ncvx_tv, prox, radon, tv
 
-__all__ = ["bregman", "functionals", "linops", "ncvx_tv", "prox", "tv"]
+__all__ = ["bregman", "functionals", "linops", "moreau", "ncvx_tv", "prox", "radon", "tv"]

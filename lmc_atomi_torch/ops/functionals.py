@@ -1,8 +1,8 @@
 """Functionals (counterpart of ``lmc_atomi_tpu/ops/functionals.py``): the
 data term ``L2Data``, the isotropic TV prior ``TVNorm``, the primal-dual
-regularizers ``L1Norm``/``L21Norm`` and the wavelet-l1 prior
-``OrthogonalL1``, with the ``__call__``/``grad``/``prox``/``proxdual``
-protocol of pyproximal."""
+regularizers ``L1Norm``/``L21Norm``, the wavelet-l1 prior ``OrthogonalL1``
+and the 1-D TV of the flattened image ``TV1DNorm``, with the
+``__call__``/``grad``/``prox``/``proxdual`` protocol of pyproximal."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,7 +13,7 @@ import torch
 from lmc_atomi_torch.ops import tv as tv_ops
 from lmc_atomi_torch.ops.prox import prox_laplace
 
-__all__ = ["L2Data", "L1Norm", "L21Norm", "TVNorm", "OrthogonalL1"]
+__all__ = ["L2Data", "L1Norm", "L21Norm", "TVNorm", "TV1DNorm", "OrthogonalL1"]
 
 
 @dataclass
@@ -23,8 +23,9 @@ class L2Data:
 
     Build with :meth:`create` over a circulant operator to cache the
     half-plane spectrum ``conj(E) rfft2(b)``, so that ``grad`` costs one
-    ``rfft2`` and one ``irfft2``. ``niter_solve`` is kept for the JAX
-    package's signature; the circulant solve here is exact and ignores it.
+    ``rfft2`` and one ``irfft2``. ``niter_solve`` is the trip count of the
+    conjugate-gradient solve of operators without an exact one
+    (``LinOp.gram_solve``).
     """
 
     op: Any
@@ -53,7 +54,7 @@ class L2Data:
             return self.sigma * torch.fft.irfft2(spec, s=x.shape[-2:])
         if hasattr(self.op, "normal_grad"):
             return self.sigma * self.op.normal_grad(x, self.b)
-        # operators without a spectrum (Mask, Identity, wavelets)
+        # operators without a spectrum (Mask, Identity, wavelets, Radon)
         return self.sigma * self.op.rmatvec(self.op.matvec(x) - self.b)
 
     def prox(self, x, tau):
@@ -144,3 +145,18 @@ class OrthogonalL1:
         p = prox_laplace(c, lam * self.sigma)
         return self.sigma * torch.sum(torch.abs(p)) + torch.sum(
             torch.square(p - c)) / (2.0 * lam)
+
+
+@dataclass
+class TV1DNorm:
+    """``g(x) = sigma TV_1d(flatten(x))`` (reference algs.py:169-170), the
+    prox by ``niter`` dual-projection trips of ``prox_tv1d``."""
+
+    sigma: float = 1.0
+    niter: int = 10
+
+    def __call__(self, x):
+        return self.sigma * tv_ops.tv1d(x.reshape(-1))
+
+    def prox(self, x, tau):
+        return tv_ops.prox_tv1d(x.reshape(-1), tau * self.sigma, self.niter).reshape(x.shape)

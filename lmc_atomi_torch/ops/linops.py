@@ -1,7 +1,10 @@
 """Linear operators (counterpart of ``lmc_atomi_tpu/ops/linops.py``): the
-blur kernels, the FFT-diagonal ``CirculantBlur2D``, the forward-difference
-``Gradient2D`` of the primal-dual samplers, the inpainting ``Mask``, the
-``Identity`` of the denoising workload, and the adjoint check ``dot_test``.
+``LinOp`` base (the normal operator, a conjugate-gradient gram solve and a
+power-method bound), the blur kernels, the FFT-diagonal ``CirculantBlur2D``,
+the zero-padded ``Convolve2D``, the forward-difference ``Gradient2D`` of the
+primal-dual samplers, the inpainting ``Mask``, the ``Identity`` of the
+denoising workload, ``Diagonal`` and the dense ``Matrix``, the fixed-trip
+``cg_gram_solve`` and the adjoint check ``dot_test``.
 
 Spectra are complex tensors. The JAX package stores them as real/imag float
 pairs only because its TPU runtime rejected complex arrays at the transfer
@@ -14,13 +17,54 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lmc_atomi_torch.ops.tv import _fwd_diff, _fwd_diff_adjoint_neg
 
 __all__ = [
-    "CirculantBlur2D", "Gradient2D", "Identity", "Mask", "uniform_kernel",
-    "gaussian_kernel", "dot_test",
+    "LinOp", "Identity", "Diagonal", "Matrix", "CirculantBlur2D", "Convolve2D",
+    "Gradient2D", "Mask", "uniform_kernel", "gaussian_kernel", "cg_gram_solve",
+    "dot_test",
 ]
+
+
+def _vdot(a, b):
+    """``Re <a, b>`` over all elements (``jnp.vdot(...).real``)."""
+    return torch.vdot(a.reshape(-1), b.reshape(-1)).real
+
+
+class LinOp:
+    """Base of the operators: ``matvec`` and ``rmatvec`` are the operator
+    and its adjoint; the rest follows from them."""
+
+    def matvec(self, x):
+        raise NotImplementedError
+
+    def rmatvec(self, y):
+        raise NotImplementedError
+
+    def gram_matvec(self, x):
+        return self.rmatvec(self.matvec(x))
+
+    def gram_solve(self, rho, y, niter: int = 50):
+        """``(I + rho A^T A)^{-1} y`` by ``niter`` conjugate-gradient trips;
+        operators with an exact solve override it."""
+        return cg_gram_solve(self, rho, y, niter=niter)
+
+    def max_gram_eig(self, probe=None, iters: int = 50):
+        """Power-method estimate of ``lambda_max(A^T A)`` from ``probe``
+        (required: the input shape is the operator's own), ``iters``
+        normalised gram products, then the Rayleigh quotient. Operators with
+        a closed form override it; ``LinOp.max_gram_eig(op, probe=...)``
+        runs the power method on any of them."""
+        if probe is None:
+            raise ValueError("max_gram_eig needs a probe array of the operator's input "
+                             "shape for the power method")
+        x = probe / torch.linalg.norm(probe.reshape(-1))
+        for _ in range(iters):
+            x = self.gram_matvec(x)
+            x = x / torch.linalg.norm(x.reshape(-1))
+        return _vdot(x, self.gram_matvec(x))
 
 
 def uniform_kernel(size: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -38,7 +82,7 @@ def gaussian_kernel(size: int, sigma: float, dtype=torch.float32,
 
 
 @dataclass
-class CirculantBlur2D:
+class CirculantBlur2D(LinOp):
     """Periodic 2-D convolution, diagonalized by the 2-D DFT:
     ``A x = real(ifft2(fft2(x) * eigs))``, adjoint by the conjugate spectrum,
     and an exact ``(I + rho A^T A)^{-1}`` as a spectral divide.
@@ -114,8 +158,46 @@ class CirculantBlur2D:
         return torch.max(self.eigs.real ** 2 + self.eigs.imag ** 2)
 
 
+def _conv_same(x, kernel, pad):
+    """``y[i, j] = sum_ab kernel[a, b] x[i - a + oy, j - b + ox]`` over the
+    image ``x`` padded with zeros by ``pad`` = (top, bottom, left, right)."""
+    top, bottom, left, right = pad
+    xp = F.pad(x[None, None], (left, right, top, bottom))
+    return F.conv2d(xp, kernel.flip(0, 1)[None, None].to(x.dtype))[0, 0]
+
+
+@dataclass
+class Convolve2D(LinOp):
+    """Zero-padded linear 2-D convolution with a 'same' output, the pylops
+    ``Convolve2D`` of the reference (prox_lmc_deconv.py:58-69): taps outside
+    the image read zeros, the kernel tap at ``offset`` is the origin. The
+    adjoint is the correlation with the flipped kernel; the gram solve is
+    ``LinOp``'s conjugate gradient."""
+
+    h: torch.Tensor
+    offset: Tuple[int, int] = (0, 0)
+
+    @classmethod
+    def from_kernel(cls, h, offset=None) -> "Convolve2D":
+        h = torch.as_tensor(h)
+        if offset is None:
+            offset = (h.shape[0] // 2, h.shape[1] // 2)
+        return cls(h=h, offset=tuple(int(o) for o in offset))
+
+    def matvec(self, x):
+        kh, kw = self.h.shape
+        oy, ox = self.offset
+        return _conv_same(x, self.h, (kh - 1 - oy, oy, kw - 1 - ox, ox))
+
+    def rmatvec(self, y):
+        kh, kw = self.h.shape
+        oy, ox = self.offset
+        # the adjoint's origin mirrors within the kernel's support
+        return Convolve2D(h=self.h.flip(0, 1), offset=(kh - 1 - oy, kw - 1 - ox)).matvec(y)
+
+
 @dataclass(frozen=True)
-class Gradient2D:
+class Gradient2D(LinOp):
     """Forward-difference gradient with a zeroed last row/column (pylops
     ``Gradient(kind='forward', edge=False)``). Output is stacked
     ``(2, ny, nx)``, d/dy first; the adjoint is the exact negative
@@ -135,7 +217,7 @@ class Gradient2D:
 
 
 @dataclass(frozen=True)
-class Identity:
+class Identity(LinOp):
     """The identity operator (the denoising workload's forward model)."""
 
     def matvec(self, x):
@@ -149,7 +231,44 @@ class Identity:
 
 
 @dataclass
-class Mask:
+class Diagonal(LinOp):
+    """Elementwise product with ``diag`` (real or complex)."""
+
+    diag: torch.Tensor
+
+    def matvec(self, x):
+        return self.diag * x
+
+    def rmatvec(self, y):
+        return self.diag.conj() * y
+
+    def gram_solve(self, rho, y, niter: int = 0):
+        return y / (1.0 + rho * torch.abs(self.diag) ** 2)
+
+
+@dataclass
+class Matrix(LinOp):
+    """A dense matrix on vectors (or on the columns of a matrix); the gram
+    solve is a Cholesky factorisation of ``I + rho A^H A``."""
+
+    a: torch.Tensor
+
+    def matvec(self, x):
+        return self.a @ x
+
+    def rmatvec(self, y):
+        return self.a.mH @ y
+
+    def gram_solve(self, rho, y, niter: int = 0):
+        n = self.a.shape[1]
+        m = torch.eye(n, dtype=self.a.dtype, device=self.a.device) + rho * (self.a.mH @ self.a)
+        rhs = y[:, None] if y.ndim == 1 else y
+        out = torch.cholesky_solve(rhs, torch.linalg.cholesky(m))
+        return out[:, 0] if y.ndim == 1 else out
+
+
+@dataclass
+class Mask(LinOp):
     """Sampling/inpainting mask: elementwise product with a 0/1 tensor."""
 
     mask: torch.Tensor
@@ -163,6 +282,29 @@ class Mask:
     def gram_solve(self, rho, y, niter: int = 0):
         """``(I + rho M^T M)^{-1} y`` for the binary mask ``M``."""
         return y / (1.0 + rho * self.mask)
+
+
+def cg_gram_solve(op: LinOp, rho, b, x0=None, niter: int = 50):
+    """Conjugate gradient for ``(I + rho A^T A) x = b`` with a fixed trip
+    count and no early exit (the step and the direction update divide by
+    their denominators clamped at 1e-30)."""
+
+    def mv(x):
+        return x + rho * op.gram_matvec(x)
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - mv(x)
+    p = r
+    rs = _vdot(r, r)
+    for _ in range(niter):
+        ap = mv(p)
+        alpha = rs / torch.clamp(_vdot(p, ap), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = _vdot(r, r)
+        p = r + (rs_new / torch.clamp(rs, min=1e-30)) * p
+        rs = rs_new
+    return x
 
 
 def dot_test(op, gen: torch.Generator, x_shape, y_shape=None,

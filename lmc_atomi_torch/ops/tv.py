@@ -21,6 +21,7 @@ __all__ = [
     "prox_tv_iso",
     "prox_tv_iso_proj",
     "fgp_momentum",
+    "prox_tv_aniso",
     "prox_tv1d",
 ]
 
@@ -114,6 +115,16 @@ def prox_tv_iso_proj(x, gamma, niter: int = 10, step: float = 0.125,
     else:
         for _ in range(niter):
             p = ascend(p)
+    return x - gamma * div2d(p)
+
+
+def prox_tv_aniso(x, gamma, niter: int = 10, step: float = 0.25):
+    """Prox of ``gamma * TV_aniso`` via the dual projection with the
+    per-component box ``|p_i| <= 1`` (the anisotropic dual ball)."""
+    p = torch.zeros((2,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    for _ in range(niter):
+        g = grad2d(div2d(p) - x / gamma)
+        p = (p + step * g) / (1.0 + step * torch.abs(g))
     return x - gamma * div2d(p)
 
 

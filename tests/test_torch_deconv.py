@@ -223,9 +223,22 @@ def test_deconv_cli_and_device_guard(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["make_plots", "show"])
-def test_deconv_parts_not_ported_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        t_deconv.prox_lmc_deconv(size=16, n_steps=2, device="cpu", **{flag: True})
+def test_deconv_parts_not_ported_raise(flag, tmp_path, capsys):
+    """``make_plots`` writes the JAX package's two figures under ``outdir``;
+    ``show`` prints the reference's iteration table (f, g(Ax), J) of every
+    model, every row of a 2-step run."""
+    t_deconv.prox_lmc_deconv(size=16, n_steps=2, device="cpu", outdir=str(tmp_path),
+                             **{flag: True})
+    out = capsys.readouterr().out
+    if flag == "make_plots":
+        stem = tmp_path / "fig_prox_lmc_deconv_phantom_ULPDA_2"
+        for suffix in ("_images.pdf", "_snr_psnr_mse.pdf"):
+            assert (tmp_path / f"{stem.name}{suffix}").stat().st_size > 0
+    else:
+        assert out.count("   Itn ") == 9 and "-- M9 (k7-METV) --" in out
+        header = out.splitlines()[1].split()
+        assert header == ["Itn", "f", "g(Ax)", "J"]
+        assert len(out.splitlines()) == 9 * 4 + 1  # label, header, 2 rows; the JSON line
 
 
 def test_load_image():

@@ -241,9 +241,10 @@ def test_wavelet_inpainting_small(capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
 
 
-def test_inpainting_and_denoise_cli_and_device_rule(capsys, monkeypatch):
+def test_inpainting_and_denoise_cli_and_device_rule(capsys, monkeypatch, tmp_path):
     """The CLIs on the CPU (``--device cpu``), D8 fused; without a card
-    their default device raises; ``make_plots`` is not ported."""
+    their default device raises; ``make_plots`` writes the JAX package's
+    figure."""
     auto_cli(t_inp.wavelet_inpainting,
              ["--size", "16", "--n_steps", "8", "--burn_in", "2", "--wavelet", "d8",
               "--levels", "1", "--fused", "true", "--device", "cpu"])
@@ -259,8 +260,12 @@ def test_inpainting_and_denoise_cli_and_device_rule(capsys, monkeypatch):
         t_inp.wavelet_inpainting(size=16, n_steps=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_denoise.l1_denoise_myula(size=16, n_steps=2)
-    with pytest.raises(NotImplementedError, match="figures"):
-        t_inp.wavelet_inpainting(size=16, n_steps=2, device="cpu", make_plots=True)
+    t_inp.wavelet_inpainting(size=16, n_steps=2, device="cpu", make_plots=True,
+                             outdir=str(tmp_path))
+    t_denoise.l1_denoise_myula(size=16, n_steps=2, device="cpu", make_plots=True,
+                               outdir=str(tmp_path))
+    for name in ("fig_inpainting_16_2.pdf", "fig_l1_denoise_16_2.pdf"):
+        assert (tmp_path / name).stat().st_size > 0
 
 
 def test_denoise_result_and_median():

@@ -615,16 +615,17 @@ def test_multichain_deblur_matches_jax(monkeypatch, capsys):
     assert pooled.count == int(jpooled.count) == 4 * 30
 
 
-def test_multichain_cli_and_guards(capsys):
-    """The CLI on the CPU (ULPDA, 2 kernel calls of 2 chains), and the
-    device and figure guards."""
+def test_multichain_cli_and_guards(capsys, tmp_path):
+    """The CLI on the CPU (ULPDA, 2 kernel calls of 2 chains), its figure
+    under the JAX package's name, and the kernel and device guards."""
     auto_cli(t_multichain.multichain_deblur,
              ["--size", "16", "--n_chains", "4", "--pack", "2", "--n_steps", "8",
               "--burn_in", "2", "--kernel", "ulpda", "--device", "cpu"])
     rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rep["kernel"] == "ulpda" and rep["pack"] == 2 and rep["n_chains"] == 4
-    with pytest.raises(NotImplementedError, match="A4"):
-        t_multichain.multichain_deblur(size=16, make_plots=True, device="cpu")
+    t_multichain.multichain_deblur(size=16, n_chains=2, n_steps=4, burn_in=1, make_plots=True,
+                                   outdir=str(tmp_path), device="cpu")
+    assert (tmp_path / "fig_multichain_16_2ch.pdf").stat().st_size > 0
     with pytest.raises(ValueError, match="unknown kernel"):
         t_multichain.multichain_deblur(size=16, kernel="mala", device="cpu")
     if not torch.cuda.is_available():

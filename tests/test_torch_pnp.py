@@ -108,9 +108,9 @@ def test_pnp_merge_reads_both_packages(tmp_path, capsys, monkeypatch):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["n_blocks"] == 2
 
 
-def test_pnp_device_guard_and_plots(monkeypatch):
-    with pytest.raises(NotImplementedError, match="make_plots"):
-        t_pnp.pnp_ula_deblur(**TINY, make_plots=True)
+def test_pnp_device_guard_and_plots(monkeypatch, tmp_path):
+    t_pnp.pnp_ula_deblur(**TINY, make_plots=True, outdir=str(tmp_path))
+    assert (tmp_path / "fig_pnp_ula_32_20.pdf").stat().st_size > 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_pnp.pnp_ula_deblur(size=16)

@@ -136,6 +136,14 @@ WORKLOADS = {
     "prox": (t_proxmix.prox_lmc_gaussian_mixture, j_proxmix.prox_lmc_gaussian_mixture, {}),
 }
 POOL_CHAINS, POOL_K = 256, 200
+# the JAX package's figure names at k=10, n=3 and the CLIs' default steps
+# (lmc_atomi_tpu/experiments/{mixtures,laplace_mixtures,prox_mixtures}.py)
+_STEMS = {"gaussian": "fig_n3_gamma0.05_10", "laplace": "fig_laplace_n3_gamma0.05_lambda0.1_10",
+          "prox": "fig_prox_n3_gamma0.05_lambda0.01_10"}
+FIGURES = {wl: [f"{stem}{s}.pdf" for s in
+                (("_1", "_1_smooth", "_2", "_3") if wl == "prox" else
+                 ("_1", "_2", "_3", "_wass_dist"))]
+           for wl, stem in _STEMS.items()}
 
 
 @pytest.fixture(scope="module")
@@ -181,10 +189,10 @@ def test_pooled_means_against_jax(pooled, workload):
 
 @pytest.mark.parametrize("n_chains", [1, 4])
 @pytest.mark.parametrize("workload", list(WORKLOADS))
-def test_cli_summary_keys(pooled, capsys, workload, n_chains):
+def test_cli_summary_keys(pooled, capsys, tmp_path, workload, n_chains):
     """The CLI at k=200, n=3 prints the JAX package's summary keys, every
-    sampler's W2 where it has the curve; it raises for plots and, without a
-    card, for the default device."""
+    sampler's W2 where it has the curve; with ``make_plots`` it writes the
+    JAX package's figures; without a card its default device raises."""
     tfn, _, _ = WORKLOADS[workload]
     jsummary = pooled[workload][3]
     auto_cli(tfn, ["--k", "200", "--n", "3", "--n_chains", str(n_chains), "--device", "cpu"])
@@ -195,8 +203,8 @@ def test_cli_summary_keys(pooled, capsys, workload, n_chains):
         if key in summary:
             assert set(summary[key]) == set(jsummary["iters_per_sec"])
             assert all(np.isfinite(v) for v in summary[key].values())
-    with pytest.raises(NotImplementedError, match="A4"):
-        tfn(k=10, n=3, device="cpu", make_plots=True)
+    tfn(k=10, n=3, n_chains=n_chains, device="cpu", make_plots=True, outdir=str(tmp_path))
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(FIGURES[workload])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             tfn(k=10, n=3)
