@@ -58,15 +58,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
    maps, then the unfused ``run_chain(myula_imaging)`` with kernel 1 inside
-   (5000 steps, against a fused cold-10 chain as deep on the same key).
+   (UNFUSED_STEPS, against a fused cold-10 chain as deep on the same key).
    Each is warmed up with another seed over fewer steps and timed; the
    posterior-mean PSNR
    must reach 40 dB and agree with the unfused path within 0.1 dB;
 7. the deconvolution path: ``prox_lmc_deconv`` at 512^2 for ULPDA and MYULA
    (1000 steps, 10 models with the wavelet row M10, fused kernels) and the
    MAP branch (1000 adaptive PDHG iterations), the two sampling grids fused
-   and unfused at 250 steps (the same Philox stream chain for chain), and
-   ``run_ulpda_fused``
+   and unfused at DECONV_CHECK_STEPS steps (the same Philox stream chain for
+   chain), and ``run_ulpda_fused``
    for TV, MC-TV and ME-TV (k5) timed at 20000 steps. The k5 and M10 PSNRs
    must reach the JAX package's (RESULTS.md) less 1 dB, and fused and
    unfused must agree within 0.1 dB;
@@ -103,7 +103,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and 1023 of every sampler against their one-chain ``run_chain`` runs over
    the first 100 steps (bit for bit, IHPULA within MIX_EIGH_TOL), timed
    beside the batched rate, and 16 chains one after another; one W2 curve
-   timed at k=5000; IHPULA's gamma=0.1, n=2 chain over 10000 f32 steps, and
+   timed at k=5000; IHPULA's gamma=0.1, n=2 chain over MIX_IHPULA_STEPS f32
+   steps, and
    whether ``torch.linalg.eigh`` waits for the card. No TPU kernel lies on
    this path;
 9d. the PnP path (BASELINE.json config 5, ``experiments/pnp.py``):
@@ -138,6 +139,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
    plain version at the path's shapes (128^2 and 256^2 niter 10, 256^2
    niter 20) before it. The projectors are library calls (``torch.matmul``,
    ``torch.fft``): the JAX package's are XLA ops outside any Pallas kernel;
+9f. the SG-MCMC path (workload 5, ``experiments/sgld_runs.py``; beside the
+   build, after the mixtures path): the CLI ``sgld_grid_mixture`` at
+   k=SG_K (the JAX CLI's 50000, cut), the nine samplers one chain each,
+   every retained draw finite and each sampler's ``modes_covered`` within
+   the JAX package's band (SG_GATES, scripts/sgld_gates.py); each of the
+   nine kernels at 1024 chains x 500 steps through ``run_chains`` (one step
+   over all chains), chains 0 and 1023 against their one-chain
+   ``run_chain`` runs over the first 100 steps bit for bit, the mean of
+   each chain's modes covered within 4 standard errors of the JAX
+   package's mean over its chains from the same start (SG_BATCH_REF), the
+   aggregate rate beside the one-chain rate, CSGLD's pdf mass after the
+   run; and
+   ``optimize_grid_mixture`` at its defaults, ``modes_found`` within
+   SG_OPT_GATE. No TPU kernel lies on this path;
+9g. the chain-farm path (``parallel/``): ``run_chains_sharded`` of the
+   mixtures' ULA on a one-rank NCCL ``chain_mesh()`` against
+   ``run_chains``, bit for bit; ``run_resumable_fused(chains_mesh=...,
+   runner="tv")`` at 64^2 x 8 chains (kernel 2's chain axis), two segments,
+   straight and restarted from its checkpoint, against the farm without a
+   mesh, bit for bit (positions, moments, CI markers); two processes on the
+   one card (world size 2, gloo: NCCL refuses two ranks on one device),
+   ``global_chain_farm`` of the ULA, 8 chains x 100 steps, rank 0's pooled
+   moments against the one-process farm's, bit for bit;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
@@ -145,7 +169,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    unfused MYULA step) and of the large-image cell (one 200-step block at
    2048^2 of each tiled runner and of the whole-image runner beside it), of
    one packed 500-step block at 64^2 x 64 chains, of one batched ULA block
-   of the Gaussian mixture (1024 chains x 100 steps), of 20 PnP-ULA steps of
+   of the Gaussian mixture (1024 chains x 100 steps), of one batched SGLD
+   and one CSGLD block on the grid mixture (1024 chains x 100 steps, the
+   launches a step), of 20 PnP-ULA steps of
    8 chains at 256^2, of 2 dense-MAP iterations at 128^2 and 20 shear
    TV-MYULA steps at 256^2 on the CT path, and kernel 1's device time per
    call at 512^2 and 2048^2.
@@ -181,10 +207,11 @@ the resident route, on the inpainting path every kernel-4 and kernel-5
 call the warp (Haar) or the resident route (D4/D8), and on the large-image
 path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
 cone, on the multichain path every kernel-2 and kernel-3 call the resident
-route; the mixtures path launches none of them, the PnP path kernel 2
-alone and the CT path kernel 1 alone, every call on the resident route.
+route; the mixtures and SG-MCMC paths launch none of them, the PnP path
+kernel 2 alone and the CT path kernel 1 alone, every call on the resident
+route, and the chain-farm path kernel 2 alone on the resident route.
 The script then prints one JSON line describing each kernel (launches and
-route counts on the eight paths, errors, times, the bound of the card; for
+route counts on the ten paths, errors, times, the bound of the card; for
 kernels 2 and 3 also the chain axis's plan, error and times, for kernel 1
 its error, route and times at the CT shapes) and, last, ``{"ok": true,
 "device": {...}}``.
@@ -205,8 +232,9 @@ ROOT = Path(__file__).resolve().parent
 N = 512
 STEPS = 20000
 # the unfused main-path chain, against a fused one as deep (cut from 20000 to
-# 10000, then to 5000 to make room for the CT path)
-UNFUSED_STEPS = 5000
+# 10000, then to 5000 to make room for the CT path, then to 2500 for the
+# SG-MCMC and chain-farm paths)
+UNFUSED_STEPS = 2500
 BLOCK = 500
 SIGMA_NOISE = 0.75
 TV_WEIGHT = 0.3
@@ -231,8 +259,8 @@ PSNR_GAP = 0.1
 DECONV_STEPS = 1000
 DECONV_SCORE_FIT = 200  # the score row's training steps (the CLI's: 4000)
 # the fused-against-unfused grids (cut from 1000 to 500, then to 250 to make
-# room for the CT path)
-DECONV_CHECK_STEPS = 250
+# room for the CT path, then to 125 for the SG-MCMC and chain-farm paths)
+DECONV_CHECK_STEPS = 125
 # k5 PSNR (TV, MC-TV, ME-TV) of the JAX package on the same protocol
 # (RESULTS.md:82-84); the port's observation noise differs, so the gate is
 # these less DECONV_MARGIN dB
@@ -1757,7 +1785,9 @@ MIX_ONE_STEPS = 100  # the one-chain runs' depth: the first steps of the chains
 MIX_EIGH_TOL = 1e-3
 MIX_SERIAL, MIX_SERIAL_STEPS = 16, 25  # chains one run_chain after another
 MIX_W2_FULL = 5000  # one W2 curve timed at the CLI's default k
-MIX_IHPULA_STEPS = 10000  # the gamma=0.1, n=2 f32 regression (tests/test_kernels.py:174)
+# the gamma=0.1, n=2 f32 regression (tests/test_kernels.py:174 runs 10000 steps; cut
+# to 5000, past step ~3036 where the old eigvalsh chain diverged)
+MIX_IHPULA_STEPS = 5000
 MIX_PROFILE_STEPS = 100
 # gates from the JAX package on the same configuration on the CPU (f32, 1024
 # chains x 1000 steps, seeds 0-3), computed by scripts/mixture_gates.py: the
@@ -2085,6 +2115,17 @@ def mixture_workloads(dev):
             "prox": (prox_lmc_gaussian_mixture, lambda: prox_setup(5, 0.1, 0.01, 100, 0, dev))}
 
 
+def _timed(fn):
+    """``(fn(), seconds)`` on the host clock between two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_mixtures(dev):
     """The mixtures path: each workload's CLI at 1024 chains (one step over
     all chains through ``run_chains``), its samples finite, MALA's and
@@ -2094,7 +2135,7 @@ def phase_mixtures(dev):
     MIX_ONE_STEPS steps (bit for bit, IHPULA within MIX_EIGH_TOL), the
     one-chain rate beside the batched one, and 16 chains one after another;
     one W2 curve timed at the CLI's default k; IHPULA's gamma=0.1, n=2 chain
-    over 10000 f32 steps, finite, and whether ``torch.linalg.eigh`` waits
+    over MIX_IHPULA_STEPS f32 steps, finite, and whether ``torch.linalg.eigh`` waits
     for the card."""
     import warnings
 
@@ -2106,18 +2147,11 @@ def phase_mixtures(dev):
     from lmc_atomi_torch.experiments.mixtures import gaussian_setup
     from lmc_atomi_torch.run.runner import run_chain, run_chains
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     t_phase = time.perf_counter()
     for wl, (cli, setup) in mixture_workloads(dev).items():
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            res, wall = timed(lambda: cli(k=MIX_K, n_chains=MIX_CHAINS, device=str(dev)))
+            res, wall = _timed(lambda: cli(k=MIX_K, n_chains=MIX_CHAINS, device=str(dev)))
         samples, summary = res[0], res[-1]
         accept = {m: float(v) for m, v in
                   re.findall(r"(\S+) percentage of effective samples: ([0-9.]+)", err.getvalue())}
@@ -2142,7 +2176,7 @@ def phase_mixtures(dev):
             keys = chain_keys((0, i), MIX_CHAINS)
             diffs, one_s = [], 0.0
             for c in MIX_PICK:
-                one, dt = timed(lambda: run_chain(kern, x0, keys[c], MIX_ONE_STEPS).samples)
+                one, dt = _timed(lambda: run_chain(kern, x0, keys[c], MIX_ONE_STEPS).samples)
                 one_s += dt
                 one, batch = one.cpu().numpy(), s[c, :MIX_ONE_STEPS]
                 diff = float(np.abs(one - batch).max())
@@ -2159,7 +2193,7 @@ def phase_mixtures(dev):
                         f"{pooled.round(4).tolist()} (gate {lo}, {hi})"
                         + (f"; acceptance {accept[name]}" if name in accept else ""))
         name, kern = next(iter(kernels.items()))
-        _, dt = timed(lambda: run_chains(kern._replace(chain_axis=False), x0, (0, 0),
+        _, dt = _timed(lambda: run_chains(kern._replace(chain_axis=False), x0, (0, 0),
                                          MIX_SERIAL_STEPS, MIX_SERIAL))
         log(f"mixtures {wl} (n=5, k={MIX_K}, {MIX_CHAINS} chains, CLI {wall:.1f} s): "
             + "; ".join(rows) + f". {MIX_SERIAL} {name} chains one after another "
@@ -2170,7 +2204,7 @@ def phase_mixtures(dev):
     gm, gen, _, _ = gaussian_setup(5, 0, dev)
     true, s = gm.sample(gen, MIX_W2_FULL), gm.sample(gen, MIX_W2_FULL)
     w2_prefix_curve(true[:200], s[:200])  # warm-up
-    (_, vals), dt = timed(lambda: w2_prefix_curve(true, s))
+    (_, vals), dt = _timed(lambda: w2_prefix_curve(true, s))
     side = s[::max(1, MIX_W2_FULL // 2000)].shape[0]
     log(f"mixtures: one W2 curve at k={MIX_W2_FULL} ({vals.numel()} prefixes, Sinkhorn "
         f"200 iterations, {side} points a side): {dt * 1e3:.1f} ms; final W2 of two true "
@@ -2185,7 +2219,7 @@ def phase_mixtures(dev):
     kern = ihpula(gm2.grad_potential, gm2.hess_potential, 0.1)
     x0 = torch.randn(2, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     run_chain(kern, x0, (0, 3), 20)  # warm-up
-    res, dt = timed(lambda: run_chain(kern, x0, (0, 3), MIX_IHPULA_STEPS))
+    res, dt = _timed(lambda: run_chain(kern, x0, (0, 3), MIX_IHPULA_STEPS))
     if not bool(torch.isfinite(res.samples).all()):
         raise AssertionError("mixtures: the IHPULA gamma=0.1, n=2 chain diverged")
     h = gm2.hess_potential(x0)
@@ -2201,6 +2235,269 @@ def phase_mixtures(dev):
         f"{dt / MIX_IHPULA_STEPS * 1e3:.3f} ms a step; torch.linalg.eigh waits for the card: "
         f"{bool(syncs)} {syncs[:1]}")
     log(f"mixtures path: {time.perf_counter() - t_phase:.1f} s")
+
+
+# the SG-MCMC path (workload 5): the CLI at SG_K steps a sampler (the JAX
+# CLI's default k=50000, cut to fit the script's budget), the nine kernels at
+# SG_CHAINS chains x SG_BATCH_STEPS steps, chains SG_PICK held to their
+# one-chain runs over SG_ONE_STEPS steps
+SG_K = 5000
+SG_CHAINS, SG_BATCH_STEPS, SG_ONE_STEPS = 1024, 500, 100
+SG_PICK = (0, SG_CHAINS - 1)
+SG_PROFILE_STEPS = 100
+# gates from the JAX package on the CPU (scripts/sgld_gates.py): the CLI at
+# k=5000, seeds 0-15, each sampler's modes covered within [max(1, min -
+# ceil(sd)), min(25, max + ceil(sd))] over the seeds, and
+# optimize_grid_mixture's modes found at its defaults within [min - ceil(sd),
+# max + ceil(sd)] (the seeds move the start and the noise, which the port
+# draws otherwise); SG_BATCH_REF: each kernel's per-chain modes covered over
+# 256 chains x SG_BATCH_STEPS steps from the port's start, (mean, sd), which
+# the port's mean over SG_CHAINS chains must match within SG_BATCH_Z
+# standard errors of the difference.
+SG_GATES = {"SGLD": (1, 13), "MSGLD": (3, 25), "cyclicalSGLD": (11, 25),
+            "contourSGLD": (4, 25), "SPGLD": (7, 20), "SSGLD": (6, 19), "MYSGLD": (6, 19),
+            "cyclicalSPGLD": (12, 22), "contourSPGLD": (1, 25)}
+SG_OPT_GATE = (14, 23)
+SG_BATCH_REF_CHAINS, SG_BATCH_Z = 256, 4.0
+SG_BATCH_REF = {"SGLD": (1.45703125, 0.9107793339212519),
+                "MSGLD": (6.8828125, 2.1534144114524216),
+                "cyclicalSGLD": (7.71484375, 2.2822276645297896),
+                "contourSGLD": (5.13671875, 4.160606499788034),
+                "SPGLD": (8.4921875, 1.7034962605782031),
+                "SSGLD": (9.06640625, 1.8363124747444157),
+                "MYSGLD": (8.83203125, 1.687064213883012),
+                "cyclicalSPGLD": (7.8828125, 1.678566586201967),
+                "contourSPGLD": (5.171875, 4.406963073297956)}
+# the chain-farm path: kernel 2's farm at FARM_N^2 x FARM_CHAINS, two
+# segments of FARM_STEPS / 2; the two-process ULA farm
+FARM_N, FARM_CHAINS, FARM_STEPS = 64, 8, 1000
+FARM_ULA_CHAINS, FARM_ULA_STEPS = 8, 100
+
+
+def phase_sgmcmc(dev):
+    """The SG-MCMC path: the CLI at k=SG_K with every sampler's coverage in
+    its JAX band (SG_GATES), each kernel at SG_CHAINS chains through
+    ``run_chains`` with chains SG_PICK against their one-chain runs bit for
+    bit, and the mode finder at its defaults (SG_OPT_GATE)."""
+    import numpy as np
+    import torch
+
+    from lmc_atomi_torch.core.random import chain_keys, fold_in
+    from lmc_atomi_torch.experiments.sgld_runs import (
+        chain_modes_covered,
+        grid_setup,
+        optimize_grid_mixture,
+        sgld_grid_mixture,
+    )
+    from lmc_atomi_torch.run.runner import run_chain, run_chains
+
+    t_phase = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        (samples, summary), wall = _timed(lambda: sgld_grid_mixture(
+            k=SG_K, make_plots=False, device=str(dev)))
+    rows = []
+    for name, s in samples.items():
+        covered, (lo, hi) = summary["modes_covered"][name], SG_GATES[name]
+        if not (s.shape[0] > 0 and np.isfinite(s).all()):
+            raise AssertionError(f"SG-MCMC {name}: {s.shape[0]} draws, not all finite")
+        if not lo <= covered <= hi:
+            raise AssertionError(f"SG-MCMC {name}: {covered} modes covered, outside [{lo}, {hi}]")
+        rows.append(f"{name} {summary['iters_per_sec'][name]} iters/s, {s.shape[0]} draws, "
+                    f"{covered} modes (gate [{lo}, {hi}])")
+    log(f"SG-MCMC CLI (k={SG_K}, one chain a sampler, {wall:.1f} s): " + "; ".join(rows))
+
+    _, x0, kernels = grid_setup(SG_K, 0, dev)
+    rows = []
+    for i, (name, kern) in enumerate(kernels.items()):
+        extras = (lambda e: e.energy_idx) if name.startswith("contour") else False
+        key = fold_in(0, i)
+        run_chains(kern, x0, fold_in(1, i), 20, SG_CHAINS, collect_extras=extras)  # warm-up
+        res, dt = _timed(lambda: run_chains(kern, x0, key, SG_BATCH_STEPS, SG_CHAINS,
+                                            collect_extras=extras))
+        if not bool(torch.isfinite(res.samples).all()):
+            raise AssertionError(f"SG-MCMC {name}: non-finite samples in the batched run")
+        keys, one_s = chain_keys(key, SG_CHAINS), 0.0
+        for c in SG_PICK:
+            one, dt1 = _timed(lambda: run_chain(kern, x0, keys[c], SG_ONE_STEPS,
+                                                collect_extras=extras))
+            one_s += dt1
+            same = torch.equal(one.samples, res.samples[c, :SG_ONE_STEPS])
+            if extras:
+                same = same and torch.equal(one.extras, res.extras[c, :SG_ONE_STEPS])
+            if not same:
+                diff = float((one.samples - res.samples[c, :SG_ONE_STEPS]).abs().max())
+                raise AssertionError(f"SG-MCMC {name}: chain {c} differs from its one-chain "
+                                     f"run by {diff}")
+        cov = chain_modes_covered(res.samples.cpu().numpy())
+        ref_mean, ref_sd = SG_BATCH_REF[name]
+        z = abs(float(cov.mean()) - ref_mean) / math.sqrt(
+            ref_sd**2 / SG_BATCH_REF_CHAINS + float(cov.std(ddof=1))**2 / SG_CHAINS)
+        if not z <= SG_BATCH_Z:
+            raise AssertionError(f"SG-MCMC {name}: {cov.mean():.4f} modes a chain against the "
+                                 f"JAX package's {ref_mean:.4f}, {z:.2f} standard errors")
+        note = f", {cov.mean():.4f} modes a chain (JAX {ref_mean:.4f}, {z:.2f} s.e.)"
+        if extras:
+            mass = res.final_state.extras.energy_pdf.double().sum(-1)
+            note += (f", pdf mass after {SG_BATCH_STEPS} f32 steps in "
+                     f"[{float(mass.min()):.7f}, {float(mass.max()):.7f}]")
+        rows.append(f"{name} {SG_CHAINS * SG_BATCH_STEPS / dt:.1f} aggregate iters/s, one "
+                    f"chain {len(SG_PICK) * SG_ONE_STEPS / one_s:.1f}{note}")
+    log(f"SG-MCMC kernels at {SG_CHAINS} chains x {SG_BATCH_STEPS} steps (chains {SG_PICK} "
+        f"equal to their one-chain runs over {SG_ONE_STEPS} steps, bit for bit): "
+        + "; ".join(rows))
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        (_, _, opt), dt = _timed(lambda: optimize_grid_mixture(device=str(dev)))
+    lo, hi = SG_OPT_GATE
+    if not lo <= opt["modes_found"] <= hi:
+        raise AssertionError(f"SG-MCMC optimize_grid_mixture: {opt['modes_found']} modes, "
+                             f"outside [{lo}, {hi}]")
+    log(f"SG-MCMC optimize_grid_mixture (Adam, 64 restarts x 2000 steps, {dt:.1f} s): "
+        f"{opt['modes_found']} modes (gate [{lo}, {hi}]), best log-prob "
+        f"{opt['best_logprob']:.6f}")
+    log(f"SG-MCMC path: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_farm(dev):
+    """The chain-farm path: ``run_chains_sharded`` on a one-rank NCCL mesh
+    against ``run_chains``; the ``"tv"`` farm of ``run_resumable_fused``
+    under ``chains_mesh``, straight and restarted, against the farm without
+    a mesh; two processes on the card (gloo) against one. Every comparison
+    bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from lmc_atomi_torch.experiments.mixtures import gaussian_setup
+    from lmc_atomi_torch.parallel import chain_mesh, merge_chain_moments, run_chains_sharded
+    from lmc_atomi_torch.parallel.mesh import gather_chains
+    from lmc_atomi_torch.run.longrun import run_resumable_fused
+    from lmc_atomi_torch.run.runner import run_chains
+
+    def equal(label, pairs):
+        for field, a, b in pairs:
+            if not torch.equal(a, b):
+                raise AssertionError(f"farm {label}: {field} differs")
+
+    t_phase = time.perf_counter()
+    mesh = chain_mesh()
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(f"chain_mesh() on the card: backend {dist.get_backend()}")
+    _, _, x0, kernels = gaussian_setup(5, 0, dev)
+    ula = kernels["ULA"]
+    # one untimed sharded run first: NCCL sets up its communicator at the
+    # first collective
+    run_chains_sharded(ula, x0, (4, 0), 20, MIX_CHAINS, mesh=mesh, collect="both")
+    want, dt0 = _timed(lambda: run_chains(ula, x0, (5, 0), 200, MIX_CHAINS, collect="both"))
+    got, dt1 = _timed(lambda: run_chains_sharded(ula, x0, (5, 0), 200, MIX_CHAINS, mesh=mesh,
+                                                 collect="both"))
+    _, dt_gather = _timed(lambda: gather_chains(want, mesh))
+    equal("run_chains_sharded", [("samples", got.samples, want.samples),
+                                 ("position", got.final_state.position,
+                                  want.final_state.position),
+                                 ("mean", got.moments.mean, want.moments.mean),
+                                 ("m2", got.moments.m2, want.moments.m2),
+                                 ("count", got.moments.count, want.moments.count)])
+    log(f"farm: run_chains_sharded of ULA on a one-rank NCCL chain_mesh, {MIX_CHAINS} chains "
+        f"x 200 steps ({dt1:.3f} s after an untimed run, run_chains {dt0:.3f} s, the gather "
+        f"of a run_chains result alone {dt_gather:.3f} s): equal to run_chains bit for bit")
+
+    _, y, terms = make_large(dev, FARM_N)
+    gamma = SIGMA_NOISE**2
+    args = (terms["tv"], TV_WEIGHT, 0.2 * gamma, gamma, _chain_starts(y, FARM_CHAINS), (24, 0))
+    kw = dict(runner="tv", burn_in=100, quantiles=(0.025, 0.975))
+    seg = FARM_STEPS // 2
+    plain, dt0 = _timed(lambda: run_resumable_fused(*args, FARM_STEPS, seg, **kw))
+    meshed, dt1 = _timed(lambda: run_resumable_fused(*args, FARM_STEPS, seg, chains_mesh=mesh,
+                                                     **kw))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "farm.ckpt")
+        run_resumable_fused(*args, seg, seg, ckpt_path=ckpt, chains_mesh=mesh, **kw)
+        resumed = run_resumable_fused(*args, FARM_STEPS, seg, ckpt_path=ckpt, chains_mesh=mesh,
+                                      **kw)
+    for label, b in (("straight", meshed), ("resumed", resumed)):
+        equal(f"tv {label}", [("position", b["position"], plain["position"]),
+                              ("mean", b["moments"].mean, plain["moments"].mean),
+                              ("m2", b["moments"].m2, plain["moments"].m2),
+                              ("count", b["moments"].count, plain["moments"].count),
+                              ("markers", b["quantile_state"][0], plain["quantile_state"][0])])
+    dist.destroy_process_group()
+    log(f"farm: run_resumable_fused(runner='tv', chains_mesh=chain_mesh()) {FARM_N}^2 x "
+        f"{FARM_CHAINS} chains x {FARM_STEPS} steps in segments of {seg} ({dt1:.3f} s, "
+        f"without the mesh {dt0:.3f} s), straight and restarted from its checkpoint: "
+        "positions, moments and CI markers equal to the farm without a mesh bit for bit")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--farm-rank",
+                                   str(r), str(Path(tmp) / "store"), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (_, e) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"farm worker exited {p.returncode}: {e[-2000:]}")
+        two = torch.load(Path(tmp) / "farm.pt")
+    dt2 = time.perf_counter() - t0
+    res = run_chains(ula, x0, (6, 0), FARM_ULA_STEPS, FARM_ULA_CHAINS, collect="stats")
+    one = merge_chain_moments(res.moments)
+    if two["count"] != one.count:
+        raise AssertionError(f"farm two processes: count {two['count']} != {one.count}")
+    equal("two processes", [("pooled mean", two["mean"], one.mean.cpu()),
+                            ("pooled m2", two["m2"], one.m2.cpu()),
+                            ("chain means", two["chain_mean"], res.moments.mean.cpu())])
+    log(f"farm: global_chain_farm of ULA over two processes on the card (gloo, world size 2), "
+        f"{FARM_ULA_CHAINS} chains x {FARM_ULA_STEPS} steps ({dt2:.1f} s with the processes' "
+        "start): rank 0's pooled moments equal the one-process farm's bit for bit")
+    log(f"farm path: {time.perf_counter() - t_phase:.1f} s")
+
+
+def farm_worker(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the chain-farm path's two-process run: a gloo group of
+    two on a ``FileStore``, ``global_chain_farm`` of the Gaussian mixture's
+    ULA on the card; rank 0 saves the pooled and per-chain moments."""
+    import torch
+    import torch.distributed as dist
+
+    from lmc_atomi_torch.experiments.mixtures import gaussian_setup
+    from lmc_atomi_torch.parallel import global_chain_farm, init_multihost
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_multihost(world_size=2, rank=rank, store=dist.FileStore(store, 2))
+    _, _, x0, kernels = gaussian_setup(5, 0, dev)
+    res, pooled = global_chain_farm(kernels["ULA"], x0, (6, 0), FARM_ULA_STEPS,
+                                    FARM_ULA_CHAINS, collect="stats")
+    if rank == 0:
+        torch.save({"count": pooled.count, "mean": pooled.mean.cpu(), "m2": pooled.m2.cpu(),
+                    "chain_mean": res.moments.mean.cpu()}, Path(out_dir) / "farm.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_profile_sgmcmc(dev):
+    """Where the time goes in one batched SGLD and one CSGLD block on the
+    grid mixture (SG_CHAINS chains x SG_PROFILE_STEPS steps, one step over
+    all chains; CSGLD's pdf is 100000 bins a chain), and the launches a
+    step."""
+    from lmc_atomi_torch.experiments.sgld_runs import grid_setup
+    from lmc_atomi_torch.run.runner import run_chains
+
+    _, x0, kernels = grid_setup(SG_K, 0, dev)
+    for name in ("SGLD", "contourSGLD"):
+        got = profile_window(
+            f"run_chains {name} {SG_CHAINS} chains x {SG_PROFILE_STEPS} steps (grid mixture)",
+            lambda: run_chains(kernels[name], x0, (7, 0), SG_PROFILE_STEPS, SG_CHAINS))
+        log(f"profile {name}: {sum(n for _, n in got.values()) / SG_PROFILE_STEPS:.1f} "
+            "kernel launches a step")
 
 
 def phase_profile_mixtures(dev):
@@ -3312,6 +3609,9 @@ def main() -> int:
     if not (ROOT / "lmc_atomi_torch" / "csrc").is_dir():
         log(f"FAIL: no lmc_atomi_torch/csrc beside {Path(__file__).name}")
         return 1
+    if sys.argv[1:2] == ["--farm-rank"]:
+        farm_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     from lmc_atomi_torch.kernels.myula_cuda import myula_tv_fused_update_cuda
     from lmc_atomi_torch.kernels.myula_fused import myula_tv_block_update_cuda
     from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
@@ -3394,6 +3694,9 @@ def main() -> int:
         return 0
     try:
         mixtures = drive("mixtures", (), phase_mixtures, dev)
+        log(f"the kernel build {'still runs' if build.thread.is_alive() else 'has ended'} "
+            f"as the SG-MCMC path starts ({time.perf_counter() - t_start:.1f} s)")
+        sgmcmc = drive("SG-MCMC", (), phase_sgmcmc, dev)
     finally:
         build.thread.join()  # no nvcc outlives the script
     build.join()
@@ -3428,6 +3731,8 @@ def main() -> int:
         mixtures,
         drive("PnP", ("myula_tv_block_update_cuda",), phase_pnp, dev, resident=True),
         drive("CT", ("prox_tv_iso_cuda",), phase_ct, dev, resident=True),
+        sgmcmc,
+        drive("chain farm", ("myula_tv_block_update_cuda",), phase_farm, dev, resident=True),
     ]
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)
@@ -3435,6 +3740,7 @@ def main() -> int:
     phase_profile_large(dev)
     phase_profile_multichain(dev)
     phase_profile_mixtures(dev)
+    phase_profile_sgmcmc(dev)
     phase_profile_pnp(dev)
     phase_profile_ct(dev)
     kernels = [

@@ -44,7 +44,7 @@ import math
 import torch
 
 __all__ = ["philox4x32_10", "normal_field", "uniform_scalar", "uniform_field",
-           "chain_keys", "fold_in"]
+           "chain_keys", "fold_in", "as_key", "step_key", "normal_like"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -175,3 +175,29 @@ def fold_in(key, i: int):
     package's ``fold_in(key, i)``: a key of its own for each index ``i``."""
     seed, w0, w1 = _chain_words(key)
     return seed, _fmix32((w0 + int(i)) & _MASK) ^ w1
+
+
+def as_key(key):
+    """``(seed, chain)`` of an int seed or a ``(seed, chain)`` pair (the
+    counterpart of the JAX package's ``as_key``); a chain given as a tensor
+    of words (a chain axis) stays a tensor."""
+    if isinstance(key, (tuple, list)):
+        seed, chain = key
+        return int(seed), chain if isinstance(chain, torch.Tensor) else int(chain)
+    return int(key), 0
+
+
+def step_key(key, step: int):
+    """The key ``(seed, chain, step)`` of step ``step`` of the chain ``key``
+    (the counterpart of ``fold_in(base, step)``): the key a kernel's step
+    receives from the runner."""
+    return as_key(key) + (int(step),)
+
+
+def normal_like(key, x):
+    """``normal_field`` of a step key ``(seed, chain, step)`` over ``x``:
+    one chain, or with ``chain`` a tensor of ``C`` words the ``C`` chains
+    of ``x``'s leading axis."""
+    seed, chain, step = key
+    lead = int(isinstance(chain, torch.Tensor))
+    return normal_field(seed, chain, step, tuple(x.shape[lead:]), x.dtype, x.device)

@@ -21,6 +21,7 @@ from lmc_atomi_torch.models.dncnn import DnCNN
 from lmc_atomi_torch.models.score import ScoreNet, ScoreUNet
 from lmc_atomi_torch.models import (
     GaussianMixture,
+    GridGaussianMixture,
     LaplaceMixture,
     LaplacePrior,
     MixtureWithLaplacePrior,
@@ -47,6 +48,7 @@ __all__ = [
     "packed_state_from_numpy",
     "farm_bundle_from_numpy",
     "gaussian_mixture_from_numpy",
+    "grid_mixture_from_numpy",
     "laplace_mixture_from_numpy",
     "composite_from_numpy",
     "mvlaplace_from_numpy",
@@ -230,6 +232,12 @@ def gaussian_mixture_from_numpy(mus, sigmas, log_weights, precs, log_norms, chol
     return GaussianMixture(mus=_t(mus, device), sigmas=_t(sigmas, device),
                            log_weights=_t(log_weights, device), precs=_t(precs, device),
                            log_norms=_t(log_norms, device), chols=_t(chols, device))
+
+
+def grid_mixture_from_numpy(mus, sigma, lam, device=None) -> GridGaussianMixture:
+    """The port's ``GridGaussianMixture`` from the JAX dataclass's fields
+    (``sigma`` and ``lam`` become Python floats)."""
+    return GridGaussianMixture(mus=_t(mus, device), sigma=float(sigma), lam=float(lam))
 
 
 def laplace_mixture_from_numpy(mus, alphas, log_weights, lam, device=None) -> LaplaceMixture:

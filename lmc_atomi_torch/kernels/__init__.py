@@ -2,7 +2,7 @@
 block kernels 2-5 and the large-image tile kernels 6-8, with their plain
 versions and runners; the mixtures' Langevin (PULA, IHPULA, MLA) and
 proximal (PGLD, MYULA, MYMALA, PP-ULA, FBULA, LBMUMLA) kernels; PnP-ULA
-and the score-ULA samplers of the learned priors."""
+and the score-ULA samplers of the learned priors; the SG-MCMC family."""
 from lmc_atomi_torch.kernels.base import Kernel, stepsize_at
 from lmc_atomi_torch.kernels.imaging import (
     myula_imaging,
@@ -21,6 +21,21 @@ from lmc_atomi_torch.kernels.myula_fused import (
 )
 from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
 from lmc_atomi_torch.kernels.proximal import fbula, lbmumla, mymala, myula, pgld, ppula
+from lmc_atomi_torch.kernels.sgmcmc import (
+    contour_spgld,
+    csgld,
+    csgld_importance_resample,
+    cyclical_cosine_schedule,
+    cyclical_sgld,
+    cyclical_spgld,
+    minibatch_grad_estimator,
+    msgld,
+    mysgld,
+    polynomial_schedule,
+    sgld,
+    spgld,
+    ssgld,
+)
 from lmc_atomi_torch.kernels.ulpda_fused import (
     run_ulpda_fused,
     run_ulpda_fused_packed,
@@ -34,6 +49,19 @@ from lmc_atomi_torch.kernels.wavelet_fused import (
 )
 
 __all__ = [
+    "sgld",
+    "msgld",
+    "cyclical_sgld",
+    "csgld",
+    "csgld_importance_resample",
+    "spgld",
+    "ssgld",
+    "mysgld",
+    "cyclical_spgld",
+    "contour_spgld",
+    "polynomial_schedule",
+    "cyclical_cosine_schedule",
+    "minibatch_grad_estimator",
     "Kernel",
     "stepsize_at",
     "ula",

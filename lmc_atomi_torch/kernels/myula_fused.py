@@ -761,7 +761,9 @@ def run_myula_tv_fused(
     interpret mode) and take no effect: the markers live in device memory
     and a CPU tensor runs the plain version.
 
-    ``key`` is a seed or ``(seed, chain)``. ``quantile_state`` resumes from a
+    ``key`` is a seed or ``(seed, chain)``, or for a chain axis the list of
+    the ``C`` chain keys themselves (a slice of ``chain_keys``, as a rank of
+    a farm runs its share). ``quantile_state`` resumes from a
     prior result's marker state, with ``step_offset`` the global step this run
     starts at, so burn-in masking, the P^2 observation count and the noise
     continue across segmented runs. ``tv_warm`` carries the TV dual across a
@@ -782,7 +784,7 @@ def run_myula_tv_fused(
         return _map_result(res, pack_lanes)
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
-    if x0.ndim == 3:
+    if x0.ndim == 3 and not isinstance(key, list):
         key = chain_keys(key, x0.shape[0])
     quantiles = tuple(float(p) for p in quantiles)
     step_offset = int(step_offset)

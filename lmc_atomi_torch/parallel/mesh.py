@@ -1,17 +1,128 @@
-"""Cross-chain reductions (counterpart of ``lmc_atomi_tpu/parallel/mesh.py``).
+"""Chain farms across processes (counterpart of
+``lmc_atomi_tpu/parallel/mesh.py``, its chain half).
 
-Only ``merge_chain_moments`` is ported: the pooled posterior statistics of
-a chain farm. The device meshes and sharded runners of the JAX module
-(``chain_mesh``, ``image_mesh``, ``run_chains_sharded``, ``shard_image``)
-wait for their ``torch.distributed`` counterparts (ROADMAP A9).
+The JAX package farms chains over a device mesh with ``shard_map``. Here the
+mesh is a one-axis ``torch.distributed`` ``DeviceMesh`` over the ranks of a
+process group, one process a device: rank ``r`` runs its share of the
+chains, ``n_chains / world`` of them, and every field of the result comes
+back to every rank with the global leading chain axis through
+``all_gather``. Chain ``c`` keeps the key ``chain_keys(key, n_chains)[c]``
+whichever rank runs it, so a farm equals ``run_chains`` bit for bit (where
+the kernel's chains do not depend on the batch they run in) and the pooled
+moments do not depend on the world size. NCCL gathers device tensors, gloo
+host copies.
+
+``chain_mesh`` with no process group starts a one-rank group on an
+in-process store, so a single process needs no socket; a multi-process farm
+starts its group first (``parallel.multihost.init_multihost``, e.g. under
+``torchrun``). The image-sharding half of the JAX module (``image_mesh``,
+``shard_image``: a chain whose image is split over devices) is not ported:
+it needs a halo exchange in the TV prox and an all-to-all FFT written by
+hand (ROADMAP A9).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
+from lmc_atomi_torch.core.random import chain_keys
 from lmc_atomi_torch.core.stats import RunningMoments
+from lmc_atomi_torch.run.runner import ChainResult, _is_batched, _map, run_keyed_chains
+from lmc_atomi_torch.utils.cli import require_device
 
-__all__ = ["merge_chain_moments"]
+__all__ = ["chain_mesh", "run_chains_sharded", "merge_chain_moments", "gather_chains",
+           "mesh_share"]
+
+
+def chain_mesh(n_devices: Optional[int] = None, axis: str = "chains",
+               device: str = "cuda"):
+    """A one-axis ``DeviceMesh`` named ``axis`` over the first ``n_devices``
+    ranks of the process group (all of them by default).
+
+    Without a process group it starts a one-rank group on a ``HashStore``:
+    NCCL for a CUDA ``device`` (which must exist: ``require_device``), gloo
+    for ``device="cpu"``. A group the caller started is used as it is, and
+    its backend sets where the gathers run (gloo: host copies, NCCL: the
+    card). ``n_devices`` past the world size raises."""
+    dev = require_device(device, "chain-mesh")
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"chain_mesh over {n} devices: the process group has "
+                         f"world size {world}")
+    mesh_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(mesh_type, list(range(n)), mesh_dim_names=(axis,))
+
+
+def mesh_share(mesh, n_chains: int, axis: str = "chains"):
+    """``(first, count)``: the chains of ``n_chains`` that this rank of
+    ``mesh`` runs, a contiguous block of ``n_chains / size``."""
+    n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
+    if n_chains % n_dev != 0:
+        raise ValueError(f"n_chains={n_chains} not divisible by mesh axis {n_dev}")
+    per = n_chains // n_dev
+    return mesh.get_local_rank(axis) * per, per
+
+
+def gather_chains(tree, mesh, axis: str = "chains"):
+    """Every tensor of ``tree`` (with a leading chain axis) gathered over the
+    mesh axis along that axis, rank after rank; 0-d tensors, Python values
+    and None stay. The traversal is the same on every rank, so the
+    collectives pair up. NCCL gathers on the card, gloo on the host; each
+    result returns to its tensor's device."""
+    group = mesh.get_group(axis)
+    size = dist.get_world_size(group)
+    where = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+
+    def gather(t):
+        if not isinstance(t, torch.Tensor) or t.ndim == 0:
+            return t
+        src = t.detach().to(where).contiguous()
+        parts = [torch.empty_like(src) for _ in range(size)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts).to(t.device)
+
+    return _map(gather, tree)
+
+
+def run_chains_sharded(
+    kernel,
+    x0,
+    key,
+    n_steps: int,
+    n_chains: int,
+    mesh=None,
+    axis: str = "chains",
+    batched: Optional[bool] = None,
+    **kwargs,
+) -> ChainResult:
+    """Shard ``n_chains`` independent chains across the mesh axis.
+
+    Each rank runs its ``n_chains / size`` chains (``run_keyed_chains``: one
+    step over all of them for a kernel with ``chain_axis``), chain ``c``
+    under ``chain_keys(key, n_chains)[c]``; every ``ChainResult`` field comes
+    back to every rank with the global leading chain axis. ``x0`` may be one
+    position (broadcast) or carry a leading chain axis (per-chain starts);
+    ``batched`` overrides the shape inference as in ``run_chains``. ``mesh``
+    defaults to ``chain_mesh()``."""
+    mesh = mesh if mesh is not None else chain_mesh(axis=axis)
+    first, per = mesh_share(mesh, n_chains, axis)
+    keys = chain_keys(key, n_chains)
+    if batched is None:
+        batched = _is_batched(x0, n_chains)
+    if batched:
+        x0 = _map(lambda l: l[first:first + per], x0)
+    res = run_keyed_chains(kernel, x0, keys[first:first + per], n_steps,
+                           batched=batched, **kwargs)
+    return gather_chains(res, mesh, axis)
 
 
 def merge_chain_moments(moments: RunningMoments) -> RunningMoments:

@@ -19,21 +19,17 @@ carries per-chain moments, markers and ULPDA state in the bundle.
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import torch
 
 from lmc_atomi_torch.core.checkpoint import restore_checkpoint, save_checkpoint
 from lmc_atomi_torch.core.random import chain_keys
 from lmc_atomi_torch.core.stats import RunningMoments
-from lmc_atomi_torch.kernels.base import Kernel
-from lmc_atomi_torch.kernels.myula_fused import _marker_state, run_myula_tv_fused
-from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
-from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
-from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
-from lmc_atomi_torch.ops.functionals import L21Norm
-from lmc_atomi_torch.ops.linops import Gradient2D
 from lmc_atomi_torch.run.runner import base_key, stack_tree
+
+if TYPE_CHECKING:  # kernels/ imports run/: the kernels are imported where they run
+    from lmc_atomi_torch.kernels.base import Kernel
 
 __all__ = ["run_resumable", "run_resumable_fused"]
 
@@ -89,6 +85,27 @@ def run_resumable(
     return bundle
 
 
+def _farm_segment(one_chain, runner, x, keys, n, qstate, extras, kw):
+    """One segment of the farm's chains ``x`` under ``keys``: one packed
+    kernel-2 call for ``"tv"``, chain after chain otherwise. Returns the
+    positions, the segment's per-chain moments (a ``RunningMoments`` with a
+    chain axis), the marker state and the ULPDA extras."""
+    if runner == "tv":
+        res = one_chain(x, keys, n, qstate, extras, **kw)
+        count = torch.full((x.shape[0],), res.moments.count, dtype=torch.int64)
+        seg = RunningMoments(count, res.moments.mean, res.moments.m2)
+        return res.final_state.position, seg, res.quantile_state, extras
+    res = [one_chain(x[c], k, n, qstate and (qstate[0][c], qstate[1][c]),
+                     extras and (extras[0][c], extras[1][c]), **kw)
+           for c, k in enumerate(keys)]
+    if runner == "ulpda_tiled":
+        extras = (torch.stack([r.final_state.extras.y for r in res]),
+                  torch.stack([r.final_state.extras.xprev for r in res]))
+    return (torch.stack([r.final_state.position for r in res]),
+            stack_tree([r.moments for r in res]),
+            stack_tree([r.quantile_state for r in res]), extras)
+
+
 def run_resumable_fused(
     l2,
     tv_sigma: float,
@@ -133,19 +150,38 @@ def run_resumable_fused(
     ``rhat_from_moments``. Runner ``"tv"`` runs the farm in one packed
     kernel-2 call a segment (``run_myula_tv_fused_packed``); the others run
     their kernel chain after chain, each chain alone filling the card.
-    ``chains_mesh`` (a farm across devices) is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP A9).
+
+    ``chains_mesh`` (``parallel.mesh.chain_mesh``) spreads a farm over the
+    ranks of its process group: each rank runs its block of the chains
+    (``mesh_share``) as above, the segment's positions, moments, marker
+    state and ULPDA extras are gathered to every rank at its end, and rank
+    0 alone writes the checkpoint (a barrier follows). The bundle holds the
+    whole farm on every rank, so a farm saved by some number of ranks
+    resumes on any other, and its result equals the farm's without a mesh
+    bit for bit.
     """
+    from lmc_atomi_torch.kernels.myula_fused import _marker_state, run_myula_tv_fused
+    from lmc_atomi_torch.kernels.myula_tiled import run_myula_tv_tiled
+    from lmc_atomi_torch.kernels.ulpda_tiled import run_ulpda_tv_tiled
+    from lmc_atomi_torch.kernels.wavelet_fused import run_myula_wavelet_fused
+    from lmc_atomi_torch.ops.functionals import L21Norm
+    from lmc_atomi_torch.ops.linops import Gradient2D
+
     if runner not in RUNNERS:
         raise ValueError(f"unknown runner {runner!r}")
-    if chains_mesh is not None:
-        raise NotImplementedError(
-            "chains_mesh (chain farms across devices) is not ported yet "
-            "(ROADMAP A9)")
     x0 = torch.as_tensor(x0)
     farm = x0.ndim == 3
+    if chains_mesh is not None and not farm:
+        raise ValueError("chains_mesh runs a chain farm: x0 of shape (C, ny, nx)")
     seed, chain = base_key(key)
     keys = chain_keys((seed, chain), x0.shape[0]) if farm else None
+    mine, writer = slice(None), True
+    if chains_mesh is not None:
+        from lmc_atomi_torch.parallel.mesh import gather_chains, mesh_share
+
+        first, per = mesh_share(chains_mesh, x0.shape[0])
+        mine, writer = slice(first, first + per), torch.distributed.get_rank() == 0
+        keys = keys[mine]
     quantiles = tuple(float(p) for p in fused_kwargs.pop("quantiles", ()))
     bundle = {"position": x0,
               "moments": (stack_tree([RunningMoments.init(x) for x in x0]) if farm
@@ -178,34 +214,27 @@ def run_resumable_fused(
         kw = dict(burn_in=burn_in, quantiles=quantiles, step_offset=done,
                   **fused_kwargs)
         qstate, extras = bundle.get("quantile_state"), bundle.get("ulpda_extras")
-        if not farm or runner == "tv":
-            # one call: a packed kernel-2 call carries the farm's chains
+        if not farm:
             res = one_chain(bundle["position"], (seed, chain), n, qstate, extras, **kw)
             pos, qstate = res.final_state.position, res.quantile_state
-            seg = ([RunningMoments(res.moments.count, m, v)
-                    for m, v in zip(res.moments.mean, res.moments.m2)]
-                   if farm else res.moments)
             if runner == "ulpda_tiled":
                 extras = (res.final_state.extras.y, res.final_state.extras.xprev)
+            moments = bundle["moments"].merge(res.moments)
         else:
-            res = [one_chain(bundle["position"][c], k, n,
-                             qstate and (qstate[0][c], qstate[1][c]),
-                             extras and (extras[0][c], extras[1][c]), **kw)
-                   for c, k in enumerate(keys)]
-            pos = torch.stack([r.final_state.position for r in res])
-            qstate = stack_tree([r.quantile_state for r in res])
-            seg = [r.moments for r in res]
-            if runner == "ulpda_tiled":
-                extras = (torch.stack([r.final_state.extras.y for r in res]),
-                          torch.stack([r.final_state.extras.xprev for r in res]))
-        _check_finite(pos, done, n, ckpt_path)
-        if farm:
+            pos, seg, qstate, extras = _farm_segment(
+                one_chain, runner, bundle["position"][mine], keys, n,
+                qstate and tuple(q[mine] for q in qstate),
+                extras and tuple(e[mine] for e in extras), kw)
+            if chains_mesh is not None:
+                pos, seg, qstate, extras = gather_chains((pos, seg, qstate, extras),
+                                                         chains_mesh)
             prev = bundle["moments"]
+            counts = seg.count.tolist()
             moments = stack_tree([
-                RunningMoments(int(prev.count[c]), prev.mean[c], prev.m2[c]).merge(m)
-                for c, m in enumerate(seg)])
-        else:
-            moments = bundle["moments"].merge(seg)
+                RunningMoments(int(prev.count[c]), prev.mean[c], prev.m2[c]).merge(
+                    RunningMoments(counts[c], seg.mean[c], seg.m2[c]))
+                for c in range(pos.shape[0])])
+        _check_finite(pos, done, n, ckpt_path)
         new = {"position": pos, "moments": moments, "key": (seed, chain),
                "done": done + n}
         if quantiles:
@@ -213,7 +242,9 @@ def run_resumable_fused(
         if runner == "ulpda_tiled":
             new["ulpda_extras"] = extras
         bundle = new
-        _finish_segment(bundle, ckpt_path, progress)
+        _finish_segment(bundle, ckpt_path if writer else None, progress)
+        if chains_mesh is not None and ckpt_path:
+            torch.distributed.barrier(group=chains_mesh.get_group())
     if quantiles:
         qh = bundle["quantile_state"][0]
         bundle["quantiles"] = {p: qh[..., 5 * j + 2, :, :] for j, p in enumerate(quantiles)}

@@ -29,15 +29,15 @@ from typing import TYPE_CHECKING, Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from lmc_atomi_torch.core.random import chain_keys
+from lmc_atomi_torch.core.random import as_key, chain_keys
 from lmc_atomi_torch.core.state import SamplerState
 from lmc_atomi_torch.core.stats import RunningMoments, RunningQuantile
 
 if TYPE_CHECKING:  # kernels/ imports this module: no import at run time
     from lmc_atomi_torch.kernels.base import Kernel
 
-__all__ = ["ChainResult", "run_chain", "run_chains", "run_chain_segmented",
-           "base_key", "stack_tree"]
+__all__ = ["ChainResult", "run_chain", "run_chains", "run_keyed_chains",
+           "run_chain_segmented", "base_key", "stack_tree"]
 
 
 class ChainResult(NamedTuple):
@@ -50,13 +50,9 @@ class ChainResult(NamedTuple):
     extras: Optional[Any] = None
 
 
-def base_key(key):
-    """``(seed, chain)`` from an int seed or a ``(seed, chain)`` pair; a
-    chain given as a tensor of words (a chain axis) stays a tensor."""
-    if isinstance(key, (tuple, list)):
-        seed, chain = key
-        return int(seed), chain if isinstance(chain, torch.Tensor) else int(chain)
-    return int(key), 0
+# ``(seed, chain)`` from an int seed or a ``(seed, chain)`` pair; a chain
+# given as a tensor of words (a chain axis) stays a tensor
+base_key = as_key
 
 
 def stack_tree(items):
@@ -188,12 +184,20 @@ def run_chains(
     JAX package's and must be 0."""
     if axis != 0:
         raise ValueError("run_chains stacks its chains along axis 0")
-    keys = chain_keys(key, n_chains)
+    return run_keyed_chains(kernel, x0, chain_keys(key, n_chains), n_steps,
+                            batched=batched, **kwargs)
+
+
+def run_keyed_chains(kernel: Kernel, x0, keys, n_steps: int, *,
+                     batched: Optional[bool] = None, **kwargs) -> ChainResult:
+    """``run_chains`` over the given chain keys ``(seed, word)``, which
+    share their seed (a slice of ``chain_keys``: ``parallel.mesh`` runs a
+    rank's share of a farm so); ``x0`` and ``batched`` as in ``run_chains``
+    with ``len(keys)`` chains."""
+    n_chains = len(keys)
     leaves = _leaves(x0)
     if batched is None:
-        batched = bool(leaves) and all(
-            isinstance(l, torch.Tensor) and l.ndim > 0 and l.shape[0] == n_chains
-            for l in leaves)
+        batched = _is_batched(x0, n_chains)
     if kernel.chain_axis:
         words = torch.tensor([w for _, w in keys], dtype=torch.int64,
                              device=leaves[0].device)
@@ -240,6 +244,14 @@ def _chain_major(res: ChainResult, n_chains: int) -> ChainResult:
     )
 
 
+def _is_batched(x0, n_chains: int) -> bool:
+    """Whether every tensor of ``x0`` has a leading axis of ``n_chains``."""
+    leaves = _leaves(x0)
+    return bool(leaves) and all(
+        isinstance(l, torch.Tensor) and l.ndim > 0 and l.shape[0] == n_chains
+        for l in leaves)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [l for v in tree.values() for l in _leaves(v)]
@@ -249,6 +261,11 @@ def _leaves(tree):
 
 
 def _map(fn, tree):
+    """``fn`` on every leaf of dicts, NamedTuples, tuples, lists and
+    dataclasses; None stays."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _map(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

@@ -142,15 +142,15 @@ def test_diverging_chain_raises(tmp_path):
 
 @pytest.mark.parametrize("case", ["ulpda_tiled", "mesh"])
 def test_not_ported_runners_raise(case):
-    """The mode of the JAX runner the port lacks, a farm across devices
-    (``chains_mesh``), names its ROADMAP item, A9, also under a tiled
-    runner. The chain farm itself is held in
-    ``tests/test_torch_multichain.py``."""
+    """A farm across devices (``chains_mesh``) asked of one chain, with no
+    farm axis, raises, also under a tiled runner; an unknown runner raises.
+    The chain farm is held in ``tests/test_torch_multichain.py``, the farm
+    under a mesh in ``tests/test_torch_parallel.py``."""
     l2, lam, gamma = _tv_problem()
     kw = {"chains_mesh": object()}
     if case == "ulpda_tiled":
         kw["runner"] = case
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="chain farm"):
         run_resumable_fused(l2, lam, 0.2 * gamma, gamma, l2.b, 0, 4, 4, **kw)
     with pytest.raises(ValueError, match="unknown runner"):
         run_resumable_fused(l2, lam, 0.2 * gamma, gamma, l2.b, 0, 4, 4, runner="pnp")
