@@ -162,6 +162,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    one card (world size 2, gloo: NCCL refuses two ranks on one device),
    ``global_chain_farm`` of the ULA, 8 chains x 100 steps, rank 0's pooled
    moments against the one-process farm's, bit for bit;
+9h. the image-sharding path (``ops/sharded.py``): four processes on the
+   one card (``--image-rank``, gloo on a ``FileStore``) split the main
+   problem (512^2) over ``image_mesh(device="cuda")`` meshes (1, 4, 1) and
+   (1, 2, 2) with ``shard_image``; on each mesh every rank's band prox
+   (kernel 1 on its block extended by 11 halo rows and columns) and noise
+   block equal the one-device results bit for bit, its blocks of the four
+   sharded ``CirculantBlur2D`` products lie within IMAGE_BLUR_TOL of the
+   one-device ones, and 50 steps of the sharded ``run_chain(myula_imaging)``
+   (``collect="stats"``), gathered on rank 0, lie within REL_TOL of one
+   process's chain on the same key; kernel 1 must launch on every rank;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
@@ -209,12 +219,13 @@ path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
 cone, on the multichain path every kernel-2 and kernel-3 call the resident
 route; the mixtures and SG-MCMC paths launch none of them, the PnP path
 kernel 2 alone and the CT path kernel 1 alone, every call on the resident
-route, and the chain-farm path kernel 2 alone on the resident route.
-The script then prints one JSON line describing each kernel (launches and
-route counts on the ten paths, errors, times, the bound of the card; for
-kernels 2 and 3 also the chain axis's plan, error and times, for kernel 1
-its error, route and times at the CT shapes) and, last, ``{"ok": true,
-"device": {...}}``.
+route, the chain-farm path kernel 2 alone on the resident route, and the
+image-sharding path kernel 1 alone (its workers' launches added to this
+process's). The script then prints one JSON line describing each kernel
+(launches and route counts on the eleven paths, errors, times, the bound of
+the card; for kernels 2 and 3 also the chain axis's plan, error and times,
+for kernel 1 its error, route and times at the CT shapes) and, last,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2238,35 +2249,39 @@ def phase_mixtures(dev):
 
 
 # the SG-MCMC path (workload 5): the CLI at SG_K steps a sampler (the JAX
-# CLI's default k=50000, cut to fit the script's budget), the nine kernels at
-# SG_CHAINS chains x SG_BATCH_STEPS steps, chains SG_PICK held to their
-# one-chain runs over SG_ONE_STEPS steps
-SG_K = 5000
+# CLI's default k=50000, cut to fit the script's budget: 5000 until the
+# image-sharding path came), the nine kernels at SG_CHAINS chains x
+# SG_BATCH_STEPS steps, chains SG_PICK held to their one-chain runs over
+# SG_ONE_STEPS steps
+SG_K = 1000
 SG_CHAINS, SG_BATCH_STEPS, SG_ONE_STEPS = 1024, 500, 100
 SG_PICK = (0, SG_CHAINS - 1)
 SG_PROFILE_STEPS = 100
 # gates from the JAX package on the CPU (scripts/sgld_gates.py): the CLI at
-# k=5000, seeds 0-15, each sampler's modes covered within [max(1, min -
-# ceil(sd)), min(25, max + ceil(sd))] over the seeds, and
+# k=SG_K, seeds 0-15, each sampler's modes covered within [max(0, min -
+# ceil(sd)), min(25, max + ceil(sd))] over the seeds (at this depth five bands
+# start at 0 and check little more than an upper bound; SG_BATCH_REF is the
+# gate that tells the samplers apart), and
 # optimize_grid_mixture's modes found at its defaults within [min - ceil(sd),
 # max + ceil(sd)] (the seeds move the start and the noise, which the port
 # draws otherwise); SG_BATCH_REF: each kernel's per-chain modes covered over
-# 256 chains x SG_BATCH_STEPS steps from the port's start, (mean, sd), which
-# the port's mean over SG_CHAINS chains must match within SG_BATCH_Z
-# standard errors of the difference.
-SG_GATES = {"SGLD": (1, 13), "MSGLD": (3, 25), "cyclicalSGLD": (11, 25),
-            "contourSGLD": (4, 25), "SPGLD": (7, 20), "SSGLD": (6, 19), "MYSGLD": (6, 19),
-            "cyclicalSPGLD": (12, 22), "contourSPGLD": (1, 25)}
+# 256 chains x SG_BATCH_STEPS steps from the port's start, built for k=SG_K
+# (the cyclical schedules' period), (mean, sd), which the port's mean over
+# SG_CHAINS chains must match within SG_BATCH_Z standard errors of the
+# difference.
+SG_GATES = {"SGLD": (0, 8), "MSGLD": (0, 22), "cyclicalSGLD": (0, 23),
+            "contourSGLD": (0, 19), "SPGLD": (4, 16), "SSGLD": (6, 16), "MYSGLD": (4, 17),
+            "cyclicalSPGLD": (4, 18), "contourSPGLD": (0, 21)}
 SG_OPT_GATE = (14, 23)
 SG_BATCH_REF_CHAINS, SG_BATCH_Z = 256, 4.0
 SG_BATCH_REF = {"SGLD": (1.45703125, 0.9107793339212519),
                 "MSGLD": (6.8828125, 2.1534144114524216),
-                "cyclicalSGLD": (7.71484375, 2.2822276645297896),
+                "cyclicalSGLD": (7.50390625, 2.4301989701079467),
                 "contourSGLD": (5.13671875, 4.160606499788034),
                 "SPGLD": (8.4921875, 1.7034962605782031),
                 "SSGLD": (9.06640625, 1.8363124747444157),
                 "MYSGLD": (8.83203125, 1.687064213883012),
-                "cyclicalSPGLD": (7.8828125, 1.678566586201967),
+                "cyclicalSPGLD": (7.4453125, 1.4940855620300555),
                 "contourSPGLD": (5.171875, 4.406963073297956)}
 # the chain-farm path: kernel 2's farm at FARM_N^2 x FARM_CHAINS, two
 # segments of FARM_STEPS / 2; the two-process ULA farm
@@ -2479,6 +2494,197 @@ def farm_worker(rank: int, store: str, out_dir: str) -> None:
     if rank == 0:
         torch.save({"count": pooled.count, "mean": pooled.mean.cpu(), "m2": pooled.m2.cpu(),
                     "chain_mean": res.moments.mean.cpu()}, Path(out_dir) / "farm.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# the image-sharding path: the main problem over IMAGE_RANKS processes on the
+# one card (gloo), each mesh of IMAGE_MESHES; IMAGE_STEPS steps of the
+# sharded chain after IMAGE_WARM untimed ones, and the sharded blur products
+# within IMAGE_BLUR_TOL of the largest one-device value (f32: the transposed
+# FFT's 1-D passes round otherwise than cuFFT's 2-D plan)
+IMAGE_RANKS = 4
+IMAGE_MESHES = ((1, 4, 1), (1, 2, 2))
+IMAGE_STEPS, IMAGE_WARM = 50, 2
+IMAGE_KEY = 31
+IMAGE_BLUR_TOL = 1e-5
+
+
+def phase_image(dev):
+    """The image-sharding path: IMAGE_RANKS processes on the card (gloo on
+    a ``FileStore``, ``--image-rank``) split the main problem over each mesh
+    of IMAGE_MESHES (``image_mesh(device="cuda")``, ``shard_image``); each
+    rank holds its band prox (kernel 1 on its halo-extended block) and noise
+    block to the one-device results bit for bit and its blocks of the four
+    sharded ``CirculantBlur2D`` products within IMAGE_BLUR_TOL, and rank 0
+    gathers the moments of IMAGE_STEPS steps of the sharded
+    ``run_chain(myula_imaging)``, held here to one process's chain on the
+    same key within REL_TOL. Returns the workers' kernel-1 launches."""
+    import tempfile
+
+    import torch
+
+    from lmc_atomi_torch.kernels.imaging import myula_imaging
+    from lmc_atomi_torch.ops.functionals import TVNorm
+    from lmc_atomi_torch.run.runner import run_chain
+
+    t_phase, t_spawn = time.perf_counter(), time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        # -X faulthandler: a worker that dies on a signal prints its stack
+        procs = [subprocess.Popen([sys.executable, "-X", "faulthandler",
+                                   str(Path(__file__).resolve()), "--image-rank", str(r),
+                                   str(Path(tmp) / "store"), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(IMAGE_RANKS)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [f"rank {r} exited {p.returncode}: "
+                  + "\n".join([ln for ln in e.splitlines() if ln.startswith("  File")][:12])
+                  + e[-1500:] for r, (p, (_, e)) in enumerate(zip(procs, outs))
+                  if p.returncode != 0]
+        if failed:
+            raise AssertionError("image workers failed: " + "\n".join(failed))
+        reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                   for r in range(IMAGE_RANKS)]
+        gathered = {m: torch.load(Path(tmp) / f"chain{m}.pt") for m in reports[0]["meshes"]}
+    t_workers = time.perf_counter() - t_phase
+
+    img, y, l2 = make_problem(dev)
+    gamma = SIGMA_NOISE**2
+    kern = myula_imaging(l2, TVNorm(sigma=TV_WEIGHT, niter=10), tau=0.2 * gamma, gamma=gamma)
+    x0 = torch.zeros((N, N), device=dev)
+    run_chain(kern, x0, IMAGE_KEY + 1, IMAGE_WARM, collect="stats")
+    one, dt_one = _timed(lambda: run_chain(kern, x0, IMAGE_KEY, IMAGE_STEPS, collect="stats"))
+    launches = 0
+    for m, got in gathered.items():
+        ranks = [r["meshes"][m] for r in reports]
+        for r, rep in enumerate(ranks):
+            if not (rep["prox_equal"] and rep["noise_equal"]):
+                raise AssertionError(f"image {m} rank {r}: band prox equal {rep['prox_equal']}, "
+                                     f"noise block equal {rep['noise_equal']}")
+            if rep["launches"] < 1:
+                raise AssertionError(f"image {m} rank {r}: kernel 1 was not launched")
+            launches += rep["launches"]
+        blur = {op: max(rep["blur"][op] for rep in ranks) for op in ranks[0]["blur"]}
+        for op, (err, tol) in blur.items():
+            if not err <= tol:
+                raise AssertionError(f"image {m} {op}: {err} > {tol}")
+        worst, note = compare(f"image {m} chain", [got[f].to(dev) for f in
+                                                   ("mean", "m2", "position")],
+                              [one.moments.mean, one.moments.m2, one.final_state.position],
+                              ("mean", "m2", "position"))
+        if not bool(torch.isfinite(got["mean"]).all()):
+            raise AssertionError(f"image {m}: non-finite sharded mean")
+        log(f"image {m} ({IMAGE_RANKS} processes, gloo): band prox and noise blocks equal "
+            "the one-device results bit for bit on every rank; kernel 1 launches and routes "
+            "by rank " + "; ".join(f"{r}: {rep['launches']} {rep['routes']} blocks "
+                                   f"{rep['ext_shape']}" for r, rep in enumerate(ranks))
+            + "; blur products max err/tol " + " ".join(
+                f"{op}={e:.3e}/{t:.1e}" for op, (e, t) in blur.items())
+            + f"; {IMAGE_STEPS}-step sharded chain against one process's: {note}; sharded "
+            f"step {ranks[0]['step_ms']:.3f} ms (rank 0's host clock, {IMAGE_STEPS} steps "
+            f"after {IMAGE_WARM}), one process {dt_one / IMAGE_STEPS * 1e3:.3f} ms")
+    stages = {k: max(r["stamps"][k] for r in reports) - t_spawn for k in reports[0]["stamps"]}
+    log(f"image path: {time.perf_counter() - t_phase:.1f} s ({t_workers:.1f} s the "
+        "workers with their start; the last rank past each stage at "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()) + ")")
+    return {"prox_tv_iso_cuda": launches}
+
+
+def image_worker(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the image-sharding path: a gloo group of IMAGE_RANKS on
+    a ``FileStore``, every image on the card. For each mesh of
+    IMAGE_MESHES: the one-device references first (kernel 1 on the whole
+    image, the noise field, the blur products; launches not counted), then
+    the sharded path with the launch counts at 0: the band prox, the noise
+    block, the four products, IMAGE_WARM + IMAGE_STEPS steps of the chain.
+    Writes ``rank{rank}.json``; rank 0 also the gathered moments."""
+    import torch
+    import torch.distributed as dist
+
+    from lmc_atomi_torch.core.random import normal_field
+    from lmc_atomi_torch.kernels.imaging import myula_imaging
+    from lmc_atomi_torch.ops.functionals import TVNorm
+    from lmc_atomi_torch.ops.tv import prox_tv_iso
+    from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda
+    from lmc_atomi_torch.parallel import image_mesh, shard_image
+    from lmc_atomi_torch.ops.sharded import block_grid, halo, normal_block
+    from lmc_atomi_torch.parallel.image import gather_image
+    from lmc_atomi_torch.run.runner import run_chain
+
+    stamps = {"imports": time.time()}
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, IMAGE_RANKS), rank=rank,
+                            world_size=IMAGE_RANKS)
+    stamps["group"] = time.time()
+    img, y, l2 = make_problem(dev)
+    blur = l2.op
+    gamma = SIGMA_NOISE**2
+    kern = myula_imaging(l2, TVNorm(sigma=TV_WEIGHT, niter=10), tau=0.2 * gamma, gamma=gamma)
+    b = 0.5 * y + 0.1
+    ops = {"matvec": (blur.matvec, (img,)), "rmatvec": (blur.rmatvec, (img,)),
+           "normal_grad": (blur.normal_grad, (img, b)),
+           "gram_solve": (lambda v: blur.gram_solve(0.2 * gamma / SIGMA_NOISE**2, v), (img,))}
+    whole_prox = prox_tv_iso_cuda(y, TV_WEIGHT * gamma, niter=10)
+    whole_noise = normal_field(IMAGE_KEY, 0, 3, (N, N), torch.float32, dev)
+    whole_ops = {k: fn(*args) for k, (fn, args) in ops.items()}
+    x0 = torch.zeros((N, N), device=dev)
+    torch.cuda.synchronize()
+    stamps["references"] = time.time()
+    report = {"rank": rank, "meshes": {}, "stamps": stamps}
+    for shape in IMAGE_MESHES:
+        name = "x".join(map(str, shape))
+        mesh = image_mesh(*shape, device="cuda")
+        stamps[f"mesh {name}"] = time.time()
+        if mesh.device_type != "cuda" or dist.get_backend() != "gloo":
+            raise AssertionError(f"image_mesh on the card: {mesh.device_type}, "
+                                 f"{dist.get_backend()}")
+        prox_tv_iso_cuda.launches = 0
+        prox_tv_iso_cuda.routes = dict.fromkeys(prox_tv_iso_cuda.routes, 0)
+        ys = shard_image(y, mesh)
+        grid = block_grid(ys)
+        (y0, x0_), (by, bx) = grid.origin, grid.block
+        here = (slice(y0, y0 + by), slice(x0_, x0_ + bx))
+        stamps[f"shard {name}"] = time.time()
+        band = prox_tv_iso(ys, TV_WEIGHT * gamma, 10)
+        torch.cuda.synchronize()
+        stamps[f"prox {name}"] = time.time()
+        if not band.to_local().is_cuda:
+            raise AssertionError("the band prox left the card")
+        rep = {"prox_equal": torch.equal(band.to_local(), whole_prox[here]),
+               "noise_equal": torch.equal(normal_block(IMAGE_KEY, 0, 3, ys).to_local(),
+                                          whole_noise[here]),
+               "ext_shape": list(halo(ys.to_local(), 11, mesh).shape), "blur": {}}
+        for k, (fn, args) in ops.items():
+            got = fn(*(shard_image(a, mesh) for a in args)).to_local()
+            want = whole_ops[k]
+            rep["blur"][k] = (float((got - want[here]).abs().max()),
+                              IMAGE_BLUR_TOL * max(1.0, float(want.abs().max())))
+        torch.cuda.synchronize()
+        stamps[f"products {name}"] = time.time()
+        xs0 = shard_image(x0, mesh)
+        run_chain(kern, xs0, IMAGE_KEY + 1, IMAGE_WARM, collect="stats")
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_chain(kern, xs0, IMAGE_KEY, IMAGE_STEPS, collect="stats")
+        torch.cuda.synchronize()
+        rep["step_ms"] = (time.perf_counter() - t0) / IMAGE_STEPS * 1e3
+        rep["launches"] = prox_tv_iso_cuda.launches
+        rep["routes"] = {k: v for k, v in prox_tv_iso_cuda.routes.items() if v}
+        whole = {"mean": gather_image(res.moments.mean), "m2": gather_image(res.moments.m2),
+                 "position": gather_image(res.final_state.position)}
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in whole.items()}, Path(out_dir) / f"chain{name}.pt")
+        report["meshes"][name] = rep
+        stamps[f"done {name}"] = time.time()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -3612,6 +3818,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--farm-rank"]:
         farm_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--image-rank"]:
+        image_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     from lmc_atomi_torch.kernels.myula_cuda import myula_tv_fused_update_cuda
     from lmc_atomi_torch.kernels.myula_fused import myula_tv_block_update_cuda
     from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
@@ -3638,22 +3847,25 @@ def main() -> int:
     routed = {k: w for k, w in wrappers.items() if hasattr(w, "routes")}
     path_routes = {k: dict.fromkeys(w.routes, 0) for k, w in routed.items()}
 
-    def drive(path, kernels, fn, *args, resident=False, wavelet=False):
+    def drive(path, kernels, fn, *args, resident=False, wavelet=False, workers=False):
         """Run one path with every count at 0 before it; its kernels must
         have launched, and with ``resident`` (the 512^2 paths) every kernel-1
         and kernel-2 call and every kernel-3 call but the wl1 dual's must
         have taken the resident route, without it (the large-image path) no
         kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
         cone; with ``wavelet`` (the inpainting path) every kernel-4 and
-        kernel-5 call the warp or the resident route."""
+        kernel-5 call the warp or the resident route. With ``workers`` the
+        path's function returns the launches its worker processes counted,
+        which add to this process's (the route checks see this process's)."""
         for w in wrappers.values():
             w.launches = 0
         for w in routed.values():
             w.routes = dict.fromkeys(w.routes, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        fn(*args)
-        counts = {k: w.launches for k, w in wrappers.items()}
+        ret = fn(*args)
+        elsewhere = ret if workers else {}
+        counts = {k: w.launches + elsewhere.get(k, 0) for k, w in wrappers.items()}
         log(f"launches on the {path} path ({time.perf_counter() - t0:.1f} s): {counts}; "
             f"kernel 1 routes {k1.routes}; kernel 2 routes {k2.routes}; kernel 3 routes "
             f"{k3.routes}; kernel 4 routes {k4.routes}; kernel 5 routes {k5.routes}; "
@@ -3733,6 +3945,8 @@ def main() -> int:
         drive("CT", ("prox_tv_iso_cuda",), phase_ct, dev, resident=True),
         sgmcmc,
         drive("chain farm", ("myula_tv_block_update_cuda",), phase_farm, dev, resident=True),
+        drive("image sharding", ("prox_tv_iso_cuda",), phase_image, dev, resident=True,
+              workers=True),
     ]
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)

@@ -92,15 +92,37 @@ def _words(chain, step):
     return step_lead + chain_lead, word, step
 
 
-def normal_field(seed: int, chain, step, shape, dtype, device, stream: int = 0):
+def _counters(shape, device, origin=None, global_shape=None):
+    """Row-major indices of the elements of ``shape``: ``0..n-1``, or with
+    ``origin`` those of the block of ``shape`` at ``origin`` inside a field
+    of ``global_shape``."""
+    if origin is None:
+        return torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    if len(origin) != len(shape) or len(global_shape) != len(shape) or any(
+            o < 0 or o + s > g for o, s, g in zip(origin, shape, global_shape)):
+        raise ValueError(f"block {tuple(shape)} at {tuple(origin)} does not lie in a "
+                         f"field of {tuple(global_shape)}")
+    k = torch.zeros((), dtype=torch.int64, device=device)
+    for o, s, g in zip(origin, shape, global_shape):
+        k = k[..., None] * g + torch.arange(o, o + s, dtype=torch.int64, device=device)
+    return k.reshape(-1)
+
+
+def normal_field(seed: int, chain, step, shape, dtype, device, stream: int = 0,
+                 origin=None, global_shape=None):
     """Standard normals of ``shape`` for one (seed, chain, step); element
     ``k`` of the row-major flattening uses counter ``(k, step, 0, stream)``.
     ``chain`` may be an int64 tensor of ``C`` words and ``step`` one of
     ``B`` steps: the result is then ``(B, C, *shape)`` (either axis only
-    where given), entry ``[b, i]`` the draw of ``(chain[i], step[b])``."""
+    where given), entry ``[b, i]`` the draw of ``(chain[i], step[b])``.
+
+    With ``origin`` (and ``global_shape``) the draw is the block of
+    ``shape`` at ``origin`` of the field of ``global_shape``: each element
+    keeps the counter of its global row-major index, so the block equals
+    that slice of the whole field bit for bit (a rank of a sharded image
+    draws its rows and columns only)."""
     lead, word, step = _words(chain, step)
-    n = math.prod(shape)
-    pixel = torch.arange(n, dtype=torch.int64, device=device)
+    pixel = _counters(shape, device, origin, global_shape)
     w0, w1, _, _ = philox4x32_10((pixel, step, 0, int(stream)), (int(seed), word))
     u1 = (w0 >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
     u2 = (w1 >> 8).to(dtype) * (1.0 / (1 << 24))

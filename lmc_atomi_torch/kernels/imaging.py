@@ -21,6 +21,7 @@ import torch
 from lmc_atomi_torch.core.random import normal_field
 from lmc_atomi_torch.core.state import SamplerState, StepInfo
 from lmc_atomi_torch.kernels.base import Kernel, stepsize_at
+from lmc_atomi_torch.ops.sharded import is_sharded, normal_block
 
 __all__ = ["ulpda", "myula_imaging", "pnp_ula", "score_ula", "score_ula_pc",
            "ULPDAExtras"]
@@ -82,7 +83,11 @@ def myula_imaging(proxf, proxg, tau, gamma, epsg: float = 1.0) -> Kernel:
         x <- (1 - tau/gamma) x - tau grad_f(x)
              + (tau/gamma) prox_g(x, epsg*gamma) + sqrt(2 tau) xi
 
-    ``xi`` is ``normal_field(seed, chain, step)`` of the step's key.
+    ``xi`` is ``normal_field(seed, chain, step)`` of the step's key. On an
+    image split over ranks (``parallel.shard_image``) each rank draws its
+    block of that field (``ops.sharded.normal_block``), and
+    ``proxf.grad`` and ``proxg.prox`` run their sharded paths: ``run_chain``
+    on ``shard_image(x0, mesh)`` runs the one-device chain.
     """
 
     def init(x0):
@@ -92,7 +97,8 @@ def myula_imaging(proxf, proxg, tau, gamma, epsg: float = 1.0) -> Kernel:
         t = stepsize_at(tau, state.step)
         g = stepsize_at(gamma, state.step)
         x = state.position
-        xi = normal_field(*key, x.shape, x.dtype, x.device)
+        xi = (normal_block(*key, x) if is_sharded(x)
+              else normal_field(*key, x.shape, x.dtype, x.device))
         x_new = (
             (1.0 - t / g) * x
             - t * proxf.grad(x)

@@ -620,6 +620,12 @@ def _fused_params(l2):
     return taps, (oy, ox), atbs
 
 
+def _offset_seed(seed: int, base_seed: int) -> int:
+    """The seed word ``seed + base_seed`` modulo 2^32 (the JAX package's
+    ``_key_seed`` offset of the key's first word)."""
+    return (int(seed) + int(base_seed)) & 0xFFFFFFFF
+
+
 def _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda=0.0,
                  gamma_mc=1.0):
     return (float(tau), float(gamma), float(tv_sigma * gamma),
@@ -627,12 +633,20 @@ def _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda=0.0,
 
 
 def myula_imaging_sep_fused(l2: Any, tv_sigma: float, tau, gamma,
-                            niter_tv: int = 10,
-                            noise_scale: float = 1.0) -> Kernel:
+                            niter_tv: int = 10, base_seed: int = 0,
+                            noise_scale: float = 1.0,
+                            interpret: bool = False) -> Kernel:
     """Kernel-protocol wrapper: ONE fused step per call, a drop-in for
     ``myula_imaging(l2, TVNorm(tv_sigma, niter_tv), tau, gamma)`` that draws
     the same noise (the step key's ``(seed, chain, step)``). ``l2`` is an
-    ``L2Data`` or an isotropic ``L2NcvxTV``."""
+    ``L2Data`` or an isotropic ``L2NcvxTV``.
+
+    ``base_seed`` offsets the seed word of every step key, as the JAX
+    package adds it to the key's first word: step ``(seed, chain, step)``
+    draws the noise of ``(seed + base_seed, chain, step)``, so ``base_seed=0``
+    is the unfused chain's stream. ``interpret`` is the JAX package's (Pallas
+    interpret mode) and takes no effect: a CPU tensor runs the plain
+    version."""
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
     scal_f = _pack_scal_f(l2, tau, gamma, tv_sigma, noise_scale, lamda,
@@ -644,7 +658,8 @@ def myula_imaging_sep_fused(l2: Any, tv_sigma: float, tau, gamma,
     def step(state, key):
         seed, chain, g = key
         x_new, _, _, _, _ = myula_tv_block_update(
-            state.position, atbs, None, None, (seed, chain), scal_f, (g, 0, 0),
+            state.position, atbs, None, None, (_offset_seed(seed, base_seed), chain), scal_f,
+            (g, 0, 0),
             taps=taps, oy=oy, ox=ox, n_steps=1, niter_tv=niter_tv,
             with_noise=noise_scale != 0.0, with_stats=False, mode=mode,
             niter_inner=niter_inner,

@@ -421,6 +421,8 @@ def run_myula_tv_tiled(
     quantile_thin: int = 1,
     quantile_state=None,
     step_offset: int = 0,
+    interpret: bool = False,
+    stream_x: Optional[bool] = None,
 ) -> FusedChainResult:
     """Tiled fused MYULA chain for large images (2048^2 and up): a host loop
     over blocks of ``block`` (even) steps, kernel 6 per block on CUDA.
@@ -430,7 +432,10 @@ def run_myula_tv_tiled(
     ``quantile_thin`` (any thin that divides the block), ``quantile_state``
     and ``step_offset`` to continue a run. ``band``/``halo`` default as in
     the JAX package (``halo`` the need rounded up to 8, ``band`` from
-    ``pick_band``)."""
+    ``pick_band``). ``interpret`` and ``stream_x`` are the JAX package's
+    (Pallas interpret mode; streaming the position from HBM past its VMEM
+    ceiling) and take no effect: kernel 6 reads every band from device
+    memory, and a CPU tensor runs the plain version."""
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
     x0 = torch.as_tensor(x0)

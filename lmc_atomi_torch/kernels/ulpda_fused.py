@@ -63,6 +63,7 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _fused_mode,
     _fused_params,
     _mctv_clamp,
+    _offset_seed,
     _sep_gram,
     _map_result,
     _tv_prox_any,
@@ -504,10 +505,16 @@ def _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
 
 def ulpda_sep_fused(proxf: Any, proxg: Any, a_op: Any, tau, mu,
                     theta: float = 1.0, gfirst: bool = False,
-                    niter_solve: int = 3, noise_scale: float = 1.0) -> Kernel:
+                    niter_solve: int = 3, base_seed: int = 0,
+                    noise_scale: float = 1.0, interpret: bool = False) -> Kernel:
     """Kernel-protocol wrapper: ONE fused ULPDA step per call, a drop-in for
     ``ulpda(proxf, proxg, a_op, tau, mu, theta, gfirst=...)`` that draws the
-    same noise (the step key's ``(seed, chain, step)``)."""
+    same noise (the step key's ``(seed, chain, step)``).
+
+    ``base_seed`` offsets the seed word of every step key, as the JAX
+    package adds it to the key's first word: step ``(seed, chain, step)``
+    draws the noise of ``(seed + base_seed, chain, step)``. ``interpret`` is
+    the JAX package's (Pallas interpret mode) and takes no effect."""
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
      lam, levels) = _ulpda_setup(proxf, proxg, a_op)
     scal_f = _pack_ulpda_scal(proxf, proxg, tau, mu, theta, noise_scale, lamda,
@@ -525,7 +532,7 @@ def ulpda_sep_fused(proxf: Any, proxg: Any, a_op: Any, tau, mu,
         x_n, py_n, px_n, xb_n, _, _ = ulpda_block_update(
             state.position, y[0], y[1] if n_dual == 2 else None,
             state.extras.xbar if gfirst else None,
-            atb, None, None, (seed, chain), scal_f, (g, 0, 0),
+            atb, None, None, (_offset_seed(seed, base_seed), chain), scal_f, (g, 0, 0),
             taps=taps, oy=oy, ox=ox, lam=lam, n_steps=1,
             niter_solve=niter_solve, gfirst=gfirst, dual=dual, mode=mode,
             niter_inner=niter_inner, with_noise=noise_scale != 0.0,

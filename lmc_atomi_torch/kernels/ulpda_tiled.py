@@ -390,6 +390,8 @@ def run_ulpda_tv_tiled(
     y0=None,
     xbar0=None,
     xprev0=None,
+    interpret: bool = False,
+    stream_x: Optional[bool] = None,
 ) -> FusedChainResult:
     """Tiled fused ULPDA chain for large images: a host loop over blocks of
     ``block`` (even) steps, kernel 7 per block on CUDA, with Welford moments
@@ -401,7 +403,10 @@ def run_ulpda_tv_tiled(
     ``xprev0`` (the returned ``extras.xprev``) takes precedence over
     ``xbar0`` and resumes bit for bit (inverting xbar costs a rounding that
     the extrapolation amplifies). ``final_state.extras`` holds ``y``,
-    ``xbar = x + theta (x - xprev)`` and ``xprev``."""
+    ``xbar = x + theta (x - xprev)`` and ``xprev``. ``interpret`` and
+    ``stream_x`` are the JAX package's (Pallas interpret mode; streaming the
+    position from HBM) and take no effect: kernel 7 reads every band from
+    device memory, and a CPU tensor runs the plain version."""
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
      lam, _) = _ulpda_setup(proxf, proxg, a_op)
     if dual == "wl1":

@@ -588,6 +588,7 @@ def run_myula_wavelet_fused(
     quantiles: Tuple[float, ...] = (),
     quantile_thin: int = 1,
     quantile_state=None,
+    interpret: bool = False,
 ) -> FusedChainResult:
     """Block-fused wavelet-l1 MYULA chain: a host loop over blocks of
     ``block`` fused steps (kernel 4 per block on CUDA) with Welford posterior
@@ -599,6 +600,8 @@ def run_myula_wavelet_fused(
     global first step, so burn-in masking, the P^2 count and the noise
     continue across segmented runs (resume with ``quantile_state``; the
     Welford count restarts per run, merge with ``RunningMoments.merge``).
+    ``interpret`` is the JAX package's (Pallas interpret mode) and takes no
+    effect: a CPU tensor runs the plain version.
     """
     x0 = torch.as_tensor(x0)
     quantiles = tuple(float(p) for p in quantiles)
@@ -645,6 +648,7 @@ def run_ulpda_wavelet_fused(
     y0=None,
     xbar0=None,
     step_offset: int = 0,
+    interpret: bool = False,
 ) -> FusedChainResult:
     """Block-fused wavelet-dual ULPDA chain (kernel 5 per block on CUDA)
     with Welford moments and optional P^2 ``quantiles``: the primal chain of
@@ -655,6 +659,8 @@ def run_ulpda_wavelet_fused(
     ``xbar0`` and ``step_offset``, the global step this run starts at), not
     with the unfused ``ulpda``, whose dual is in the Mallat layout.
     ``extras.xbar`` is the genuine extrapolated iterate in both orders.
+    ``interpret`` is the JAX package's (Pallas interpret mode) and takes no
+    effect: a CPU tensor runs the plain version.
     """
     x0 = torch.as_tensor(x0)
     quantiles = tuple(float(p) for p in quantiles)

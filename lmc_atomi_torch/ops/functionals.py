@@ -12,6 +12,7 @@ import torch
 
 from lmc_atomi_torch.ops import tv as tv_ops
 from lmc_atomi_torch.ops.prox import prox_laplace
+from lmc_atomi_torch.ops.sharded import is_sharded, spectral_map
 
 __all__ = ["L2Data", "L1Norm", "L21Norm", "TVNorm", "TV1DNorm", "OrthogonalL1"]
 
@@ -26,6 +27,11 @@ class L2Data:
     ``rfft2`` and one ``irfft2``. ``niter_solve`` is the trip count of the
     conjugate-gradient solve of operators without an exact one
     (``LinOp.gram_solve``).
+
+    On an image split over ranks (a DTensor of ``parallel.shard_image``)
+    ``grad`` and ``prox`` take the operator's transposed FFT with each
+    rank's columns of the cached ``b_spec``; ``b`` stays whole. That needs
+    the cache: a data term built without it raises there.
     """
 
     op: Any
@@ -46,7 +52,18 @@ class L2Data:
     def __call__(self, x):
         return 0.5 * self.sigma * torch.sum(torch.square(self.op.matvec(x) - self.b))
 
+    def _sharded_spec(self):
+        if self.b_spec is None:
+            raise ValueError("a sharded image needs L2Data.create over a circulant "
+                             "operator (the cached b_spec)")
+        return self.op._half(), self.b_spec
+
     def grad(self, x):
+        if is_sharded(x):
+            e, b_spec = self._sharded_spec()
+            e2 = e.real * e.real + e.imag * e.imag
+            return self.sigma * spectral_map(
+                lambda cols, s: e2[:, cols] * s - b_spec[:, cols], x)
         if self.b_spec is not None and not x.is_complex():
             e = self.op._half()
             e2 = e.real * e.real + e.imag * e.imag
@@ -58,6 +75,12 @@ class L2Data:
         return self.sigma * self.op.rmatvec(self.op.matvec(x) - self.b)
 
     def prox(self, x, tau):
+        if is_sharded(x):
+            # (I + ts A^T A)^{-1} (x + ts A^T b), A^T b's spectrum the cached b_spec
+            e, b_spec = self._sharded_spec()
+            ts = tau * self.sigma
+            denom = 1.0 + ts * (e.real * e.real + e.imag * e.imag)
+            return spectral_map(lambda cols, s: (s + ts * b_spec[:, cols]) / denom[:, cols], x)
         y = x + tau * self.sigma * self.op.rmatvec(self.b)
         return self.op.gram_solve(tau * self.sigma, y, niter=self.niter_solve)
 

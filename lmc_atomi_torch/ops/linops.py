@@ -6,6 +6,10 @@ primal-dual samplers, the inpainting ``Mask``, the ``Identity`` of the
 denoising workload, ``Diagonal`` and the dense ``Matrix``, the fixed-trip
 ``cg_gram_solve`` and the adjoint check ``dot_test``.
 
+``CirculantBlur2D`` also takes an image split over ranks (a DTensor of
+``parallel.shard_image``): its four spectral products then run on the
+transposed FFT of ``ops/sharded.py`` and return the same placements.
+
 Spectra are complex tensors. The JAX package stores them as real/imag float
 pairs only because its TPU runtime rejected complex arrays at the transfer
 boundary; PyTorch has no such limit.
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from lmc_atomi_torch.ops.tv import _fwd_diff, _fwd_diff_adjoint_neg
+from lmc_atomi_torch.ops.sharded import is_sharded, spectral_map
 
 __all__ = [
     "LinOp", "Identity", "Diagonal", "Matrix", "CirculantBlur2D", "Convolve2D",
@@ -132,9 +137,13 @@ class CirculantBlur2D(LinOp):
         return self.eigs[..., : self.eigs.shape[-1] // 2 + 1]
 
     def matvec(self, x):
+        if is_sharded(x):
+            return spectral_map(lambda cols, s: s * self._half()[:, cols], x)
         return torch.fft.ifft2(torch.fft.fft2(x) * self.eigs).real
 
     def rmatvec(self, y):
+        if is_sharded(y):
+            return spectral_map(lambda cols, s: s * self._half()[:, cols].conj(), y)
         return torch.fft.ifft2(torch.fft.fft2(y) * self.eigs.conj()).real
 
     def gram_matvec(self, x):
@@ -144,6 +153,8 @@ class CirculantBlur2D(LinOp):
         """``(I + rho A^T A)^{-1} y``; ``niter`` is unused (exact solve)."""
         e = self._half()
         denom = 1.0 + rho * (e.real * e.real + e.imag * e.imag)
+        if is_sharded(y):
+            return spectral_map(lambda cols, s: s / denom[:, cols], y)
         return torch.fft.irfft2(torch.fft.rfft2(y) / denom, s=y.shape[-2:])
 
     def normal_grad(self, x, b):
@@ -151,6 +162,9 @@ class CirculantBlur2D(LinOp):
         ``irfft2(|E|^2 rfft2(x) - conj(E) rfft2(b))``."""
         e = self._half()
         e2 = e.real * e.real + e.imag * e.imag
+        if is_sharded(x):
+            return spectral_map(lambda cols, sx, sb: e2[:, cols] * sx - e[:, cols].conj() * sb,
+                                x, b)
         spec = e2 * torch.fft.rfft2(x) - e.conj() * torch.fft.rfft2(b)
         return torch.fft.irfft2(spec, s=x.shape[-2:])
 

@@ -4,13 +4,16 @@
 Forward differences with a zeroed last slot (Neumann boundary, in roll+mask
 form) and their negative adjoint. ``prox_tv_iso`` dispatches by the tensor's
 device: the hand-written CUDA Chambolle kernel for a CUDA tensor, its plain
-torch version otherwise (``ops/tv_cuda.py``).
+torch version otherwise (``ops/tv_cuda.py``); an image split over ranks
+(``parallel.shard_image``) runs the same dispatch on each rank's block
+extended by a halo (``ops/sharded.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from lmc_atomi_torch.ops.tv_cuda import prox_tv_iso_cuda, prox_tv_iso_ref
+from lmc_atomi_torch.ops.sharded import halo_map, is_sharded
 
 __all__ = [
     "grad2d",
@@ -72,11 +75,26 @@ def tv1d(x):
     return torch.sum(torch.abs(x[1:] - x[:-1]))
 
 
-def prox_tv_iso(x, gamma, niter: int = 10, step: float = 0.25):
+def prox_tv_iso(x, gamma, niter: int = 10, step: float = 0.25,
+                backend: str = "auto"):
     """Prox of ``gamma * TV_iso`` via Chambolle's dual projection:
     ``p <- (p + step grad(div p - x/gamma)) / (1 + step |...|)``, then
-    ``x - gamma div p``. CUDA tensors go to the hand kernel."""
-    if x.is_cuda:
+    ``x - gamma div p``.
+
+    ``backend`` as in the JAX package: ``"auto"`` sends a CUDA tensor to the
+    hand kernel (``prox_tv_iso_cuda``) and any other to its plain version,
+    ``"xla"`` forces the plain version (``prox_tv_iso_ref``), ``"pallas"``
+    the kernel, which raises on a CPU tensor. A sharded image (a DTensor of
+    ``parallel.shard_image``) runs that choice on each rank's block extended
+    by ``niter + 1`` rows and columns of its neighbours (the depth a trip's
+    error travels, ``kernels/myula_tiled.py::_halo_need``) and keeps the
+    block: the whole-image prox, pixel for pixel."""
+    if backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"backend must be 'auto', 'xla' or 'pallas', got {backend!r}")
+    if is_sharded(x):
+        return halo_map(lambda b: prox_tv_iso(b, gamma, niter, step, backend), x,
+                        max(int(niter), 0) + 1)
+    if backend == "pallas" or (backend == "auto" and x.is_cuda):
         return prox_tv_iso_cuda(x, gamma, niter=niter, step=step)
     return prox_tv_iso_ref(x, gamma, niter=niter, step=step)
 

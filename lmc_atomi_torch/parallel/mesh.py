@@ -1,5 +1,6 @@
-"""Chain farms across processes (counterpart of
-``lmc_atomi_tpu/parallel/mesh.py``, its chain half).
+"""Device meshes of the port (counterpart of
+``lmc_atomi_tpu/parallel/mesh.py``): chain farms across processes, and
+images split over them.
 
 The JAX package farms chains over a device mesh with ``shard_map``. Here the
 mesh is a one-axis ``torch.distributed`` ``DeviceMesh`` over the ranks of a
@@ -12,13 +13,16 @@ the kernel's chains do not depend on the batch they run in) and the pooled
 moments do not depend on the world size. NCCL gathers device tensors, gloo
 host copies.
 
-``chain_mesh`` with no process group starts a one-rank group on an
-in-process store, so a single process needs no socket; a multi-process farm
-starts its group first (``parallel.multihost.init_multihost``, e.g. under
-``torchrun``). The image-sharding half of the JAX module (``image_mesh``,
-``shard_image``: a chain whose image is split over devices) is not ported:
-it needs a halo exchange in the TV prox and an all-to-all FFT written by
-hand (ROADMAP A9).
+``image_mesh`` is the 3-D ``(chains, row, col)`` mesh and ``shard_image``
+places an image on it in ``(row, col)`` blocks, a ``DTensor``: ``run_chain``
+of ``myula_imaging`` then runs each rank's block, the TV prox on a halo
+exchange and ``CirculantBlur2D`` on a transposed FFT (``ops/sharded.py``),
+where JAX leaves those collectives to GSPMD.
+
+``chain_mesh`` and ``image_mesh`` with no process group start a one-rank
+group on an in-process store, so a single process needs no socket; a
+multi-process run starts its group first (``parallel.multihost.init_multihost``,
+e.g. under ``torchrun``, or ``init_process_group`` on a ``FileStore``).
 """
 from __future__ import annotations
 
@@ -32,8 +36,8 @@ from lmc_atomi_torch.core.stats import RunningMoments
 from lmc_atomi_torch.run.runner import ChainResult, _is_batched, _map, run_keyed_chains
 from lmc_atomi_torch.utils.cli import require_device
 
-__all__ = ["chain_mesh", "run_chains_sharded", "merge_chain_moments", "gather_chains",
-           "mesh_share"]
+__all__ = ["chain_mesh", "image_mesh", "shard_image", "run_chains_sharded",
+           "merge_chain_moments", "gather_chains", "mesh_share"]
 
 
 def chain_mesh(n_devices: Optional[int] = None, axis: str = "chains",
@@ -47,9 +51,7 @@ def chain_mesh(n_devices: Optional[int] = None, axis: str = "chains",
     its backend sets where the gathers run (gloo: host copies, NCCL: the
     card). ``n_devices`` past the world size raises."""
     dev = require_device(device, "chain-mesh")
-    if not dist.is_initialized():
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                store=dist.HashStore(), rank=0, world_size=1)
+    _one_rank_group(dev)
     world = dist.get_world_size()
     n = world if n_devices is None else int(n_devices)
     if not 1 <= n <= world:
@@ -59,6 +61,78 @@ def chain_mesh(n_devices: Optional[int] = None, axis: str = "chains",
     from torch.distributed.device_mesh import DeviceMesh
 
     return DeviceMesh(mesh_type, list(range(n)), mesh_dim_names=(axis,))
+
+
+def _one_rank_group(dev: torch.device) -> None:
+    """A one-rank process group on a ``HashStore`` where none is started:
+    NCCL for a card, gloo for the host."""
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+
+
+def image_mesh(chains: int = 1, rows: int = 1, cols: int = 1, devices=None,
+               device: str = "cuda"):
+    """The 3-D ``DeviceMesh`` ``(chains, row, col)`` over the first
+    ``chains * rows * cols`` ranks of the process group (of ``devices``, a
+    list of ranks, where given), for chain farms (``run_chains_sharded(...,
+    axis="chains")``) whose images ``shard_image`` splits over ``row`` and
+    ``col``.
+
+    Its device type is ``device``'s (``"cuda"`` must exist:
+    ``require_device``) whatever the group's backend: a ``DTensor`` moves its
+    blocks to the mesh's device type, so a gloo group on one card (several
+    ranks, host copies in the exchanges) still keeps the images on the card.
+    Without a process group it starts a one-rank group as ``chain_mesh``
+    does."""
+    dev = require_device(device, "image-mesh")
+    _one_rank_group(dev)
+    need = int(chains) * int(rows) * int(cols)
+    ranks = list(range(dist.get_world_size())) if devices is None else [int(r) for r in devices]
+    if min(chains, rows, cols) < 1 or need > len(ranks) or not set(ranks) <= set(
+            range(dist.get_world_size())):
+        raise ValueError(f"image_mesh of {chains} x {rows} x {cols} over the ranks {ranks} of "
+                         f"a process group of world size {dist.get_world_size()}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(dev.type, torch.tensor(ranks[:need]).reshape(chains, rows, cols),
+                      mesh_dim_names=("chains", "row", "col"))
+
+
+def shard_image(x, mesh, row_axis: str = "row", col_axis: str = "col"):
+    """``x`` (2-D, the same on every rank) placed on ``mesh`` in blocks:
+    rows split over ``row_axis``, columns over ``col_axis``, replicated over
+    the others; a ``DTensor`` placed ``[Replicate(), Shard(0), Shard(1)]``
+    on ``image_mesh``, the counterpart of JAX's ``NamedSharding(mesh,
+    P(row_axis, col_axis))``. Each rank keeps its block, on the mesh's
+    device type; no data moves between ranks. A shape the mesh does not
+    divide raises ``ValueError``, as JAX's ``device_put`` does, and so does
+    an image on a device other than the host's or the mesh's: a card image
+    never moves to a host mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    x = torch.as_tensor(x)
+    if x.ndim != 2:
+        raise ValueError(f"shard_image takes a 2-D image, got shape {tuple(x.shape)}")
+    if x.device.type not in ("cpu", mesh.device_type):
+        raise ValueError(f"an image on {x.device} does not go to a {mesh.device_type!r} mesh")
+    names = mesh.mesh_dim_names
+    for axis in (row_axis, col_axis):
+        if axis not in names:
+            raise ValueError(f"mesh has no axis {axis!r}: {names}")
+    block = []
+    for dim, axis in enumerate((row_axis, col_axis)):
+        n, size = x.shape[dim], mesh.size(names.index(axis))
+        if n % size:
+            raise ValueError(f"image dimension {dim} of size {n} is not divisible by the "
+                             f"{size} ranks of mesh axis {axis!r} (shape {tuple(x.shape)})")
+        k = mesh.get_local_rank(axis)
+        block.append(slice(k * (n // size), (k + 1) * (n // size)))
+    placements = [Shard(0) if a == row_axis else Shard(1) if a == col_axis else Replicate()
+                  for a in names]
+    local = x[block[0], block[1]].contiguous()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=x.shape,
+                              stride=(x.shape[1], 1))
 
 
 def mesh_share(mesh, n_chains: int, axis: str = "chains"):
@@ -75,12 +149,13 @@ def gather_chains(tree, mesh, axis: str = "chains"):
     """Every tensor of ``tree`` (with a leading chain axis) gathered over the
     mesh axis along that axis, rank after rank; 0-d tensors, Python values
     and None stay. The traversal is the same on every rank, so the
-    collectives pair up. NCCL gathers on the card, gloo on the host; each
-    result returns to its tensor's device."""
+    collectives pair up. NCCL gathers on the card, gloo on the host (an
+    ``image_mesh`` on the card may run gloo); each result returns to its
+    tensor's device."""
     group = mesh.get_group(axis)
     size = dist.get_world_size(group)
     where = torch.device("cuda", torch.cuda.current_device()) \
-        if mesh.device_type == "cuda" else torch.device("cpu")
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
 
     def gather(t):
         if not isinstance(t, torch.Tensor) or t.ndim == 0:

@@ -2,17 +2,18 @@
 
 Runs the JAX package's workload-5 CLI (``sgld_grid_mixture``, the nine
 SG-MCMC samplers on the 25-mode grid, one chain each) at the path's depth
-``k`` = 5000 and ``optimize_grid_mixture`` at its defaults, on the CPU, for
+``k`` = 1000 and ``optimize_grid_mixture`` at its defaults, on the CPU, for
 seeds 0..15, and prints as its last line one JSON object:
 
   * ``modes_covered``: for each sampler the modes with a retained draw
     within unit distance (``lmc_atomi_torch.experiments.sgld_runs.
     modes_covered``, RESULTS.md's count) of each seed, their standard
-    deviation ``sd``, and the gate ``[max(1, min - ceil(sd)), min(25, max +
-    ceil(sd))]`` over them;
+    deviation ``sd``, and the gate ``[max(0, min - ceil(sd)), min(25, max +
+    ceil(sd))]`` over them (0 where the seeds read that low: the JAX
+    package itself covers no mode on some seeds of the contour samplers);
   * ``modes_found``: ``optimize_grid_mixture``'s distinct recovered modes of
     each seed, ``sd`` and the gate ``[min - ceil(sd), max + ceil(sd)]``;
-  * ``batched``: for each sampler, built as the CLI builds it for k = 5000,
+  * ``batched``: for each sampler, built as the CLI builds it for k = 1000,
     the mean and standard deviation over CHAINS chains of ``run_chains``
     (STEPS steps from the port's CLI start at seed 0) of each chain's modes
     covered (``chain_modes_covered``, every draw). The chip path runs the
@@ -58,7 +59,7 @@ from lmc_atomi_tpu.models import GridGaussianMixture  # noqa: E402
 from lmc_atomi_tpu.ops.prox import prox_laplace  # noqa: E402
 from lmc_atomi_tpu.run.runner import run_chains_jit  # noqa: E402
 
-K, SEEDS = 5000, tuple(range(16))
+K, SEEDS = 1000, tuple(range(16))
 CHAINS, STEPS = 256, 500
 
 
@@ -118,7 +119,7 @@ def main():
 
     out = {
         "k": K,
-        "modes_covered": {n: band(v, 1, 25) for n, v in covered.items()},
+        "modes_covered": {n: band(v, 0, 25) for n, v in covered.items()},
         "modes_found": band(found),
         "batched": {"chains": CHAINS, "steps": STEPS, "x0": "the port's CLI start, seed 0",
                     "modes_covered": batch},

@@ -312,14 +312,11 @@ def test_tv_farm_under_mesh_matches_jax(problem):
 
 # JAX names with no counterpart in the port, and why
 NO_COUNTERPART = {
-    "parallel.image_mesh": "image sharding waits for a hand-written halo exchange and "
-                           "all-to-all FFT (ROADMAP A9)",
-    "parallel.shard_image": "image sharding (ROADMAP A9)",
     "utils.default_real_dtype": "reads jax_enable_x64; the port takes its dtype from its "
                                 "tensors",
 }
 SUBPACKAGES = ["", "core", "eval", "experiments", "kernels", "models", "ops", "parallel",
-               "run", "utils"]
+               "run", "utils", "utils.trace"]
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
