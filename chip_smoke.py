@@ -45,7 +45,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
    resident route); then
    timed per 200-step block beside kernels 2 and 3 (kernel 6 in TV
    cold-10, FGP-8, MC-TV and ME-TV, kernel 7 in TV, MC-TV and ME-TV);
-5d. kernels 2 and 3 with a chain axis, noise on, 40 steps in blocks of 20:
+5d. kernels 2 and 3 with a chain axis, noise on, 12 steps in blocks of 6:
    every chain of a call against the one-chain kernel call under its chain
    key and against the plain version, max abs error 0, at 64^2 x 8 chains
    in every mode (kernel 2: cold-10, FGP-8, CI markers, MC-TV, ME-TV;
@@ -54,6 +54,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
    than the co-resident CTAs: resident launches in turn), each call's route
    and chains a launch logged; then timed against the plain version, and
    one call of 64 chains at 64^2 and of 2 at 512^2 against one-chain calls;
+   kernels 4-7 with a chain axis, noise on, 12 steps in blocks of 6: every
+   chain of a call against the plain version's call on the chain axis and
+   the one-chain kernel call under its key, max abs error 0, kernels 4 and
+   5 (both orders) at 64^2 x 8 chains on every route (Haar warp and CI
+   markers, Haar 5 levels on the tile route, D4 and D8 resident, Haar 6
+   levels and D4 through a patched plan on the per-level launches) and D4
+   at 64^2 x 200 chains (resident launches in turn, chains at the group
+   seams against the one-chain kernel and plain calls), kernels 6 (cold-10
+   with CI markers, FGP-8, MC-TV) and 7 (TV both orders, ME-TV) at 256^2 x
+   4 chains; then one call of each on the chain axis timed against its
+   one-chain calls: 64 Haar chains at 64^2 (kernel 4: a 500-step block,
+   kernel 5: 250), 4 chains at 256^2 (kernels 6 and 7: 200 steps);
 6. the MYULA main path, the 512^2 TV-deblur posterior of ``bench.py``
    (phantom, 5x5 uniform blur, noise 0.75, TV weight 0.3), 20000 steps:
    ``run_myula_tv_fused`` for FGP-8, cold-10, warm-5 and cold-10 with 95% CI
@@ -92,8 +104,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    path's posterior, pooled-mean PSNR >= 40 dB); the chain farm of
    ``run_resumable_fused``: ``"tv"`` at 512^2 restarted from its
    checkpoint against the straight run, ``"wavelet"`` at 512^2 and
-   ``"tiled"`` at 2048^2, 2 chains each, every chain equal to its
-   one-chain run under its chain key;
+   ``"tiled"`` and ``"ulpda_tiled"`` at 2048^2, 2 chains each, every chain
+   equal to its one-chain run under its chain key, each farm one kernel
+   call a block for all its chains (the calls printed beside the one-chain
+   runs');
 9c. the mixtures path (the paper's workloads 1-3: the Gaussian mixture,
    the smoothed Laplacian mixture and the mixture x Laplace prior, n=5, the
    CLI defaults, k=1000): each CLI at 1024 chains, one step over all chains
@@ -223,7 +237,8 @@ route, the chain-farm path kernel 2 alone on the resident route, and the
 image-sharding path kernel 1 alone (its workers' launches added to this
 process's). The script then prints one JSON line describing each kernel
 (launches and route counts on the eleven paths, errors, times, the bound of
-the card; for kernels 2 and 3 also the chain axis's plan, error and times,
+the card; for kernels 2-7 also the chain axis's plans and error, with
+its times for kernels 2, 3 and 4,
 for kernel 1 its error, route and times at the CT shapes) and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -443,32 +458,37 @@ def bound_kernel3(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
                     4 * npix * (n_chains * (fields - 1) + 1))
 
 
-def bound_kernel4(npix, n_steps, taps, levels, n_q=0, with_noise=True):
-    """One block call of n_steps wavelet MYULA steps; x, y, mask, mean, m2
-    (and the 8 n_q marker planes) read once, x, mean, m2 (and the markers)
-    written once. Per pixel and step: the two transforms, the soft threshold
-    (5), the masked gradient (3), the update (5), noise, Welford, P^2."""
+def bound_kernel4(npix, n_steps, taps, levels, n_q=0, with_noise=True, n_chains=1):
+    """One block call of n_steps wavelet MYULA steps of n_chains chains;
+    each chain's x, mean, m2 (and the 8 n_q marker planes) read once and
+    written once, the shared y and mask read once. Per pixel and step: the
+    two transforms, the soft threshold (5), the masked gradient (3), the
+    update (5), noise, Welford, P^2."""
     per = 2 * f_dwt(taps, levels) + 5 + 3 + 5 + F_WELFORD + 60 * n_q
     per += (F_NOISE + 2) if with_noise else 0
-    return bound_ms(npix * n_steps * per, 4 * npix * (5 + 3 + 16 * n_q))
+    return bound_ms(n_chains * npix * n_steps * per,
+                    4 * npix * (n_chains * (6 + 16 * n_q) + 2))
 
 
-def bound_kernel5(npix, n_steps, taps, levels, gfirst=False, with_noise=True):
-    """One block call of n_steps wavelet-dual ULPDA steps; x, c, y, mask,
-    mean, m2 (and xbar with gfirst) read once, x, c, xbar, mean, m2 written
-    once. Per pixel and step: the two transforms, the dual's clip (4), the
-    mask prox (4), xbar (3), noise, Welford; the prox's 1/(1 + ts m) and
-    ts m y once per call (5)."""
+def bound_kernel5(npix, n_steps, taps, levels, gfirst=False, with_noise=True, n_chains=1):
+    """One block call of n_steps wavelet-dual ULPDA steps of n_chains
+    chains; each chain's x, c, mean, m2 (and xbar with gfirst) read once
+    and x, c, xbar, mean, m2 written once, the shared y and mask read once.
+    Per pixel and step: the two transforms, the dual's clip (4), the mask
+    prox (4), xbar (3), noise, Welford; the prox's 1/(1 + ts m) and ts m y
+    once per call (5)."""
     per = 2 * f_dwt(taps, levels) + 4 + 4 + 3 + F_WELFORD
     per += (F_NOISE + 2) if with_noise else 0
-    return bound_ms(npix * (n_steps * per + 5), 4 * npix * (6 + gfirst + 5))
+    return bound_ms(n_chains * npix * (n_steps * per + 5),
+                    4 * npix * (n_chains * (4 + gfirst + 5) + 2))
 
 
 def bound_kernel7(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
-                  niter_inner=0, with_noise=True):
-    """One call of n_steps tiled ULPDA steps: kernel 3's operations with x̄
-    recomputed at the 3 points the dual reads (+6); x, x_prev, py, px, atb,
-    mean, m2 read once and all but atb written once."""
+                  niter_inner=0, with_noise=True, n_chains=1):
+    """One call of n_steps tiled ULPDA steps of n_chains chains: kernel 3's
+    operations with x̄ recomputed at the 3 points the dual reads (+6); each
+    chain's x, x_prev, py, px, mean, m2 read once and written once, the
+    shared atb read once."""
     per = 8 + niter_solve * (f_gram(taps) + 7) + 4 + F_WELFORD + 6
     per += F_NOISE if with_noise else 0
     per += {"l21": 15, "l1": 10}[dual]
@@ -476,7 +496,7 @@ def bound_kernel7(npix, n_steps, taps, niter_solve, mode="tv", dual="l21",
         per += F_MCTV_CLAMP + 5
     elif mode == "metv":
         per += niter_inner * F_TRIP["chambolle"] + F_PROX_FINISH + 3
-    return bound_ms(npix * n_steps * per, 4 * npix * 13)
+    return bound_ms(n_chains * npix * n_steps * per, 4 * npix * (n_chains * 12 + 1))
 
 
 def bound_kernel8(npix, niter, with_noise=True):
@@ -917,38 +937,43 @@ INP_ULPDA_TAU = 0.95 * INP_SIGMA**2  # ULPDA: tau = 0.95 / L, mu = 1
 
 
 def _wavelet_blocks(update, l2, n_steps, block, seed, taps, quantiles=(), burn=0,
-                    levels=INP_LEVELS):
-    """run_myula_wavelet_fused's block loop with the block update passed in."""
+                    levels=INP_LEVELS, x0=None):
+    """run_myula_wavelet_fused's block loop with the block update passed in,
+    from ``l2.b`` or ``x0``; an int ``seed`` keys chain 0, a chain axis
+    (``x0`` of shape ``(C, ny, nx)``) takes its ``C`` keys."""
     import torch
 
+    from lmc_atomi_torch.kernels.myula_fused import _marker_state
+
     scal_f = (0.2 * INP_GAMMA, INP_GAMMA, l2.sigma, INP_GAMMA * INP_TAU_W, 1.0)
-    x, mean, m2 = l2.b, torch.zeros_like(l2.b), torch.zeros_like(l2.b)
-    qh = qn = None
-    if quantiles:
-        qh = torch.zeros((5 * len(quantiles), *x.shape), device=x.device)
-        qn = torch.arange(2.0, 5.0, device=x.device)[:, None, None].repeat(len(quantiles),
-                                                                          *x.shape)
+    x0 = l2.b if x0 is None else x0
+    x, mean, m2 = x0, torch.zeros_like(x0), torch.zeros_like(x0)
+    qh, qn = _marker_state(x0, len(quantiles), None)
     for b in range(n_steps // block):
         step0 = b * block
         x, mean, m2, qh, qn = update(
-            x, l2.b, l2.op.mask, mean, m2, (seed, 0), scal_f,
+            x, l2.b, l2.op.mask, mean, m2, (seed, 0) if isinstance(seed, int) else seed,
+            scal_f,
             (step0, burn, max(step0 - burn, 0)), qh, qn, levels=levels,
             taps=taps, n_steps=block, quantiles=quantiles)
     return x, mean, m2, qh, qn
 
 
 def _ulpda_wavelet_blocks(update, l2, n_steps, block, seed, taps, gfirst,
-                          levels=INP_LEVELS):
-    """run_ulpda_wavelet_fused's block loop with the block update passed in."""
+                          levels=INP_LEVELS, x0=None):
+    """run_ulpda_wavelet_fused's block loop with the block update passed in,
+    from ``l2.b`` or ``x0`` (keys as ``_wavelet_blocks``')."""
     import torch
 
     scal_f = (INP_ULPDA_TAU, 1.0, 1.0, 1.0, l2.sigma, INP_TAU_W)
-    zeros = torch.zeros_like(l2.b)
-    x, c, xbar, mean, m2 = l2.b, zeros, l2.b, zeros, zeros
+    x0 = l2.b if x0 is None else x0
+    zeros = torch.zeros_like(x0)
+    x, c, xbar, mean, m2 = x0, zeros, x0, zeros, zeros
     for b in range(n_steps // block):
         step0 = b * block
         x, c, xbar, mean, m2, _, _ = update(
-            x, c, xbar, l2.b, l2.op.mask, mean, m2, (seed, 2), scal_f,
+            x, c, xbar, l2.b, l2.op.mask, mean, m2,
+            (seed, 2) if isinstance(seed, int) else seed, scal_f,
             (step0, 5, max(step0 - 5, 0)), levels=levels, taps=taps,
             n_steps=block, gfirst=gfirst)
     return x, c, xbar, mean, m2
@@ -1158,7 +1183,8 @@ def kernel7_ranking(data, shape):
 def _run_ulpda_tiled_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed):
     """run_ulpda_tv_tiled's block loop with the block update passed in, from
     the state _run_ulpda_blocks starts kernel 3 at (x = x_prev = x0, zero
-    dual, burn-in 5). Returns (x, py, px, xbar, mean, m2), as kernel 3."""
+    dual, burn-in 5); keys as ``_run_blocks``'. Returns (x, py, px, xbar,
+    mean, m2), as kernel 3."""
     import torch
 
     from lmc_atomi_torch.kernels.ulpda_fused import _pack_ulpda_scal, _ulpda_setup
@@ -1169,13 +1195,14 @@ def _run_ulpda_tiled_blocks(update, proxf, proxg, x0, n_steps, block, cfg, seed)
      lam, _) = _ulpda_setup(proxf, proxg, Gradient2D())
     tau0 = 0.95 * SIGMA_NOISE**2
     scal_f = _pack_ulpda_scal(proxf, proxg, tau0, 1.0, 1.0, 1.0, lamda, gamma_mc)
-    tiling = _tiling(_ulpda_halo_need(3, oy, mode, niter_inner), x0.shape[0])
+    tiling = _tiling(_ulpda_halo_need(3, oy, mode, niter_inner), x0.shape[-2])
     zeros = torch.zeros_like(x0)
     x, xp, py, px, mean, m2 = x0, x0, zeros, zeros, zeros, zeros
     for b in range(n_steps // block):
         step0 = b * block
         x, xp, py, px, mean, m2, _, _ = update(
-            x, xp, py, px, atb, mean, m2, (seed, 0), scal_f, (step0, 5, max(step0 - 5, 0)),
+            x, xp, py, px, atb, mean, m2, (seed, 0) if isinstance(seed, int) else seed,
+            scal_f, (step0, 5, max(step0 - 5, 0)),
             taps=taps, oy=oy, ox=ox, lam=lam, n_steps=block, niter_solve=3, dual=dual,
             mode=mode, niter_inner=niter_inner, **tiling, **cfg)
     return x, py, px, x + 1.0 * (x - xp), mean, m2
@@ -1772,16 +1799,41 @@ MC_TIMED_STEPS = 100  # the chain-axis call timed against its plain version
 MC_UQ = dict(size=64, n_chains=64, n_steps=5000, burn_in=500)
 MC_UQ_BIG = dict(size=N, n_chains=4, n_steps=5000, burn_in=2000)
 MC_FARM_CHAINS, MC_FARM_STEPS, MC_TILED_STEPS = 2, 1000, 400
+# the chain checks of kernels 2-7: two blocks; the CI runs' burn-in
+# leaves 10 P^2 observations (past the 5 of the bootstrap)
+CHAIN_STEPS, CHAIN_BLOCK, CHAIN_CI_BURN = 12, 6, 2
 # kernel 2 with a chain axis: (data term, options)
 K2_CHAIN_RUNS = {
     "cold10": ("tv", dict(niter_tv=10)),
     "fgp8": ("tv", dict(niter_tv=8, tv_solver="fgp")),
-    "cold10_ci95": ("tv", dict(niter_tv=10, quantiles=(0.025, 0.975), burn_in=10)),
+    "cold10_ci95": ("tv", dict(niter_tv=10, quantiles=(0.025, 0.975), burn_in=CHAIN_CI_BURN)),
     "mctv_cold10": ("mctv", dict(niter_tv=10)),
     "metv_cold10": ("metv", dict(niter_tv=10)),
 }
 # kernel 3 with a chain axis: (data term, gfirst); l21 duals but MC-TV's l1
 K3_CHAIN_RUNS = [(m, g) for m in ("tv", "mctv", "metv") for g in (False, True)]
+# kernels 4 and 5 with a chain axis: 8 chains a call at 64^2 on every route a
+# 64^2 shape reaches ((label, taps, levels, quantiles, route); D4 on the
+# per-level launches through a patched plan), and D4 with more chains than
+# co-resident CTAs (resident launches in turn)
+WV_CHAIN_N, WV_CHAIN_C, WV_CHAIN_MANY = 64, 8, 200
+WV_CHAIN_CHECKS = [
+    ("haar", 2, INP_LEVELS, (), "warp"),
+    ("haar_ci95", 2, INP_LEVELS, (0.025, 0.975), "warp"),
+    ("haar 5 levels", 2, 5, (), "tile"),
+    ("d4", 4, INP_LEVELS, (), "resident"),
+    ("d8", 8, INP_LEVELS, (), "resident"),
+    (f"haar {DEEP_HAAR_LEVELS} levels", 2, DEEP_HAAR_LEVELS, (), "passes"),
+    ("d4 (patched plan)", 4, INP_LEVELS, (), "passes"),
+]
+WV_TIMED_CHAINS = 64  # Haar chains at 64^2: one call against one-chain calls
+# kernels 6 and 7 with a chain axis: 4 chains a call at 256^2 (two bands)
+TL_CHAIN_N, TL_CHAIN_C = 256, 4
+K6_CHAIN_RUNS = {"cold10_ci95": ("tv", dict(niter_tv=10, quantiles=(0.025, 0.975),
+                                            burn_in=CHAIN_CI_BURN)),
+                 "fgp8": ("tv", dict(niter_tv=8, tv_solver="fgp")),
+                 "mctv_cold10": ("mctv", dict(niter_tv=10))}
+K7_CHAIN_RUNS = [("tv", False), ("tv", True), ("metv", False)]
 
 # the mixtures path (experiments/{mixtures,laplace_mixtures,prox_mixtures}.py):
 # the paper's workloads 1-3 at full width (n=5 components, d=2, the CLI
@@ -1846,18 +1898,27 @@ def _ulpda_terms(terms, mode):
     return terms[mode], (L1Norm if mode == "mctv" else L21Norm)(sigma=TV_WEIGHT)
 
 
-def _hold_chains(label, kern, plain, run, x0, keys, picks, fields):
-    """Chain axis against its parts: the kernel's call on every chain of
-    ``x0`` under ``keys`` (routes counted), and for each chain in ``picks``
-    the kernel's and the plain version's one-chain calls under its key,
-    each at max abs error 0. Returns the worst error, the routes and the
-    plan."""
-    got, routes = routes_of(lambda: run(kern, x0, keys), kern)
+def _hold_chains(label, kern, plain, run, x0, keys, picks, fields, plain_axis=False):
+    """Chain axis against its parts, noise on: the kernel's call on every
+    chain of ``x0`` under ``keys`` (routes counted where the wrapper has
+    them) against the plain version's call on the same chain axis (with
+    ``plain_axis``), and each chain of ``picks`` against the kernel's
+    one-chain call under its key (and, without ``plain_axis``, the plain
+    version's), each at max abs error 0. Returns the worst error, the
+    routes and the kernel's plan."""
+    if hasattr(kern, "routes"):
+        got, routes = routes_of(lambda: run(kern, x0, keys), kern)
+    else:
+        got, routes = run(kern, x0, keys), {}
     plan = kern.last_plan
     worst = 0.0
+    if plain_axis:
+        worst, _ = compare(f"{label} vs the plain chain axis", got, run(plain, x0, keys),
+                           fields, exact=True)
+    sides = (("solo", kern),) + (() if plain_axis else (("plain", plain),))
     for c in picks:
         mine = [None if g is None else g[c] for g in got]
-        for side, fn in (("solo", kern), ("plain", plain)):
+        for side, fn in sides:
             want = run(fn, x0[c].contiguous(), keys[c])
             err, _ = compare(f"{label} chain {c} vs {side}", mine, want, fields, exact=True)
             worst = max(worst, err)
@@ -1900,13 +1961,13 @@ def phase_chain_kernels(dev, report):
             k: K2_CHAIN_RUNS[k] for k in (("cold10", "fgp8") if n == N else ("cold10",))}
         for name, (mode, cfg) in runs2.items():
             def run(fn, x, k, data=terms[mode], cfg=cfg):
-                return _run_blocks(fn, data, x, CHECK_STEPS, CHECK_BLOCK, cfg, k)
+                return _run_blocks(fn, data, x, CHAIN_STEPS, CHAIN_BLOCK, cfg, k)
             err, routes, plan = _hold_chains(f"kernel 2 {name} {n}^2 x {n_chains}", k2,
                                              myula_tv_block_update_ref, run, x0, keys,
                                              picks, f2)
             worst2 = max(worst2, err)
             plans2.append((plan, n_chains))
-            log(f"kernel2 chain axis {name} {n}^2 x {n_chains} chains, {CHECK_STEPS} steps, "
+            log(f"kernel2 chain axis {name} {n}^2 x {n_chains} chains, {CHAIN_STEPS} steps, "
                 f"noise on: routes {routes} plan {plan} (route, ty, tx, h, chains a launch); "
                 f"chains {list(picks) if len(picks) < n_chains else 'all'} equal their solo "
                 f"calls and the plain version (max_abs_err {err})")
@@ -1918,13 +1979,13 @@ def phase_chain_kernels(dev, report):
             cfg = dict(gfirst=gfirst, niter_solve=3)
 
             def run(fn, x, k, proxf=proxf, proxg=proxg, cfg=cfg):
-                return _run_ulpda_blocks(fn, proxf, proxg, x, CHECK_STEPS, CHECK_BLOCK, cfg, k)
+                return _run_ulpda_blocks(fn, proxf, proxg, x, CHAIN_STEPS, CHAIN_BLOCK, cfg, k)
             err, routes, plan = _hold_chains(f"kernel 3 {mode} gfirst={gfirst} {n}^2", k3,
                                              ulpda_block_update_ref, run, x0, keys, picks, f3)
             worst3 = max(worst3, err)
             plans3.append((plan, n_chains))
             log(f"kernel3 chain axis {mode} gfirst={gfirst} {n}^2 x {n_chains} chains, "
-                f"{CHECK_STEPS} steps, noise on: routes {routes} plan {plan}; chains "
+                f"{CHAIN_STEPS} steps, noise on: routes {routes} plan {plan}; chains "
                 f"{list(picks) if len(picks) < n_chains else 'all'} equal their solo calls "
                 f"and the plain version (max_abs_err {err})")
             if routes["sequence"]:
@@ -1989,6 +2050,178 @@ def phase_chain_kernels(dev, report):
                 packed_ms=packed, solo_ms=solo, steps=BLOCK)
     report["myula_tv_block_update_cuda"]["chain_axis"] = chain2
     report["ulpda_block_update_cuda"]["chain_axis"] = chain3
+    t0 = time.perf_counter()
+    chain_kernels_4567(dev, report)
+    log(f"kernels 4-7 with a chain axis: {time.perf_counter() - t0:.1f} s")
+
+
+def chain_kernels_4567(dev, report):
+    """Kernels 4-7 with a chain axis, noise on, every chain of a call held
+    at max abs error 0 to the plain version's call on the chain axis and to
+    the kernel's one-chain call under its key: kernels 4 and 5 (both
+    orders) at 64^2 x 8 chains on each route of ``WV_CHAIN_CHECKS`` and D4
+    at 64^2 x 200 (resident launches in turn; picked chains against the
+    one-chain kernel and plain calls), kernels 6 and 7 at 256^2 x 4 chains;
+    then 64 Haar chains at 64^2, a 500-step block, timed as one call
+    against 64 one-chain calls."""
+    import torch
+
+    from lmc_atomi_torch.core.random import chain_keys
+    from lmc_atomi_torch.kernels import wavelet_fused
+    from lmc_atomi_torch.kernels.myula_fused import _fused_params
+    from lmc_atomi_torch.kernels.myula_tiled import (
+        myula_tv_tiled_update_cuda,
+        myula_tv_tiled_update_ref,
+    )
+    from lmc_atomi_torch.kernels.ulpda_tiled import (
+        ulpda_tv_tiled_update_cuda,
+        ulpda_tv_tiled_update_ref,
+    )
+    from lmc_atomi_torch.kernels.wavelet_fused import (
+        ulpda_wavelet_block_update_cuda,
+        ulpda_wavelet_block_update_ref,
+        wavelet_block_update_cuda,
+        wavelet_block_update_ref,
+    )
+
+    k4, k5 = wavelet_block_update_cuda, ulpda_wavelet_block_update_cuda
+    k6, k7 = myula_tv_tiled_update_cuda, ulpda_tv_tiled_update_cuda
+    f4, f5 = ("x", "mean", "m2", "qh", "qn"), ("x", "c", "xbar", "mean", "m2")
+    f7 = ("x", "py", "px", "xbar", "mean", "m2")
+    _, l2 = make_inpainting(dev, n=WV_CHAIN_N)
+    worst = dict.fromkeys(("4", "5", "6", "7"), 0.0)
+    plans = {"4": [], "5": [], "6": [], "7": []}
+
+    cases = [(WV_CHAIN_C, c) for c in WV_CHAIN_CHECKS]
+    cases.append((WV_CHAIN_MANY, ("d4", 4, INP_LEVELS, (), "resident")))
+    for n_chains, (label, taps, lv, qs, route) in cases:
+        x0 = torch.stack([l2.b + 0.25 * c for c in range(n_chains)]).contiguous()
+        keys = chain_keys((41, 0), n_chains)
+        many = n_chains == WV_CHAIN_MANY
+        burn = CHAIN_CI_BURN if qs else 0
+        # the D4 per-level launches at 64^2, which no plan picks there
+        with wavelet_route(route) if "patched" in label else contextlib.nullcontext():
+            def run4(fn, x, k):
+                return _wavelet_blocks(fn, l2, CHAIN_STEPS, CHAIN_BLOCK, k, taps, qs, burn,
+                                       lv, x0=x)
+            if many:
+                # the plan's groups: the first, the last, and both sides of a seam
+                g = wavelet_fused.wavelet_plan((WV_CHAIN_N, WV_CHAIN_N), taps, lv,
+                                               torch.cuda.get_device_properties(dev)
+                                               .multi_processor_count, n_chains)[3][0]
+                picks = sorted({0, g - 1, min(g, n_chains - 1), n_chains - 1})
+            else:
+                picks = range(n_chains)
+            err, routes, plan = _hold_chains(
+                f"kernel 4 {label} {WV_CHAIN_N}^2 x {n_chains}", k4, wavelet_block_update_ref,
+                run4, x0, keys, picks, f4, plain_axis=not many)
+            worst["4"] = max(worst["4"], err)
+            plans["4"].append((plan, n_chains))
+            held = ("their solo kernel and plain calls" if many
+                    else "the plain chain axis and their solo calls")
+            log(f"kernel4 chain axis {label} {WV_CHAIN_N}^2 x {n_chains} chains, "
+                f"{CHAIN_STEPS} steps, noise on: routes {routes} plan {plan} (route, levels, "
+                f"gh, gw, chains a launch); chains {list(picks) if many else 'all'} equal "
+                f"{held} (max_abs_err {err})")
+            if routes[route] != CHAIN_STEPS // CHAIN_BLOCK:
+                raise AssertionError(f"kernel 4 {label} x {n_chains} took {routes}, not {route}")
+            for gfirst in ((False, True) if not qs and not many else ()):
+                def run5(fn, x, k, gfirst=gfirst):
+                    return _ulpda_wavelet_blocks(fn, l2, CHAIN_STEPS, CHAIN_BLOCK, k, taps,
+                                                 gfirst, lv, x0=x)
+                err, routes, plan = _hold_chains(
+                    f"kernel 5 {label} gfirst={gfirst} {WV_CHAIN_N}^2", k5,
+                    ulpda_wavelet_block_update_ref, run5, x0, keys, picks, f5,
+                    plain_axis=True)
+                worst["5"] = max(worst["5"], err)
+                plans["5"].append((plan, n_chains))
+                log(f"kernel5 chain axis {label} gfirst={gfirst} {WV_CHAIN_N}^2 x {n_chains} "
+                    f"chains, {CHAIN_STEPS} steps, noise on: routes {routes} plan {plan}; "
+                    f"every chain equals the plain chain axis and its solo call "
+                    f"(max_abs_err {err})")
+                if routes[route] != CHAIN_STEPS // CHAIN_BLOCK:
+                    raise AssertionError(f"kernel 5 {label} took {routes}, not {route}")
+    if not any(p[4] < c for p, c in plans["4"]):
+        raise AssertionError(f"kernel 4: no plan with resident launches in turn: {plans['4']}")
+
+    # kernels 6 and 7 at 256^2 x 4 chains
+    _, y, terms = make_large(dev, TL_CHAIN_N)
+    x0 = _chain_starts(y, TL_CHAIN_C)
+    keys = chain_keys((42, 0), TL_CHAIN_C)
+    for name, (mode, cfg) in K6_CHAIN_RUNS.items():
+        data = terms[mode]
+        tcfg = dict(cfg, **_myula_tiling(data, cfg, TL_CHAIN_N))
+
+        def run6(fn, x, k, data=data, tcfg=tcfg):
+            return _run_blocks(fn, data, x, CHAIN_STEPS, CHAIN_BLOCK, tcfg, k)
+        err, _, plan = _hold_chains(f"kernel 6 {name} {TL_CHAIN_N}^2", k6,
+                                  myula_tv_tiled_update_ref, run6, x0, keys,
+                                  range(TL_CHAIN_C), f4, plain_axis=True)
+        worst["6"] = max(worst["6"], err)
+        plans["6"].append(plan)
+        log(f"kernel6 chain axis {name} {TL_CHAIN_N}^2 x {TL_CHAIN_C} chains, band "
+            f"{tcfg['band']} halo {tcfg['halo']}, {CHAIN_STEPS} steps, noise on: plan {plan}; "
+            f"every chain equals the plain chain axis and its solo call (max_abs_err {err})")
+    for mode, gfirst in K7_CHAIN_RUNS:
+        proxf = terms[mode]
+
+        def run7(fn, x, k, proxf=proxf, mode=mode, gfirst=gfirst):
+            return _run_ulpda_tiled_blocks(fn, proxf, _dual7(mode), x, CHAIN_STEPS,
+                                           CHAIN_BLOCK, dict(gfirst=gfirst), k)
+        err, _, plan = _hold_chains(f"kernel 7 {mode} gfirst={gfirst} {TL_CHAIN_N}^2", k7,
+                                  ulpda_tv_tiled_update_ref, run7, x0, keys,
+                                  range(TL_CHAIN_C), f7, plain_axis=True)
+        worst["7"] = max(worst["7"], err)
+        plans["7"].append(plan)
+        log(f"kernel7 chain axis {mode} gfirst={gfirst} {TL_CHAIN_N}^2 x {TL_CHAIN_C} chains, "
+            f"{CHAIN_STEPS} steps, noise on: plan {plan}; every chain equals the plain chain "
+            f"axis and its solo call (max_abs_err {err})")
+
+    # timed: one call on the chain axis against one-chain calls, at the
+    # runners' blocks: 64 Haar chains at 64^2 (kernel 4: 500 steps, kernel
+    # 5: 250), 4 chains at 256^2 (kernels 6 and 7: 200 steps)
+    card = nvidia_smi("name,power.limit")
+    timed = {}
+
+    def time_axis(k, name, block, x0, keys, bound):
+        packed, _ = cuda_ms(lambda: block(x0, keys), 3)
+        plan = k.last_plan
+        solo, _ = cuda_ms(lambda: [block(x0[c], keys[c]) for c in range(len(keys))], 2)
+        b_ms, b_by = bound
+        log(f"{name} x {len(keys)} chains ({card}): one call on {plan} {packed:.3f} ms, "
+            f"{len(keys)} one-chain calls on {k.last_plan} {solo:.3f} ms: "
+            f"{solo / packed:.2f}x; bound {b_ms:.4f} ms ({b_by})")
+        timed[k] = dict(shape=list(x0.shape), packed_ms=packed, solo_ms=solo, bound_ms=b_ms,
+                        bound_by=b_by, card=card)
+
+    b4, b5, nw = BLOCK, BLOCK // 2, WV_CHAIN_N * WV_CHAIN_N
+    x0 = torch.stack([l2.b + 0.25 * c for c in range(WV_TIMED_CHAINS)]).contiguous()
+    keys = chain_keys((43, 0), WV_TIMED_CHAINS)
+    time_axis(k4, f"kernel4 haar {WV_CHAIN_N}^2, {b4} steps",
+              lambda x, k: _wavelet_blocks(k4, l2, b4, b4, k, 2, x0=x), x0, keys,
+              bound_kernel4(nw, b4, 2, INP_LEVELS, n_chains=WV_TIMED_CHAINS))
+    time_axis(k5, f"kernel5 haar {WV_CHAIN_N}^2, {b5} steps",
+              lambda x, k: _ulpda_wavelet_blocks(k5, l2, b5, b5, k, 2, False, x0=x), x0,
+              keys, bound_kernel5(nw, b5, 2, INP_LEVELS, n_chains=WV_TIMED_CHAINS))
+    _, y, terms = make_large(dev, TL_CHAIN_N)
+    x0 = _chain_starts(y, TL_CHAIN_C)
+    keys = chain_keys((44, 0), TL_CHAIN_C)
+    nt, taps = TL_CHAIN_N * TL_CHAIN_N, _fused_params(terms["tv"])[0]
+    cfg6 = dict(niter_tv=10, **_myula_tiling(terms["tv"], dict(niter_tv=10), TL_CHAIN_N))
+    time_axis(k6, f"kernel6 cold10 {TL_CHAIN_N}^2, {LARGE_BLOCK} steps",
+              lambda x, k: _run_blocks(k6, terms["tv"], x, LARGE_BLOCK, LARGE_BLOCK, cfg6, k),
+              x0, keys, bound_kernel2(nt, LARGE_BLOCK, taps, 10, n_chains=TL_CHAIN_C))
+    time_axis(k7, f"kernel7 tv {TL_CHAIN_N}^2, {LARGE_BLOCK} steps",
+              lambda x, k: _run_ulpda_tiled_blocks(k7, terms["tv"], _dual7("tv"), x,
+                                                   LARGE_BLOCK, LARGE_BLOCK, {}, k),
+              x0, keys, bound_kernel7(nt, LARGE_BLOCK, taps, 3, n_chains=TL_CHAIN_C))
+    for name, k, key in (("4", k4, "wavelet_block_update_cuda"),
+                         ("5", k5, "ulpda_wavelet_block_update_cuda"),
+                         ("6", k6, "myula_tv_tiled_update_cuda"),
+                         ("7", k7, "ulpda_tv_tiled_update_cuda")):
+        kept = ([[list(p), c] for p, c in plans[name]] if name in "45"
+                else [list(p) for p in plans[name]])
+        report[key]["chain_axis"] = dict(max_abs_err=worst[name], timed=timed[k], plans=kept)
 
 
 def phase_multichain(dev):
@@ -1997,8 +2230,9 @@ def phase_multichain(dev):
     512^2 x 4 chains, with the pooled-mean PSNR gates; and the chain farm of
     ``run_resumable_fused``: ``"tv"`` at 512^2 through a checkpoint against
     the straight run and each chain against its one-chain run, ``"wavelet"``
-    at 512^2 and ``"tiled"`` at 2048^2 each chain against its one-chain
-    run."""
+    at 512^2 and ``"tiled"`` and ``"ulpda_tiled"`` at 2048^2 each chain
+    against its one-chain run; every farm makes one kernel call a block for
+    all its chains (the calls counted and printed)."""
     import tempfile
 
     import torch
@@ -2006,8 +2240,14 @@ def phase_multichain(dev):
     from lmc_atomi_torch.core.random import chain_keys
     from lmc_atomi_torch.core.stats import RunningMoments
     from lmc_atomi_torch.experiments.multichain import multichain_deblur
-    from lmc_atomi_torch.kernels.myula_fused import run_myula_tv_fused
+    from lmc_atomi_torch.kernels.myula_fused import (
+        myula_tv_block_update_cuda,
+        run_myula_tv_fused,
+    )
+    from lmc_atomi_torch.kernels.myula_tiled import myula_tv_tiled_update_cuda
     from lmc_atomi_torch.kernels.ulpda_fused import run_ulpda_fused
+    from lmc_atomi_torch.kernels.ulpda_tiled import ulpda_tv_tiled_update_cuda
+    from lmc_atomi_torch.kernels.wavelet_fused import wavelet_block_update_cuda
     from lmc_atomi_torch.ops.functionals import L21Norm
     from lmc_atomi_torch.ops.linops import Gradient2D
     from lmc_atomi_torch.parallel.mesh import merge_chain_moments
@@ -2069,10 +2309,18 @@ def phase_multichain(dev):
     if rep["psnr_pooled_mean"] < PSNR_FLOOR:
         raise AssertionError(f"multichain {N}^2: psnr {rep['psnr_pooled_mean']} < {PSNR_FLOOR}")
 
-    # (e) the chain farm
+    # (e) the chain farm: one kernel call a block for every chain, counted
+    # on the runner's wrapper; the calls of the one-chain runs after it
+    # are the farm's times its chains
+    wrappers = {"tv": myula_tv_block_update_cuda, "wavelet": wavelet_block_update_cuda,
+                "tiled": myula_tv_tiled_update_cuda, "ulpda_tiled": ulpda_tv_tiled_update_cuda}
+
     def farm(label, args, total, seg, kw, resume=False):
         x0 = args[4]
+        wrapper = wrappers[kw["runner"]]
+        before = wrapper.launches
         straight = run_resumable_fused(*args, total, seg, **kw)
+        calls = wrapper.launches - before
         note = ""
         if resume:
             with tempfile.TemporaryDirectory() as tmp:
@@ -2084,16 +2332,22 @@ def phase_multichain(dev):
                 raise AssertionError(f"farm {label}: the resumed run differs")
             note = "; restarted from its checkpoint: equal to the straight run"
         ks = chain_keys(args[5], x0.shape[0])
+        before = wrapper.launches
         for c in range(x0.shape[0]):
             one = run_resumable_fused(*args[:4], x0[c], ks[c], total, seg, **kw)
             if not (torch.equal(one["position"], straight["position"][c])
                     and torch.equal(one["moments"].mean, straight["moments"].mean[c])):
                 raise AssertionError(f"farm {label}: chain {c} differs from its solo run")
+        solo = wrapper.launches - before
         if not bool(torch.isfinite(straight["moments"].mean).all()):
             raise AssertionError(f"farm {label}: non-finite mean")
         log(f"farm {label}: {x0.shape[0]} chains x {total} steps in segments of {seg}, "
-            f"counts {straight['moments'].count.tolist()}; each chain equals its solo "
-            f"run_resumable_fused under its chain key{note}")
+            f"counts {straight['moments'].count.tolist()}; {calls} calls of "
+            f"{wrapper.__name__} (the {x0.shape[0]} one-chain runs: {solo}); each chain "
+            f"equals its solo run_resumable_fused under its chain key{note}")
+        if calls < 1 or solo != calls * x0.shape[0]:
+            raise AssertionError(f"farm {label}: {calls} kernel calls for all chains, "
+                                 f"{solo} for the one-chain runs: not one call a block")
 
     _, y, terms = make_large(dev, N)
     l2 = terms["tv"]
@@ -2112,6 +2366,10 @@ def phase_multichain(dev):
     farm(f"tiled {LARGE_N}^2", (terms["tv"], TV_WEIGHT, 0.2 * gamma, gamma, x0, (23, 0)),
          MC_TILED_STEPS, MC_TILED_STEPS // 2, dict(runner="tiled", burn_in=100,
                                                    tv_solver="fgp", niter_tv=8))
+    # the primal-dual farm: tv_sigma the l21 dual's weight, gamma the dual step
+    farm(f"ulpda_tiled {LARGE_N}^2", (terms["tv"], TV_WEIGHT, 0.95 * gamma, 1.0, x0,
+                                      (24, 0)),
+         MC_TILED_STEPS, MC_TILED_STEPS // 2, dict(runner="ulpda_tiled", burn_in=100))
 
 
 def mixture_workloads(dev):
@@ -3450,20 +3708,27 @@ def prox_variants(wrapper, shape, niter, tail, call, reps, roots):
     return variants
 
 
-def wavelet_on(wrapper, route):
-    """Kernel 4's or 5's wrapper of this checkout on ``route`` (``"tile"``
-    or ``"passes"``) in place of ``wavelet_plan``'s pick: a measurement."""
+def wavelet_route(route):
+    """A context in which kernels 4 and 5's wrappers of this checkout take
+    ``route`` (``"tile"`` or ``"passes"``, every chain a launch) in place of
+    ``wavelet_plan``'s pick."""
     from unittest import mock
 
     from lmc_atomi_torch.kernels import wavelet_fused
 
-    def plan(shape, taps, levels, n_sm=None):
+    def plan(shape, taps, levels, n_sm=None, n_chains=1):
         l_eff = wavelet_fused.dwt_levels(shape, taps, levels)
         return l_eff, route, (wavelet_fused.tile_region(shape, l_eff) if route == "tile"
-                              else (0, 0))
+                              else (0, 0)), (n_chains, 1)
 
+    return mock.patch.object(wavelet_fused, "wavelet_plan", plan)
+
+
+def wavelet_on(wrapper, route):
+    """Kernel 4's or 5's wrapper of this checkout on ``route`` in place of
+    ``wavelet_plan``'s pick (``wavelet_route``): a measurement."""
     def run(*args, **kwargs):
-        with mock.patch.object(wavelet_fused, "wavelet_plan", plan):
+        with wavelet_route(route):
             return wrapper(*args, **kwargs)
 
     return run
@@ -3938,7 +4203,8 @@ def main() -> int:
                               "ulpda_tv_tiled_update_cuda", "myula_tv_fused_update_cuda"),
               phase_large, dev),
         drive("multichain", ("myula_tv_block_update_cuda", "ulpda_block_update_cuda",
-                             "wavelet_block_update_cuda", "myula_tv_tiled_update_cuda"),
+                             "wavelet_block_update_cuda", "myula_tv_tiled_update_cuda",
+                             "ulpda_tv_tiled_update_cuda"),
               phase_multichain, dev, resident=True, wavelet=True),
         mixtures,
         drive("PnP", ("myula_tv_block_update_cuda",), phase_pnp, dev, resident=True),

@@ -83,8 +83,9 @@ _SIGNATURES = {
     ),
     "lmc_wavelet_block": (
         _P, _P, _P, _P, _P, _P, _P, _P,  # x, y, m, mean, m2, qh, qn, bufs
-        _I, _I, _I, _P,  # ny, nx, taps, filt
-        _I, _I, _I, _I, _I,  # levels, route, gh, gw, n_steps
+        _I, _I, _I, _P,  # ny, nx, n_chains, chains
+        _I, _P,  # taps, filt
+        _I, _I, _I, _I, _I, _I,  # levels, route, gh, gw, per, n_steps
         _I, _I,  # with_noise, with_stats
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
@@ -92,8 +93,9 @@ _SIGNATURES = {
     ),
     "lmc_ulpda_wavelet_block": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, c, xbar, y, m, mean, m2, qh, qn
-        _P, _I, _I, _I, _P,  # bufs, ny, nx, taps, filt
-        _I, _I, _I, _I, _I, _I,  # levels, route, gh, gw, n_steps, gfirst
+        _P, _I, _I, _I, _P,  # bufs, ny, nx, n_chains, chains
+        _I, _P,  # taps, filt
+        _I, _I, _I, _I, _I, _I, _I,  # levels, route, gh, gw, per, n_steps, gfirst
         _I, _I,  # with_noise, with_stats
         _P, _I, _I, _P,  # qcoef, n_q, thin, coef
         _U, _U, _LL, _LL, _LL,  # seed, chain, step0, burn, cnt0
@@ -101,7 +103,7 @@ _SIGNATURES = {
     ),
     "lmc_myula_tiled": (
         _P, _P, _P, _P, _P, _P, _P,  # x, parity, atbs, mean, m2, qh, qn
-        _I, _I,  # ny, nx
+        _I, _I, _I, _P,  # ny, nx, n_chains, chains
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _F, _I, _P,  # n_steps, niter_tv, tv_step, fgp, fgp_coef
         _I, _I, _I,  # mode, niter_inner, with_noise
@@ -112,7 +114,7 @@ _SIGNATURES = {
     "lmc_card_limits": (_P,),  # out: SMs, opt-in shared memory a CTA
     "lmc_ulpda_tiled": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, xp, py, px, atb, mean, m2, qh, qn
-        _I, _I,  # ny, nx
+        _I, _I, _I, _P,  # ny, nx, n_chains, chains
         _P, _I, _I, _I, _I, _I,  # taps, rank, ky, kx, oy, ox
         _I, _I, _P,  # n_steps, niter_solve, cheb
         _I, _I, _I, _I, _I,  # gfirst, dual, mode, niter_inner, with_noise

@@ -95,8 +95,17 @@ struct Sched {
   long long step0, burn, cnt0;  // first global step, burn-in, Welford count in
   int thin, n_q, with_noise, with_stats;
   uint32_t seed, chain;
+  // the chain words of a launch's grid layers (device, one a layer), or null
+  // for a one-chain launch, whose word is chain (lmc_sched_chain); kernels 2
+  // and 3 take theirs as an argument and leave this null
+  const uint32_t* chains;
   float qcoef[LMC_MAXQ][3];
 };
+
+// The Philox chain word of grid layer blockIdx.z.
+__device__ __forceinline__ uint32_t lmc_sched_chain(const Sched& sc) {
+  return sc.chains ? sc.chains[blockIdx.z] : sc.chain;
+}
 
 struct StepW {
   float w, inv_denom;  // Welford weight (0 or 1) and 1 / count

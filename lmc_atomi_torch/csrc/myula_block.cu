@@ -429,6 +429,7 @@ static int rs_launch(float* x, float* parity, const float* atbs, float* mean,
   sc.with_stats = with_stats;
   sc.seed = seed;
   sc.chain = chain;
+  sc.chains = nullptr;  // the chain words ride as an argument
   for (int jq = 0; jq < LMC_MAXQ; ++jq)
     for (int m = 0; m < 3; ++m) sc.qcoef[jq][m] = jq < n_q ? qcoef[3 * jq + m] : 0.0f;
   // the warm duals' parity buffers: (y, x) of parity 0, then 1

@@ -46,9 +46,17 @@
 // bound by instruction issue in the gram passes (and the envelope trips) on
 // the cone, and by the Philox of the update.
 //
+// Chains: a call runs n_chains chains of one posterior (the "tiled" and
+// "ulpda_tiled" chain farms), sharing atbs (atb), each launch carrying every
+// chain as a grid layer (blockIdx.z: TL_LAYER, lmc_chain_at; x, its parity
+// partner, the dual, the moments and the markers chain-major), as the TPU's
+// jax.vmap of the pallas_call runs one kernel with a chain grid axis; the
+// host planners count every chain's tiles in a launch's waves.
+//
 // Every interior pixel takes the operations of kernels 2 and 3 in their
 // order, so the tile kernels equal them, and their plain versions, bit for
-// bit (chip_smoke.py checks it). Kernel 8, one MYULA step given the data
+// bit (chip_smoke.py checks it), and a chain of a batched call its one-chain
+// call. Kernel 8, one MYULA step given the data
 // gradient, is kernel 1's tile kernel with an epilogue (tv_prox.cu).
 #include "block_common.cuh"
 
@@ -126,17 +134,29 @@ __device__ __forceinline__ void tl_myula_tile(
     const float prox = xv - p.tv_gamma * lmc_tile_div<kFree>(PY, PX, lt, r, c, t);
     float xn = p.c_keep * xv - p.c_grad * G[li] + p.c_prox * prox;
     if (sc.with_noise) {
-      xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
-                                         (uint32_t)g);
+      xn = xn + p.noise_amp * lmc_normal(sc.seed, lmc_sched_chain(sc),
+                                         (uint32_t)k, (uint32_t)g);
     }
     dst[k] = xn;
     lmc_record_global(xn, k, npix, mean, m2, qh, qn, sc, sw);
   }
 }
 
-// Kernel 6: MYULA step g from src into dst, Welford / P^2 in place. An SM
-// runs 1024 threads of it (two CTAs of 512 or one of 1024), at most 64
-// registers a thread.
+// Grid layer z runs chain z of the launch: src, dst, the moments and the
+// markers move to its copies, ny nx floats and (5 + 3) n_q planes a chain
+// (chain-major); the chains share atbs, and the chain's Philox word is
+// lmc_sched_chain's. One layer is the one-chain launch.
+#define TL_LAYER(npix, n_q)                        \
+  src = lmc_layer(src, npix);                      \
+  dst = lmc_layer(dst, npix);                      \
+  mean = lmc_layer(mean, npix);                    \
+  m2 = lmc_layer(m2, npix);                        \
+  qh = lmc_layer(qh, 5 * (size_t)(n_q) * (npix));  \
+  qn = lmc_layer(qn, 3 * (size_t)(n_q) * (npix))
+
+// Kernel 6: MYULA step g from src into dst, Welford / P^2 in place, grid
+// layer z for chain z (TL_LAYER). An SM runs 1024 threads of it (two CTAs of
+// 512 or one of 1024), at most 64 registers a thread.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
@@ -145,6 +165,7 @@ tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
               float* __restrict__ qn, int ny, int nx, MyulaTile p, Sched sc,
               long long g) {
   extern __shared__ float sm[];
+  TL_LAYER((size_t)ny * nx, sc.n_q);
   __shared__ float fgp_coef[LMC_MAXTRIP];
   const int n = (p.ty + 2 * p.h) * (p.tx + 2 * p.h);
   float* X = sm;
@@ -170,7 +191,7 @@ tl_myula_step(const float* __restrict__ src, float* __restrict__ dst,
 
 // Kernel 7's dual pass: p <- proj(p + mu grad xbar) in place, one thread per
 // pixel, xbar = xn + theta (xn - xo) (ul_finish's form) at (i, j), (i+1, j)
-// and (i, j+1).
+// and (i, j+1); grid layer z for chain z (lmc_chain_at).
 __global__ void tl_ulpda_dual(const float* __restrict__ xn,
                               const float* __restrict__ xo,
                               float* __restrict__ py, float* __restrict__ px,
@@ -179,6 +200,10 @@ __global__ void tl_ulpda_dual(const float* __restrict__ xn,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
+  xn = lmc_chain_at(xn, ny, nx);
+  xo = lmc_chain_at(xo, ny, nx);
+  py = lmc_chain_at(py, ny, nx);
+  px = lmc_chain_at(px, ny, nx);
   const int k = i * nx + j;
   const float xb = xn[k] + theta * (xn[k] - xo[k]);
   float gy = 0.0f, gx = 0.0f;
@@ -190,8 +215,9 @@ __global__ void tl_ulpda_dual(const float* __restrict__ xn,
 
 // Kernel 7's primal pass: step g from src into dst, Welford / P^2 in place,
 // on the cone of the tile's interior (ul_primal_cone), kFree on an edge-free
-// tile. An SM runs 1024 threads of it (two CTAs of 512 or one of 1024), at
-// most 64 registers a thread.
+// tile; grid layer z for chain z (TL_LAYER, the dual a chain's (py, px)). An
+// SM runs 1024 threads of it (two CTAs of 512 or one of 1024), at most 64
+// registers a thread.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
@@ -202,6 +228,9 @@ tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
                 long long g) {
   extern __shared__ float sm[];
   __shared__ float cheb[LMC_MAXTRIP][2];
+  TL_LAYER((size_t)ny * nx, sc.n_q);
+  py = lmc_chain_at(py, ny, nx);
+  px = lmc_chain_at(px, ny, nx);
   const int n = (p.ty + 2 * p.h) * (p.tx + 2 * p.h);
   float* X = sm;  // x, then u
   float* V = X + n;
@@ -232,8 +261,8 @@ tl_ulpda_primal(const float* __restrict__ src, float* __restrict__ dst,
     if (!lmc_tile_inner(li, t, &lt, &r, &c, &k)) continue;
     float xn = X[lt];
     if (sc.with_noise) {
-      xn = xn + p.noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)k,
-                                         (uint32_t)g);
+      xn = xn + p.noise_amp * lmc_normal(sc.seed, lmc_sched_chain(sc),
+                                         (uint32_t)k, (uint32_t)g);
     }
     dst[k] = xn;
     lmc_record_global(xn, k, npix, mean, m2, qh, qn, sc, stw);
@@ -248,8 +277,8 @@ int tl_smem(F fn, size_t bytes) {
 }
 
 Sched tl_sched(int n_q, int thin, int with_noise, const float* qcoef,
-               unsigned int seed, unsigned int chain, long long step0,
-               long long burn, long long cnt0) {
+               unsigned int seed, unsigned int chain, const unsigned int* chains,
+               long long step0, long long burn, long long cnt0) {
   Sched sc;
   sc.step0 = step0;
   sc.burn = burn;
@@ -260,6 +289,7 @@ Sched tl_sched(int n_q, int thin, int with_noise, const float* qcoef,
   sc.with_stats = 1;
   sc.seed = seed;
   sc.chain = chain;
+  sc.chains = chains;
   for (int jq = 0; jq < n_q; ++jq)
     for (int m = 0; m < 3; ++m) sc.qcoef[jq][m] = qcoef[3 * jq + m];
   return sc;
@@ -277,9 +307,14 @@ size_t tl_smem_bytes(int ty, int tx, int h, int fgp) {
 
 }  // namespace
 
-// Kernel 6: n_steps (even) MYULA steps on x (float32, row-major, contiguous,
-// on the current device), Welford on mean/m2 and P^2 on qh/qn in place;
-// parity: (ny, nx) scratch for the other step parity. taps, coef (kernel 2's
+// Kernel 6: n_steps (even) MYULA steps of n_chains chains of one posterior
+// on x (float32, row-major, contiguous, on the current device), Welford on
+// mean/m2 and P^2 on qh/qn in place; x, mean, m2 (n_chains, ny, nx), qh
+// (n_chains, 5 n_q, ny, nx), qn (n_chains, 3 n_q, ny, nx); parity:
+// (n_chains, ny, nx) scratch for the other step parity. One launch a step
+// carries every chain, grid layer z chain z; the chains share atbs, and
+// chain c draws its noise under (seed, chains[c]) (device, n_chains words),
+// or (seed, chain) when chains is null (one chain). taps, coef (kernel 2's
 // 10 floats), fgp_coef (max(niter_tv, niter_inner) floats), qcoef: host,
 // as for lmc_myula_block. The halo is the least exact one, h = max(niter_tv
 // + 1, the taps' reach, 2 for mctv, niter_inner + 1 for metv); the interior
@@ -289,7 +324,8 @@ size_t tl_smem_bytes(int ty, int tx, int h, int fgp) {
 // when the tile does not fit the card's shared memory.
 extern "C" int lmc_myula_tiled(
     float* x, float* parity, const float* atbs, float* mean, float* m2,
-    float* qh, float* qn, int ny, int nx, const float* taps, int rank, int ky,
+    float* qh, float* qn, int ny, int nx, int n_chains,
+    const unsigned int* chains, const float* taps, int rank, int ky,
     int kx, int oy, int ox, int n_steps, int niter_tv, float tv_step, int fgp,
     const float* fgp_coef, int mode, int niter_inner, int with_noise,
     const float* qcoef, int n_q, int thin, const float* coef,
@@ -300,7 +336,8 @@ extern "C" int lmc_myula_tiled(
       n_q > LMC_MAXQ || thin < 1 || ny < 2 || nx < 2 || n_steps % 2 ||
       mode < MODE_TV || mode > MODE_METV || niter_tv < 0 ||
       niter_tv > LMC_MAXTRIP || niter_inner < 0 || niter_inner > LMC_MAXTRIP ||
-      ty < 1 || tx < 1 || (threads != 512 && threads != 1024))
+      ty < 1 || tx < 1 || (threads != 512 && threads != 1024) || n_chains < 1 ||
+      n_chains > 65535 || (n_chains > 1 && chains == nullptr))
     return -1;
   p.c_keep = coef[0];
   p.c_grad = coef[1];
@@ -338,11 +375,12 @@ extern "C" int lmc_myula_tiled(
   if (e != cudaSuccess) return (int)e;
   const size_t smem = tl_smem_bytes(ty, tx, h, fgp);
   if (smem + sizeof(float) * LMC_MAXTRIP > (size_t)optin) return -1;  // + static
-  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
+  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty, n_chains);
   auto step = threads == 512 ? tl_myula_step<512> : tl_myula_step<1024>;
   e = (cudaError_t)tl_smem(step, smem);
   if (e != cudaSuccess) return (int)e;
-  const Sched sc = tl_sched(n_q, thin, with_noise, qcoef, seed, chain, step0, burn, cnt0);
+  const Sched sc =
+      tl_sched(n_q, thin, with_noise, qcoef, seed, chain, chains, step0, burn, cnt0);
   cudaStream_t s = (cudaStream_t)stream;
   for (int it = 0; it < n_steps; ++it) {
     const float* src = it % 2 ? parity : x;
@@ -368,10 +406,14 @@ extern "C" int lmc_card_limits(int* out) {
   return (int)e;
 }
 
-// Kernel 7: n_steps (even) ULPDA steps on x (xp the previous sample, the
-// parity partner), the Gradient2D dual (py, px) (dual 0 l1, 1 l21), Welford on
-// mean/m2 and P^2 on qh/qn, all in place (float32, row-major, contiguous, on
-// the current device). atb: A^T b (unscaled). cheb: host, 2 * niter_solve
+// Kernel 7: n_steps (even) ULPDA steps of n_chains chains of one posterior
+// on x (xp the previous sample, the parity partner), the Gradient2D dual
+// (py, px) (dual 0 l1, 1 l21), Welford on mean/m2 and P^2 on qh/qn, all in
+// place (float32, row-major, contiguous, on the current device); x, xp, py,
+// px, mean, m2 (n_chains, ny, nx), the markers as kernel 6's. Each launch
+// carries every chain, grid layer z chain z; the chains share atb, and chain
+// c draws its noise under (seed, chains[c]), or (seed, chain) when chains is
+// null (one chain). atb: A^T b (unscaled). cheb: host, 2 * niter_solve
 // floats (c_d, c_r) per sweep; coef: host, kernel 3's 10 floats [tau, mu,
 // theta, noise_amp, tau sigma, g_sigma, tau lamda, gamma_mc, 1 / gamma_mc,
 // tau lamda / gamma_mc]; the ME-TV envelope is niter_inner cold Chambolle
@@ -383,7 +425,8 @@ extern "C" int lmc_card_limits(int* out) {
 // does not fit the card's shared memory.
 extern "C" int lmc_ulpda_tiled(
     float* x, float* xp, float* py, float* px, const float* atb, float* mean,
-    float* m2, float* qh, float* qn, int ny, int nx, const float* taps,
+    float* m2, float* qh, float* qn, int ny, int nx, int n_chains,
+    const unsigned int* chains, const float* taps,
     int rank, int ky, int kx, int oy, int ox, int n_steps, int niter_solve,
     const float* cheb, int gfirst, int dual, int mode, int niter_inner,
     int with_noise, const float* qcoef, int n_q, int thin, const float* coef,
@@ -396,7 +439,8 @@ extern "C" int lmc_ulpda_tiled(
       mode < MODE_TV || mode > MODE_METV || dual < 0 || dual > 1 ||
       niter_solve < 0 || niter_solve > LMC_MAXTRIP || niter_inner < 0 ||
       niter_inner > LMC_MAXTRIP || ty < 1 || tx < 1 ||
-      (threads != 512 && threads != 1024))
+      (threads != 512 && threads != 1024) || n_chains < 1 || n_chains > 65535 ||
+      (n_chains > 1 && chains == nullptr))
     return -1;
   p.tau = coef[0];
   p.mu = coef[1];
@@ -438,10 +482,11 @@ extern "C" int lmc_ulpda_tiled(
   auto primal = threads == 512 ? tl_ulpda_primal<512> : tl_ulpda_primal<1024>;
   e = (cudaError_t)tl_smem(primal, smem);
   if (e != cudaSuccess) return (int)e;
-  const Sched sc = tl_sched(n_q, thin, with_noise, qcoef, seed, chain, step0, burn, cnt0);
+  const Sched sc =
+      tl_sched(n_q, thin, with_noise, qcoef, seed, chain, chains, step0, burn, cnt0);
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
-  const dim3 dgrid = lmc_grid(ny, nx), dblock = lmc_block();
+  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty, n_chains);
+  const dim3 dgrid = lmc_grid(ny, nx, n_chains), dblock = lmc_block();
   for (int it = 0; it < n_steps; ++it) {
     float* src = it % 2 ? xp : x;
     float* dst = it % 2 ? x : xp;

@@ -36,10 +36,16 @@ static inline dim3 lmc_grid(int ny, int nx, int nc = 1) {
 // (the planes of a multi-plane scratch field are gridDim.z ny nx apart:
 // plane-major); a null p (the zero dual) stays null. A field the chains
 // share (atbs) takes no offset. One layer (gridDim.z = 1) is the plain
-// single-chain launch.
+// single-chain launch. lmc_layer is the same for a field of any stride
+// (floats a chain, chain-major: kernels 4-7's markers).
+template <typename T>
+static __device__ __forceinline__ T* lmc_layer(T* p, size_t floats) {
+  return p ? p + (size_t)blockIdx.z * floats : p;
+}
+
 template <typename T>
 static __device__ __forceinline__ T* lmc_chain_at(T* p, int ny, int nx) {
-  return p ? p + (size_t)blockIdx.z * ny * nx : p;
+  return lmc_layer(p, (size_t)ny * nx);
 }
 
 // Divergence of p = (py, px) at (i, j): the negative adjoint of the forward

@@ -521,6 +521,7 @@ static int ul_resident_launch(float* x, float* parity, float* py, float* px,
   sc.with_stats = with_stats;
   sc.seed = seed;
   sc.chain = chain;
+  sc.chains = nullptr;  // the chain words ride as an argument
   float* ev = env_warm && p.mode == MODE_METV ? aux : nullptr;
   int warm = ev != nullptr;
   const size_t npix = (size_t)ny * nx;

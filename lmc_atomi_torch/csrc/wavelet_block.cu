@@ -54,6 +54,17 @@
 // shared with kernel 3's wl1 dual), not the 2-tap filter bank, whose sum of
 // products rounds otherwise.
 //
+// Chains: a call runs n_chains chains of one posterior (the "wavelet" chain
+// farm), each with its own x, moments, markers (kernel 5: dual and xbar) and
+// Philox chain word, sharing y and the mask, as the TPU's jax.vmap of the
+// pallas_call runs one kernel with a chain grid axis. The warp, tile and
+// per-level launches take every chain as a grid layer (blockIdx.z: WV_LAYER,
+// lmc_chain_at; the ping-pong buffers plane-major); the resident route runs
+// them in groups of per chains (wavelet_fused.py::wavelet_plan, G of
+// myula_fused.py::chains_per_launch), one cooperative launch a group, grid
+// layer z of a launch a chain with its own B0/B1. A chain takes the same
+// operations as the one-chain call, so it equals that call bit for bit.
+//
 // Every operation rounds as in the plain torch versions
 // (wavelet_fused.py::*_ref), with --fmad=false: the Haar butterflies multiply
 // by the float 1/sqrt2, the filter banks sum in Python's sum() order,
@@ -93,6 +104,17 @@ struct Filt {
   float h[8];
   float g[8];
 };
+
+// Grid layer z runs chain z of the launch: x, the moments and the markers
+// move to its copies, npix floats and (5 + 3) n_q planes a chain
+// (chain-major); y and the mask are shared, and the chain's Philox word is
+// lmc_sched_chain's. One layer is the one-chain launch.
+#define WV_LAYER(npix, n_q)                        \
+  x = lmc_layer(x, npix);                          \
+  mean = lmc_layer(mean, npix);                    \
+  m2 = lmc_layer(m2, npix);                        \
+  qh = lmc_layer(qh, 5 * (size_t)(n_q) * (npix));  \
+  qn = lmc_layer(qn, 3 * (size_t)(n_q) * (npix))
 
 __device__ __forceinline__ float soft(float c, float thr) {
   const float sg = c > 0.0f ? 1.0f : (c < 0.0f ? -1.0f : 0.0f);
@@ -184,6 +206,8 @@ wv_myula_haar(float* __restrict__ x, const float* __restrict__ y,
               float* __restrict__ qn, int nx, size_t npix, int rh, int rw,
               int levels, int n_steps, Coef cf, Sched sc) {
   __shared__ float buf[LMC_TILE_SIDE * LMC_TILE_SIDE];
+  WV_LAYER(npix, NQ);
+  const uint32_t chain = lmc_sched_chain(sc);
   const float c_keep = cf.c[0], c_grad = cf.c[1], c_prox = cf.c[2];
   const float noise_amp = cf.c[3], sig = cf.c[4], thr = cf.c[5];
   int kk[LMC_TILE_PPT];
@@ -223,7 +247,7 @@ wv_myula_haar(float* __restrict__ x, const float* __restrict__ y,
       const float grad = sm[e] * (mv[e] * xv[e] - yv[e]);
       float xn = c_keep * xv[e] - c_grad * grad + c_prox * p;
       if (sc.with_noise)
-        xn = xn + noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)kk[e],
+        xn = xn + noise_amp * lmc_normal(sc.seed, chain, (uint32_t)kk[e],
                                          (uint32_t)g);
       xv[e] = xn;
       stats_record(st, e, xn, sc, sw);
@@ -248,6 +272,10 @@ wv_ulpda_haar(float* __restrict__ x, float* __restrict__ c,
               float* __restrict__ qn, int nx, size_t npix, int rh, int rw,
               int levels, int n_steps, int gfirst, Coef cf, Sched sc) {
   __shared__ float buf[LMC_TILE_SIDE * LMC_TILE_SIDE];
+  WV_LAYER(npix, NQ);
+  c = lmc_layer(c, npix);
+  xbar = lmc_layer(xbar, npix);
+  const uint32_t chain = lmc_sched_chain(sc);
   const float tau = cf.c[0], mu = cf.c[1], theta = cf.c[2];
   const float noise_amp = cf.c[3], ts = cf.c[4], g_sigma = cf.c[5];
   int kk[LMC_TILE_PPT];
@@ -299,7 +327,7 @@ wv_ulpda_haar(float* __restrict__ x, float* __restrict__ c,
           const float p = buf[e * LMC_TILE_THREADS + threadIdx.x];
           float xn = (xv[e] - tau * p + atb[e]) * den[e];
           if (sc.with_noise)
-            xn = xn + noise_amp * lmc_normal(sc.seed, sc.chain,
+            xn = xn + noise_amp * lmc_normal(sc.seed, chain,
                                              (uint32_t)kk[e], (uint32_t)g);
           xb[e] = xn + theta * (xn - xv[e]);
           xv[e] = xn;
@@ -392,6 +420,8 @@ wv_myula_warp(float* __restrict__ x, const float* __restrict__ y,
   const int lane = threadIdx.x & 31;
   const int sq = blockIdx.x * (WV_WARP_THREADS / 32) + (threadIdx.x >> 5);
   if (sq >= n_sq) return;  // the whole warp
+  WV_LAYER(npix, NQ);
+  const uint32_t chain = lmc_sched_chain(sc);
   const float c_keep = cf.c[0], c_grad = cf.c[1], c_prox = cf.c[2];
   const float noise_amp = cf.c[3], sig = cf.c[4], thr = cf.c[5];
   int kk[2];
@@ -420,7 +450,7 @@ wv_myula_warp(float* __restrict__ x, const float* __restrict__ y,
       const float grad = sm[e] * (mv[e] * xv[e] - yv[e]);
       float xn = c_keep * xv[e] - c_grad * grad + c_prox * v[e];
       if (sc.with_noise)
-        xn = xn + noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)kk[e],
+        xn = xn + noise_amp * lmc_normal(sc.seed, chain, (uint32_t)kk[e],
                                          (uint32_t)g);
       xv[e] = xn;
       stats_record(st, e, xn, sc, sw);
@@ -443,6 +473,10 @@ wv_ulpda_warp(float* __restrict__ x, float* __restrict__ c,
   const int lane = threadIdx.x & 31;
   const int sq = blockIdx.x * (WV_WARP_THREADS / 32) + (threadIdx.x >> 5);
   if (sq >= n_sq) return;  // the whole warp
+  WV_LAYER(npix, NQ);
+  c = lmc_layer(c, npix);
+  xbar = lmc_layer(xbar, npix);
+  const uint32_t chain = lmc_sched_chain(sc);
   const float tau = cf.c[0], mu = cf.c[1], theta = cf.c[2];
   const float noise_amp = cf.c[3], ts = cf.c[4], g_sigma = cf.c[5];
   int kk[2];
@@ -479,7 +513,7 @@ wv_ulpda_warp(float* __restrict__ x, float* __restrict__ c,
         for (int e = 0; e < 2; ++e) {
           float xn = (xv[e] - tau * v[e] + atb[e]) * den[e];
           if (sc.with_noise)
-            xn = xn + noise_amp * lmc_normal(sc.seed, sc.chain,
+            xn = xn + noise_amp * lmc_normal(sc.seed, chain,
                                              (uint32_t)kk[e], (uint32_t)g);
           xb[e] = xn + theta * (xn - xv[e]);
           xv[e] = xn;
@@ -509,7 +543,9 @@ enum { EPI_NONE = 0, EPI_SOFT = 1, EPI_CLIP = 2 };
 //              == s: sum_i h[2i+1] rd(-2i - 1) + g[2i+1] rd(-2i)
 // Other slots copy through; s = 0 copies every pixel (no level applies). The
 // epilogue writes soft(v, a0) to out (EPI_SOFT), or updates the dual in place,
-// c = clip(c + a0 v, a1), without writing out (EPI_CLIP).
+// c = clip(c + a0 v, a1), without writing out (EPI_CLIP). Grid layer z
+// transforms chain z (lmc_chain_at: in, out and c a chain each, the
+// ping-pong buffers plane-major).
 __global__ void wv_db_pass(const float* __restrict__ in, float* __restrict__ out,
                            float* __restrict__ c, int ny, int nx, int s,
                            int axis, int inverse, Filt f, int epi, float a0,
@@ -517,6 +553,9 @@ __global__ void wv_db_pass(const float* __restrict__ in, float* __restrict__ out
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
+  in = lmc_chain_at(in, ny, nx);
+  out = lmc_chain_at(out, ny, nx);
+  c = lmc_chain_at(c, ny, nx);
   const int k = i * nx + j;
   float v = in[k];
   if (s > 0 && f.taps == 2) {
@@ -554,7 +593,7 @@ __global__ void wv_db_pass(const float* __restrict__ in, float* __restrict__ out
 }
 
 // Kernel 4's per-step update given p = W^T soft(W x): in place on x and the
-// statistics.
+// statistics; grid layer z updates chain z (WV_LAYER).
 __global__ void wv_myula_update(float* __restrict__ x, const float* __restrict__ p,
                                 const float* __restrict__ y,
                                 const float* __restrict__ msk,
@@ -565,18 +604,20 @@ __global__ void wv_myula_update(float* __restrict__ x, const float* __restrict__
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  WV_LAYER((size_t)ny * nx, sc.n_q);
+  p = lmc_chain_at(p, ny, nx);
   const float xv = x[k], m = msk[k];
   const float grad = cf.c[4] * m * (m * xv - y[k]);
   float xn = cf.c[0] * xv - cf.c[1] * grad + cf.c[2] * p[k];
   if (sc.with_noise)
-    xn = xn + cf.c[3] * lmc_normal(sc.seed, sc.chain, (uint32_t)k, (uint32_t)g);
+    xn = xn + cf.c[3] * lmc_normal(sc.seed, lmc_sched_chain(sc), (uint32_t)k, (uint32_t)g);
   x[k] = xn;
   lmc_record_global(xn, k, (size_t)ny * nx, mean, m2, qh, qn, sc,
                     lmc_step_w(sc, g));
 }
 
 // Kernel 5's per-step primal update given p = W^T c: in place on x, xbar
-// and the statistics.
+// and the statistics; grid layer z updates chain z (WV_LAYER).
 __global__ void wv_ulpda_update(float* __restrict__ x, const float* __restrict__ p,
                                 float* __restrict__ xbar,
                                 const float* __restrict__ y,
@@ -588,13 +629,16 @@ __global__ void wv_ulpda_update(float* __restrict__ x, const float* __restrict__
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int k = i * nx + j;
+  WV_LAYER((size_t)ny * nx, sc.n_q);
+  p = lmc_chain_at(p, ny, nx);
+  xbar = lmc_chain_at(xbar, ny, nx);
   const float tau = cf.c[0], theta = cf.c[2], ts = cf.c[4];
   const float xv = x[k], m = msk[k];
   const float atb = ts * m * y[k];
   const float den = 1.0f / (1.0f + ts * m);
   float xn = (xv - tau * p[k] + atb) * den;
   if (sc.with_noise)
-    xn = xn + cf.c[3] * lmc_normal(sc.seed, sc.chain, (uint32_t)k, (uint32_t)g);
+    xn = xn + cf.c[3] * lmc_normal(sc.seed, lmc_sched_chain(sc), (uint32_t)k, (uint32_t)g);
   x[k] = xn;
   xbar[k] = xn + theta * (xn - xv);
   lmc_record_global(xn, k, (size_t)ny * nx, mean, m2, qh, qn, sc,
@@ -603,13 +647,14 @@ __global__ void wv_ulpda_update(float* __restrict__ x, const float* __restrict__
 
 // The forward (inverse = 0) or inverse transform of src through the ping-pong
 // buffers, epilogue epi on the last pass (a copy pass with s = 0 when no level
-// applies and an epilogue is asked for). Returns the buffer holding the
+// applies and an epilogue is asked for), of n_chains chains a launch (grid
+// layers; src, c and each buffer chain-major). Returns the buffer holding the
 // result (src itself when nothing was launched).
 const float* db_transform(const float* src, float* const bufs[2], float* c,
-                          int ny, int nx, int levels, int inverse,
+                          int ny, int nx, int n_chains, int levels, int inverse,
                           const Filt& f, int epi, float a0, float a1,
                           cudaStream_t s) {
-  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
+  const dim3 grid = lmc_grid(ny, nx, n_chains), block = lmc_block();
   int out = 0;
   if (levels == 0) {
     if (epi == EPI_NONE) return src;
@@ -857,6 +902,12 @@ wv_rs_myula(float* x, const float* __restrict__ y,
   const float noise_amp = cf.c[3], sig = cf.c[4], thr = cf.c[5];
   const int i0 = blockIdx.y * ty, j0 = blockIdx.x * tx;
   const size_t npix = (size_t)ny * nx;
+  // grid layer z: chain z of the launch's group, its scratch z npix floats
+  // into each of B0 and B1 (plane-major)
+  WV_LAYER(npix, sc.n_q);
+  b0 = lmc_layer(b0, npix);
+  b1 = lmc_layer(b1, npix);
+  const uint32_t chain = lmc_sched_chain(sc);
   float* const w[2] = {b0, b1};
   int kk[WV_RS_PPT];
   float xv[WV_RS_PPT], yv[WV_RS_PPT], mv[WV_RS_PPT], sm[WV_RS_PPT];
@@ -892,7 +943,7 @@ wv_rs_myula(float* x, const float* __restrict__ y,
       const float grad = sm[e] * (mv[e] * xv[e] - yv[e]);
       float xn = c_keep * xv[e] - c_grad * grad + c_prox * p;
       if (sc.with_noise)
-        xn = xn + noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)kk[e],
+        xn = xn + noise_amp * lmc_normal(sc.seed, chain, (uint32_t)kk[e],
                                          (uint32_t)g);
       xv[e] = xn;
       x[kk[e]] = xn;
@@ -931,6 +982,14 @@ wv_rs_ulpda(float* __restrict__ x, float* __restrict__ c, float* xbar,
   const float noise_amp = cf.c[3], ts = cf.c[4], g_sigma = cf.c[5];
   const int i0 = blockIdx.y * ty, j0 = blockIdx.x * tx;
   const size_t npix = (size_t)ny * nx;
+  // grid layer z: chain z of the launch's group, its scratch z npix floats
+  // into each of B0 and B1 (plane-major)
+  WV_LAYER(npix, sc.n_q);
+  c = lmc_layer(c, npix);
+  xbar = lmc_layer(xbar, npix);
+  b0 = lmc_layer(b0, npix);
+  b1 = lmc_layer(b1, npix);
+  const uint32_t chain = lmc_sched_chain(sc);
   float* const w[2] = {b0, b1};
   int kk[WV_RS_PPT];
   float xv[WV_RS_PPT], atb[WV_RS_PPT], den[WV_RS_PPT];
@@ -988,7 +1047,7 @@ wv_rs_ulpda(float* __restrict__ x, float* __restrict__ c, float* xbar,
       const float p = rs_p<TAPS>(sh, tx, li / tx, li % tx, f);
       float xn = (xv[e] - tau * p + atb[e]) * den[e];
       if (sc.with_noise)
-        xn = xn + noise_amp * lmc_normal(sc.seed, sc.chain, (uint32_t)kk[e],
+        xn = xn + noise_amp * lmc_normal(sc.seed, chain, (uint32_t)kk[e],
                                          (uint32_t)g);
       xbar[kk[e]] = xn + theta * (xn - xv[e]);
       xv[e] = xn;
@@ -1035,11 +1094,14 @@ static inline bool rs_fits(int ny, int nx, int taps, int levels, int ty,
          (ny >> (levels - 1)) >= taps && (nx >> (levels - 1)) >= taps;
 }
 
-// One cooperative launch of kernel on the grid with smem bytes of dynamic
-// shared memory, or -1 when the card cannot hold every CTA at once.
-template <typename K>
-static int rs_launch(K kernel, dim3 grid, size_t smem, void** args,
-                     cudaStream_t s) {
+// The cooperative launches of kernel on the tile grid with smem bytes of
+// dynamic shared memory, one a group of per chains in turn (grid layer z of
+// a launch is chain c0 + z of its group); args(c0) fills the argument array
+// of the group starting at chain c0. Returns -1 when the card cannot hold
+// every CTA of a launch at once.
+template <typename K, typename Args>
+static int rs_launch(K kernel, dim3 grid, int n_chains, int per, size_t smem,
+                     Args&& args, cudaStream_t s) {
   int dev = 0, n_sm = 0, coop = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1056,22 +1118,27 @@ static int rs_launch(K kernel, dim3 grid, size_t smem, void** args,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       WV_RS_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
-  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y) return -1;
-  e = cudaLaunchCooperativeKernel((const void*)kernel, grid,
-                                  dim3(WV_RS_THREADS), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
+  if ((long long)per_sm * n_sm < (long long)grid.x * grid.y * per) return -1;
+  for (int c0 = 0; c0 < n_chains; c0 += per) {
+    dim3 gg = grid;
+    gg.z = n_chains - c0 < per ? n_chains - c0 : per;
+    e = cudaLaunchCooperativeKernel((const void*)kernel, gg, dim3(WV_RS_THREADS),
+                                    args(c0), smem, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
-// The route's fit; fills sc and f.
-bool load_common(Sched* sc, Filt* f, int ny, int nx, int taps,
-                 const float* filt, int levels, int route, int gh, int gw,
-                 int with_noise, int with_stats, const float* qcoef, int n_q,
-                 int thin, unsigned int seed, unsigned int chain,
-                 long long step0, long long burn, long long cnt0,
-                 const float* mean, const float* qh, const float* qn,
-                 float* const bufs[2]) {
-  if (ny < 2 || nx < 2 || n_q < 0 || n_q > LMC_MAXQ || thin < 1 || levels < 0)
+// The route's fit and the chain axis; fills sc and f.
+bool load_common(Sched* sc, Filt* f, int ny, int nx, int n_chains,
+                 const unsigned int* chains, int taps, const float* filt,
+                 int levels, int route, int gh, int gw, int per, int with_noise,
+                 int with_stats, const float* qcoef, int n_q, int thin,
+                 unsigned int seed, unsigned int chain, long long step0,
+                 long long burn, long long cnt0, const float* mean,
+                 const float* qh, const float* qn, float* const bufs[2]) {
+  if (ny < 2 || nx < 2 || n_q < 0 || n_q > LMC_MAXQ || thin < 1 || levels < 0 ||
+      n_chains < 1 || n_chains > 65535 || (n_chains > 1 && chains == nullptr))
     return false;
   bool ok = false;
   switch (route) {
@@ -1084,7 +1151,8 @@ bool load_common(Sched* sc, Filt* f, int ny, int nx, int taps,
       break;
     case RT_RESIDENT:
       ok = (taps == 4 || taps == 8) && bufs[0] != nullptr &&
-           bufs[1] != nullptr && rs_fits(ny, nx, taps, levels, gh, gw);
+           bufs[1] != nullptr && rs_fits(ny, nx, taps, levels, gh, gw) &&
+           per >= 1 && per <= n_chains;
       break;
     case RT_PASSES:
       ok = (taps == 2 || taps == 4 || taps == 8) && bufs[0] != nullptr &&
@@ -1108,21 +1176,34 @@ bool load_common(Sched* sc, Filt* f, int ny, int nx, int taps,
   sc->with_stats = with_stats;
   sc->seed = seed;
   sc->chain = chain;
+  sc->chains = chains;
   for (int jq = 0; jq < LMC_MAXQ; ++jq)
     for (int m = 0; m < 3; ++m) sc->qcoef[jq][m] = jq < n_q ? qcoef[3 * jq + m] : 0.0f;
   return true;
 }
 
+// Chain c0's copy of a chain-major field of floats floats a chain.
+static inline float* at_chain(float* p, int c0, size_t floats) {
+  return p ? p + (size_t)c0 * floats : p;
+}
+
 }  // namespace
 
-// Kernel 4: n_steps MYULA steps in place on x, mean, m2, qh, qn (float32,
-// row-major, contiguous, on the current device).
-//   y, m: the observation and the 0/1 mask; bufs: (2, ny, nx) scratch for
-//   the resident and passes routes (null for the Haar routes); taps 2, 4 or 8
-//   with filt, host, 16 floats: h, then g, each zero padded to 8; levels: the
-//   levels the transform applies (wavelet_fused.py::dwt_levels); route
-//   (RT_*) and its geometry gh x gw: the region of one CTA for "tile", the
-//   tile of one CTA for "resident", unused otherwise.
+// Kernel 4: n_steps MYULA steps of n_chains chains of one posterior in place
+// on x, mean, m2 (n_chains, ny, nx), qh (n_chains, 5 n_q, ny, nx), qn
+// (n_chains, 3 n_q, ny, nx) (float32, row-major, contiguous, on the current
+// device). The chains share y and m; chain c draws its noise under (seed,
+// chains[c]) (device, n_chains words), or (seed, chain) when chains is null
+// (one chain).
+//   y, m: the observation and the 0/1 mask; bufs: (2, n_chains, ny, nx)
+//   scratch for the resident and passes routes, plane-major (null for the
+//   Haar routes); taps 2, 4 or 8 with filt, host, 16 floats: h, then g, each
+//   zero padded to 8; levels: the levels the transform applies
+//   (wavelet_fused.py::dwt_levels); route (RT_*) and its geometry gh x gw:
+//   the region of one CTA for "tile", the tile of one CTA for "resident",
+//   unused otherwise; per: the chains a resident launch carries (the
+//   launches take the chains in groups of per, in turn; 1..n_chains), unused
+//   by the other routes, whose launches carry every chain as a grid layer.
 //   coef: host, 6 floats [1 - tau/gamma, tau, tau/gamma,
 //         noise_scale sqrt(2 tau), sig, thr].
 //   qcoef: host, n_q * 3 floats (dn - 1) / 4 for the interior markers.
@@ -1130,24 +1211,25 @@ bool load_common(Sched* sc, Filt* f, int ny, int nx, int taps,
 // outside the route's range or a resident grid the card cannot hold at once.
 extern "C" int lmc_wavelet_block(
     float* x, const float* y, const float* m, float* mean, float* m2,
-    float* qh, float* qn, float* bufs, int ny, int nx, int taps,
-    const float* filt, int levels, int route, int gh, int gw, int n_steps,
-    int with_noise, int with_stats, const float* qcoef, int n_q, int thin,
-    const float* coef, unsigned int seed, unsigned int chain, long long step0,
-    long long burn, long long cnt0, void* stream) {
+    float* qh, float* qn, float* bufs, int ny, int nx, int n_chains,
+    const unsigned int* chains, int taps, const float* filt, int levels,
+    int route, int gh, int gw, int per, int n_steps, int with_noise,
+    int with_stats, const float* qcoef, int n_q, int thin, const float* coef,
+    unsigned int seed, unsigned int chain, long long step0, long long burn,
+    long long cnt0, void* stream) {
   const size_t npix = (size_t)ny * nx;
-  float* const pp[2] = {bufs, bufs ? bufs + npix : nullptr};
+  float* const pp[2] = {bufs, bufs ? bufs + npix * n_chains : nullptr};
   Sched sc;
   Filt f;
-  if (!load_common(&sc, &f, ny, nx, taps, filt, levels, route, gh, gw,
-                   with_noise, with_stats, qcoef, n_q, thin, seed, chain,
-                   step0, burn, cnt0, mean, qh, qn, pp))
+  if (!load_common(&sc, &f, ny, nx, n_chains, chains, taps, filt, levels, route,
+                   gh, gw, per, with_noise, with_stats, qcoef, n_q, thin, seed,
+                   chain, step0, burn, cnt0, mean, qh, qn, pp))
     return -1;
   Coef cf;
   for (int i = 0; i < 6; ++i) cf.c[i] = coef[i];
   cudaStream_t s = (cudaStream_t)stream;
   if (route == RT_TILE) {
-    const dim3 grid(nx / gw, ny / gh);
+    const dim3 grid(nx / gw, ny / gh, n_chains);
 #define LMC_WV_MYULA(NQ)                                                     \
   wv_myula_haar<NQ><<<grid, LMC_TILE_THREADS, 0, s>>>(                       \
       x, y, m, mean, m2, qh, qn, nx, npix, gh, gw, levels, n_steps, cf, sc)
@@ -1163,7 +1245,8 @@ extern "C" int lmc_wavelet_block(
   }
   if (route == RT_WARP) {
     const int n_sq = (ny / WV_SQ) * (nx / WV_SQ);
-    const int grid = (n_sq + WV_WARP_THREADS / 32 - 1) / (WV_WARP_THREADS / 32);
+    const dim3 grid((n_sq + WV_WARP_THREADS / 32 - 1) / (WV_WARP_THREADS / 32), 1,
+                    n_chains);
 #define LMC_WV_MYULA(NQ)                                                     \
   wv_myula_warp<NQ><<<grid, WV_WARP_THREADS, 0, s>>>(                        \
       x, y, m, mean, m2, qh, qn, nx, npix, n_sq, levels, n_steps, cf, sc)
@@ -1178,24 +1261,36 @@ extern "C" int lmc_wavelet_block(
     return (int)cudaGetLastError();
   }
   if (route == RT_RESIDENT) {
-    float* b0 = pp[0];
-    float* b1 = pp[1];
-    void* args[] = {&x,  (void*)&y, (void*)&m, &mean, &m2, &qh,      &qn,
-                    &b0, &b1,       &ny,       &nx,   &gh, &gw,      &levels,
-                    &n_steps,       &f,        &cf,   &sc};
+    // the group's pointers: its first chain's fields and scratch, its words
+    float *gx, *gmean, *gm2, *gqh, *gqn, *b0, *b1;
+    Sched gsc = sc;
+    void* args[] = {&gx, (void*)&y, (void*)&m, &gmean, &gm2, &gqh,    &gqn,
+                    &b0, &b1,       &ny,       &nx,    &gh,  &gw,     &levels,
+                    &n_steps,       &f,        &cf,    &gsc};
+    auto group = [&](int c0) {
+      gx = at_chain(x, c0, npix);
+      gmean = at_chain(mean, c0, npix);
+      gm2 = at_chain(m2, c0, npix);
+      gqh = at_chain(qh, c0, 5 * (size_t)n_q * npix);
+      gqn = at_chain(qn, c0, 3 * (size_t)n_q * npix);
+      b0 = at_chain(pp[0], c0, npix);
+      b1 = at_chain(pp[1], c0, npix);
+      gsc.chains = chains ? chains + c0 : nullptr;
+      return args;
+    };
     const dim3 grid(nx / gw, ny / gh);
     const size_t smem = sizeof(float) * rs_sh_floats(gh, gw, taps);
-    return taps == 4 ? rs_launch(wv_rs_myula<4>, grid, smem, args, s)
-                     : rs_launch(wv_rs_myula<8>, grid, smem, args, s);
+    return taps == 4 ? rs_launch(wv_rs_myula<4>, grid, n_chains, per, smem, group, s)
+                     : rs_launch(wv_rs_myula<8>, grid, n_chains, per, smem, group, s);
   }
-  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
+  const dim3 grid = lmc_grid(ny, nx, n_chains), block = lmc_block();
   for (int it = 0; it < n_steps; ++it) {
-    const float* c = db_transform(x, pp, nullptr, ny, nx, levels, 0, f,
+    const float* c = db_transform(x, pp, nullptr, ny, nx, n_chains, levels, 0, f,
                                   EPI_SOFT, cf.c[5], 0.0f, s);
     // continue in the buffer the forward transform did not end in
     float* const inv_bufs[2] = {c == pp[0] ? pp[1] : pp[0], (float*)c};
-    const float* p = db_transform(c, inv_bufs, nullptr, ny, nx, levels, 1, f,
-                                  EPI_NONE, 0.0f, 0.0f, s);
+    const float* p = db_transform(c, inv_bufs, nullptr, ny, nx, n_chains, levels, 1,
+                                  f, EPI_NONE, 0.0f, 0.0f, s);
     wv_myula_update<<<grid, block, 0, s>>>(x, p, y, m, mean, m2, qh, qn, ny,
                                            nx, cf, sc, step0 + it);
     const cudaError_t e = cudaGetLastError();
@@ -1204,33 +1299,34 @@ extern "C" int lmc_wavelet_block(
   return (int)cudaGetLastError();
 }
 
-// Kernel 5: n_steps wavelet-dual ULPDA steps in place on x, c, xbar, mean,
-// m2, qh, qn (float32, row-major, contiguous, on the current device); the
-// dual c is in the interleaved layout. With gfirst = 0 the incoming xbar is
-// never read; the outgoing one is the genuine x' + theta (x' - x).
+// Kernel 5: n_steps wavelet-dual ULPDA steps of n_chains chains in place on
+// x, c, xbar, mean, m2 (n_chains, ny, nx), qh, qn (as kernel 4's) (float32,
+// row-major, contiguous, on the current device); the dual c is in the
+// interleaved layout. With gfirst = 0 the incoming xbar is never read; the
+// outgoing one is the genuine x' + theta (x' - x).
 //   coef: host, 6 floats [tau, mu, theta, noise_scale sqrt(2 tau), tau sig,
 //         g_sigma]; the rest as lmc_wavelet_block.
 extern "C" int lmc_ulpda_wavelet_block(
     float* x, float* c, float* xbar, const float* y, const float* m,
     float* mean, float* m2, float* qh, float* qn, float* bufs, int ny, int nx,
-    int taps, const float* filt, int levels, int route, int gh, int gw,
-    int n_steps, int gfirst, int with_noise, int with_stats,
-    const float* qcoef, int n_q, int thin, const float* coef,
-    unsigned int seed, unsigned int chain, long long step0, long long burn,
-    long long cnt0, void* stream) {
+    int n_chains, const unsigned int* chains, int taps, const float* filt,
+    int levels, int route, int gh, int gw, int per, int n_steps, int gfirst,
+    int with_noise, int with_stats, const float* qcoef, int n_q, int thin,
+    const float* coef, unsigned int seed, unsigned int chain, long long step0,
+    long long burn, long long cnt0, void* stream) {
   const size_t npix = (size_t)ny * nx;
-  float* const pp[2] = {bufs, bufs ? bufs + npix : nullptr};
+  float* const pp[2] = {bufs, bufs ? bufs + npix * n_chains : nullptr};
   Sched sc;
   Filt f;
-  if (!load_common(&sc, &f, ny, nx, taps, filt, levels, route, gh, gw,
-                   with_noise, with_stats, qcoef, n_q, thin, seed, chain,
-                   step0, burn, cnt0, mean, qh, qn, pp))
+  if (!load_common(&sc, &f, ny, nx, n_chains, chains, taps, filt, levels, route,
+                   gh, gw, per, with_noise, with_stats, qcoef, n_q, thin, seed,
+                   chain, step0, burn, cnt0, mean, qh, qn, pp))
     return -1;
   Coef cf;
   for (int i = 0; i < 6; ++i) cf.c[i] = coef[i];
   cudaStream_t s = (cudaStream_t)stream;
   if (route == RT_TILE) {
-    const dim3 grid(nx / gw, ny / gh);
+    const dim3 grid(nx / gw, ny / gh, n_chains);
 #define LMC_WV_ULPDA(NQ)                                                     \
   wv_ulpda_haar<NQ><<<grid, LMC_TILE_THREADS, 0, s>>>(                       \
       x, c, xbar, y, m, mean, m2, qh, qn, nx, npix, gh, gw, levels, n_steps, \
@@ -1247,7 +1343,8 @@ extern "C" int lmc_ulpda_wavelet_block(
   }
   if (route == RT_WARP) {
     const int n_sq = (ny / WV_SQ) * (nx / WV_SQ);
-    const int grid = (n_sq + WV_WARP_THREADS / 32 - 1) / (WV_WARP_THREADS / 32);
+    const dim3 grid((n_sq + WV_WARP_THREADS / 32 - 1) / (WV_WARP_THREADS / 32), 1,
+                    n_chains);
 #define LMC_WV_ULPDA(NQ)                                                     \
   wv_ulpda_warp<NQ><<<grid, WV_WARP_THREADS, 0, s>>>(                        \
       x, c, xbar, y, m, mean, m2, qh, qn, nx, npix, n_sq, levels, n_steps,   \
@@ -1263,26 +1360,40 @@ extern "C" int lmc_ulpda_wavelet_block(
     return (int)cudaGetLastError();
   }
   if (route == RT_RESIDENT) {
-    float* b0 = pp[0];
-    float* b1 = pp[1];
-    void* args[] = {&x,  &c,  &xbar, (void*)&y, (void*)&m, &mean,   &m2,
-                    &qh, &qn, &b0,   &b1,       &ny,       &nx,     &gh,
-                    &gw, &levels,    &n_steps,  &gfirst,   &f,      &cf,
-                    &sc};
+    float *gx, *gc, *gxbar, *gmean, *gm2, *gqh, *gqn, *b0, *b1;
+    Sched gsc = sc;
+    void* args[] = {&gx,  &gc,  &gxbar, (void*)&y, (void*)&m, &gmean,  &gm2,
+                    &gqh, &gqn, &b0,    &b1,       &ny,       &nx,     &gh,
+                    &gw,  &levels,      &n_steps,  &gfirst,   &f,      &cf,
+                    &gsc};
+    auto group = [&](int c0) {
+      gx = at_chain(x, c0, npix);
+      gc = at_chain(c, c0, npix);
+      gxbar = at_chain(xbar, c0, npix);
+      gmean = at_chain(mean, c0, npix);
+      gm2 = at_chain(m2, c0, npix);
+      gqh = at_chain(qh, c0, 5 * (size_t)n_q * npix);
+      gqn = at_chain(qn, c0, 3 * (size_t)n_q * npix);
+      b0 = at_chain(pp[0], c0, npix);
+      b1 = at_chain(pp[1], c0, npix);
+      gsc.chains = chains ? chains + c0 : nullptr;
+      return args;
+    };
     const dim3 grid(nx / gw, ny / gh);
     const size_t smem = sizeof(float) * (rs_sh_floats(gh, gw, taps) + (size_t)gh * gw);
-    return taps == 4 ? rs_launch(wv_rs_ulpda<4>, grid, smem, args, s)
-                     : rs_launch(wv_rs_ulpda<8>, grid, smem, args, s);
+    return taps == 4 ? rs_launch(wv_rs_ulpda<4>, grid, n_chains, per, smem, group, s)
+                     : rs_launch(wv_rs_ulpda<8>, grid, n_chains, per, smem, group, s);
   }
-  const dim3 grid = lmc_grid(ny, nx), block = lmc_block();
+  const dim3 grid = lmc_grid(ny, nx, n_chains), block = lmc_block();
   const float mu = cf.c[1], g_sigma = cf.c[5];
   for (int it = 0; it < n_steps; ++it) {
     for (int pass = 0; pass < 2; ++pass) {
       if ((pass == 0) == (gfirst != 0)) {
-        db_transform(xbar, pp, c, ny, nx, levels, 0, f, EPI_CLIP, mu, g_sigma, s);
+        db_transform(xbar, pp, c, ny, nx, n_chains, levels, 0, f, EPI_CLIP, mu,
+                     g_sigma, s);
       } else {
-        const float* p = db_transform(c, pp, nullptr, ny, nx, levels, 1, f,
-                                      EPI_NONE, 0.0f, 0.0f, s);
+        const float* p = db_transform(c, pp, nullptr, ny, nx, n_chains, levels, 1,
+                                      f, EPI_NONE, 0.0f, 0.0f, s);
         wv_ulpda_update<<<grid, block, 0, s>>>(x, p, xbar, y, m, mean, m2, qh,
                                                qn, ny, nx, cf, sc, step0 + it);
       }

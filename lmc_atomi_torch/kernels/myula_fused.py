@@ -401,6 +401,16 @@ def _chain_words(words, device):
     return torch.from_numpy(bits).to(device)
 
 
+def runner_keys(x0, key):
+    """The key of a runner's block calls: ``key`` for one chain; for a chain
+    axis ``(C, ny, nx)`` the ``C`` keys ``chain_keys(key, C)``, unless
+    ``key`` is already that list (a slice of them, as a rank of a farm runs
+    its share)."""
+    if x0.ndim == 3 and not isinstance(key, list):
+        return chain_keys(key, x0.shape[0])
+    return key
+
+
 def per_chain(fn, x, keys, chained):
     """A plain block version on a chain axis: chain ``c`` is ``fn`` on the
     ``c``-th slice of ``x`` and of each of ``chained`` (None passes
@@ -799,8 +809,7 @@ def run_myula_tv_fused(
         return _map_result(res, pack_lanes)
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
-    if x0.ndim == 3 and not isinstance(key, list):
-        key = chain_keys(key, x0.shape[0])
+    key = runner_keys(x0, key)
     quantiles = tuple(float(p) for p in quantiles)
     step_offset = int(step_offset)
     block = _align_block(n_steps, min(n_steps, 256) if block is None else block,

@@ -31,6 +31,12 @@ Noise is the Philox normal at the global pixel and step
 same chain: bit for bit against kernel 2 without ``tv_warm``. The TV prox
 and the ME-TV envelope start cold every step. Not ported: the TPU's
 ``stream_x`` layout and its VMEM budget logic.
+
+A call takes one chain ``(ny, nx)`` or ``C`` chains of one posterior
+``(C, ny, nx)`` under ``C`` chain keys sharing one seed, as kernel 2 does:
+on the card each step's launch carries every chain as a grid layer, the
+plain version runs the chains one after another, and chain ``c`` is bit for
+bit the one-chain call under key ``c``.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from lmc_atomi_torch.kernels.myula_fused import (
     Taps,
     _BlockStats,
     _chain_result,
+    _chain_words,
     _check_block_args,
     _fgp_coef,
     _fused_mode,
@@ -63,6 +70,9 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _tile_halo,
     _tv_prox_any,
     _update_coefs,
+    chain_seeds,
+    per_chain,
+    runner_keys,
 )
 from lmc_atomi_torch.ops.tv_cuda import (
     _RESERVED_SMEM,
@@ -98,9 +108,10 @@ def _tile_work(ty, tx, h, ry, rank, niter_tv, mode, niter_inner) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _ranking(ny, nx, h, ry, n_taps, niter_tv, fields, mode, niter_inner, n_sm, smem_limit):
+def _ranking(ny, nx, h, ry, n_taps, niter_tv, fields, mode, niter_inner, n_sm, smem_limit,
+             n_chains=1):
     """``_tiled_ranking`` on the numbers it depends on, computed once per
-    shape and options: the wrapper asks on every call."""
+    shape, options and chain count: the wrapper asks on every call."""
     cands = []
     for threads in (512, 1024):
         per_sm = _SM_THREADS // threads
@@ -112,7 +123,8 @@ def _ranking(ny, nx, h, ry, n_taps, niter_tv, fields, mode, niter_inner, n_sm, s
                         or per_sm * (cta + _RESERVED_SMEM) > smem_limit + _RESERVED_SMEM):
                     break
                 tiles = -(-ny // ty) * -(-nx // tx)
-                waves = -(-tiles // (n_sm * per_sm))
+                # the launch's CTAs: every chain's tiles
+                waves = -(-tiles * n_chains // (n_sm * per_sm))
                 cost = waves * per_sm * _tile_work(ty, tx, h, ry, n_taps, niter_tv,
                                                    mode, niter_inner)
                 cands.append((cost, threads, ty, tx, tiles))
@@ -123,7 +135,7 @@ def _ranking(ny, nx, h, ry, n_taps, niter_tv, fields, mode, niter_inner, n_sm, s
 def _tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
                    tv_solver: str = "chambolle", mode: str = "tv",
                    niter_inner: int = 10, n_sm: int = H100_SMS,
-                   smem_limit: int = H100_SMEM_OPTIN):
+                   smem_limit: int = H100_SMEM_OPTIN, n_chains: int = 1):
     """Every geometry ``tiled_plan`` weighs, as its ``(ty, tx, h, threads,
     edge_tiles, tiles)``, in the order of its ranking: least cost first."""
     if not 0 <= niter_tv <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
@@ -131,17 +143,19 @@ def _tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
     ry = max(oy, len(taps[0][0]) - 1 - oy)
     h = _tile_halo(taps, oy, ox, niter_tv, mode, niter_inner)
     return _ranking(*shape, h, ry, len(taps), niter_tv, 6 if tv_solver == "fgp" else 4,
-                    mode, niter_inner, n_sm, smem_limit)
+                    mode, niter_inner, n_sm, smem_limit, n_chains)
 
 
 def tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
                tv_solver: str = "chambolle", mode: str = "tv",
                niter_inner: int = 10, n_sm: int = H100_SMS,
-               smem_limit: int = H100_SMEM_OPTIN):
-    """Kernel 6's geometry on a card of ``n_sm`` SMs whose CTA takes at
-    most ``smem_limit`` bytes of shared memory, the one the wrapper
-    launches: ``(ty, tx, h, threads, edge_tiles, tiles)``, or ``None`` when
-    nothing fits.
+               smem_limit: int = H100_SMEM_OPTIN, n_chains: int = 1):
+    """Kernel 6's geometry for ``n_chains`` chains a call on a card of
+    ``n_sm`` SMs whose CTA takes at most ``smem_limit`` bytes of shared
+    memory, the one the wrapper launches: ``(ty, tx, h, threads,
+    edge_tiles, tiles)`` (tiles a chain), or ``None`` when nothing fits.
+    A step is one launch of every chain's tiles (grid layer z chain z: all
+    ``n_chains`` chains a launch, one launch in turn).
 
     The halo ``h`` is the least exact one (``myula_fused._tile_halo``, as
     the resident route's). Candidates are the
@@ -152,12 +166,12 @@ def tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_tv: int = 10,
     of the SM's ``smem_limit + 1024`` (as on sm_80 and sm_90). A step costs
     the waves ``ceil(tiles / (n_sm * per_sm))`` times the CTAs of a wave on
     an SM times one CTA's cone work (``_tile_work``), ragged tiles at full
-    cost; the least cost wins, ties to fewer threads, then the smaller
-    ``ty`` and ``tx``. ``edge_tiles`` counts the tiles that are not
-    edge-free."""
+    cost; the waves count every chain's tiles. The least cost wins, ties to
+    fewer threads, then the smaller ``ty`` and ``tx``. ``edge_tiles``
+    counts the tiles that are not edge-free."""
     ranking = _tiled_ranking(shape, taps, oy, ox, niter_tv=niter_tv, tv_solver=tv_solver,
                              mode=mode, niter_inner=niter_inner, n_sm=n_sm,
-                             smem_limit=smem_limit)
+                             smem_limit=smem_limit, n_chains=n_chains)
     return ranking[0] if ranking else None
 
 
@@ -235,9 +249,10 @@ def _check_tiles(shape, n_steps: int, band: int, halo: int, halo_need: int,
 def _check_myula_tiled(x, taps, oy, n_steps, band, halo, niter_tv, mode,
                        niter_inner, quantiles, quantile_thin, tv_solver):
     _check_block_args(taps, quantiles, quantile_thin, tv_solver, mode)
-    if x.ndim != 2:
-        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
-    _check_tiles(x.shape, n_steps, band, halo,
+    if x.ndim not in (2, 3):
+        raise ValueError(f"x must be an (ny, nx) image or a (C, ny, nx) chain axis, "
+                         f"got {tuple(x.shape)}")
+    _check_tiles(x.shape[-2:], n_steps, band, halo,
                  _halo_need(niter_tv, oy, mode, niter_inner),
                  "the TV prox's niter_tv + 1, the gram radius oy"
                  + (", the ME-TV inner prox's niter_inner + 1"
@@ -258,9 +273,20 @@ def myula_tv_tiled_update_ref(
 ):
     """Plain torch version of kernel 6 (see ``myula_tv_tiled_update``),
     band by band: each band's step is computed on its halo tile and its
-    interior kept."""
+    interior kept; a chain axis runs its chains one after another."""
     _check_myula_tiled(x, taps, oy, n_steps, band, halo, niter_tv, mode,
                        niter_inner, quantiles, quantile_thin, tv_solver)
+    if x.ndim == 3:
+        chain_seeds(seed, x)
+        kw = dict(taps=taps, oy=oy, ox=ox, n_steps=n_steps, niter_tv=niter_tv,
+                  tv_step=tv_step, band=band, halo=halo, with_noise=with_noise,
+                  tv_solver=tv_solver, quantiles=quantiles, quantile_thin=quantile_thin,
+                  mode=mode, niter_inner=niter_inner)
+
+        def one(xc, mc, m2c, qhc, qnc, key):
+            return myula_tv_tiled_update_ref(xc, atbs, mc, m2c, key, scal_f, scal_i,
+                                             qhc, qnc, **kw)
+        return per_chain(one, x, seed, (mean, m2, qh, qn))
     (c_keep, c_grad, c_prox, noise_amp, sigma, tv_gamma, lamda, gamma_mc, _,
      c_env) = _update_coefs(scal_f)
     seed, chain = base_key(seed)
@@ -304,23 +330,27 @@ def myula_tv_tiled_update_cuda(
     tv_solver: str = "chambolle", quantiles: Tuple[float, ...] = (),
     quantile_thin: int = 1, mode: str = "tv", niter_inner: int = 0,
 ):
-    """Kernel 6 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors:
-    one launch per step, on ``tiled_plan``'s geometry for the card, kept in
+    """Kernel 6 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors,
+    one chain or a chain axis: one launch per step carrying every chain, on
+    ``tiled_plan``'s geometry for the card and the chains, kept in
     ``last_plan``. Works on copies of
     ``x, mean, m2, qh, qn`` and returns them; raises on a CPU tensor, on
     options the kernel does not take, or when no geometry fits."""
     _check_myula_tiled(x, taps, oy, n_steps, band, halo, niter_tv, mode,
                        niter_inner, quantiles, quantile_thin, tv_solver)
-    ny, nx = x.shape
+    ny, nx = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
     n_q = len(quantiles)
-    _build.require_cuda_f32((ny, nx), x=x, atbs=atbs, mean=mean, m2=m2)
+    _build.require_cuda_f32(x.shape, x=x, mean=mean, m2=m2)
+    _build.require_cuda_f32((ny, nx), atbs=atbs)
     if n_q:
-        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
-        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
-        if qh.device != x.device or qn.device != x.device:
-            raise ValueError("marker state must lie on x's device")
+        _build.require_cuda_f32(lead + (5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32(lead + (3 * n_q, ny, nx), qn=qn)
+    if any(t.device != x.device for t in (atbs, qh, qn) if t is not None):
+        raise ValueError("atbs and the marker state must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
-    seed, chain = base_key(seed)
+    seed, words = chain_seeds(seed, x)
+    chains = _chain_words(words, x.device)
 
     x, mean, m2 = x.clone(), mean.clone(), m2.clone()
     if n_q:
@@ -334,7 +364,8 @@ def myula_tv_tiled_update_cuda(
 
     n_sm, smem_limit = _build.card_limits(x.device)
     plan = tiled_plan((ny, nx), taps, oy, ox, niter_tv=niter_tv, tv_solver=tv_solver,
-                      mode=mode, niter_inner=niter_inner, n_sm=n_sm, smem_limit=smem_limit)
+                      mode=mode, niter_inner=niter_inner, n_sm=n_sm, smem_limit=smem_limit,
+                      n_chains=len(words))
     if plan is None:
         raise ValueError(f"no kernel-6 tile fits {smem_limit} bytes of shared memory")
     ty, tx, _, threads, _, _ = plan
@@ -347,13 +378,14 @@ def myula_tv_tiled_update_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmc_myula_tiled(
             x.data_ptr(), parity.data_ptr(), atbs.data_ptr(), mean.data_ptr(),
-            m2.data_ptr(), ptr(qh, n_q), ptr(qn, n_q), ny, nx,
-            tap_arr.ctypes.data, rank, ky, kx, int(oy), int(ox),
+            m2.data_ptr(), ptr(qh, n_q), ptr(qn, n_q), ny, nx, len(words),
+            ptr(chains, chains is not None), tap_arr.ctypes.data, rank, ky, kx,
+            int(oy), int(ox),
             int(n_steps), int(niter_tv), float(tv_step),
             int(tv_solver == "fgp"), fgp_coef.ctypes.data, MODES.index(mode),
             int(niter_inner), int(bool(with_noise)), qcoef.ctypes.data, n_q,
             int(quantile_thin), coef.ctypes.data, seed & 0xFFFFFFFF,
-            chain & 0xFFFFFFFF, step0, burn, cnt0, ty, tx, threads, stream,
+            words[0] & 0xFFFFFFFF, step0, burn, cnt0, ty, tx, threads, stream,
         )
     _build.check(rc, "lmc_myula_tiled")
     myula_tv_tiled_update_cuda.launches += 1
@@ -371,10 +403,10 @@ def myula_tv_tiled_update(x, *args, **kwargs):
     Arguments as ``myula_fused.myula_tv_block_update``'s (``atbs = sigma
     A^T b``, ``seed`` a seed or ``(seed, chain)``, ``scal_f``, ``scal_i``,
     the P^2 state ``qh``/``qn``), plus the row ``band`` and ``halo`` of the
-    tiling, checked as the JAX package checks them. No warm dual: the TV
-    prox and the ME-TV envelope start cold every step. Returns
-    ``(x', mean', m2', qh', qn')``. CUDA tensors run the hand kernel, CPU
-    tensors its plain version.
+    tiling, checked as the JAX package checks them; a chain axis ``(C, ny,
+    nx)`` as kernel 2's. No warm dual: the TV prox and the ME-TV envelope
+    start cold every step. Returns ``(x', mean', m2', qh', qn')``. CUDA
+    tensors run the hand kernel, CPU tensors its plain version.
     """
     if x.is_cuda:
         return myula_tv_tiled_update_cuda(x, *args, **kwargs)
@@ -435,14 +467,17 @@ def run_myula_tv_tiled(
     ``pick_band``). ``interpret`` and ``stream_x`` are the JAX package's
     (Pallas interpret mode; streaming the position from HBM past its VMEM
     ceiling) and take no effect: kernel 6 reads every band from device
-    memory, and a CPU tensor runs the plain version."""
+    memory, and a CPU tensor runs the plain version. A chain axis ``x0``
+    ``(C, ny, nx)`` runs as ``run_myula_tv_fused``'s, ``C`` chains a kernel
+    call."""
     taps, (oy, ox), atbs = _fused_params(l2)
     mode, lamda, gamma_mc, niter_inner = _fused_mode(l2)
     x0 = torch.as_tensor(x0)
+    key = runner_keys(x0, key)
     if halo is None:
         halo = _round8(max(_halo_need(niter_tv, oy, mode, niter_inner), 8))
     if band is None:
-        band = pick_band(x0.shape[0], halo)
+        band = pick_band(x0.shape[-2], halo)
     block = _tiled_block(n_steps, block)
     quantiles = tuple(float(p) for p in quantiles)
     _check_thin(quantiles, block, quantile_thin)

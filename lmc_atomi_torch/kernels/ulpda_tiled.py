@@ -29,6 +29,13 @@ The noise is the Philox normal at the global pixel and step, and each
 pixel's operations come in kernel 3's order, so a tiled chain equals
 ``run_ulpda_fused`` (``env_warm=False``, Chambolle envelope) bit for bit. Not
 ported: the TPU's ``stream_x`` layout and its VMEM budget.
+
+A call takes one chain ``(ny, nx)`` or ``C`` chains of one posterior
+``(C, ny, nx)`` (``x``, ``xp``, ``py``, ``px``, the moments; the markers
+``(C, k n_q, ny, nx)``) under ``C`` chain keys sharing one seed, as kernel
+3 does: on the card the dual and the primal launch of a step each carry
+every chain as a grid layer, the plain version runs the chains one after
+another, and chain ``c`` is bit for bit the one-chain call under key ``c``.
 """
 from __future__ import annotations
 
@@ -50,11 +57,15 @@ from lmc_atomi_torch.kernels.myula_fused import (
     Taps,
     _BlockStats,
     _chain_result,
+    _chain_words,
     _check_block_args,
     _marker_state,
     _mctv_clamp,
     _p2_coefs,
     _tv_prox,
+    chain_seeds,
+    per_chain,
+    runner_keys,
 )
 from lmc_atomi_torch.kernels.myula_tiled import (
     _RESERVED_SMEM,
@@ -129,11 +140,11 @@ def _ulpda_tile_work(ty, tx, h, reach, ry, rank, niter_solve, mode, niter_inner)
 @functools.lru_cache(maxsize=64)
 def _ulpda_tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_solve: int = 3,
                          mode: str = "tv", niter_inner: int = 10, n_sm: int = H100_SMS,
-                         smem_limit: int = H100_SMEM_OPTIN):
+                         smem_limit: int = H100_SMEM_OPTIN, n_chains: int = 1):
     """Every geometry ``ulpda_tiled_plan`` weighs, as its ``(ty, tx, h,
     threads, edge_tiles, tiles)``, in the order of its ranking: least cost
-    first. Computed once per shape and options: the wrapper asks on every
-    call."""
+    first. Computed once per shape, options and chain count: the wrapper
+    asks on every call."""
     if not 0 <= niter_solve <= _MAX_TRIPS or not 0 <= niter_inner <= _MAX_TRIPS:
         return ()
     ny, nx = shape
@@ -152,7 +163,8 @@ def _ulpda_tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_solve: in
                         or per_sm * (cta + _RESERVED_SMEM) > smem_limit + _RESERVED_SMEM):
                     break
                 tiles = -(-ny // ty) * -(-nx // tx)
-                waves = -(-tiles // (n_sm * per_sm))
+                # the primal launch's CTAs: every chain's tiles
+                waves = -(-tiles * n_chains // (n_sm * per_sm))
                 cost = waves * per_sm * _ulpda_tile_work(ty, tx, h, reach, ry, len(taps),
                                                          niter_solve, mode, niter_inner)
                 cands.append((cost, threads, ty, tx, tiles))
@@ -162,11 +174,13 @@ def _ulpda_tiled_ranking(shape, taps: Taps, oy: int, ox: int, *, niter_solve: in
 
 def ulpda_tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_solve: int = 3,
                      mode: str = "tv", niter_inner: int = 10, n_sm: int = H100_SMS,
-                     smem_limit: int = H100_SMEM_OPTIN):
-    """Kernel 7's primal geometry on a card of ``n_sm`` SMs whose CTA takes
-    at most ``smem_limit`` bytes of shared memory, the one the wrapper
-    launches: ``(ty, tx, h, threads, edge_tiles, tiles)``, or ``None`` when
-    nothing fits.
+                     smem_limit: int = H100_SMEM_OPTIN, n_chains: int = 1):
+    """Kernel 7's primal geometry for ``n_chains`` chains a call on a card
+    of ``n_sm`` SMs whose CTA takes at most ``smem_limit`` bytes of shared
+    memory, the one the wrapper launches: ``(ty, tx, h, threads,
+    edge_tiles, tiles)`` (tiles a chain), or ``None`` when nothing fits. A
+    step is a dual and a primal launch, each carrying every chain as a grid
+    layer (all ``n_chains`` chains a launch, one launch of each in turn).
 
     Kernel 6's rule (``myula_tiled.tiled_plan``) on kernel 7's cone: the
     halo ``h`` is the cone's (``ulpda_fused._ulpda_halo``, each sweep on its
@@ -176,12 +190,12 @@ def ulpda_tiled_plan(shape, taps: Taps, oy: int, ox: int, *, niter_solve: int = 
     coefficients) fits, 1 KiB reserved a CTA; a step costs the waves
     ``ceil(tiles / (n_sm *
     per_sm))`` times the CTAs of a wave on an SM times one CTA's cone work
-    (``_ulpda_tile_work``); the least cost wins, ties to fewer threads, then
-    the smaller ``ty`` and ``tx``. ``edge_tiles`` counts the tiles that are
-    not edge-free."""
+    (``_ulpda_tile_work``), the waves over every chain's tiles; the least
+    cost wins, ties to fewer threads, then the smaller ``ty`` and ``tx``.
+    ``edge_tiles`` counts the tiles that are not edge-free."""
     ranking = _ulpda_tiled_ranking(tuple(shape), taps, oy, ox, niter_solve=niter_solve,
                                    mode=mode, niter_inner=niter_inner, n_sm=n_sm,
-                                   smem_limit=smem_limit)
+                                   smem_limit=smem_limit, n_chains=n_chains)
     return ranking[0] if ranking else None
 
 
@@ -192,9 +206,10 @@ def _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
         raise ValueError(f"dual {dual!r}: the tiled ULPDA takes {DUALS[:2]}")
     if niter_solve < 0:
         raise ValueError("niter_solve must be >= 0")
-    if x.ndim != 2:
-        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
-    _check_tiles(x.shape, n_steps, band, halo,
+    if x.ndim not in (2, 3):
+        raise ValueError(f"x must be an (ny, nx) image or a (C, ny, nx) chain axis, "
+                         f"got {tuple(x.shape)}")
+    _check_tiles(x.shape[-2:], n_steps, band, halo,
                  _ulpda_halo_need(niter_solve, oy, mode, niter_inner),
                  "niter_solve * oy + 1, plus the nonconvex correction's "
                  f"depth for mode={mode!r}")
@@ -209,9 +224,21 @@ def ulpda_tv_tiled_update_ref(
     mode: str = "tv", niter_inner: int = 0,
 ):
     """Plain torch version of kernel 7 (see ``ulpda_tv_tiled_update``), band
-    by band in both passes."""
+    by band in both passes; a chain axis runs its chains one after
+    another."""
     _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
                        niter_inner, dual, quantiles, quantile_thin)
+    if x.ndim == 3:
+        chain_seeds(seed, x)
+        kw = dict(taps=taps, oy=oy, ox=ox, lam=lam, n_steps=n_steps,
+                  niter_solve=niter_solve, band=band, halo=halo, gfirst=gfirst,
+                  dual=dual, with_noise=with_noise, quantiles=quantiles,
+                  quantile_thin=quantile_thin, mode=mode, niter_inner=niter_inner)
+
+        def one(xc, xpc, pyc, pxc, mc, m2c, qhc, qnc, key):
+            return ulpda_tv_tiled_update_ref(xc, xpc, pyc, pxc, atb, mc, m2c, key,
+                                             scal_f, scal_i, qhc, qnc, **kw)
+        return per_chain(one, x, seed, (xp, py, px, mean, m2, qh, qn))
     (tau, mu, theta, noise_amp, ts, g_sigma, c_mc, gamma_mc, _,
      c_me) = _block_coefs(scal_f)
     seed, chain = base_key(seed)
@@ -283,24 +310,27 @@ def ulpda_tv_tiled_update_cuda(
     quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
     mode: str = "tv", niter_inner: int = 0,
 ):
-    """Kernel 7 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors:
-    two launches per step, the primal pass on ``ulpda_tiled_plan``'s
-    geometry for the card, kept in ``last_plan``. Works on copies of ``x, xp,
-    py, px, mean, m2, qh, qn`` and returns them; raises on a CPU tensor, on
+    """Kernel 7 (``csrc/tiled_block.cu``) on contiguous float32 CUDA tensors,
+    one chain or a chain axis: two launches per step, each carrying every
+    chain, the primal pass on ``ulpda_tiled_plan``'s geometry for the card
+    and the chains, kept in ``last_plan``. Works on copies of ``x, xp, py,
+    px, mean, m2, qh, qn`` and returns them; raises on a CPU tensor, on
     options the kernel does not take, or when no geometry fits."""
     _check_ulpda_tiled(x, taps, oy, n_steps, band, halo, niter_solve, mode,
                        niter_inner, dual, quantiles, quantile_thin)
-    ny, nx = x.shape
+    ny, nx = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
     n_q = len(quantiles)
-    _build.require_cuda_f32((ny, nx), x=x, xp=xp, py=py, px=px, atb=atb,
-                            mean=mean, m2=m2)
+    _build.require_cuda_f32(x.shape, x=x, xp=xp, py=py, px=px, mean=mean, m2=m2)
+    _build.require_cuda_f32((ny, nx), atb=atb)
     if n_q:
-        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
-        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
-        if qh.device != x.device or qn.device != x.device:
-            raise ValueError("marker state must lie on x's device")
+        _build.require_cuda_f32(lead + (5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32(lead + (3 * n_q, ny, nx), qn=qn)
+    if any(t.device != x.device for t in (atb, qh, qn) if t is not None):
+        raise ValueError("atb and the marker state must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
-    seed, chain = base_key(seed)
+    seed, words = chain_seeds(seed, x)
+    chains = _chain_words(words, x.device)
 
     x, xp, py, px = x.clone(), xp.clone(), py.clone(), px.clone()
     mean, m2 = mean.clone(), m2.clone()
@@ -317,7 +347,7 @@ def ulpda_tv_tiled_update_cuda(
     n_sm, smem_limit = _build.card_limits(x.device)
     plan = ulpda_tiled_plan((ny, nx), taps, int(oy), int(ox), niter_solve=int(niter_solve),
                             mode=mode, niter_inner=int(niter_inner), n_sm=n_sm,
-                            smem_limit=smem_limit)
+                            smem_limit=smem_limit, n_chains=len(words))
     if plan is None:
         raise ValueError(f"no kernel-7 tile fits {smem_limit} bytes of shared memory")
     ty, tx, _, threads, _, _ = plan
@@ -331,12 +361,13 @@ def ulpda_tv_tiled_update_cuda(
         rc = lib.lmc_ulpda_tiled(
             x.data_ptr(), xp.data_ptr(), py.data_ptr(), px.data_ptr(),
             atb.data_ptr(), mean.data_ptr(), m2.data_ptr(), ptr(qh, n_q),
-            ptr(qn, n_q), ny, nx, tap_arr.ctypes.data, rank, ky, kx, int(oy),
+            ptr(qn, n_q), ny, nx, len(words), ptr(chains, chains is not None),
+            tap_arr.ctypes.data, rank, ky, kx, int(oy),
             int(ox), int(n_steps), int(niter_solve), cheb.ctypes.data,
             int(bool(gfirst)), DUALS.index(dual), MODES.index(mode),
             int(niter_inner), int(bool(with_noise)), qcoef.ctypes.data, n_q,
             int(quantile_thin), coef.ctypes.data, seed & 0xFFFFFFFF,
-            chain & 0xFFFFFFFF, step0, burn, cnt0, ty, tx, threads, stream,
+            words[0] & 0xFFFFFFFF, step0, burn, cnt0, ty, tx, threads, stream,
         )
     _build.check(rc, "lmc_ulpda_tiled")
     ulpda_tv_tiled_update_cuda.launches += 1
@@ -357,7 +388,8 @@ def ulpda_tv_tiled_update(x, *args, **kwargs):
     ``lam`` bounds ``lambda_max(A^T A)``; ``niter_solve`` Chebyshev sweeps;
     ``mode`` ``"tv"``/``"mctv"``/``"metv"`` (a cold Chambolle envelope of
     ``niter_inner`` trips); ``band``/``halo`` checked as the JAX package
-    checks them. Returns ``(x', xp', py', px', mean', m2', qh', qn')``. CUDA
+    checks them; a chain axis ``(C, ny, nx)`` (every field but ``atb``) as
+    kernel 3's. Returns ``(x', xp', py', px', mean', m2', qh', qn')``. CUDA
     tensors run the hand kernel, CPU tensors its plain version.
     """
     if x.is_cuda:
@@ -406,16 +438,20 @@ def run_ulpda_tv_tiled(
     ``xbar = x + theta (x - xprev)`` and ``xprev``. ``interpret`` and
     ``stream_x`` are the JAX package's (Pallas interpret mode; streaming the
     position from HBM) and take no effect: kernel 7 reads every band from
-    device memory, and a CPU tensor runs the plain version."""
+    device memory, and a CPU tensor runs the plain version. A chain axis
+    ``x0`` ``(C, ny, nx)`` runs ``C`` chains a kernel call, as
+    ``run_ulpda_fused``'s; ``y0`` and ``extras.y`` are then ``(C, 2, ny,
+    nx)``, the other fields ``(C, ny, nx)``."""
     (taps, (oy, ox), atb, mode, lamda, gamma_mc, niter_inner, dual,
      lam, _) = _ulpda_setup(proxf, proxg, a_op)
     if dual == "wl1":
         raise ValueError("tiled fused ULPDA supports Gradient2D duals only")
     x0 = torch.as_tensor(x0)
+    key = runner_keys(x0, key)
     if halo is None:
         halo = _round8(max(_ulpda_halo_need(niter_solve, oy, mode, niter_inner), 8))
     if band is None:
-        band = pick_band(x0.shape[0], halo)
+        band = pick_band(x0.shape[-2], halo)
     block = _tiled_block(n_steps, block)
     quantiles = tuple(float(p) for p in quantiles)
     _check_thin(quantiles, block, quantile_thin)
@@ -423,7 +459,8 @@ def run_ulpda_tv_tiled(
                               gamma_mc)
     step_offset = int(step_offset)
     zeros = torch.zeros_like(x0)
-    py, px = (zeros, zeros) if y0 is None else (y0[0], y0[1])
+    py, px = ((zeros, zeros) if y0 is None
+              else tuple(p.contiguous() for p in torch.as_tensor(y0).unbind(-3)))
     if xprev0 is not None:
         xp = torch.as_tensor(xprev0)
     elif xbar0 is None or theta == 0.0:
@@ -445,6 +482,6 @@ def run_ulpda_tv_tiled(
         )
     count = (max(step_offset + n_steps - burn_in, 0)
              - max(step_offset - burn_in, 0))
-    extras = ULPDAExtras(y=torch.stack([py, px]), xbar=x + theta * (x - xp),
+    extras = ULPDAExtras(y=torch.stack([py, px], dim=-3), xbar=x + theta * (x - xp),
                          xprev=xp)
     return _chain_result(x, mean, m2, count, quantiles, qh, qn, extras)

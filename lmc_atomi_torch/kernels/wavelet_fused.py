@@ -41,6 +41,15 @@ tile of the image fits co-resident on the card, one cooperative launch a
 block with a grid barrier between passes (``"resident"``); elsewhere, and
 for Haar past ``_TILE_LEVELS`` levels, one launch per level and axis
 (``"passes"``).
+
+A call takes one chain ``(ny, nx)`` or ``C`` chains of one posterior
+``(C, ny, nx)`` under ``C`` chain keys sharing one seed, as kernel 2 does
+(``myula_fused.py``): every launch carries every chain as a grid layer, but
+the resident route, which runs them in groups of ``G`` co-resident chains
+(``wavelet_plan``), one cooperative launch a group; chain ``c`` is bit for
+bit the one-chain call under key ``c``. The plain versions run the chains
+one after another. The runners take ``x0`` of shape ``(C, ny, nx)`` and
+return what the JAX runner returns under ``jax.vmap``.
 """
 from __future__ import annotations
 
@@ -60,8 +69,13 @@ from lmc_atomi_torch.kernels.myula_fused import (
     _BlockStats,
     _align_block,
     _chain_result,
+    _chain_words,
     _marker_state,
     _p2_coefs,
+    chain_seeds,
+    chains_per_launch,
+    per_chain,
+    runner_keys,
 )
 from lmc_atomi_torch.ops.wavelet import daubechies_filters
 from lmc_atomi_torch.run.runner import base_key
@@ -88,12 +102,14 @@ _MAX_QUANTILES = 4  # csrc/block_common.cuh: LMC_MAXQ
 _TILE_SIDE = 32  # csrc/block_common.cuh: LMC_TILE_SIDE, the side of a CTA's region
 _TILE_LEVELS = 5  # the most Haar levels whose 2^levels square fits _TILE_SIDE
 # csrc/wavelet_block.cu: the routes in the order of its RT_* codes; a warp's
-# square (WV_SQ) and the most Haar levels it holds (WV_WARP_LEVELS); the most
-# pixels of a resident tile (WV_RS_THREADS * WV_RS_PPT)
+# square (WV_SQ) and the most Haar levels it holds (WV_WARP_LEVELS); a
+# resident CTA's threads (WV_RS_THREADS) and the most pixels of its tile
+# (WV_RS_THREADS * WV_RS_PPT)
 ROUTES = ("passes", "tile", "warp", "resident")
 _WARP_SIDE = 8
 _WARP_LEVELS = 3
-_RS_MAX_PIXELS = 512 * 8
+_RS_THREADS = 512
+_RS_MAX_PIXELS = _RS_THREADS * 8
 
 
 def _haar_pass(x, s, axis, iy, ix, roll):
@@ -245,13 +261,17 @@ def tile_region(shape, levels: int) -> Tuple[int, int]:
     return side(shape[0]), side(shape[1])
 
 
-def resident_tile(shape, levels: int, n_sm: int = H100_SMS):
+def resident_tile(shape, levels: int, n_sm: int = H100_SMS, n_chains: int = 1):
     """``(ty, tx)``, the tile of one CTA of the D4/D8 ``"resident"`` route,
     or None where no tiling fits: sides multiples of ``2^levels`` that
     divide the image, at most ``_RS_MAX_PIXELS`` pixels, at most ``n_sm``
-    tiles (one CTA an SM, all resident at once). Among those the least area
-    (the most CTAs), then the least perimeter, then the wider tile (rows of
-    a pass's reads coalesce). The launcher asks the occupancy API too."""
+    tiles (one CTA an SM, all resident at once). Among those the least
+    launches in turn x pixels a thread carries (``n_chains`` chains in
+    groups of ``chains_per_launch``'s ``G``; a CTA's ``_RS_THREADS`` threads
+    step a tile in ``ceil(area / _RS_THREADS)`` pixel rounds), then the
+    fewer launches, the least area (one chain: the least area, the most
+    CTAs), the least perimeter and the wider tile (rows of a pass's reads
+    coalesce). The launcher asks the occupancy API too."""
     ny, nx = shape
     if levels < 1:
         return None
@@ -263,33 +283,45 @@ def resident_tile(shape, levels: int, n_sm: int = H100_SMS):
         for tx in range(t, nx + 1, t):
             if ty * tx > _RS_MAX_PIXELS:
                 break
-            if ny % ty or nx % tx or (ny // ty) * (nx // tx) > n_sm:
+            count = (ny // ty) * (nx // tx)
+            if ny % ty or nx % tx or count > n_sm:
                 continue
-            key = (ty * tx, ty + tx, -tx)
+            launches = chains_per_launch(count, n_chains, n_sm)[1]
+            rounds = -(-ty * tx // _RS_THREADS)
+            key = (launches * rounds, launches, ty * tx, ty + tx, -tx)
             if best is None or key < best[0]:
                 best = (key, ty, tx)
     return None if best is None else best[1:]
 
 
 @functools.lru_cache(maxsize=64)
-def wavelet_plan(shape, taps: int, levels: int, n_sm: int = H100_SMS):
-    """Kernels 4 and 5's route on a card of ``n_sm`` SMs: ``(l_eff, route,
-    (gh, gw))``, the applied levels, one of ``ROUTES`` and its geometry.
-    Haar: ``"warp"`` (8 x 8 squares) up to ``_WARP_LEVELS`` levels on sides
-    that are multiples of 8, else ``"tile"`` (``tile_region``) up to
-    ``_TILE_LEVELS``, else ``"passes"``. D4/D8: ``"resident"`` on
-    ``resident_tile``'s tile where one exists, else ``"passes"``. The
-    geometry of ``"passes"`` is ``(0, 0)``. Computed once per shape."""
+def wavelet_plan(shape, taps: int, levels: int, n_sm: int = H100_SMS, n_chains: int = 1):
+    """Kernels 4 and 5's route for ``n_chains`` chains a call on a card of
+    ``n_sm`` SMs: ``(l_eff, route, (gh, gw), (G, launches))``, the applied
+    levels, one of ``ROUTES``, its geometry, and the chains a launch carries
+    with the launches that take the chains in turn. Haar: ``"warp"`` (8 x 8
+    squares) up to ``_WARP_LEVELS`` levels on sides that are multiples of 8,
+    else ``"tile"`` (``tile_region``) up to ``_TILE_LEVELS``, else
+    ``"passes"``; their launches carry every chain as a grid layer (``G =
+    n_chains``, one launch in turn). D4/D8: ``"resident"`` on
+    ``resident_tile``'s tile where one exists, the chains in groups of
+    ``chains_per_launch``'s ``G``, one cooperative launch a group; else
+    ``"passes"``. The geometry of ``"passes"`` is ``(0, 0)``. Computed once
+    per shape and chain count."""
     ny, nx = shape
     l_eff = dwt_levels(shape, taps, levels)
+    every = (n_chains, 1)
     if taps == 2:
         if l_eff <= _WARP_LEVELS and ny % _WARP_SIDE == 0 and nx % _WARP_SIDE == 0:
-            return l_eff, "warp", (_WARP_SIDE, _WARP_SIDE)
+            return l_eff, "warp", (_WARP_SIDE, _WARP_SIDE), every
         if l_eff <= _TILE_LEVELS:
-            return l_eff, "tile", tile_region(shape, l_eff)
-        return l_eff, "passes", (0, 0)
-    tile = resident_tile(shape, l_eff, n_sm)
-    return (l_eff, "resident", tile) if tile else (l_eff, "passes", (0, 0))
+            return l_eff, "tile", tile_region(shape, l_eff), every
+        return l_eff, "passes", (0, 0), every
+    tile = resident_tile(shape, l_eff, n_sm, n_chains)
+    if tile is None:
+        return l_eff, "passes", (0, 0), every
+    count = (ny // tile[0]) * (nx // tile[1])
+    return l_eff, "resident", tile, chains_per_launch(count, n_chains, n_sm)
 
 
 def _check_args(taps, quantiles, quantile_thin):
@@ -323,7 +355,18 @@ def wavelet_block_update_ref(
     with_stats: bool = True, quantiles: Tuple[float, ...] = (),
     quantile_thin: int = 1,
 ):
-    """Plain torch version of kernel 4 (see ``wavelet_block_update``)."""
+    """Plain torch version of kernel 4 (see ``wavelet_block_update``); a
+    chain axis runs its chains one after another."""
+    if x.ndim == 3:
+        chain_seeds(seed, x)
+        kw = dict(levels=levels, taps=taps, n_steps=n_steps, with_noise=with_noise,
+                  with_stats=with_stats, quantiles=quantiles,
+                  quantile_thin=quantile_thin)
+
+        def one(xc, mc, m2c, qhc, qnc, key):
+            return wavelet_block_update_ref(xc, y, mask, mc, m2c, key, scal_f, scal_i,
+                                            qhc, qnc, **kw)
+        return per_chain(one, x, seed, (mean, m2, qh, qn))
     _check_args(taps, quantiles, quantile_thin)
     c_keep, c_grad, c_prox, noise_amp, sig, thr = _myula_coefs(scal_f)
     seed, chain = base_key(seed)
@@ -354,27 +397,33 @@ def _filters(taps):
     return out
 
 
-def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields):
-    """Checks shared by the CUDA wrappers; returns the applied levels, the
-    route and its geometry (``wavelet_plan`` for the card of ``x``), the step
-    counters and the P^2 inputs."""
-    if x.ndim != 2 or min(x.shape) < 2:
-        raise ValueError(f"x must be an (ny, nx) image, got {tuple(x.shape)}")
-    ny, nx = x.shape
+def _prepare(x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields, shared=None):
+    """Checks shared by the CUDA wrappers; returns ``wavelet_plan`` for the
+    card of ``x`` and its chains, the step counters and the P^2 inputs.
+    ``fields`` have ``x``'s shape (one chain ``(ny, nx)`` or a chain axis
+    ``(C, ny, nx)``), ``shared`` (y and the mask) one chain's."""
+    if x.ndim not in (2, 3) or min(x.shape[-2:]) < 2:
+        raise ValueError(f"x must be an (ny, nx) image or a (C, ny, nx) chain axis, "
+                         f"got {tuple(x.shape)}")
+    ny, nx = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
     n_q = len(quantiles)
-    _build.require_cuda_f32((ny, nx), **fields)
+    _build.require_cuda_f32(x.shape, **fields)
+    _build.require_cuda_f32((ny, nx), **(shared or {}))
     if n_q:
-        _build.require_cuda_f32((5 * n_q, ny, nx), qh=qh)
-        _build.require_cuda_f32((3 * n_q, ny, nx), qn=qn)
-        if qh.device != x.device or qn.device != x.device:
-            raise ValueError("marker state must lie on x's device")
+        _build.require_cuda_f32(lead + (5 * n_q, ny, nx), qh=qh)
+        _build.require_cuda_f32(lead + (3 * n_q, ny, nx), qn=qn)
+    if any(t.device != x.device for t in (*(shared or {}).values(), qh, qn)
+           if t is not None):
+        raise ValueError("y, the mask and the marker state must lie on x's device")
     step0, burn, cnt0 = _build.check_steps(scal_i, n_steps)
     # the H100's SMs for a CPU tensor, which only a planning test hands in
     # (the checks above refuse it)
     n_sm = _build.card_limits(x.device)[0] if x.is_cuda else H100_SMS
-    l_eff, route, geometry = wavelet_plan((ny, nx), int(taps), int(levels), n_sm)
+    n_chains = lead[0] if lead else 1
+    plan = wavelet_plan((ny, nx), int(taps), int(levels), n_sm, n_chains)
     qcoef = np.array([_p2_coefs(p) for p in quantiles] or [(0.0,) * 3], np.float32)
-    return l_eff, route, geometry, (step0, burn, cnt0), qcoef
+    return plan, (step0, burn, cnt0), qcoef
 
 
 def _ptr(t, used):
@@ -388,27 +437,31 @@ def wavelet_block_update_cuda(
     quantile_thin: int = 1,
 ):
     """Kernel 4 (``csrc/wavelet_block.cu``) on contiguous float32 CUDA
-    tensors, on the route ``wavelet_plan`` names (counted in ``routes``, the
-    last call's ``(route, levels, gh, gw)`` in ``last_plan``). Works on
-    copies of ``x, mean, m2, qh, qn`` and returns them; raises on a CPU
-    tensor, on shapes and options the kernel does not take, or when a
-    resident grid does not fit the card."""
+    tensors, one chain ``(ny, nx)`` or a chain axis ``(C, ny, nx)``, on the
+    route ``wavelet_plan`` names (counted in ``routes``, the last call's
+    ``(route, levels, gh, gw, G)`` in ``last_plan``). Works on copies of
+    ``x, mean, m2, qh, qn`` and returns them; raises on a CPU tensor, on
+    shapes and options the kernel does not take, or when a resident grid
+    does not fit the card."""
     _check_args(taps, quantiles, quantile_thin)
-    fields = {"x": x, "y": y, "mask": mask}
+    fields = {"x": x}
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    l_eff, route, (gh, gw), (step0, burn, cnt0), qcoef = _prepare(
-        x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
-    ny, nx = x.shape
+    (l_eff, route, (gh, gw), (per, _)), (step0, burn, cnt0), qcoef = _prepare(
+        x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields,
+        {"y": y, "mask": mask})
+    ny, nx = x.shape[-2:]
     n_q = len(quantiles)
-    seed, chain = base_key(seed)
+    seed, words = chain_seeds(seed, x)
+    chains = _chain_words(words, x.device)
     x = x.clone()
     if with_stats:
         mean, m2 = mean.clone(), m2.clone()
     if n_q:
         qh, qn = qh.clone(), qn.clone()
+    # the resident and passes routes' scratch, plane-major: (2, C, ny, nx)
     bufs = None if route in ("warp", "tile") else torch.empty(
-        (2, ny, nx), dtype=x.dtype, device=x.device)
+        (2, len(words), ny, nx), dtype=x.dtype, device=x.device)
     coef = np.array(_myula_coefs(scal_f), np.float32)
     filt = _filters(taps)
     lib = _build.library()
@@ -417,21 +470,23 @@ def wavelet_block_update_cuda(
         rc = lib.lmc_wavelet_block(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), _ptr(mean, with_stats),
             _ptr(m2, with_stats), _ptr(qh, n_q), _ptr(qn, n_q),
-            _ptr(bufs, bufs is not None), ny, nx, taps, filt.ctypes.data,
-            l_eff, ROUTES.index(route), gh, gw, int(n_steps), int(bool(with_noise)),
+            _ptr(bufs, bufs is not None), ny, nx, len(words),
+            _ptr(chains, chains is not None), taps, filt.ctypes.data, l_eff,
+            ROUTES.index(route), gh, gw, per, int(n_steps), int(bool(with_noise)),
             int(bool(with_stats)), qcoef.ctypes.data, n_q, int(quantile_thin),
-            coef.ctypes.data, seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0,
+            coef.ctypes.data, seed & 0xFFFFFFFF, words[0] & 0xFFFFFFFF, step0,
             burn, cnt0, stream,
         )
     _build.check(rc, "lmc_wavelet_block")
     wavelet_block_update_cuda.launches += 1
     wavelet_block_update_cuda.routes[route] += 1
-    wavelet_block_update_cuda.last_plan = (route, l_eff, gh, gw)
+    wavelet_block_update_cuda.last_plan = (route, l_eff, gh, gw, per)
     return x, mean, m2, qh, qn
 
 
 wavelet_block_update_cuda.launches = 0  # calls that launched the kernel
-# calls per route, and the last call's (route, levels, gh, gw)
+# calls per route, and the last call's (route, levels, gh, gw, G): G chains a
+# launch
 wavelet_block_update_cuda.routes = dict.fromkeys(ROUTES, 0)
 wavelet_block_update_cuda.last_plan = None
 
@@ -448,6 +503,10 @@ def wavelet_block_update(x, *args, **kwargs):
     filter (2 Haar, 4 D4, 8 D8). ``quantiles`` adds the P^2 markers ``qh``
     (5 heights per quantile) and ``qn`` (3 interior positions), each
     ``(k * len(quantiles), ny, nx)``. Returns ``(x', mean', m2', qh', qn')``.
+    ``x`` may be ``C`` chains ``(C, ny, nx)`` (``mean``/``m2`` alike, the
+    markers ``(C, k n_q, ny, nx)``) under ``C`` keys ``(seed, chain_c)`` of
+    ``core.random.chain_keys``, sharing ``y`` and ``mask``: chain ``c`` is
+    bit for bit the one-chain call under key ``c``.
     CUDA tensors run the hand kernel, CPU tensors its plain version.
     """
     if x.is_cuda:
@@ -461,7 +520,18 @@ def ulpda_wavelet_block_update_ref(
     with_noise: bool = True, with_stats: bool = True,
     quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
 ):
-    """Plain torch version of kernel 5 (see ``ulpda_wavelet_block_update``)."""
+    """Plain torch version of kernel 5 (see ``ulpda_wavelet_block_update``);
+    a chain axis runs its chains one after another."""
+    if x.ndim == 3:
+        chain_seeds(seed, x)
+        kw = dict(levels=levels, taps=taps, n_steps=n_steps, gfirst=gfirst,
+                  with_noise=with_noise, with_stats=with_stats, quantiles=quantiles,
+                  quantile_thin=quantile_thin)
+
+        def one(xk, ck, xbk, mk, m2k, qhk, qnk, key):
+            return ulpda_wavelet_block_update_ref(xk, ck, xbk, y, mask, mk, m2k, key,
+                                                  scal_f, scal_i, qhk, qnk, **kw)
+        return per_chain(one, x, seed, (c, xbar, mean, m2, qh, qn))
     _check_args(taps, quantiles, quantile_thin)
     tau, mu, theta, noise_amp, ts, g_sigma = _ulpda_coefs(scal_f)
     seed, chain = base_key(seed)
@@ -502,22 +572,25 @@ def ulpda_wavelet_block_update_cuda(
     quantiles: Tuple[float, ...] = (), quantile_thin: int = 1,
 ):
     """Kernel 5 (``csrc/wavelet_block.cu``) on contiguous float32 CUDA
-    tensors, on the route ``wavelet_plan`` names (``routes`` and
-    ``last_plan`` as kernel 4's). Works on copies of ``x, c, xbar, mean, m2,
-    qh, qn`` and returns them (``xbar`` may be None for ``gfirst=False``,
-    which never reads it); raises on a CPU tensor, on shapes and options the
-    kernel does not take, or when a resident grid does not fit the card."""
+    tensors, one chain or a chain axis as kernel 4's, on the route
+    ``wavelet_plan`` names (``routes`` and ``last_plan`` as kernel 4's).
+    Works on copies of ``x, c, xbar, mean, m2, qh, qn`` and returns them
+    (``xbar`` may be None for ``gfirst=False``, which never reads it);
+    raises on a CPU tensor, on shapes and options the kernel does not take,
+    or when a resident grid does not fit the card."""
     _check_args(taps, quantiles, quantile_thin)
-    fields = {"x": x, "c": c, "y": y, "mask": mask}
+    fields = {"x": x, "c": c}
     if gfirst:
         fields["xbar"] = xbar
     if with_stats:
         fields.update(mean=mean, m2=m2)
-    l_eff, route, (gh, gw), (step0, burn, cnt0), qcoef = _prepare(
-        x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields)
-    ny, nx = x.shape
+    (l_eff, route, (gh, gw), (per, _)), (step0, burn, cnt0), qcoef = _prepare(
+        x, taps, levels, n_steps, scal_i, quantiles, qh, qn, fields,
+        {"y": y, "mask": mask})
+    ny, nx = x.shape[-2:]
     n_q = len(quantiles)
-    seed, chain = base_key(seed)
+    seed, words = chain_seeds(seed, x)
+    chains = _chain_words(words, x.device)
     x, c = x.clone(), c.clone()
     xbar = xbar.clone() if gfirst else torch.empty_like(x)
     if with_stats:
@@ -525,7 +598,7 @@ def ulpda_wavelet_block_update_cuda(
     if n_q:
         qh, qn = qh.clone(), qn.clone()
     bufs = None if route in ("warp", "tile") else torch.empty(
-        (2, ny, nx), dtype=x.dtype, device=x.device)
+        (2, len(words), ny, nx), dtype=x.dtype, device=x.device)
     coef = np.array(_ulpda_coefs(scal_f), np.float32)
     filt = _filters(taps)
     lib = _build.library()
@@ -535,15 +608,16 @@ def ulpda_wavelet_block_update_cuda(
             x.data_ptr(), c.data_ptr(), xbar.data_ptr(), y.data_ptr(),
             mask.data_ptr(), _ptr(mean, with_stats), _ptr(m2, with_stats),
             _ptr(qh, n_q), _ptr(qn, n_q), _ptr(bufs, bufs is not None), ny, nx,
-            taps, filt.ctypes.data, l_eff, ROUTES.index(route), gh, gw, int(n_steps),
+            len(words), _ptr(chains, chains is not None), taps, filt.ctypes.data,
+            l_eff, ROUTES.index(route), gh, gw, per, int(n_steps),
             int(bool(gfirst)), int(bool(with_noise)), int(bool(with_stats)),
             qcoef.ctypes.data, n_q, int(quantile_thin), coef.ctypes.data,
-            seed & 0xFFFFFFFF, chain & 0xFFFFFFFF, step0, burn, cnt0, stream,
+            seed & 0xFFFFFFFF, words[0] & 0xFFFFFFFF, step0, burn, cnt0, stream,
         )
     _build.check(rc, "lmc_ulpda_wavelet_block")
     ulpda_wavelet_block_update_cuda.launches += 1
     ulpda_wavelet_block_update_cuda.routes[route] += 1
-    ulpda_wavelet_block_update_cuda.last_plan = (route, l_eff, gh, gw)
+    ulpda_wavelet_block_update_cuda.last_plan = (route, l_eff, gh, gw, per)
     return x, c, xbar, mean, m2, qh, qn
 
 
@@ -560,8 +634,9 @@ def ulpda_wavelet_block_update(x, *args, **kwargs):
     observation and its 0/1 mask; ``scal_f = (tau, mu, theta, noise_scale,
     sig, g_sigma)`` with ``g_sigma`` the dual's l-inf radius (the wavelet-l1
     weight); ``scal_i``, ``quantiles`` and the markers as in
-    ``wavelet_block_update``. Returns ``(x', c', xbar', mean', m2', qh',
-    qn')``; ``xbar'`` is the genuine ``x' + theta (x' - x)`` in both orders.
+    ``wavelet_block_update``, a chain axis too (``c`` and ``xbar`` as
+    ``x``). Returns ``(x', c', xbar', mean', m2', qh', qn')``; ``xbar'`` is
+    the genuine ``x' + theta (x' - x)`` in both orders.
     CUDA tensors run the hand kernel, CPU tensors its plain version.
     """
     if x.is_cuda:
@@ -600,10 +675,15 @@ def run_myula_wavelet_fused(
     global first step, so burn-in masking, the P^2 count and the noise
     continue across segmented runs (resume with ``quantile_state``; the
     Welford count restarts per run, merge with ``RunningMoments.merge``).
+    An ``x0`` of shape ``(C, ny, nx)`` runs ``C`` chains in each kernel
+    call, chain ``c`` under ``chain_keys(key, C)[c]`` (or ``key`` a list of
+    ``C`` chain keys); every field of the result then has the chain axis
+    but ``moments.count``: the JAX runner under ``jax.vmap``.
     ``interpret`` is the JAX package's (Pallas interpret mode) and takes no
     effect: a CPU tensor runs the plain version.
     """
     x0 = torch.as_tensor(x0)
+    key = runner_keys(x0, key)
     quantiles = tuple(float(p) for p in quantiles)
     step_offset = int(step_offset)
     block = _align_block(n_steps, min(n_steps, 500) if block is None else block,
@@ -659,10 +739,13 @@ def run_ulpda_wavelet_fused(
     ``xbar0`` and ``step_offset``, the global step this run starts at), not
     with the unfused ``ulpda``, whose dual is in the Mallat layout.
     ``extras.xbar`` is the genuine extrapolated iterate in both orders.
+    A chain axis ``x0`` ``(C, ny, nx)`` runs as ``run_myula_wavelet_fused``'s
+    (``y0``, ``xbar0`` and the extras then ``(C, ny, nx)``).
     ``interpret`` is the JAX package's (Pallas interpret mode) and takes no
     effect: a CPU tensor runs the plain version.
     """
     x0 = torch.as_tensor(x0)
+    key = runner_keys(x0, key)
     quantiles = tuple(float(p) for p in quantiles)
     step_offset = int(step_offset)
     block = _align_block(n_steps, min(n_steps, 250) if block is None else block,

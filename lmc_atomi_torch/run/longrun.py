@@ -86,24 +86,18 @@ def run_resumable(
 
 
 def _farm_segment(one_chain, runner, x, keys, n, qstate, extras, kw):
-    """One segment of the farm's chains ``x`` under ``keys``: one packed
-    kernel-2 call for ``"tv"``, chain after chain otherwise. Returns the
-    positions, the segment's per-chain moments (a ``RunningMoments`` with a
-    chain axis), the marker state and the ULPDA extras."""
-    if runner == "tv":
-        res = one_chain(x, keys, n, qstate, extras, **kw)
-        count = torch.full((x.shape[0],), res.moments.count, dtype=torch.int64)
-        seg = RunningMoments(count, res.moments.mean, res.moments.m2)
-        return res.final_state.position, seg, res.quantile_state, extras
-    res = [one_chain(x[c], k, n, qstate and (qstate[0][c], qstate[1][c]),
-                     extras and (extras[0][c], extras[1][c]), **kw)
-           for c, k in enumerate(keys)]
+    """One segment of the farm's chains ``x`` under ``keys``: one runner
+    call on the chain axis, whose block calls each carry every chain (one
+    kernel call a block for kernels 2 and 4, a step for kernels 6 and 7).
+    Returns the positions, the segment's per-chain moments (a
+    ``RunningMoments`` with a chain axis), the marker state and the ULPDA
+    extras."""
+    res = one_chain(x, keys, n, qstate, extras, **kw)
+    count = torch.full((x.shape[0],), res.moments.count, dtype=torch.int64)
+    seg = RunningMoments(count, res.moments.mean, res.moments.m2)
     if runner == "ulpda_tiled":
-        extras = (torch.stack([r.final_state.extras.y for r in res]),
-                  torch.stack([r.final_state.extras.xprev for r in res]))
-    return (torch.stack([r.final_state.position for r in res]),
-            stack_tree([r.moments for r in res]),
-            stack_tree([r.quantile_state for r in res]), extras)
+        extras = (res.final_state.extras.y, res.final_state.extras.xprev)
+    return res.final_state.position, seg, res.quantile_state, extras
 
 
 def run_resumable_fused(
@@ -147,9 +141,11 @@ def run_resumable_fused(
     state ``(C, 5 n_q, ny, nx)`` and, for ``"ulpda_tiled"``, ``(y, xprev)``
     with ``y`` ``(C, 2, ny, nx)``; pool them with
     ``parallel.mesh.merge_chain_moments`` and ``eval.diagnostics``'
-    ``rhat_from_moments``. Runner ``"tv"`` runs the farm in one packed
-    kernel-2 call a segment (``run_myula_tv_fused_packed``); the others run
-    their kernel chain after chain, each chain alone filling the card.
+    ``rhat_from_moments``. Every runner runs the farm as one call a
+    segment on the chain axis: a kernel-2 or kernel-4 call a block, a
+    kernel-6 or kernel-7 call a step, each carrying every chain, as the JAX
+    package's ``jax.vmap`` of a ``pallas_call`` runs one kernel for all
+    chains.
 
     ``chains_mesh`` (``parallel.mesh.chain_mesh``) spreads a farm over the
     ranks of its process group: each rank runs its block of the chains

@@ -433,22 +433,29 @@ def test_cuda_wrappers_refuse_cpu_chain_axis(problem):
 
 # --- the chain farm ------------------------------------------------------------
 
-FARM = {  # runner: (data term, options)
+FARM = {  # farm: (data term, options[, runner, when it is not the farm's name])
     "tv": ("tv", dict(quantiles=(0.1, 0.9))),
     "wavelet": ("mask", dict(quantiles=(0.1, 0.9), levels=2)),
+    "wavelet_d4": ("mask", dict(quantiles=(0.1, 0.9), levels=2, taps=4), "wavelet"),
     "tiled": ("tv", dict(quantiles=(0.1, 0.9), band=8, halo=8, niter_tv=3)),
     "ulpda_tiled": ("tv", dict(quantiles=(0.1, 0.9), band=8, halo=8, niter_solve=1)),
 }
 
 
-def _farm_args(problem, runner):
+def _mask_problem():
+    """The 32^2 inpainting posterior's mask and observation (numpy)."""
+    rng = np.random.default_rng(1)
+    img = phantom(N, np.float64) / 255.0
+    mask = (rng.uniform(size=(N, N)) > 0.5).astype(np.float64)
+    return mask, mask * img + 0.1 * mask * rng.normal(size=(N, N))
+
+
+def _farm_args(problem, name):
     _, _, port = problem
-    data, opts = FARM[runner]
+    data, opts, *runner = FARM[name]
+    runner = runner[0] if runner else name
     if data == "mask":
-        rng = np.random.default_rng(1)
-        img = phantom(N, np.float64) / 255.0
-        mask = (rng.uniform(size=(N, N)) > 0.5).astype(np.float64)
-        b = mask * img + 0.1 * mask * rng.normal(size=(N, N))
+        mask, b = _mask_problem()
         l2, lam, gamma = interop.mask_l2_from_numpy(mask, b, 1 / 0.1**2), 5.0, 0.1**2
         tau = 0.2 * gamma
     else:
@@ -506,6 +513,80 @@ def test_tv_farm_matches_jax(problem):
     np.testing.assert_array_equal(_np(got["moments"].count), np.asarray(want["moments"].count))
     for p in (0.025, 0.975):
         _close(got["quantiles"][p], want["quantiles"][p], name=f"q{p}")
+
+
+# the farms whose kernels took a chain axis: (position, dual) tolerances,
+# relative to max(1, |want|). The wavelet and MYULA tiled chains take the
+# JAX package's operations in its order (TOL, m2 10 TOL, as the "tv" farm;
+# measured: at most 1.0e-15 of the scale, m2 8.7e-15). The noise-free ULPDA
+# trajectories part through roundoff: the JAX tiled kernel extrapolates as
+# (1 + theta) x - theta x_old, the port as kernel 3's x + theta (x - x_old),
+# and the primal-dual recursion amplifies the last-bit difference
+# (ROADMAP.md queue C). Over these 8 steps x, the moments and the markers
+# part by at most 1.7e-14 of their scale (TOL holds them), the dual (|y| <=
+# 0.3) by 2.6e-13: gated at 1e-12
+FARM_JAX_TOL = {"wavelet": (TOL, None), "wavelet_d4": (TOL, None), "tiled": (TOL, None),
+                "ulpda_tiled": (TOL, 1e-12)}
+
+
+@pytest.mark.parametrize("name", sorted(FARM_JAX_TOL))
+def test_chain_axis_farms_match_jax(problem, name):
+    """Noise off, f64: the ``"wavelet"`` (Haar and D4), ``"tiled"`` and
+    ``"ulpda_tiled"`` farms of 3 chains, 8 steps in segments of 4 with CI
+    markers, one kernel call a block on the chain axis, against the JAX
+    package's farm (its runners under ``jax.vmap``, interpret mode)."""
+    _, jax_terms, _ = problem
+    args, kw = _farm_args(problem, name)
+    kw = dict(kw, quantiles=(0.025, 0.975), noise_scale=0.0)
+    l2, lam, tau, gamma, x0, _ = args
+    if FARM[name][0] == "mask":
+        from lmc_atomi_tpu.ops.linops import Mask
+
+        mask, b = _mask_problem()
+        jl2 = L2Data.create(op=Mask(mask=jnp.asarray(mask)), b=jnp.asarray(b),
+                            sigma=1 / 0.1**2)
+    else:
+        jl2 = jax_terms["tv"][0]
+    want = j_longrun.run_resumable_fused(jl2, lam, tau, gamma, jnp.asarray(_np(x0)),
+                                         jax.random.PRNGKey(0), 8, 4, interpret=True, **kw)
+    got = t_longrun.run_resumable_fused(*args, 8, 4, **kw)
+    tol, y_tol = FARM_JAX_TOL[name]
+    _close(got["position"], want["position"], tol, name="x")
+    _close(got["moments"].mean, want["moments"].mean, tol, name="mean")
+    _close(got["moments"].m2, want["moments"].m2, tol * 10, name="m2")
+    np.testing.assert_array_equal(_np(got["moments"].count), np.asarray(want["moments"].count))
+    for p in (0.025, 0.975):
+        _close(got["quantiles"][p], want["quantiles"][p], tol, name=f"q{p}")
+    if y_tol is not None:
+        for g, w, field in zip(got["ulpda_extras"], want["ulpda_extras"], ("y", "xprev")):
+            _close(g, w, y_tol if field == "y" else tol, name=field)
+
+
+def test_vmapped_ulpda_wavelet_runner_matches_jax():
+    """``jax.vmap(run_ulpda_wavelet_fused)`` at the multi-chip dry run's
+    settings (2 levels, blocks of 2, the median's P^2 marker, 2 steps) against
+    the port's runner on the chain axis: 3 chains at 32^2, noise off, f64,
+    the positions, the median maps, the interleaved dual and xbar."""
+    from lmc_atomi_tpu.kernels.wavelet_fused import run_ulpda_wavelet_fused as j_run
+    from lmc_atomi_tpu.ops.linops import Mask
+
+    from lmc_atomi_torch.kernels.wavelet_fused import run_ulpda_wavelet_fused as t_run
+
+    mask, b = _mask_problem()
+    sigma = 1 / 0.1**2
+    jl2 = L2Data.create(op=Mask(mask=jnp.asarray(mask)), b=jnp.asarray(b), sigma=sigma)
+    tl2 = interop.mask_l2_from_numpy(mask, b, sigma)
+    x0 = np.stack([b, 0.5 * b, b + 1.0])
+    kw = dict(levels=2, block=2, noise_scale=0.0, quantiles=(0.5,))
+    want = jax.vmap(lambda xi, ki: j_run(jl2, 0.25, 0.95 / sigma, 1.0, xi, ki, 2,
+                                         interpret=True, **kw))(
+        jnp.asarray(x0), jax.random.split(jax.random.PRNGKey(0), 3))
+    got = t_run(tl2, 0.25, 0.95 / sigma, 1.0, torch.from_numpy(x0), 0, 2, **kw)
+    _close(got.final_state.position, want.final_state.position, name="x")
+    _close(got.quantiles[0.5], want.quantiles[0.5], name="q0.5")
+    _close(got.final_state.extras.y, want.final_state.extras.y, name="dual")
+    _close(got.final_state.extras.xbar, want.final_state.extras.xbar, name="xbar")
+    _close(got.moments.mean, want.moments.mean, name="mean")
 
 
 # --- pooling and diagnostics -----------------------------------------------------

@@ -336,7 +336,7 @@ def test_prepare_routes_haar_levels(monkeypatch, shape, taps, levels, route, reg
     once (2048^2); at 512^2 D4/D8 take the resident route."""
     monkeypatch.setattr(t_wf._build, "require_cuda_f32", lambda *a, **k: None)
     z = torch.zeros(shape, dtype=torch.float32)
-    l_eff, got_route, got_region, steps, _ = t_wf._prepare(
+    (l_eff, got_route, got_region, _), steps, _ = t_wf._prepare(
         z, taps, levels, 4, (0, 0, 0), (), None, None, {"x": z})
     assert (l_eff, got_route, got_region, steps) == (
         t_wf.dwt_levels(shape, taps, levels), route, region, (0, 0, 0))

@@ -362,16 +362,15 @@ PLAN_CASES = [
 def test_plan_routes(monkeypatch, shape, taps, levels, route, geometry, n_q):
     """``wavelet_plan`` and the wrappers' ``_prepare`` name the route and
     its geometry for each shape, filter, depth and marker count (the
-    markers do not change the route)."""
+    markers do not change the route); one chain is one launch in turn."""
     assert t_wf.wavelet_plan(shape, taps, levels) == (
-        t_wf.dwt_levels(shape, taps, levels), route, geometry)
+        t_wf.dwt_levels(shape, taps, levels), route, geometry, (1, 1))
     monkeypatch.setattr(t_wf._build, "require_cuda_f32", lambda *a, **k: None)
     z = torch.zeros(shape, dtype=torch.float32)
     qs = (0.025, 0.975)[:n_q]
     q = torch.zeros((5 * n_q,) + shape) if n_q else None
-    l_eff, got_route, got_geo, _, qcoef = t_wf._prepare(
-        z, taps, levels, 4, (0, 0, 0), qs, q, q, {"x": z})
-    assert (l_eff, got_route, got_geo) == t_wf.wavelet_plan(shape, taps, levels)
+    plan, _, qcoef = t_wf._prepare(z, taps, levels, 4, (0, 0, 0), qs, q, q, {"x": z})
+    assert plan == t_wf.wavelet_plan(shape, taps, levels)
     assert qcoef.shape == (max(n_q, 1), 3)
 
 
