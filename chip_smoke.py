@@ -122,9 +122,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    whether ``torch.linalg.eigh`` waits for the card. No TPU kernel lies on
    this path;
 9d. the PnP path (BASELINE.json config 5, ``experiments/pnp.py``):
-   ``pnp_ula_deblur`` at the CLI's defaults (256^2 phantom, 8 chains x 2000
-   steps, DnCNN depth 8 width 48 fitted 1500 steps under a spectral cap of
-   1.1) with the TV anchor through kernel 2 (95% CI markers, resident) and
+   ``pnp_ula_deblur`` at the CLI's defaults (256^2 phantom, 8 chains, DnCNN
+   depth 8 width 48 fitted 1500 steps under a spectral cap of 1.1) cut to
+   500 steps (PNP_RUN) with the TV anchor through kernel 2 (95% CI markers, resident) and
    the score baseline on a ScoreUNet, and again at the configuration of
    ``scripts/pnp_gates.py`` held to the JAX package's PSNR gates
    (PNP_GATES); each posterior mean above the observation, the certified
@@ -138,6 +138,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (the JAX package's are XLA ops outside any Pallas kernel). The
    deconvolution path (7) runs the score row (M11) once, with a 200-step
    fit, gated above the observation;
+9d'. the PnP farm path (config 5's farm, ``scripts/expt_pnp1024_torch.py``):
+   the script at the CLI's width (256^2, the DnCNN the PnP path fitted),
+   PNP_FARM's blocks each a process of its own, pooled by ``pnp_merge``;
+   its pooled mean and M2 against one in-process ``pnp_ula_deblur`` over
+   the same chains in blocks of the same size (PNP_FARM_TOL, relative),
+   the draws counted, the Lipschitz bound at most 1.1^8; kernel 2 (the TV
+   anchor, resident) launches in the in-process call;
 9e. the CT path (``experiments/ct.py``): the dense Radon projector at
    128^2 / 30 angles, the shear projector at 256^2 / 90 and the gather
    projector at 128^2 / 30 against their f64 versions on the host
@@ -231,12 +238,12 @@ the resident route, on the inpainting path every kernel-4 and kernel-5
 call the warp (Haar) or the resident route (D4/D8), and on the large-image
 path no kernel-2 or kernel-3 call, and every kernel-1 and kernel-8 call the
 cone, on the multichain path every kernel-2 and kernel-3 call the resident
-route; the mixtures and SG-MCMC paths launch none of them, the PnP path
-kernel 2 alone and the CT path kernel 1 alone, every call on the resident
+route; the mixtures and SG-MCMC paths launch none of them, the PnP and PnP
+farm paths kernel 2 alone and the CT path kernel 1 alone, every call on the resident
 route, the chain-farm path kernel 2 alone on the resident route, and the
 image-sharding path kernel 1 alone (its workers' launches added to this
 process's). The script then prints one JSON line describing each kernel
-(launches and route counts on the eleven paths, errors, times, the bound of
+(launches and route counts on the twelve paths, errors, times, the bound of
 the card; for kernels 2-7 also the chain axis's plans and error, with
 its times for kernels 2, 3 and 4,
 for kernel 1 its error, route and times at the CT shapes) and, last,
@@ -2996,8 +3003,12 @@ def phase_profile_multichain(dev):
 # the PnP path (experiments/pnp.py, BASELINE.json config 5): the CLI at its
 # defaults (256^2 phantom, 8 chains x 2000 steps, DnCNN depth 8 width 48 with
 # spectral cap 1.1 and 1500 training steps, the TV anchor through kernel 2
-# with P^2 credible intervals) with the score baseline on a ScoreUNet; no cut
-PNP_RUN = dict(score_baseline=True, score_arch="unet")
+# with P^2 credible intervals) with the score baseline on a ScoreUNet; cut
+# from 2000 steps to 500 (burn-in 200) to make room for the PnP farm path,
+# which runs the farm's script at this width (config 5's 2000 steps ran on
+# the card through scripts/expt_pnp1024_torch.py:
+# assets/torch/results_pnp1024.json)
+PNP_RUN = dict(score_baseline=True, score_arch="unet", n_steps=500)
 # the gates' configuration (scripts/pnp_gates.py: JAX on the CPU, seeds 0-3)
 # and its PSNR gates [min - 1 dB, max + 1 dB] over the seeds, per prior
 PNP_GATE_RUN = dict(size=128, n_chains=4, n_steps=600, train_steps=400,
@@ -3021,6 +3032,12 @@ PNP_PROFILE_STEPS = 20
 # load_image's photographs: (side, mean, std) of tests/test_png.py
 PNP_IMAGES = {"einstein": (512, 123.31, 48.54), "hopper": (512, 81.39, 70.36),
               "mri": (256, 45.84, 65.84)}
+# the PnP farm path: config 5's farm script at the CLI's width, cut to 2
+# blocks of 4 chains x 100 steps; its pooled moments against one in-process
+# call over the same chains, relative to the largest value: both pool in
+# float64 and differ only in the order of the merges
+PNP_FARM = dict(n_blocks=2, block_chains=4, n_steps=100, burn_in=20)
+PNP_FARM_TOL = 1e-10
 
 
 def phase_kernel2_pnp(dev, report):
@@ -3052,7 +3069,7 @@ def phase_kernel2_pnp(dev, report):
             err, report["myula_tv_block_update_cuda"]["max_abs_err"])
 
 
-def phase_pnp(dev):
+def phase_pnp(dev, params):
     """The PnP path through its entry point: ``pnp_ula_deblur`` at the CLI's
     defaults with the score baseline (ScoreUNet) and at the gates'
     configuration, each prior's posterior-mean PSNR gated (above the
@@ -3061,10 +3078,8 @@ def phase_pnp(dev):
     moments finite; chains 0 and 7 of a block against their runs alone
     (PNP_CHAIN_TOL), the fitted DnCNN's operator norms on the card against
     LAPACK's on the host (PNP_SPECTRAL_TOL, and within the cap), two fits
-    of each net from one seed equal, and ``load_image``'s photographs."""
-    import os
-    import tempfile
-
+    of each net from one seed equal, and ``load_image``'s photographs. The
+    DnCNN the CLI fits is saved at ``params`` for the farm path."""
     import numpy as np
     import torch
 
@@ -3118,11 +3133,9 @@ def phase_pnp(dev):
             raise AssertionError(f"pnp {tag}: Lipschitz {rep['lipschitz_measured']} / {bound}")
         return rep
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "dncnn.pt")
-        run("CLI defaults", params_path=path, **PNP_RUN)
-        model = dncnn.DnCNN(8, 48).to(dev)
-        model.load_state_dict(restore_checkpoint(path, model.state_dict()))
+    run("CLI defaults", params_path=params, **PNP_RUN)
+    model = dncnn.DnCNN(8, 48).to(dev)
+    model.load_state_dict(restore_checkpoint(params, model.state_dict()))
     rep = run("gates' configuration", seed=0, **PNP_GATE_RUN)
     for key, (lo, hi) in PNP_GATES.items():
         if not lo <= rep[key] <= hi:
@@ -3171,6 +3184,68 @@ def phase_pnp(dev):
         raise AssertionError("pnp: two fits from one seed differ")
     log(f"pnp: two fits of {PNP_REFIT_STEPS} steps from one seed equal (DnCNN depth 8 width "
         "48 with its projections, ScoreUNet)")
+
+
+def phase_pnp_farm(dev, params):
+    """Config 5's farm through its script, ``scripts/expt_pnp1024_torch.py``
+    (its ``farm``, in this process), at the CLI's width with the DnCNN at
+    ``params``: PNP_FARM's blocks each a process of its own, pooled by
+    ``pnp_merge``; the pooled mean and M2 against one in-process
+    ``pnp_ula_deblur`` over the same chains in blocks of the same size
+    (PNP_FARM_TOL relative to the largest value), the draws, the report's
+    device and the Lipschitz bound."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from lmc_atomi_torch.experiments.pnp import pnp_ula_deblur
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    spec = importlib.util.spec_from_file_location(
+        "expt_pnp1024_torch", ROOT / "scripts" / "expt_pnp1024_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    n_chains = PNP_FARM["n_blocks"] * PNP_FARM["block_chains"]
+    draws = n_chains * (PNP_FARM["n_steps"] - PNP_FARM["burn_in"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out, one = Path(tmp) / "farm", Path(tmp) / "one.npz"
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+                rep = script.farm(outdir=str(out), params_path=params, report="",
+                                  size=PNP_SIZE, depth=8, features=48, device=str(dev),
+                                  **PNP_FARM)
+        except SystemExit as e:
+            raise AssertionError(f"pnp farm: {e}: {err.getvalue()[-4000:]}") from None
+        farm_s = time.perf_counter() - t0
+        if (rep["n_blocks"], rep["n_chains"], rep["n_chain_draws"]) != (
+                PNP_FARM["n_blocks"], n_chains, draws) or rep["device"] != smi:
+            raise AssertionError(f"pnp farm: the report {rep}")
+        if not rep["lipschitz_certified_bound"] <= 1.1**8 * (1 + 1e-5):
+            raise AssertionError(f"pnp farm: Lipschitz {rep['lipschitz_certified_bound']}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            pnp_ula_deblur(size=PNP_SIZE, n_chains=n_chains, chain_block=PNP_FARM["block_chains"],
+                           n_steps=PNP_FARM["n_steps"], burn_in=PNP_FARM["burn_in"],
+                           params_path=params, moments_out=str(one), device=str(dev))
+        one_s = time.perf_counter() - t0
+        with np.load(out / "pnp_1024_final.npz") as got, np.load(one) as want:
+            counts = int(got["count"]), int(want["count"])
+            errs = {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                    for k in ("mean", "m2")}
+    log(f"pnp farm [{smi}]: {PNP_FARM['n_blocks']} blocks x {PNP_FARM['block_chains']} chains x "
+        f"{PNP_FARM['n_steps']} steps at {PNP_SIZE}^2 through the script, {farm_s:.1f} s (blocks "
+        f"{[round(b, 1) for b in rep['block_seconds']]} s, {rep['chain_steps_per_sec']:.1f} "
+        f"chain-steps/s over the blocks' processes); pooled PSNR "
+        f"{rep['psnr_posterior_mean']:.4f} dB, 95% CI width {rep['mean_ci_width']:.4f}, draws "
+        f"{rep['n_chain_draws']}; against one in-process call ({one_s:.1f} s): counts {counts}, "
+        f"max relative error {errs} (tolerance {PNP_FARM_TOL})")
+    if counts != (draws, draws) or not all(e <= PNP_FARM_TOL for e in errs.values()):
+        raise AssertionError(f"pnp farm: the farm's moments differ from one call's: {errs}")
+    log(f"PnP farm path: {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_profile_pnp(dev):
@@ -4072,6 +4147,8 @@ KERNELS = {  # wrapper name: (source, TPU kernel it replaces)
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4190,6 +4267,8 @@ def main() -> int:
     phase_kernel1_ct(dev, report)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
+    pnp_dir = tempfile.TemporaryDirectory()
+    pnp_params = str(Path(pnp_dir.name) / "dncnn.pt")
     paths = [
         drive("MYULA main", ("prox_tv_iso_cuda", "myula_tv_block_update_cuda"),
               phase_main_path, dev, img, y, l2, resident=True),
@@ -4207,13 +4286,16 @@ def main() -> int:
                              "ulpda_tv_tiled_update_cuda"),
               phase_multichain, dev, resident=True, wavelet=True),
         mixtures,
-        drive("PnP", ("myula_tv_block_update_cuda",), phase_pnp, dev, resident=True),
+        drive("PnP", ("myula_tv_block_update_cuda",), phase_pnp, dev, pnp_params, resident=True),
+        drive("PnP farm", ("myula_tv_block_update_cuda",), phase_pnp_farm, dev, pnp_params,
+              resident=True),
         drive("CT", ("prox_tv_iso_cuda",), phase_ct, dev, resident=True),
         sgmcmc,
         drive("chain farm", ("myula_tv_block_update_cuda",), phase_farm, dev, resident=True),
         drive("image sharding", ("prox_tv_iso_cuda",), phase_image, dev, resident=True,
               workers=True),
     ]
+    pnp_dir.cleanup()
     phase_profile(dev, l2, d_img, models)
     phase_profile_kernel1(dev)
     phase_profile_inpainting(dev)

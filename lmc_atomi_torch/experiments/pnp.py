@@ -16,7 +16,10 @@ A large farm splits into independent invocations: train once with
 ``--chain_offset k --moments_out part_k.npz`` (each block reloads the same
 denoiser and draws a disjoint key stream), then ``merge`` pools the blocks'
 Welford moments. The npz keys are the JAX package's, so block files of
-either package merge in either.
+either package merge in either. The farm pools its blocks and segments in
+float64, as ``merge`` pools block files, so one invocation and a farm of
+blocks give the same moments up to the order of the merges
+(``scripts/expt_pnp1024_torch.py`` runs config 5's farm that way).
 
     python -m lmc_atomi_torch.experiments.pnp --size 256 --n_chains 8
     python -m lmc_atomi_torch.experiments.pnp --size 32 --n_steps 20 --train_steps 20 --device cpu
@@ -80,6 +83,11 @@ def deblur_problem(size: int, sigma: float, blur_size: int, key, device,
     return img, blur, y, L2Data.create(op=blur, b=y, sigma=1.0 / sigma**2)
 
 
+def _f64(m: RunningMoments) -> RunningMoments:
+    """``m`` with float64 fields: the farm's pooling precision."""
+    return RunningMoments(count=m.count, mean=m.mean.double(), m2=m.m2.double())
+
+
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -119,7 +127,7 @@ def pnp_ula_deblur(
 ):
     """Train (or load) the denoiser, report its Lipschitz constants, and
     sample the deblurring posterior of the ``size``^2 phantom with PnP-ULA;
-    returns ``(mean, std, report)`` (numpy maps and the JSON line's dict),
+    returns ``(mean, std, report)`` (float64 numpy maps and the JSON line's dict),
     ``(None, None, report)`` with ``train_only``. ``report`` has the JAX
     package's keys and ``train_seconds`` (with ``score_baseline``, also
     ``score_train_seconds``)."""
@@ -195,7 +203,7 @@ def pnp_ula_deblur(
                                      ns, nb, collect="stats", burn_in=burn_in if s == 0 else 0,
                                      batched=True)
                     x = res.final_state.position
-                    part = merge_chain_moments(res.moments)
+                    part = _f64(merge_chain_moments(res.moments))
                     pooled = part if pooled is None else pooled.merge(part)
             return pooled
         x = y
@@ -203,7 +211,8 @@ def pnp_ula_deblur(
             res = run_chain(kern_first if s == 0 else kern_rest, x, fold_in(key_base, s), ns,
                             collect="stats", burn_in=burn_in if s == 0 else 0)
             x = res.final_state.position
-            pooled = res.moments if pooled is None else pooled.merge(res.moments)
+            part = _f64(res.moments)
+            pooled = part if pooled is None else pooled.merge(part)
         return pooled
 
     sync()
@@ -215,7 +224,7 @@ def pnp_ula_deblur(
     std = pooled.std
     report = {
         "psnr_blurred": float(psnr_fn(img, y)),
-        "psnr_posterior_mean": float(psnr_fn(img, mean)),
+        "psnr_posterior_mean": float(psnr_fn(img, mean.to(dtype))),
         "mean_ci_width": float((2 * ci_z * std).mean()),
         "chain_steps_per_sec": round(n_steps * n_chains / dt, 1),
         "lipschitz_certified_bound": lip_bound,
@@ -281,7 +290,7 @@ def pnp_ula_deblur(
         pooled_sc = farm(kern_score(sig0), kern_score(float(denoiser_sigma)),
                          fold_in(ks, 555))
         sync()
-        report["psnr_score_mean"] = float(psnr_fn(img, pooled_sc.mean))
+        report["psnr_score_mean"] = float(psnr_fn(img, pooled_sc.mean.to(dtype)))
         baselines["Score-ULA mean (same config)"] = pooled_sc.mean
         report["score_ci_width"] = float(2 * ci_z * torch.mean(pooled_sc.std))
         report["score_steps_per_sec"] = round(
@@ -293,8 +302,7 @@ def pnp_ula_deblur(
     std_np = std.detach().cpu().numpy()
     if moments_out:
         np.savez(moments_out, count=np.asarray(pooled.count),
-                 mean=mean_np.astype(np.float64),
-                 m2=pooled.m2.detach().cpu().numpy().astype(np.float64),
+                 mean=mean_np, m2=pooled.m2.detach().cpu().numpy(),
                  size=size, seed=seed, n_chains=n_chains, n_steps=n_steps)
         _log(f"saved pooled moments to {moments_out}")
     if make_plots:
@@ -317,7 +325,8 @@ def pnp_merge(
 ):
     """Pool per-block moment files (``--moments_out``, of either package;
     ``pattern`` a glob, relative to the working directory unless absolute)
-    into the full farm's posterior mean / std / credible-interval report."""
+    into the full farm's posterior mean / std / credible-interval report;
+    ``out`` gets the pooled ``mean``, ``std``, ``m2`` and ``count``."""
     dev = require_device(device, "PnP merge")
     files = sorted(glob.glob(pattern))
     if not files:
@@ -342,7 +351,8 @@ def pnp_merge(
     }
     print(json.dumps({"workload": "pnp_merge", **report}))
     if out:
-        np.savez(out, mean=pooled.mean.cpu().numpy(), std=std.cpu().numpy())
+        np.savez(out, mean=pooled.mean.cpu().numpy(), std=std.cpu().numpy(),
+                 m2=pooled.m2.cpu().numpy(), count=np.asarray(pooled.count))
     return report
 
 

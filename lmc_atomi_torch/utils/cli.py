@@ -3,13 +3,14 @@ package imports JAX): every keyword argument of the main function becomes
 ``--name value`` / ``--name=value``, typed from its default. Booleans accept
 true/false/1/0; None-defaulted args are parsed as python literals.
 ``require_device`` is the workload CLIs' device rule: the card unless the
-caller asks for the CPU.
+caller asks for the CPU; ``device_label`` names the card a result was taken on.
 """
 from __future__ import annotations
 
 import argparse
 import ast
 import inspect
+import subprocess
 from typing import Any, Callable
 
 import torch
@@ -68,3 +69,15 @@ def require_device(device: str, workload: str) -> torch.device:
             f"no CUDA device: the {workload} workload runs on the card; pass "
             "device='cpu' (--device cpu) to run it on the CPU")
     return dev
+
+
+def device_label(device: str) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (``"NVIDIA H100 80GB
+    HBM3, 700.00 W"``) for a CUDA device, else the device's type."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[dev.index or 0].strip()
