@@ -193,6 +193,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    one-device ones, and 50 steps of the sharded ``run_chain(myula_imaging)``
    (``collect="stats"``), gathered on rank 0, lie within REL_TOL of one
    process's chain on the same key; kernel 1 must launch on every rank;
+9i. the results path (``scripts/make_results_torch.py``): its ``main``
+   runs the denoise and PnP sections on the card into a temporary
+   directory (the PnP section from the committed ``assets/torch/``
+   reports, its block pattern matching no file); both tables must be
+   there, the denoise posterior-mean PSNR at RESULTS_DENOISE_REF less
+   DECONV_MARGIN or more;
 10. profile: torch.profiler windows of the main path's fused 500-step
    block, of the deconvolution cells (a fused
    ULPDA block, the one-step fused grid with its metrics, the MAP
@@ -3248,6 +3254,55 @@ def phase_pnp_farm(dev, params):
     log(f"PnP farm path: {time.perf_counter() - t_phase:.1f} s")
 
 
+# RESULTS.md's denoise row (noisy obs, posterior mean); the port's noise
+# differs, so the mean is gated at it less DECONV_MARGIN
+RESULTS_DENOISE_REF = (11.79, 14.09)
+
+
+def phase_results(dev):
+    """The results generator's ``main`` on the card for its denoise and PnP
+    sections, into a temporary directory: each section's file and the
+    assembled tables, the denoise row gated, nothing under ``assets/``
+    written."""
+    import importlib.util
+    import tempfile
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "make_results_torch", ROOT / "scripts" / "make_results_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assets = ROOT / "assets" / "torch"
+    before = {p.name: p.stat().st_mtime_ns for p in assets.iterdir()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "RESULTS.md"
+        with contextlib.redirect_stdout(io.StringIO()):
+            done = script.main(sections="denoise,pnp", out=str(out), device=str(dev),
+                               pnp_pattern=str(Path(tmp) / "no_block_*.npz"))
+        text = out.read_text()
+        kept = sorted(p.name for p in (Path(tmp) / "results_sections").iterdir())
+    lines = text.splitlines()
+    head = "| noisy obs | posterior mean | iters/s |"
+    row = lines[lines.index(head) + 2] if head in lines else None
+    pnp_rows = [ln for ln in lines if ln.startswith(("| posterior-mean PSNR",
+                                                     "| mean 95% CI width",
+                                                     "| max posterior std"))]
+    log(f"results path: sections {done}, files {kept}; denoise {row}; PnP {pnp_rows}")
+    if done != ["denoise", "pnp"] or kept != ["denoise.json", "denoise.md", "pnp.json",
+                                              "pnp.md"]:
+        raise AssertionError(f"results: sections {done}, files {kept}")
+    if row is None or len(pnp_rows) != 3 or (
+            "Device: `" + nvidia_smi("name,power.limit") + "`") not in text:
+        raise AssertionError(f"results: the tables are incomplete:\n{text}")
+    noisy, mean, ips = (float(v) for v in row.strip("| ").split(" | "))
+    if not (mean >= RESULTS_DENOISE_REF[1] - DECONV_MARGIN and mean > noisy and ips > 0):
+        raise AssertionError(f"results: denoise row {row} (gate "
+                             f"{RESULTS_DENOISE_REF[1] - DECONV_MARGIN:.2f} dB)")
+    if {p.name: p.stat().st_mtime_ns for p in assets.iterdir()} != before:
+        raise AssertionError("results: the path wrote under assets/torch/")
+    log(f"results path: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_profile_pnp(dev):
     """Where the time goes in PnP-ULA steps: 8 chains at 256^2, one DnCNN
     call (depth 8, width 48) a step."""
@@ -4294,6 +4349,7 @@ def main() -> int:
         drive("chain farm", ("myula_tv_block_update_cuda",), phase_farm, dev, resident=True),
         drive("image sharding", ("prox_tv_iso_cuda",), phase_image, dev, resident=True,
               workers=True),
+        drive("results", (), phase_results, dev),
     ]
     pnp_dir.cleanup()
     phase_profile(dev, l2, d_img, models)
