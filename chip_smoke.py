@@ -258,6 +258,7 @@ for kernel 1 its error, route and times at the CT shapes) and, last,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -294,6 +295,10 @@ UNFUSED_TURN_STEPS = 1000
 REL_TOL = 3e-5
 PSNR_FLOOR = 40.0
 PSNR_GAP = 0.1
+# L2Data.grad timed over this many calls, spectral and with prefer_stencil;
+# the two agree within STENCIL_TOL * max(1, max |grad|) (f32 FFT roundoff
+# against the stencil's direct sums)
+STENCIL_CALLS, STENCIL_TOL = 100, 1e-4
 # the deconvolution workload (lmc_atomi_torch/experiments/deconv.py)
 DECONV_STEPS = 1000
 DECONV_SCORE_FIT = 200  # the score row's training steps (the CLI's: 4000)
@@ -1454,6 +1459,28 @@ def phase_main_path(dev, img, y, l2):
             raise AssertionError(
                 f"{name}: psnr {psnrs[name]:.4f} (floor {PSNR_FLOOR}, cold10 "
                 f"{psnrs['cold10']:.4f}, gap {PSNR_GAP})")
+    stencil_grad_times(l2, y)
+
+
+def stencil_grad_times(l2, y):
+    """The unfused data gradient: ``CirculantBlur2D``'s opt-in wrap-conv
+    stencils (``prefer_stencil``, ``A^T b`` cached) against the spectral
+    default, timed at ``y``; returns the ms a call of each."""
+    from lmc_atomi_torch.ops.functionals import L2Data
+
+    sten = L2Data.create(op=dataclasses.replace(l2.op, prefer_stencil=True), b=y, sigma=l2.sigma)
+    times, grads = {}, {}
+    for name, term in (("spectral", l2), ("prefer_stencil", sten)):
+        term.grad(y)  # FFT plans, cuDNN's choice
+        times[name], grads[name] = cuda_ms(lambda: term.grad(y), STENCIL_CALLS)
+    diff = float((grads["spectral"] - grads["prefer_stencil"]).abs().max())
+    scale = max(1.0, float(grads["spectral"].abs().max()))
+    log(f"main L2Data.grad {tuple(y.shape)}, {tuple(l2.op.h.shape)} PSF, {STENCIL_CALLS} calls "
+        f"each: spectral {times['spectral']:.4f} ms, prefer_stencil "
+        f"{times['prefer_stencil']:.4f} ms a call, max |difference| {diff:.3e}")
+    if diff > STENCIL_TOL * scale:
+        raise AssertionError(f"prefer_stencil's L2Data.grad differs by {diff:.3e}")
+    return times
 
 
 def phase_deconv(dev, img, models):

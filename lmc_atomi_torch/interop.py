@@ -64,12 +64,14 @@ def _t(a, device) -> Optional[torch.Tensor]:
 
 
 def blur_from_numpy(eigs_re, eigs_im, h=None, hh=None, offset=(0, 0),
-                    device=None) -> CirculantBlur2D:
+                    device=None, prefer_stencil: bool = False) -> CirculantBlur2D:
     """A ``CirculantBlur2D`` from the JAX operator's ``eigs_re``/``eigs_im``
-    float pair (one complex spectrum here), ``h``, ``hh`` and ``offset``."""
+    float pair (one complex spectrum here), ``h``, ``hh``, ``offset`` and
+    ``prefer_stencil``."""
     eigs = torch.complex(_t(eigs_re, device), _t(eigs_im, device))
     return CirculantBlur2D(eigs=eigs, h=_t(h, device), hh=_t(hh, device),
-                           offset=tuple(int(o) for o in offset))
+                           offset=tuple(int(o) for o in offset),
+                           prefer_stencil=bool(prefer_stencil))
 
 
 def gradient_from_numpy(sampling: float = 1.0) -> Gradient2D:

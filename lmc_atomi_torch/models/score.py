@@ -38,6 +38,7 @@ __all__ = [
     "ScoreNet",
     "ScoreUNet",
     "train_score_net",
+    "draw_many",
     "score_loss",
     "make_score_fn",
     "score_to_denoiser",
@@ -195,18 +196,28 @@ def train_score_net(
         model = ScoreNet(depth=depth, features=features)
     sigmas = geometric_sigmas(sigma_max, sigma_min, n_sigmas, dtype, device)
     k_init, k_train = chain_keys(key, 2)
-    k_img, k_lvl, k_noise = chain_keys(k_train, 3)
     model = lecun_init(model.to(device=device, dtype=dtype), k_init)
-    gen = GENERATORS[image_class]
-
-    def draw_many(steps):
-        clean = gen((*k_img, steps), batch, patch, dtype=dtype, device=device)
-        u = uniform_field(*k_lvl, steps, (batch,), dtype, device)
-        sig = sigmas[(u * n_sigmas).long().clamp(max=n_sigmas - 1)]
-        return clean, sig, normal_field(*k_noise, steps, clean.shape[1:], dtype, device)
-
-    fit(model, chunked(draw_many, device), score_loss, steps, lr)
+    fit(model, chunked(lambda s: draw_many(k_train, s, sigmas, batch, patch, image_class,
+                                           dtype, device), device), score_loss, steps, lr)
     return model.eval(), sigmas
+
+
+def draw_many(key, steps, sigmas, batch: int = 16, patch: int = 40,
+              image_class: str = "phantom", dtype=torch.float32, device=None):
+    """The batches of ``train_score_net``'s training steps ``steps`` (an
+    int64 tensor of ``T`` steps) under its training key ``key`` (the second
+    of ``chain_keys(key, 2)``): ``(clean, sig, z)`` of shapes ``(T, batch,
+    patch, patch)``, ``(T, batch)`` and ``(T, batch, patch, patch)``. Step
+    ``i`` draws its images under ``(k_img, i)``, one level of the ladder
+    ``sigmas`` per element, uniformly, under ``(k_lvl, i)``, and the noise
+    under ``(k_noise, i)``, with ``k_img, k_lvl, k_noise = chain_keys(key,
+    3)``."""
+    k_img, k_lvl, k_noise = chain_keys(key, 3)
+    n_sigmas = len(sigmas)
+    clean = GENERATORS[image_class]((*k_img, steps), batch, patch, dtype=dtype, device=device)
+    u = uniform_field(*k_lvl, steps, (batch,), dtype, device)
+    sig = sigmas[(u * n_sigmas).long().clamp(max=n_sigmas - 1)]
+    return clean, sig, normal_field(*k_noise, steps, clean.shape[1:], dtype, device)
 
 
 def make_score_fn(model: nn.Module) -> Callable:

@@ -32,6 +32,10 @@ class L2Data:
     ``grad`` and ``prox`` take the operator's transposed FFT with each
     rank's columns of the cached ``b_spec``; ``b`` stays whole. That needs
     the cache: a data term built without it raises there.
+
+    Over a ``CirculantBlur2D`` with ``prefer_stencil`` and a small PSF,
+    :meth:`create` also caches ``atb = A^T b``, and ``grad`` of a whole real
+    image is ``sigma (A^T A x - atb)`` by the operator's gram stencil.
     """
 
     op: Any
@@ -39,15 +43,18 @@ class L2Data:
     sigma: float = 1.0
     niter_solve: int = 50
     b_spec: Optional[torch.Tensor] = None
+    atb: Optional[torch.Tensor] = None  # cached A^T b (the stencil-gram path)
 
     @classmethod
     def create(cls, op, b, sigma: float = 1.0,
                niter_solve: int = 50) -> "L2Data":
-        b_spec = None
+        b_spec = atb = None
         if hasattr(op, "_half") and not b.is_complex():
             b_spec = op._half().conj() * torch.fft.rfft2(b)
+            if getattr(op, "prefer_stencil", False) and op.hh is not None:
+                atb = op.rmatvec(b)
         return cls(op=op, b=b, sigma=sigma, niter_solve=niter_solve,
-                   b_spec=b_spec)
+                   b_spec=b_spec, atb=atb)
 
     def __call__(self, x):
         return 0.5 * self.sigma * torch.sum(torch.square(self.op.matvec(x) - self.b))
@@ -64,6 +71,8 @@ class L2Data:
             e2 = e.real * e.real + e.imag * e.imag
             return self.sigma * spectral_map(
                 lambda cols, s: e2[:, cols] * s - b_spec[:, cols], x)
+        if self.atb is not None and not x.is_complex():
+            return self.sigma * (self.op.gram_matvec(x) - self.atb)
         if self.b_spec is not None and not x.is_complex():
             e = self.op._half()
             e2 = e.real * e.real + e.imag * e.imag

@@ -94,12 +94,18 @@ class CirculantBlur2D(LinOp):
 
     ``hh`` (the autocorrelation of a PSF up to 13x13) is the ``A^T A``
     stencil that the fused block kernel factors into separable taps.
+
+    ``prefer_stencil`` (off by default) computes ``matvec``, ``rmatvec`` and
+    ``gram_matvec`` of a real image as wrap-padded convolutions with ``h``,
+    its flip and ``hh`` in place of the FFTs, as the JAX operator's opt-in
+    small-PSF path does; an image split over ranks keeps the spectral path.
     """
 
     eigs: torch.Tensor  # complex (ny, nx)
     h: Optional[torch.Tensor] = None
     hh: Optional[torch.Tensor] = None
     offset: Tuple[int, int] = (0, 0)
+    prefer_stencil: bool = False
 
     _STENCIL_MAX = 13
 
@@ -136,17 +142,45 @@ class CirculantBlur2D(LinOp):
         """Spectrum restricted to the rfft2 half-plane (real inputs)."""
         return self.eigs[..., : self.eigs.shape[-1] // 2 + 1]
 
+    def _stencil(self, x, kernel) -> bool:
+        return (self.prefer_stencil and kernel is not None and not x.is_complex()
+                and not is_sharded(x))
+
+    @staticmethod
+    def _wrap_conv(x, kernel, oy: int, ox: int):
+        """Periodic convolution ``y[i, j] = sum_ab kernel[a, b] x[(i - a + oy)
+        mod ny, (j - b + ox) mod nx]`` of the last two axes, in IEEE float32
+        on the card (cuDNN's TF32 off, as the JAX path's highest precision)."""
+        kh, kw = kernel.shape
+        xb = x.reshape((-1, 1) + tuple(x.shape[-2:]))
+        xp = F.pad(xb, (kw - 1 - ox, ox, kh - 1 - oy, oy), mode="circular")
+        c = torch.backends.cudnn
+        with c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic,
+                     allow_tf32=False):
+            out = F.conv2d(xp, kernel.flip(0, 1)[None, None].to(x.dtype))
+        return out.reshape(x.shape)
+
     def matvec(self, x):
         if is_sharded(x):
             return spectral_map(lambda cols, s: s * self._half()[:, cols], x)
+        if self._stencil(x, self.h):
+            return self._wrap_conv(x, self.h, *self.offset)
         return torch.fft.ifft2(torch.fft.fft2(x) * self.eigs).real
 
     def rmatvec(self, y):
         if is_sharded(y):
             return spectral_map(lambda cols, s: s * self._half()[:, cols].conj(), y)
+        if self._stencil(y, self.h):
+            kh, kw = self.h.shape
+            oy, ox = self.offset
+            return self._wrap_conv(y, self.h.flip(0, 1), kh - 1 - oy, kw - 1 - ox)
         return torch.fft.ifft2(torch.fft.fft2(y) * self.eigs.conj()).real
 
     def gram_matvec(self, x):
+        """``A^T A x``: one (2k-1) x (2k-1) wrap stencil with
+        ``prefer_stencil``, else two spectral products."""
+        if self._stencil(x, self.hh):
+            return self._wrap_conv(x, self.hh, self.hh.shape[0] // 2, self.hh.shape[1] // 2)
         return self.rmatvec(self.matvec(x))
 
     def gram_solve(self, rho, y, niter: int = 0):

@@ -46,6 +46,9 @@ DEFAULT_SECTIONS = (
 )
 ASSETS = ROOT / "assets" / "torch"
 LAPLACE_JSON = str(ASSETS / "results_laplace_w2.json")
+# the score nets of both packages over seeds in the CT chain
+# (scripts/ct_score_drift.py --summary): the ct section's note cites it
+CT_SCORE_STUDY = str(ASSETS / "ct_score_study.json")
 PNP_JSON = str(ASSETS / "results_pnp1024.json")
 PNP_PATTERN = "runs/pnp1024/pnp_block_*.npz"  # scripts/expt_pnp1024_torch.py's outdir
 
@@ -534,6 +537,40 @@ def sec_ct(lines, device):
         )
         _log(f"ct {size} done")
     lines += [""]
+    if os.path.exists(CT_SCORE_STUDY):
+        lines += _ct_score_note(CT_SCORE_STUDY)
+
+
+def _ct_score_note(path):
+    """The prose under the CT table: how often score nets of either package
+    drift in the 128^2 chain, from ``scripts/ct_score_drift.py``'s summary."""
+    import textwrap
+
+    with open(path) as f:
+        study = json.load(f)
+    lines = []
+    for stream, v in study["streams"].items():
+        (n_port, n_jax), (b_port, b_jax) = v["n"], v["below"]
+        seeds = [s for s, *_ in v["port"]]
+        spread = ["{:.2f} to {:.2f} dB (median {:.2f}, mean {:.2f})".format(
+            min(x for _, x, _ in v[k]), max(x for _, x, _ in v[k]), med, mean)
+            for k, med, mean in zip(("port", "jax"), v["median_state_psnr"],
+                                    v["mean_state_psnr"])]
+        text = (
+            "Score-ULA runs no corrector here, and its chain at the finest level "
+            f"drifts for some score nets in both packages. Over the nets of seeds "
+            f"{min(seeds)}-{max(seeds)}, {b_port} of the port's {n_port} and {b_jax} of the "
+            f"JAX package's {n_jax} end the 128^2 chain below {study['drift_db']:g} dB "
+            f"(state PSNR at step {study['steps']}, noise stream {stream}): the port's "
+            f"states span {spread[0]}, the JAX package's {spread[1]}. One-sided "
+            f"Mann-Whitney U {v['mann_whitney_u']:.0f}, p = {v['p_mann_whitney']:.3f}; "
+            f"Fisher p = {v['p_fisher']:.3f} (`scripts/ct_score_drift.py`: the chains "
+            f"on {study['device']}, JAX's nets fitted on the CPU). The rows above are "
+            "seed 0, as the JAX generator "
+            "publishes them."
+        )
+        lines += textwrap.wrap(text, 72, break_on_hyphens=False) + [""]
+    return lines
 
 
 def sec_sgld(lines, device, sgld_k: int):

@@ -265,6 +265,34 @@ def test_section_parity(section, scripts, monkeypatch, tmp_path):
         assert json.loads((tmp_path / "port_laplace.json").read_text())["device"] == "cpu"
 
 
+def test_ct_section_cites_the_score_study(scripts, monkeypatch, tmp_path):
+    """The ct section prints ``scripts/ct_score_drift.py``'s summary of both
+    packages' score nets as a note under its table, and no note without
+    one; the table stays as it is."""
+    drift = _load("ct_score_drift.py")
+    lines = [{"net": f"{kind}:{s}", "stream": "port:7", "state_psnr": v, "mean_psnr": v + 2.0}
+             for kind, vals in (("port", (18.0, 3.0, 20.0)), ("jax", (19.0, 21.0, 2.0)))
+             for s, v in enumerate(vals)]
+    verdict = drift.decide(lines)["port:7"]
+    assert verdict["below"] == [1, 1] and verdict["n"] == [3, 3]
+    assert verdict["mann_whitney_u"] == 4.0 and not verdict["rejects"]
+    drift._summary(str(tmp_path / "study.json"), {"port:7": verdict}, "cpu")
+    _stub_ct(monkeypatch)
+    port_mod = scripts[1]
+    texts = []
+    for study in ("study.json", "absent.json"):
+        monkeypatch.setattr(port_mod, "CT_SCORE_STUDY", str(tmp_path / study))
+        out = []
+        port_mod.sec_ct(out, "cpu")
+        texts.append((_table(out), " ".join(out)))
+    (table, note), (bare_table, bare) = texts
+    assert table == bare_table and "Mann-Whitney" not in bare
+    for want in ("seeds 0-2, 1 of the port's 3 and 1 of the JAX package's 3",
+                 "below 17 dB", "span 3.00 to 20.00 dB", "2.00 to 21.00 dB",
+                 "Mann-Whitney U 4,", f"p = {verdict['p_mann_whitney']:.3f}", "on cpu"):
+        assert want in note, want
+
+
 def test_throughput_section_rows(scripts, monkeypatch):
     """The port's throughput section (its JAX counterpart is fixed prose,
     ``DIFFERENT``) times every configuration row of the JAX table, each

@@ -170,6 +170,53 @@ def test_l2data_create_without_spectrum_cache():
     np.testing.assert_allclose(_np(plain.grad(x)), _np(cached.grad(x)), atol=TOL)
 
 
+STENCIL_CASES = {  # tests/test_linops.py::test_stencil_gram_path_matches_spectral's three
+    "uniform5": (np.ones((5, 5)) / 25, None),
+    "normal3x5": (np.random.default_rng(7).normal(size=(3, 5)), None),
+    "normal4x3-offset": (np.random.default_rng(8).normal(size=(4, 3)), (1, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(STENCIL_CASES))
+def test_prefer_stencil_matches_jax_stencil(case):
+    """``prefer_stencil``: the wrap-conv ``matvec``, ``rmatvec`` and
+    ``gram_matvec`` and ``L2Data``'s cached-``atb`` gradient against the JAX
+    operator's own stencil path, f64, atol 1e-12; the default stays
+    spectral, and a chain axis takes each image's stencil."""
+    import dataclasses
+
+    h, off = STENCIL_CASES[case]
+    rng = np.random.default_rng(7)
+    x, b = rng.normal(size=(20, 24)), rng.normal(size=(20, 24))
+    jb = dataclasses.replace(CirculantBlur2D.from_kernel((20, 24), jnp.asarray(h), off),
+                             prefer_stencil=True)
+    base = t_linops.CirculantBlur2D.from_kernel((20, 24), torch.from_numpy(h), off)
+    tb = dataclasses.replace(base, prefer_stencil=True)
+    carried = interop.blur_from_numpy(np.asarray(jb.eigs_re), np.asarray(jb.eigs_im),
+                                      np.asarray(jb.h), np.asarray(jb.hh), jb.offset,
+                                      prefer_stencil=True)
+    assert not base.prefer_stencil and carried.prefer_stencil
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    for name in ("matvec", "rmatvec", "gram_matvec"):
+        want = np.asarray(getattr(jb, name)(xj))
+        for op in (tb, carried):
+            np.testing.assert_allclose(_np(getattr(op, name)(xt)), want, rtol=0, atol=1e-12,
+                                       err_msg=name)
+        np.testing.assert_allclose(_np(getattr(base, name)(xt)), want, rtol=0, atol=1e-12,
+                                   err_msg=f"spectral {name}")
+    jl2 = L2Data.create(op=jb, b=jnp.asarray(b), sigma=1.7)
+    tl2 = TL2Data.create(op=tb, b=torch.from_numpy(b), sigma=1.7)
+    assert jl2.atb is not None and tl2.atb is not None
+    assert TL2Data.create(op=base, b=torch.from_numpy(b), sigma=1.7).atb is None
+    np.testing.assert_allclose(_np(tl2.atb), np.asarray(jl2.atb), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(_np(tl2.grad(xt)), np.asarray(jl2.grad(xj)), rtol=0, atol=1e-12)
+    xc = torch.stack([xt, -0.5 * xt])
+    for name in ("matvec", "rmatvec", "gram_matvec"):
+        got = getattr(tb, name)(xc)
+        for c in range(2):
+            np.testing.assert_array_equal(_np(got[c]), _np(getattr(tb, name)(xc[c])))
+
+
 # --- guards -----------------------------------------------------------------
 
 def test_port_imports_no_jax():
